@@ -1,0 +1,523 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port starts on the GPU.
+
+    python3 chip_smoke.py
+
+Needs one NVIDIA Hopper card and ``nvcc``; takes no arguments.  It builds the
+port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each of them
+against its plain PyTorch version on the card, serves GPT-A at full width
+(24 layers x 4096 x 16384, vocabulary 50304, random weights from a seed)
+through ``ServingEngine.generate`` and ``SplitwiseCluster.serve``, checks by
+the kernels' launch counters that the serving path really went through the
+kernels, and compares the kernel path's logits with the plain path's.
+
+Every phase prints one JSON line.  Any failure raises, so the exit code is not
+0 and the last line is not printed.  The last line of a good run is exactly
+``{"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": 1}}``.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
+from repro_torch.models import attention  # noqa: E402
+from repro_torch.models.transformer import build_model  # noqa: E402
+from repro_torch.serving.engine import (  # noqa: E402
+    Request,
+    ServingEngine,
+    SplitwiseCluster,
+    kv_cache_bytes_per_token,
+    zeros_cache,
+)
+
+# Published peaks of one H100 SXM at its full power limit (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+
+# Kernel and plain version both keep f32 inside and start from the same inputs,
+# so they differ by the order of their sums and by a few ulp of expf/rsqrtf
+# (f32: 2e-5), and after the one rounding of the output to bf16 by at most an
+# ulp or two of bf16 at the outputs' size (bf16: 2e-2).  Both are the
+# tolerances the reference's own kernel tests use, as atol and rtol together.
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+# GPT-A logits under random weights are O(1..8); one bf16 ulp there is up to
+# 0.03, and 24 layers of bf16 activations let the two paths' rounding part ways
+# by a few ulps, no more.
+PARITY_TOL = 0.25
+
+SPIN_CYCLES = 20_000_000  # about 10 ms of the card's clock: see time_ms
+MAX_LEN = 1024
+MAX_NEW = 16
+SEED = 0
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+# ---------------------------------------------------------------------------
+# phase 1 and 2
+# ---------------------------------------------------------------------------
+
+
+def phase_env() -> str:
+    nvcc = subprocess.run([build.find_nvcc(), "--version"], check=True, capture_output=True, text=True, timeout=60)
+    smi = nvidia_smi_line()
+    emit({
+        "phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
+        "nvcc": nvcc.stdout.strip().splitlines()[-2:], "gpu": smi,
+        "capability": list(torch.cuda.get_device_capability(0)),
+    })
+    return smi
+
+
+def ptxas_summary(log: str) -> dict:
+    """{"kernel<dtype,D>": "N registers; spills"} from what ``ptxas -v`` printed."""
+    out, fn = {}, "?"
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(r"\d+([a-z_]+_kernel)I(.+?)EEv", ln)
+            d = re.search(r"Li(\d+)", m.group(2)) if m else None
+            dtype = "bf16" if m and "bfloat16" in m.group(2) else "f32"
+            fn = f"{m.group(1)}<{dtype}{',' + d.group(1) if d else ''}>" if m else ln.split("'")[1]
+        elif "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln:
+            out[fn] = ln.split(":", 1)[-1].strip()
+        elif "Used" in ln and "registers" in ln:
+            out[fn] = (ln.split("Used", 1)[1].split(",")[0].strip() + "; " + out.get(fn, "no spills")).strip()
+    return out
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    build.load()
+    emit({
+        "phase": "build", "seconds": round(time.perf_counter() - t0, 2),
+        "nvcc_seconds": None if build.build_seconds is None else round(build.build_seconds, 2),
+        "sources": sorted(p.name for p in build.CSRC.glob("*.cu")), "ptxas": ptxas_summary(build.build_log),
+    })
+
+
+# ---------------------------------------------------------------------------
+# phase 3: every kernel against its plain version, on the card
+# ---------------------------------------------------------------------------
+
+
+class Checker:
+    """Collects the largest absolute difference a kernel showed, per dtype."""
+
+    def __init__(self):
+        self.max_err = {}
+        self.cases = {}
+
+    def check(self, name: str, case: str, got: torch.Tensor, want: torch.Tensor) -> None:
+        torch.cuda.synchronize()
+        tol = TOL[got.dtype]
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{name} {case}: {got.shape} {got.dtype} against {want.shape} {want.dtype}")
+        g, w = got.float(), want.float()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{name} {case}: the kernel's output is not finite")
+        err = (g - w).abs()
+        key = (name, str(got.dtype).replace("torch.", ""))
+        self.max_err[key] = max(self.max_err.get(key, 0.0), err.max().item())
+        self.cases[key] = self.cases.get(key, 0) + 1
+        if not (err <= tol + tol * w.abs()).all():
+            raise AssertionError(f"{name} {case} {got.dtype}: max abs difference {err.max().item():.3e} exceeds atol=rtol={tol}")
+
+
+def randn(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+
+
+def check_rmsnorm(ck: Checker, gen) -> None:
+    shapes = [(512, 128), (3, 256, 64), (2, 4, 128, 256), (777, 100), (777, 4096), (64, 8192),
+              (4, 512, 4096), (3, 512, 4096), (1, 300, 4096), (4, 1, 4096), (3, 1, 4096), (1, 1, 4096)]
+    for dtype in TOL:
+        for shape in shapes:
+            x = randn(gen, shape, dtype)
+            sc = randn(gen, shape[-1:], torch.float32)
+            ck.check("rmsnorm", f"{shape}", kops.rmsnorm(x, sc), rms_mod.rmsnorm_plain(x, sc))
+
+
+def check_flash(ck: Checker, gen) -> None:
+    # (B, T, S, Hq, Hkv, D)
+    shapes = [(2, 128, 128, 4, 4, 64), (2, 128, 128, 8, 2, 64), (2, 128, 128, 6, 1, 32),
+              (2, 300, 300, 4, 2, 64), (1, 70, 300, 4, 2, 128), (1, 300, 70, 6, 3, 32),
+              (4, 512, 512, 32, 32, 128), (1, 300, 300, 32, 32, 128)]
+    for dtype in TOL:
+        for B, T, S, Hq, Hkv, D in shapes:
+            for causal in (True, False):
+                q = randn(gen, (B, T, Hq, D), dtype)
+                k = randn(gen, (B, S, Hkv, D), dtype)
+                v = randn(gen, (B, S, Hkv, D), dtype)
+                ck.check("flash_attention", f"{(B, T, S, Hq, Hkv, D)} causal={causal}",
+                         kops.flash_attention(q, k, v, causal=causal),
+                         fa_mod.flash_attention_plain(q, k, v, causal=causal))
+        # inputs that are views: heads-first storage read through strides, and a slice in time
+        q = randn(gen, (2, 4, 200, 64), dtype).transpose(1, 2)
+        k = randn(gen, (2, 2, 200, 64), dtype).transpose(1, 2)
+        v = randn(gen, (2, 260, 2, 64), dtype)[:, -200:]
+        ck.check("flash_attention", "strided views", kops.flash_attention(q, k, v, causal=True),
+                 fa_mod.flash_attention_plain(q, k, v, causal=True))
+
+
+def ring_positions(gen, B: int, S: int, kind: str):
+    """kv_pos (B, S) and q_pos (B, 1), int32, on the card."""
+    ar = torch.arange(S, device="cuda", dtype=torch.int32)[None].expand(B, S)
+    if kind == "tail-empty":  # the reference's sweep: the last 37 slots empty, three more in the future
+        return torch.where(ar < S - 37, ar, -1).contiguous(), torch.full((B, 1), S - 40, device="cuda", dtype=torch.int32)
+    if kind == "shuffled":  # a ring that has wrapped: positions in any slot order, some slots empty
+        perm = torch.stack([torch.randperm(S, generator=gen, device="cuda") for _ in range(B)]).to(torch.int32)
+        kv = torch.where(perm % 7 == 3, -1, perm + 100)
+        return kv.contiguous(), torch.full((B, 1), 100 + (2 * S) // 3, device="cuda", dtype=torch.int32)
+    if kind == "no-valid":  # row 0 all empty, row 1 all in the future, the rest ordinary
+        kv = ar.clone()
+        kv[0] = -1
+        qp = torch.full((B, 1), S // 2, device="cuda", dtype=torch.int32)
+        if B > 1:
+            kv[1] = ar[1] + 10_000
+        return kv.contiguous(), qp
+    raise ValueError(kind)
+
+
+def check_decode(ck: Checker, gen) -> None:
+    # (B, S, Hq, Hkv, D, window, positions)
+    cases = [(3, 256, 4, 4, 64, None, "tail-empty"), (3, 256, 8, 2, 64, 128, "tail-empty"),
+             (3, 256, 4, 1, 32, 64, "tail-empty"), (3, 1000, 8, 2, 64, None, "tail-empty"),
+             (3, 1000, 6, 1, 128, 300, "shuffled"), (2, 256, 4, 4, 64, None, "shuffled"),
+             (3, 256, 4, 2, 64, None, "no-valid"), (3, 1000, 32, 32, 128, None, "no-valid"),
+             (4, 1024, 32, 32, 128, None, "tail-empty"), (1, 1024, 32, 32, 128, None, "shuffled"),
+             (3, 1024, 32, 32, 128, None, "tail-empty")]
+    for dtype in TOL:
+        for B, S, Hq, Hkv, D, window, kind in cases:
+            q = randn(gen, (B, 1, Hq, D), dtype)
+            k = randn(gen, (B, S, Hkv, D), dtype)
+            v = randn(gen, (B, S, Hkv, D), dtype)
+            kv_pos, q_pos = ring_positions(gen, B, S, kind)
+            ck.check("decode_attention", f"{(B, S, Hq, Hkv, D)} window={window} {kind}",
+                     kops.decode_attention(q, k, v, q_pos, kv_pos, window=window),
+                     dec_mod.decode_attention_plain(q, k, v, q_pos, kv_pos, window=window))
+
+
+def time_ms(fn, arg_sets, iters: int = 20, reps: int = 7) -> float:
+    """Device time of one call: median over ``reps`` rounds of the mean of
+    ``iters`` calls between two CUDA events, after a warm-up.  Each round first
+    parks the card on a spin kernel of about 10 ms, so that the host has queued
+    every call before the first one starts and the events bracket the card's
+    work, not the host's launch rate.  The calls walk round ``arg_sets``, whose
+    tensors together exceed the L2 cache, so every call finds its inputs in
+    device memory, as a layer of the model finds them."""
+    for a in arg_sets:
+        fn(*a)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def measure_kernels(gen) -> dict:
+    """Times at GPT-A's full-width shapes (bf16): kernel, plain version, the one
+    library call that computes the same function, and the card's bound."""
+    import torch.nn.functional as F  # timed here as a yardstick; the port never calls it
+
+    dt = torch.bfloat16
+    out = {}
+
+    # K1: the prefill's rows, 4 x 512 tokens of d_model 4096
+    N, d = 4 * 512, 4096
+    sets = [(randn(gen, (N, d), dt), randn(gen, (d,), torch.float32)) for _ in range(6)]
+    nbytes = 2 * N * d * 2 + d * 4
+    flops = 4 * N * d
+    out["rmsnorm"] = {
+        "shape": f"x ({N},{d}) bf16",
+        "ms": time_ms(lambda x, s: kops.rmsnorm(x, s), sets),
+        "plain_ms": time_ms(lambda x, s: rms_mod.rmsnorm_plain(x, s), sets),
+        "library_ms": time_ms(lambda x, s: F.rms_norm(x, (d,), s.to(x.dtype), 1e-6), sets),
+        "bytes": nbytes, "flops": flops,
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations",
+    }
+
+    # K2: one layer's causal prefill, 4 prompts of 512 tokens, 32 heads of 128
+    B, T, H, D = 4, 512, 32, 128
+    sets = [tuple(randn(gen, (B, T, H, D), dt) for _ in range(3)) for _ in range(2)]
+    nbytes = 4 * B * T * H * D * 2
+    flops = 4 * B * H * D * (T * (T + 1) // 2)
+    out["flash_attention"] = {
+        "shape": f"q,k,v ({B},{T},{H},{D}) bf16 causal",
+        "ms": time_ms(lambda q, k, v: kops.flash_attention(q, k, v, causal=True), sets, iters=5),
+        "plain_ms": time_ms(lambda q, k, v: fa_mod.flash_attention_plain(q, k, v, causal=True), sets, iters=5),
+        "library_ms": time_ms(
+            lambda q, k, v: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True).transpose(1, 2),
+            sets, iters=5),
+        "bytes": nbytes, "flops": flops,
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
+    }
+
+    # K3: one layer's decode step, 4 sequences 520 tokens into a ring of 1024
+    B, S, H, D, filled = 4, MAX_LEN, 32, 128, 520
+    ar = torch.arange(S, device="cuda", dtype=torch.int32)[None].expand(B, S)
+    kv_pos = torch.where(ar < filled, ar, -1).contiguous()
+    q_pos = torch.full((B, 1), filled - 1, device="cuda", dtype=torch.int32)
+    sets = [(randn(gen, (B, 1, H, D), dt), randn(gen, (B, S, H, D), dt), randn(gen, (B, S, H, D), dt), q_pos, kv_pos)
+            for _ in range(4)]
+    valid = int(((kv_pos >= 0) & (kv_pos <= q_pos)).sum().item())
+    # what this run's data needs: K and V of the valid slots only, every position, q and o
+    nbytes = 2 * valid * H * D * 2 + B * S * 4 + B * 4 + 2 * B * H * D * 2
+    flops = 4 * valid * H * D
+    mask = ((kv_pos >= 0) & (kv_pos <= q_pos))[:, None, None, :]
+    out["decode_attention"] = {
+        "shape": f"q ({B},1,{H},{D}), k,v ({B},{S},{H},{D}) bf16, {filled} of {S} slots valid",
+        "ms": time_ms(lambda q, k, v, qp, kp: kops.decode_attention(q, k, v, qp, kp), sets),
+        "plain_ms": time_ms(lambda q, k, v, qp, kp: dec_mod.decode_attention_plain(q, k, v, qp, kp), sets),
+        "library_ms": time_ms(
+            lambda q, k, v, qp, kp: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask).transpose(1, 2),
+            sets),
+        "bytes": nbytes, "flops": flops,
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
+    }
+    return out
+
+
+KERNELS = [
+    # name, wrapper module, CUDA source, the TPU kernel it replaces
+    ("rmsnorm", rms_mod, "src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:35"),
+    ("flash_attention", fa_mod, "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:104"),
+    ("decode_attention", dec_mod, "src/repro_torch/kernels/csrc/decode_attention.cu", "src/repro/kernels/decode_attention.py:96"),
+]
+
+
+def phase_kernels() -> list:
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    ck = Checker()
+    check_rmsnorm(ck, gen)
+    check_flash(ck, gen)
+    check_decode(ck, gen)
+    timed = measure_kernels(gen)
+    rows = []
+    for name, _, source, replaces in KERNELS:
+        errs = {dt: ck.max_err[(name, dt)] for dt in ("float32", "bfloat16")}
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "max_abs_err": errs["bfloat16"], "max_err": errs["bfloat16"], "tol": TOL[torch.bfloat16],
+            "max_abs_err_f32": errs["float32"], "tol_f32": TOL[torch.float32],
+            "cases": ck.cases[(name, "float32")] + ck.cases[(name, "bfloat16")],
+            **timed[name],
+        })
+    emit({"phase": "kernels", "tolerance": "atol = rtol = tol against the plain version on the same inputs",
+          "timing": "device time between CUDA events, calls queued behind a spin kernel, warm-up, median of 7 rounds, inputs cold in L2", "kernels": rows})
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4: GPT-A at full width through the serving entry points
+# ---------------------------------------------------------------------------
+
+
+def reset_counters() -> None:
+    rms_mod.launches = 0
+    fa_mod.launches = 0
+    dec_mod.launches = 0
+    attention.sdpa_masked_calls = 0
+
+
+def read_counters() -> dict:
+    return {"rmsnorm": rms_mod.launches, "flash_attention": fa_mod.launches,
+            "decode_attention": dec_mod.launches, "sdpa_masked_calls": attention.sdpa_masked_calls}
+
+
+def make_requests(rng, cfg, lengths, first_id: int):
+    return [Request(first_id + i, rng.integers(0, cfg.vocab_size, size=n).astype(np.int32), max_new_tokens=MAX_NEW)
+            for i, n in enumerate(lengths)]
+
+
+def check_generated(cfg, reqs) -> None:
+    for r in reqs:
+        if len(r.generated) != MAX_NEW or not all(0 <= t < cfg.vocab_size for t in r.generated):
+            raise AssertionError(f"request {r.req_id}: generated {r.generated}")
+        if not (r.ttft_ms > 0 and len(r.tbt_ms) == MAX_NEW - 1):
+            raise AssertionError(f"request {r.req_id}: ttft {r.ttft_ms} tbt {len(r.tbt_ms)}")
+
+
+def phase_serve(cfg, model, params) -> dict:
+    L = cfg.num_layers
+    engine = ServingEngine(cfg, params, max_batch=4, max_len=MAX_LEN)
+    cluster = SplitwiseCluster(cfg, params, max_batch=4, max_len=MAX_LEN)
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab_size, size=(4, 512)).astype(np.int32)
+
+    def first_batch(first_id):
+        return [Request(first_id + i, p.copy(), max_new_tokens=MAX_NEW) for i, p in enumerate(prompts)]
+
+    # untimed warm-up, so that the first request pays no one-time set-up of the libraries
+    engine.generate(make_requests(rng, cfg, [64, 64], 900))
+
+    runs = [("batch 4 x 512", first_batch(0), engine.generate, False),
+            ("single 300", make_requests(rng, cfg, [300], 10), engine.generate, False),
+            ("ragged 200/350/512", make_requests(rng, cfg, [200, 350, 512], 20), engine.generate, True),
+            ("splitwise 4 x 512", first_batch(30), cluster.serve, False)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    report, prefills, ragged_prefills, steps = [], 0, 0, 0
+    for label, reqs, serve, ragged in runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve(reqs)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        check_generated(cfg, reqs)
+        prefills += 1
+        ragged_prefills += int(ragged)
+        steps += MAX_NEW - 1
+        tbt = [t for r in reqs for t in r.tbt_ms]
+        report.append({
+            "run": label, "requests": len(reqs), "prompt_tokens": int(sum(len(r.prompt) for r in reqs)),
+            "ttft_ms": reqs[0].ttft_ms, "tbt_ms_p50": float(np.percentile(tbt, 50)),
+            "tbt_ms_p99": float(np.percentile(tbt, 99)), "wall_s": wall_s,
+            "tokens_per_s": len(reqs) * MAX_NEW / wall_s,
+        })
+    counters = read_counters()
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    want = {"flash_attention": L * (prefills - ragged_prefills), "decode_attention": L * steps,
+            "rmsnorm": (2 * L + 1) * (prefills + steps), "sdpa_masked_calls": L * ragged_prefills}
+    if counters != want:
+        raise AssertionError(f"launch counters {counters}, expected {want}")
+    mono, split = runs[0][1], runs[3][1]
+    if [r.generated for r in mono] != [r.generated for r in split]:
+        raise AssertionError("SplitwiseCluster and the monolithic engine disagree on the token ids")
+    per_token = kv_cache_bytes_per_token(zeros_cache(model, 1, MAX_LEN, "cuda"), MAX_LEN)
+    if cluster.kv_bytes_moved != per_token * prompts.size:
+        raise AssertionError(f"kv_bytes_moved {cluster.kv_bytes_moved}, expected {per_token * prompts.size}")
+
+    emit({"phase": "serve", "model": cfg.name, "layers": L, "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab_size, "params": cfg.param_count(), "max_len": MAX_LEN, "max_new_tokens": MAX_NEW,
+          "runs": report, "peak_memory_bytes": peak_bytes, "kv_bytes_moved": cluster.kv_bytes_moved,
+          "kv_bytes_per_token": per_token, "counters": counters})
+    return {"counters": counters, "prompts": prompts, "engine": engine}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the kernel path against the plain path, same weights, on the card
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_path():
+    """Masked plain sdpa for every attention and the plain RMSNorm for every norm."""
+    kernel_rmsnorm = kops.rmsnorm
+    kops.rmsnorm = lambda x, scale, *, eps=1e-6: rms_mod.rmsnorm_plain(x, scale, eps)
+    try:
+        with attention.force_impl("torch"):
+            yield
+    finally:
+        kops.rmsnorm = kernel_rmsnorm
+
+
+@torch.no_grad()
+def phase_serve_parity(cfg, model, engine, prompts) -> None:
+    params = engine.params
+    tokens = torch.from_numpy(prompts).to("cuda")
+    B, T = tokens.shape
+
+    logits_k, cache = model.prefill(params, {"tokens": tokens}, zeros_cache(model, B, MAX_LEN, "cuda"))
+    with plain_path():
+        logits_p, cache_p = model.prefill(params, {"tokens": tokens}, zeros_cache(model, B, MAX_LEN, "cuda"))
+    nxt = logits_k.argmax(-1).to(torch.int32)
+    pos = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    # one decode step from the same cache (the kernel path's), a copy each
+    step_k, _ = model.decode_step(params, {n: x.clone() for n, x in cache.items()}, nxt, pos)
+    with plain_path():
+        step_p, _ = model.decode_step(params, {n: x.clone() for n, x in cache.items()}, nxt, pos)
+    torch.cuda.synchronize()
+
+    result = {"phase": "serve_parity", "tol": PARITY_TOL, "logit_abs_max": logits_k.abs().max().item()}
+    for name, a, b in (("prefill", logits_k, logits_p), ("decode_step", step_k, step_p)):
+        if a.shape != (B, cfg.vocab_size) or not torch.isfinite(a).all():
+            raise AssertionError(f"{name}: logits {tuple(a.shape)} not finite or misshapen")
+        diff = (a - b).abs().max().item()
+        result[f"{name}_max_abs_diff"] = diff
+        result[f"{name}_token_agreement"] = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+        if diff > PARITY_TOL:
+            raise AssertionError(f"{name}: kernel path and plain path differ by {diff} > {PARITY_TOL}")
+    valid = cache["pos"] >= 0
+    if not torch.equal(cache["pos"], cache_p["pos"]) or int(valid.sum()) != cfg.num_layers * B * T:
+        raise AssertionError("the two paths left different positions in the cache")
+    result["cache_k_max_abs_diff"] = (cache["k"].float() - cache_p["k"].float())[valid].abs().max().item()
+    emit(result)
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script proves the port on the GPU and has no CPU mode", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    smi = phase_env()
+    phase_build()
+    rows = phase_kernels()
+
+    cfg = get_config("gpt_a")
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = model.cast_params(model.init(gen))  # the f32 parameters are dropped once cast
+    served = phase_serve(cfg, model, params)
+    phase_serve_parity(cfg, model, served["engine"], served["prompts"])
+
+    for row in rows:
+        row["launches"] = served["counters"][row["name"]]
+        if row["launches"] < 1:
+            raise AssertionError(f"{row['name']}: the serving path never launched it")
+    emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})
+    print(smi, flush=True)
+    emit({"kernels": rows})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,93 @@
+"""Parameters between the JAX package's tree and the port's state.
+
+The reference's parameters are a nested dict of arrays whose ``"/"``-joined
+paths (``repro/ckpt/checkpoint.py::_flatten``) read ``embed``, ``final_norm``,
+``lm_head``, ``layers/ln1``, ``layers/attn/wq``, ``layers/ffn/w_up``, ...; the
+layers are stacked on a leading ``L`` axis.  The port keeps the same keys and
+the same stacking, so conversion is one to one and exact.  numpy has no bf16:
+such leaves travel as f32, which holds every bf16 value exactly.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.models.modules import ModelConfig, Params
+from repro_torch.models.transformer import NORM_KEYS
+
+_SEP = "/"
+
+
+def expected_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Path -> shape of every leaf of a dense decoder's state."""
+    L, d, hd = cfg.num_layers, cfg.d_model, cfg.resolved_head_dim
+    shapes = {
+        "embed": (cfg.vocab_size, d),
+        "final_norm": (d,),
+        "layers/ln1": (L, d),
+        "layers/ln2": (L, d),
+        "layers/attn/wq": (L, d, cfg.num_heads * hd),
+        "layers/attn/wk": (L, d, cfg.num_kv_heads * hd),
+        "layers/attn/wv": (L, d, cfg.num_kv_heads * hd),
+        "layers/attn/wo": (L, cfg.num_heads * hd, d),
+        "layers/ffn/w_up": (L, d, cfg.d_ff),
+        "layers/ffn/w_down": (L, cfg.d_ff, d),
+    }
+    if cfg.ffn_activation == "swiglu":
+        shapes["layers/ffn/w_gate"] = (L, d, cfg.d_ff)
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (d, cfg.vocab_size)
+    return shapes
+
+
+def flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    """Nested dict -> {"a/b/c": leaf}, the paths the reference's checkpoints use."""
+    flat: Dict[str, Any] = {}
+    for k, v in tree.items():
+        path = f"{prefix}{_SEP}{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            flat.update(flatten(v, path))
+        else:
+            flat[path] = v
+    return flat
+
+
+def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        node = tree
+        *parents, last = path.split(_SEP)
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = leaf
+    return tree
+
+
+def from_reference(params_numpy: Dict[str, Any], cfg: ModelConfig, device="cpu") -> Params:
+    """The reference's tree (nested dict of numpy arrays) as the port's state on
+    ``device``: matrices in ``cfg.param_dtype``, norm scales in f32, as the
+    reference initialises them.  Raises on a missing, extra or misshapen leaf."""
+    flat = flatten(params_numpy)
+    want = expected_shapes(cfg)
+    if set(flat) != set(want):
+        raise ValueError(f"parameter paths differ: missing {sorted(set(want) - set(flat))}, extra {sorted(set(flat) - set(want))}")
+    out = {}
+    for path, leaf in flat.items():
+        arr = np.asarray(leaf)
+        if tuple(arr.shape) != want[path]:
+            raise ValueError(f"{path}: shape {tuple(arr.shape)}, expected {want[path]}")
+        dtype = torch.float32 if path.split(_SEP)[-1] in NORM_KEYS else cfg.param_dtype
+        out[path] = torch.from_numpy(np.array(arr)).to(device=device, dtype=dtype)  # a copy: the state never aliases the caller's arrays
+    return unflatten(out)
+
+
+def to_reference(params: Params) -> Dict[str, Any]:
+    """The port's state as a nested dict of numpy arrays (bf16 leaves as f32)."""
+
+    def leaf(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return unflatten({path: leaf(t) for path, t in flatten(params).items()})

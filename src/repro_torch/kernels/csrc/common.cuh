@@ -1,0 +1,103 @@
+// Shared helpers of the Hopper kernels: element types, 16-byte global loads
+// into f32, warp reductions.  Every kernel keeps f32 inside and rounds once,
+// on the store, to the tensor's own type.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+// Finite on purpose: a row whose every key is masked gets the uniform mean of
+// V (exp(0) = 1 for every key), exactly as the plain versions compute it.
+#define NEG_INF (-1073741824.0f)  // -2**30
+
+// dtype codes shared with the Python wrappers
+#define DT_F32 0
+#define DT_BF16 1
+
+template <typename T>
+struct Vec16;  // how many T fill 16 bytes, and how to widen them to f32
+
+template <>
+struct Vec16<float> {
+  static constexpr int N = 4;
+  __device__ static void load(const float* p, float* out) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  }
+  __device__ static void store(float* p, const float* in) {
+    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
+  }
+};
+
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void load(const __nv_bfloat16* p, float* out) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+  __device__ static void store(__nv_bfloat16* p, const float* in) {
+    uint4 raw;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = raw;
+  }
+};
+
+__device__ inline float to_f32(float x) { return x; }
+__device__ inline float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ inline T from_f32(float x);
+template <>
+__device__ inline float from_f32<float>(float x) { return x; }
+template <>
+__device__ inline __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
+
+// Copies `rows` rows of D contiguous elements (row r starts at src + r*stride;
+// rows at or past `valid_rows` become zeros) into f32 shared memory with row
+// stride LD.  16-byte global loads, neighbouring threads on neighbouring chunks.
+template <typename T, int D, int LD>
+__device__ inline void load_tile_f32(float* dst, const T* src, int64_t stride, int rows,
+                                     int valid_rows, float mul, int tid, int nthreads) {
+  constexpr int V = Vec16<T>::N;
+  constexpr int CPR = D / V;  // chunks per row
+  for (int c = tid; c < rows * CPR; c += nthreads) {
+    const int r = c / CPR;
+    const int col = (c % CPR) * V;
+    float buf[V];
+    if (r < valid_rows) {
+      Vec16<T>::load(src + (int64_t)r * stride + col, buf);
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) buf[i] = 0.0f;
+    }
+    float* out = dst + r * LD + col;
+#pragma unroll
+    for (int i = 0; i < V; i += 4) {
+      *reinterpret_cast<float4*>(out + i) =
+          make_float4(buf[i] * mul, buf[i + 1] * mul, buf[i + 2] * mul, buf[i + 3] * mul);
+    }
+  }
+}
+
+__device__ inline float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ inline float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}

@@ -1,0 +1,101 @@
+"""Decode attention over a ring cache: the CUDA kernels' wrapper, its plain
+version and its launch count.
+
+Replaces the TPU kernel ``repro/kernels/decode_attention.py::decode_attention_bhsd``
+(body ``_decode_kernel``).  Bound by bytes on this card: K and V are read once,
+``2 * B * Hkv * S * D * itemsize`` over the memory rate; see
+``csrc/decode_attention.cu``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels._check import DTYPE_CODES, HEAD_DIMS, require, require_cuda, require_rows_aligned
+
+NEG_INF = -2.0**30
+TILE = 64  # slots a tile: TN of csrc/decode_attention.cu
+BLOCKS_PER_SM = 8  # how many blocks an SM should have to choose from before slices grow
+launches = 0  # one more for every call that launches the kernels; reset by whoever wants to count a run
+
+
+def decode_attention_plain(
+    q: torch.Tensor,  # (B, 1, Hq, D)
+    k: torch.Tensor,  # (B, S, Hkv, D)
+    v: torch.Tensor,
+    q_pos: torch.Tensor,  # (B, 1)
+    kv_pos: torch.Tensor,  # (B, S)
+    *,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """A slot is valid iff 0 <= kv_pos <= q_pos (and kv_pos > q_pos - window):
+    by the value in kv_pos, never by the slot's index.  f32 inside."""
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = scale if scale is not None else D**-0.5
+    qf = (q.float() * scale).reshape(B, T, Hkv, G, D)
+    s = torch.einsum("btkgd,bskd->bkgts", qf, k.float())
+    mask = (kv_pos[:, None, :] >= 0) & (kv_pos[:, None, :] <= q_pos[:, :, None])
+    if window:
+        mask = mask & (kv_pos[:, None, :] > q_pos[:, :, None] - window)
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgts,bskd->btkgd", p, v.float())
+    return o.reshape(B, T, Hq, D).to(q.dtype)
+
+
+def split_plan(B: int, Hkv: int, S: int, sm_count: int) -> tuple:
+    """(number of slices, tiles a slice): slices stay one tile long until the
+    grid offers every SM BLOCKS_PER_SM blocks, then grow."""
+    ntiles = -(-S // TILE)
+    tiles_per_split = max(1, (B * Hkv * ntiles) // (sm_count * BLOCKS_PER_SM))
+    return -(-ntiles // tiles_per_split), tiles_per_split
+
+
+def decode_attention_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor, kv_pos: torch.Tensor,
+    *, window: Optional[int] = None, scale: Optional[float] = None,
+) -> torch.Tensor:
+    """q (B, 1, Hq, D), k and v (B, S, Hkv, D) on the card, read through their
+    strides; q_pos (B, 1) and kv_pos (B, S) int32 -> (B, 1, Hq, D).  S needs
+    divide nothing.  Launches the two kernels (partials, merge) as one call."""
+    global launches
+    require_cuda("decode_attention", q, k, v, q_pos, kv_pos)
+    require(q.dtype in DTYPE_CODES and k.dtype == q.dtype and v.dtype == q.dtype,
+            f"decode_attention: q, k, v of one type, f32 or bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    require(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape, "decode_attention: q (B,1,Hq,D), k and v (B,S,Hkv,D)")
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    require(T == 1, f"decode_attention: one query a row, got T={T}")
+    require(k.shape[0] == B and k.shape[3] == D, f"decode_attention: k {tuple(k.shape)} does not match q {tuple(q.shape)}")
+    require(D in HEAD_DIMS, f"decode_attention: head size {D} not in {HEAD_DIMS}")
+    require(Hkv >= 1 and Hq % Hkv == 0, f"decode_attention: {Hq} query heads over {Hkv} kv heads")
+    require(B >= 1 and S >= 1, "decode_attention: empty input")
+    require(Hkv <= 65535 and B <= 65535, "decode_attention: too many heads or batch rows for one grid")
+    require(q.stride(-1) == 1, "decode_attention: q needs a unit stride along its last axis")
+    for what, t in (("k", k), ("v", v)):
+        require_rows_aligned("decode_attention", what, t)
+    for what, t, shape in (("q_pos", q_pos, (B, 1)), ("kv_pos", kv_pos, (B, S))):
+        require(t.dtype == torch.int32 and tuple(t.shape) == shape and t.is_contiguous(),
+                f"decode_attention: {what} must be {shape} int32 contiguous, got {tuple(t.shape)} {t.dtype}")
+    scale = scale if scale is not None else D**-0.5
+    sm_count = torch.cuda.get_device_properties(q.device).multi_processor_count
+    nsplit, tiles_per_split = split_plan(B, Hkv, S, sm_count)
+    o = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=q.device)
+    part_acc = torch.empty((nsplit, B, Hq, D), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((2, nsplit, B, Hq), dtype=torch.float32, device=q.device)
+    lib = build.load()
+    code = lib.decode_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(), o.data_ptr(),
+        part_acc.data_ptr(), part_ml[0].data_ptr(), part_ml[1].data_ptr(),
+        B, S, Hq, Hkv, D, int(window or 0), float(scale), nsplit, tiles_per_split, DTYPE_CODES[q.dtype],
+        q.stride(0), q.stride(2), *k.stride()[:3], *v.stride()[:3],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(code, "decode_attention")
+    launches += 1
+    return o

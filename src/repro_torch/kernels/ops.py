@@ -1,0 +1,52 @@
+"""Model-layout entry points of the kernels (``repro/kernels/ops.py``).
+
+A tensor on the CPU goes to the kernel's plain version, and only because it
+lies on the CPU; a tensor on the card launches the kernel or raises.  There is
+no fall-back of any kind on the card: the kernels read the model's layouts
+through strides and mask their own ragged edges, so T, S and N need divide
+nothing.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import rmsnorm as _rms
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, T, Hq, D)
+    k: torch.Tensor,  # (B, S, Hkv, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return _fa.flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    return _fa.flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, 1, Hq, D)
+    k: torch.Tensor,  # (B, S, Hkv, D)
+    v: torch.Tensor,
+    q_pos: torch.Tensor,  # (B, 1) int32
+    kv_pos: torch.Tensor,  # (B, S) int32
+    *,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return _dec.decode_attention_plain(q, k, v, q_pos, kv_pos, window=window, scale=scale)
+    return _dec.decode_attention_cuda(q, k, v, q_pos, kv_pos, window=window, scale=scale)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    """x (..., d): the leading axes are flattened into rows for the kernel."""
+    if x.device.type == "cpu":
+        return _rms.rmsnorm_plain(x, scale, eps)
+    return _rms.rmsnorm_rows(x.reshape(-1, x.shape[-1]), scale, eps).reshape(x.shape)

@@ -1,0 +1,211 @@
+"""Attention of the dense decoder: MHA/GQA/MQA with RoPE over explicit position
+ids (``repro/models/attention.py``, GQA part), so that one code path serves
+prefill (q_pos == kv_pos) and single-token decode against a ring KV cache.
+
+Layout conventions (the reference's):
+  q           (B, T, Hq,  Dh)
+  k, v        (B, S, Hkv, Dh)
+  kv cache    {"k": (B, S, Hkv, Dh), "v": ..., "pos": (B, S) int32 (-1 = empty)}
+
+MLA, M-RoPE and the sliding window are not ported yet; a config that asks for
+one of them raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models.modules import ModelConfig, Params, dense, dense_init
+
+NEG_INF = -2.0**30
+
+# implementation switch: "kernel" (the hand-written kernels on the card, their
+# plain versions on the CPU) or "torch" (the position-masked sdpa below).
+_IMPL = "kernel"
+
+# calls of the masked plain sdpa, counted beside the kernels' launch counters
+sdpa_masked_calls = 0
+
+
+def set_attention_impl(impl: str) -> None:
+    global _IMPL
+    if impl not in ("kernel", "torch"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    _IMPL = impl
+
+
+def get_attention_impl() -> str:
+    return _IMPL
+
+
+@contextlib.contextmanager
+def force_impl(impl: str):
+    """Pin the attention impl for the duration.
+
+    The flash kernel takes no positions, so any caller whose positions are not
+    dense 0..T-1 (serving's left-padded prefill, pad slots at position -1) must
+    run under ``force_impl("torch")`` to keep the position mask."""
+    global _IMPL
+    prev = _IMPL
+    set_attention_impl(impl)
+    try:
+        yield
+    finally:
+        _IMPL = prev
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raises for what is not ported yet."""
+    if cfg.mla is not None:
+        raise NotImplementedError(f"{cfg.name}: MLA comes with the rest of the transformer stack")
+    if cfg.mrope_sections is not None:
+        raise NotImplementedError(f"{cfg.name}: M-RoPE comes with the rest of the transformer stack")
+    if cfg.window is not None:
+        raise NotImplementedError(f"{cfg.name}: the sliding window comes with the rest of the transformer stack")
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def _rope_angles(positions: torch.Tensor, head_dim: int, theta: float) -> torch.Tensor:
+    """positions (...,) -> angles (..., head_dim // 2) in f32."""
+    half = head_dim // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=positions.device) / half)
+    return positions.float()[..., None] * freqs
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x (B, T, H, D), positions (B, T) -> rotated x (rotate-half form)."""
+    ang = _rope_angles(positions, x.shape[-1], theta)[..., None, :]  # (B,T,1,D/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# scaled dot-product attention over explicit positions
+# ---------------------------------------------------------------------------
+
+
+def sdpa(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_pos: torch.Tensor,
+    kv_pos: torch.Tensor,
+    *,
+    causal: bool,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Grouped-query attention. q (B,T,Hq,D); k/v (B,S,Hkv,D).
+
+    q_pos (B, T), kv_pos (B, S); kv_pos < 0 marks empty cache slots.  Under the
+    "kernel" impl a prefill over dense positions goes to the flash kernel and
+    a single query to the decode kernel; everything else, and everything under
+    "torch", takes the position-masked plain path below.
+    """
+    global sdpa_masked_calls
+    B, T, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = scale if scale is not None else D**-0.5
+
+    if _IMPL == "kernel" and T > 1 and window is None and q_pos.shape == kv_pos.shape:
+        return kops.flash_attention(q, k, v, causal=causal, scale=scale)
+    if _IMPL == "kernel" and T == 1:
+        return kops.decode_attention(q, k, v, q_pos, kv_pos, window=window, scale=scale)
+
+    sdpa_masked_calls += 1
+    qf = (q.float() * scale).reshape(B, T, Hkv, G, D)
+    scores = torch.einsum("btkgd,bskd->bkgts", qf, k.float())
+    mask = (kv_pos[:, None, :] >= 0).expand(B, T, S)
+    if causal:
+        mask = mask & (kv_pos[:, None, :] <= q_pos[:, :, None])
+    if window is not None:
+        mask = mask & (kv_pos[:, None, :] > q_pos[:, :, None] - window)
+    scores = torch.where(mask[:, None, None, :, :], scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgts,bskd->btkgd", probs, v.float())
+    return out.reshape(B, T, Hq, v.shape[-1]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block (with optional cache)
+# ---------------------------------------------------------------------------
+
+
+def gqa_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int) -> Params:
+    """Layer-stacked projection weights (leading ``n_layers`` axis)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    return {
+        "wq": dense_init(gen, (n_layers, d, cfg.num_heads * hd), cfg.param_dtype),
+        "wk": dense_init(gen, (n_layers, d, cfg.num_kv_heads * hd), cfg.param_dtype),
+        "wv": dense_init(gen, (n_layers, d, cfg.num_kv_heads * hd), cfg.param_dtype),
+        "wo": dense_init(gen, (n_layers, cfg.num_heads * hd, d), cfg.param_dtype),
+    }
+
+
+def gqa_apply(
+    params: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cache: Optional[Params] = None,
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    """x (B, T, d), positions (B, T).
+
+    With ``cache``: a prefill (T > 1) attends over the prompt's own
+    full-resolution K/V and only then writes the last S tokens into the ring at
+    slots ``pos % S``; a decode step (T == 1) writes first and then attends
+    over the ring.  **The cache's tensors are updated in place** and returned.
+    """
+    B, T, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = dense(params["wq"], x).reshape(B, T, cfg.num_heads, hd)
+    k = dense(params["wk"], x).reshape(B, T, cfg.num_kv_heads, hd)
+    v = dense(params["wv"], x).reshape(B, T, cfg.num_kv_heads, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is None:
+        out = sdpa(q, k, v, positions, positions, causal=cfg.causal, window=cfg.window)
+        new_cache = None
+    else:
+        ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+        S = ck.shape[1]
+        if T > 1:
+            out = sdpa(q, k, v, positions, positions, causal=True, window=cfg.window)
+            kw, vw, pw = k[:, -S:], v[:, -S:], positions[:, -S:]
+        else:
+            kw, vw, pw = k, v, positions
+        # the non-negative remainder: pads (position -1) all land in slot S-1,
+        # which keeps pos = -1 and so stays masked whichever pad wrote last
+        slots = torch.remainder(pw, S).long()
+        bidx = torch.arange(B, device=x.device)[:, None]
+        ck[bidx, slots] = kw
+        cv[bidx, slots] = vw
+        cpos[bidx, slots] = pw.to(cpos.dtype)
+        if T == 1:
+            out = sdpa(q, ck, cv, positions, cpos, causal=True, window=cfg.window)
+        new_cache = {"k": ck, "v": cv, "pos": cpos}
+
+    out = out.reshape(B, T, cfg.num_heads * hd)
+    return dense(params["wo"], out), new_cache
+
+
+def gqa_cache_shape(cfg: ModelConfig, batch: int, max_len: int):
+    """Per-layer cache shapes. Sliding window bounds the ring size."""
+    S = min(max_len, cfg.window) if cfg.window else max_len
+    hd = cfg.resolved_head_dim
+    return {
+        "k": ((batch, S, cfg.num_kv_heads, hd), cfg.dtype),
+        "v": ((batch, S, cfg.num_kv_heads, hd), cfg.dtype),
+        "pos": ((batch, S), torch.int32),
+    }

@@ -1,0 +1,138 @@
+"""The dense decoder's serving half (``repro/models/transformer.py::
+_build_transformer``): ``Model`` with ``init``, ``prefill``, ``decode_step``
+and ``cache_shape``.
+
+Parameters are layer-stacked (leading ``L`` axis) as in the reference; the
+reference's ``lax.scan`` over the stack is a Python loop over ``L`` here.
+``loss`` and the chunked cross entropy are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models.modules import (
+    ModelConfig,
+    Params,
+    dense,
+    embed_init,
+    ffn_apply,
+    ffn_init,
+    rmsnorm,
+    rmsnorm_init,
+)
+
+NORM_KEYS = ("ln1", "ln2", "final_norm")  # f32 scales: RMSNorm runs in f32 whatever cfg.dtype
+
+
+def _layer(tree: Any, i: int) -> Any:
+    """Slice layer ``i`` out of a layer-stacked tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _block_apply(params: Params, cfg: ModelConfig, x, positions, cache):
+    """One transformer block. Returns (x, new_cache)."""
+    h = rmsnorm(params["ln1"], x)
+    a, new_cache = attn.gqa_apply(params["attn"], cfg, h, positions, cache)
+    x = x + a
+    h = rmsnorm(params["ln2"], x)
+    x = x + ffn_apply(params["ffn"], h, cfg.ffn_activation)
+    return x, new_cache
+
+
+def _embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens.long()].to(cfg.dtype)  # gather, then cast
+
+
+def _head_weight(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params["embed"].T  # (d, V)
+    return params["lm_head"]
+
+
+def _default_positions(shape, device) -> torch.Tensor:
+    B, T = shape
+    return torch.arange(T, dtype=torch.int32, device=device)[None].expand(B, T)
+
+
+class Model:
+    """Functional model object: the methods take the parameters explicitly."""
+
+    def __init__(self, cfg: ModelConfig):
+        if cfg.family != "dense" or cfg.moe is not None or cfg.ssm is not None or cfg.rwkv is not None:
+            raise NotImplementedError(f"{cfg.name}: only the dense decoder is ported (family {cfg.family!r})")
+        if not cfg.causal:
+            raise NotImplementedError(f"{cfg.name}: the bidirectional encoder comes with the rest of the transformer stack")
+        attn.check_supported(cfg)
+        self.cfg = cfg
+
+    def init(self, gen: torch.Generator) -> Params:
+        """Random parameters in ``cfg.param_dtype`` on the generator's device."""
+        cfg, L = self.cfg, self.cfg.num_layers
+        p: Params = {
+            "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), cfg.param_dtype),
+            "final_norm": rmsnorm_init((cfg.d_model,), gen.device),
+            "layers": {
+                "ln1": rmsnorm_init((L, cfg.d_model), gen.device),
+                "ln2": rmsnorm_init((L, cfg.d_model), gen.device),
+                "attn": attn.gqa_init(gen, cfg, L),
+                "ffn": ffn_init(gen, L, cfg.d_model, cfg.d_ff, cfg.ffn_activation, cfg.param_dtype),
+            },
+        }
+        if not cfg.tie_embeddings:
+            p["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size), cfg.param_dtype)
+        return p
+
+    def cast_params(self, params: Params) -> Params:
+        """The copy the forward pass computes with: every matrix in ``cfg.dtype``
+        (``dense`` casts its weight to the activation dtype before the product,
+        so casting once beforehand gives the same bits), the norm scales as they
+        are.  A leaf that already has its dtype is shared, not copied."""
+
+        def walk(tree, key=None):
+            if isinstance(tree, dict):
+                return {k: walk(v, k) for k, v in tree.items()}
+            return tree if key in NORM_KEYS else tree.to(self.cfg.dtype)
+
+        return walk(params)
+
+    def _backbone(self, params: Params, x, positions, cache):
+        """Loop over the blocks. cache None or a stacked (L, ...) tree, updated in place."""
+        for i in range(self.cfg.num_layers):
+            lc = None if cache is None else _layer(cache, i)
+            x, _ = _block_apply(_layer(params["layers"], i), self.cfg, x, positions, lc)
+        return rmsnorm(params["final_norm"], x), cache
+
+    def prefill(self, params: Params, batch: Dict[str, torch.Tensor], cache) -> Tuple[torch.Tensor, Any]:
+        """batch {"tokens" (B,T) int32, optional "positions" (B,T) int32}.
+        Returns (last-token logits f32 (B,V), cache); the cache is updated in place."""
+        cfg = self.cfg
+        x = _embed_tokens(params, cfg, batch["tokens"])
+        positions = batch.get("positions")
+        if positions is None:
+            positions = _default_positions(x.shape[:2], x.device)
+        x, cache = self._backbone(params, x, positions, cache)
+        logits = dense(_head_weight(params, cfg), x[:, -1])
+        return logits.float(), cache
+
+    def decode_step(self, params: Params, cache, tokens: torch.Tensor, pos: torch.Tensor):
+        """tokens (B,) int32; pos (B,) int32 absolute positions.
+        Returns (logits f32 (B,V), cache); the cache is updated in place."""
+        cfg = self.cfg
+        x = _embed_tokens(params, cfg, tokens[:, None])
+        x, cache = self._backbone(params, x, pos[:, None].contiguous(), cache)
+        logits = dense(_head_weight(params, cfg), x[:, 0])
+        return logits.float(), cache
+
+    def cache_shape(self, batch: int, max_len: int):
+        """{name: (shape, dtype)} of the layer-stacked cache."""
+        per = attn.gqa_cache_shape(self.cfg, batch, max_len)
+        return {k: ((self.cfg.num_layers,) + s, d) for k, (s, d) in per.items()}
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    return Model(cfg)

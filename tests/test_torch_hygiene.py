@@ -1,0 +1,127 @@
+"""The port stands alone: it imports torch and nothing of jax or repro, its
+entry points run on the card unless the CPU is asked for, and it calls no
+finished kernel."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom):
+            yield ("." * node.level) + (node.module or "")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_import_of_jax_or_repro(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "flax", "repro"), f"{path}: imports {name}"
+
+
+@pytest.mark.parametrize("path", [p for p in PORT_FILES if p.name != "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_finished_kernels_inside_the_package(path):
+    """No torch.compile, fused attention or fused norm inside the package
+    (``chip_smoke.py`` alone may time one beside a kernel)."""
+    tree = ast.parse(path.read_text())
+    names = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)} | \
+            {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+    assert not names & {"scaled_dot_product_attention", "rms_norm", "compile", "cudnn", "cpp_extension"}, path
+
+
+def test_package_has_every_serving_module():
+    have = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES[:-1]}
+    want = {"__init__.py", "device.py", "convert.py", "models/modules.py", "models/attention.py",
+            "models/transformer.py", "configs/__init__.py", "configs/gpt_a.py", "configs/gpt_b.py",
+            "configs/minitron_4b.py", "kernels/build.py", "kernels/ops.py", "kernels/ref.py",
+            "kernels/rmsnorm.py", "kernels/flash_attention.py", "kernels/decode_attention.py",
+            "serving/engine.py", "launch/serve.py"}
+    assert want <= have
+    csrc = {p.name for p in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").iterdir()}
+    assert {"rmsnorm.cu", "flash_attention.cu", "decode_attention.cu"} <= csrc
+
+
+_BLOCKED = """
+import sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+import repro_torch.serving.engine, repro_torch.launch.serve, repro_torch.convert, repro_torch.kernels.ref
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro") for m in sys.modules)
+print("imported")
+"""
+
+
+def test_engine_imports_where_jax_and_repro_cannot_be_imported():
+    r = subprocess.run([sys.executable, "-c", _BLOCKED], capture_output=True, text=True, timeout=120,
+                       env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert r.returncode == 0 and "imported" in r.stdout, r.stderr
+
+
+def test_entry_points_raise_without_a_card_unless_the_cpu_is_asked_for():
+    from repro_torch import configs
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serving.engine import ServingEngine, SplitwiseCluster
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: nothing to refuse")
+    cfg = configs.get_smoke_config("gpt_a")
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(cfg, params, max_batch=2, max_len=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SplitwiseCluster(cfg, params, max_batch=2, max_len=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--requests", "1"])
+
+
+def test_chip_smoke_fails_without_a_card_and_prints_no_result():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], capture_output=True, text=True, timeout=300,
+                       cwd=str(ROOT), env={"PATH": "/usr/bin:/bin"})
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout and r.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("extra", [[], ["--splitwise"], ["--arch", "minitron-4b"]])
+def test_serve_cli_runs_on_the_cpu(extra, capsys):
+    from repro_torch.launch import serve
+
+    done = serve.main(["--device", "cpu", "--requests", "3", "--max-new", "3", "--batch", "2",
+                       "--prompt-len", "12", "--max-len", "32"] + extra)
+    out = capsys.readouterr().out
+    assert len(done) == 3 and all(len(r.generated) == 3 for r in done)
+    assert "device=cpu" in out and "TTFT ms" in out
+    assert ("KV bytes moved" in out) == ("--splitwise" in extra)
+
+
+def test_build_refuses_where_there_is_no_nvcc(monkeypatch):
+    """A build that cannot be made raises; nothing falls back."""
+    from repro_torch.kernels import build
+
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.find_nvcc()
+    assert {"rmsnorm_launch", "flash_attention_launch", "decode_attention_launch"} == set(build.SIGNATURES)
