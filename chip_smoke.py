@@ -4,12 +4,15 @@
     python3 chip_smoke.py
 
 Needs one NVIDIA Hopper card and ``nvcc``; takes no arguments.  It builds the
-port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each of them
-against its plain PyTorch version on the card, serves GPT-A at full width
-(24 layers x 4096 x 16384, vocabulary 50304, random weights from a seed)
-through ``ServingEngine.generate`` and ``SplitwiseCluster.serve``, checks by
-the kernels' launch counters that the serving path really went through the
-kernels, and compares the kernel path's logits with the plain path's.
+port's four CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each of
+them against its plain PyTorch version on the card, and serves two models at
+full width with random weights from a seed through ``ServingEngine.generate``
+and ``SplitwiseCluster.serve``: GPT-A (24 layers x 4096 x 16384, vocabulary
+50304; RMSNorm, flash and decode attention kernels), then RWKV-6 7B (32 layers
+x 4096 x 14336, vocabulary 65536; RMSNorm and WKV-6 kernels).  For each model
+it checks by the kernels' launch counters that the serving path really went
+through the kernels, and compares the kernel path's logits with the plain
+path's.
 
 Every phase prints one JSON line.  Any failure raises, so the exit code is not
 0 and the last line is not printed.  The last line of a good run is exactly
@@ -18,6 +21,8 @@ Every phase prints one JSON line.  Any failure raises, so the exit code is not
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import gc
 import json
 import os
 import re
@@ -32,11 +37,13 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.convert import flatten  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
+from repro_torch.kernels import wkv6 as wkv_mod  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models.transformer import build_model  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
@@ -44,6 +51,7 @@ from repro_torch.serving.engine import (  # noqa: E402
     ServingEngine,
     SplitwiseCluster,
     kv_cache_bytes_per_token,
+    kv_cache_state_bytes_per_seq,
     zeros_cache,
 )
 
@@ -58,11 +66,31 @@ F32_FLOPS = 67e12
 # ulp or two of bf16 at the outputs' size (bf16: 2e-2).  Both are the
 # tolerances the reference's own kernel tests use, as atol and rtol together.
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# WKV-6: the kernel runs the sequential recurrence, the plain version the
+# chunked form, which rescales by exp(+-cumulative log decay) within a chunk;
+# in f32 they part by more than a few ulp.  2e-4 is the reference's own
+# tolerance for its kernel against the sequential oracle; bf16 outputs add one
+# rounding.  The final state is f32 in both and is held at 2e-4.
+WKV_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 
 # GPT-A logits under random weights are O(1..8); one bf16 ulp there is up to
 # 0.03, and 24 layers of bf16 activations let the two paths' rounding part ways
 # by a few ulps, no more.
 PARITY_TOL = 0.25
+# RWKV-6 7B does not allow that reasoning in bf16: a one-ulp difference
+# anywhere is carried by the recurrence along the 512 tokens and grows through
+# the 32 layers to O(1) in the logits.  Two plain paths that differ only in the
+# order of their sums (chunks of 128 and of 64) part by 1.98 at logits of 6, and
+# the kernel path by 1.92 (experiments/torch_rwkv_parity.py on an H100).  So
+# the bf16 kernel path is held against that control: it may part from the plain
+# path by at most twice what the control parts by, plus GPT-A's 0.25 (logits)
+# or 0.05 of the largest entry (wkv state).  The comparison that finds a fault
+# is made in f32 on the same weights, where a rounding is 2**-24: there the two
+# paths part by 9.0e-4 on the logits and 1.7e-4 of the last layer's largest
+# state entry (the same script), held at 1e-2 and 2e-3.
+RWKV_F32_TOL = {"logits": 1e-2, "state_rel": 2e-3}
+RWKV_BF16_SLACK = {"logits": PARITY_TOL, "state_rel": 0.05}
+RWKV_STATE_BYTES = 34_078_720  # a sequence: wkv 32 x 64 x 64 x 64 f32, two shifts 32 x 4096 bf16
 
 SPIN_CYCLES = 20_000_000  # about 10 ms of the card's clock: see time_ms
 MAX_LEN = 1024
@@ -103,7 +131,7 @@ def ptxas_summary(log: str) -> dict:
     out, fn = {}, "?"
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(r"\d+([a-z_]+_kernel)I(.+?)EEv", ln)
+            m = re.search(r"(?<=\d)([a-z_]+\d*_kernel)I(.+?)EEv", ln)
             d = re.search(r"Li(\d+)", m.group(2)) if m else None
             dtype = "bf16" if m and "bfloat16" in m.group(2) else "f32"
             fn = f"{m.group(1)}<{dtype}{',' + d.group(1) if d else ''}>" if m else ln.split("'")[1]
@@ -136,9 +164,9 @@ class Checker:
         self.max_err = {}
         self.cases = {}
 
-    def check(self, name: str, case: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    def check(self, name: str, case: str, got: torch.Tensor, want: torch.Tensor, tols=TOL) -> None:
         torch.cuda.synchronize()
-        tol = TOL[got.dtype]
+        tol = tols[got.dtype]
         if got.shape != want.shape or got.dtype != want.dtype:
             raise AssertionError(f"{name} {case}: {got.shape} {got.dtype} against {want.shape} {want.dtype}")
         g, w = got.float(), want.float()
@@ -224,6 +252,43 @@ def check_decode(ck: Checker, gen) -> None:
             ck.check("decode_attention", f"{(B, S, Hq, Hkv, D)} window={window} {kind}",
                      kops.decode_attention(q, k, v, q_pos, kv_pos, window=window),
                      dec_mod.decode_attention_plain(q, k, v, q_pos, kv_pos, window=window))
+
+
+def wkv_inputs(gen, B, T, H, D, dtype, state: bool):
+    """The reference test's distributions (tests/test_kernels.py): r, k, v ~
+    N(0, 0.25) in ``dtype``, logw = -exp(N(0, 0.25) - 2) and u ~ N(0, 0.01) in
+    f32; a state ~ N(0, 0.25) or zeros."""
+    r, k, v = (randn(gen, (B, T, H, D), torch.float32).mul_(0.5).to(dtype) for _ in range(3))
+    logw = -torch.exp(randn(gen, (B, T, H, D), torch.float32) * 0.5 - 2.0)
+    u = randn(gen, (H, D), torch.float32) * 0.1
+    S0 = randn(gen, (B, H, D, D), torch.float32) * 0.5 if state else torch.zeros((B, H, D, D), device="cuda")
+    return r, k, v, logw, u, S0
+
+
+def check_wkv6(ck: Checker, gen) -> None:
+    # (B, T, H, D): the reference's sweep, ragged T, the full-width prefill and decode step
+    shapes = [(2, 128, 2, 64), (2, 96, 4, 32), (2, 128, 1, 64),
+              (2, 1, 2, 64), (2, 31, 2, 64), (3, 100, 2, 32), (1, 300, 3, 64),
+              (4, 512, 64, 64), (4, 1, 64, 64)]
+    for dtype in WKV_TOL:
+        for B, T, H, D in shapes:
+            for state in (False, True):
+                r, k, v, logw, u, S0 = wkv_inputs(gen, B, T, H, D, dtype, state)
+                case = f"{(B, T, H, D)} S0={'random' if state else 'zero'}"
+                y_p, S_p = wkv_mod.wkv6_plain(r, k, v, logw, u, S0)
+                S = S0.clone()
+                y = kops.wkv6(r, k, v, logw, u, S)
+                ck.check("wkv6", case, y, y_p, WKV_TOL)
+                ck.check("wkv6.state", f"{case} {dtype}", S, S_p, WKV_TOL)
+        # inputs that are views: heads-first storage read through strides, logw a slice in time
+        B, T, H, D = 2, 70, 3, 64
+        r, k, v, _, u, S0 = wkv_inputs(gen, B, T, H, D, dtype, True)
+        r = r.transpose(1, 2).contiguous().transpose(1, 2)
+        logw = -torch.exp(randn(gen, (B, T + 9, H, D), torch.float32) * 0.5 - 2.0)[:, 9:]
+        y_p, S_p = wkv_mod.wkv6_plain(r, k, v, logw, u, S0)
+        S = S0.clone()
+        ck.check("wkv6", "strided views", kops.wkv6(r, k, v, logw, u, S), y_p, WKV_TOL)
+        ck.check("wkv6.state", f"strided views {dtype}", S, S_p, WKV_TOL)
 
 
 def time_ms(fn, arg_sets, iters: int = 20, reps: int = 7) -> float:
@@ -315,6 +380,33 @@ def measure_kernels(gen) -> dict:
         "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
         "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
     }
+
+    # K4: one layer of RWKV-6 7B, a prefill of 4 x 512 tokens and a decode step
+    # of 4, 64 heads of 64, bf16 r, k, v, the state carried in place.  No
+    # single PyTorch call computes this recurrence, so there is no library time.
+    H, D = 64, 64
+    for label, T, nsets in (("", 512, 2), ("decode_", 1, 8)):
+        B = 4
+        sets = [wkv_inputs(gen, B, T, H, D, dt, True) for _ in range(nsets)]
+        n = B * T * H * D
+        # r, k, v and y in bf16, logw f32, u, and the state read once and written once
+        nbytes = 4 * n * 2 + n * 4 + H * D * 4 + 2 * B * H * D * D * 4
+        # a state element a step: r.S (2), S*w + k*v (3); a step: r.u.k (3 D), + v_e * bonus (2 D)
+        flops = B * T * H * (5 * D * D + 5 * D)
+        row = {
+            "shape": f"r,k,v ({B},{T},{H},{D}) bf16, state ({B},{H},{D},{D}) f32",
+            "ms": time_ms(lambda r, k, v, w, u, S: kops.wkv6(r, k, v, w, u, S), sets),
+            "plain_ms": time_ms(lambda r, k, v, w, u, S: wkv_mod.wkv6_plain(r, k, v, w, u, S, chunk=128), sets),
+            "library_ms": None,
+            "bytes": nbytes, "flops": flops,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations",
+            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "operations_ms": flops / F32_FLOPS * 1e3,
+        }
+        if label:
+            out["wkv6"].update({label + key: val for key, val in row.items()})
+        else:
+            out["wkv6"] = row
     return out
 
 
@@ -323,6 +415,7 @@ KERNELS = [
     ("rmsnorm", rms_mod, "src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:35"),
     ("flash_attention", fa_mod, "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:104"),
     ("decode_attention", dec_mod, "src/repro_torch/kernels/csrc/decode_attention.cu", "src/repro/kernels/decode_attention.py:96"),
+    ("wkv6", wkv_mod, "src/repro_torch/kernels/csrc/wkv6.cu", "src/repro/kernels/wkv6.py:85"),
 ]
 
 
@@ -333,24 +426,28 @@ def phase_kernels() -> list:
     check_rmsnorm(ck, gen)
     check_flash(ck, gen)
     check_decode(ck, gen)
+    check_wkv6(ck, gen)
     timed = measure_kernels(gen)
     rows = []
     for name, _, source, replaces in KERNELS:
         errs = {dt: ck.max_err[(name, dt)] for dt in ("float32", "bfloat16")}
+        tols = WKV_TOL if name == "wkv6" else TOL
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "max_abs_err": errs["bfloat16"], "max_err": errs["bfloat16"], "tol": TOL[torch.bfloat16],
-            "max_abs_err_f32": errs["float32"], "tol_f32": TOL[torch.float32],
+            "max_abs_err": errs["bfloat16"], "max_err": errs["bfloat16"], "tol": tols[torch.bfloat16],
+            "max_abs_err_f32": errs["float32"], "tol_f32": tols[torch.float32],
             "cases": ck.cases[(name, "float32")] + ck.cases[(name, "bfloat16")],
             **timed[name],
         })
+        if name == "wkv6":
+            rows[-1]["max_abs_err_state"] = ck.max_err[("wkv6.state", "float32")]
     emit({"phase": "kernels", "tolerance": "atol = rtol = tol against the plain version on the same inputs",
           "timing": "device time between CUDA events, calls queued behind a spin kernel, warm-up, median of 7 rounds, inputs cold in L2", "kernels": rows})
     return rows
 
 
 # ---------------------------------------------------------------------------
-# phase 4: GPT-A at full width through the serving entry points
+# phases 4 and 6: a model at full width through the serving entry points
 # ---------------------------------------------------------------------------
 
 
@@ -358,12 +455,14 @@ def reset_counters() -> None:
     rms_mod.launches = 0
     fa_mod.launches = 0
     dec_mod.launches = 0
+    wkv_mod.launches = 0
     attention.sdpa_masked_calls = 0
 
 
 def read_counters() -> dict:
     return {"rmsnorm": rms_mod.launches, "flash_attention": fa_mod.launches,
-            "decode_attention": dec_mod.launches, "sdpa_masked_calls": attention.sdpa_masked_calls}
+            "decode_attention": dec_mod.launches, "wkv6": wkv_mod.launches,
+            "sdpa_masked_calls": attention.sdpa_masked_calls}
 
 
 def make_requests(rng, cfg, lengths, first_id: int):
@@ -379,8 +478,15 @@ def check_generated(cfg, reqs) -> None:
             raise AssertionError(f"request {r.req_id}: ttft {r.ttft_ms} tbt {len(r.tbt_ms)}")
 
 
-def phase_serve(cfg, model, params) -> dict:
+def phase_serve(phase: str, cfg, model, params) -> dict:
+    """Four traffic shapes through ``ServingEngine.generate`` and
+    ``SplitwiseCluster.serve``, counted from zero; raises unless the counters
+    show exactly the launches the path owes, splitwise gives the monolithic
+    engine's token ids, and the handoff moved the bytes it should."""
     L = cfg.num_layers
+    recurrent = cfg.rwkv is not None
+    init_peak_bytes = torch.cuda.max_memory_allocated()  # parameters made and cast
+    n_params = sum(t.numel() for t in flatten(params).values())
     engine = ServingEngine(cfg, params, max_batch=4, max_len=MAX_LEN)
     cluster = SplitwiseCluster(cfg, params, max_batch=4, max_len=MAX_LEN)
     rng = np.random.default_rng(SEED)
@@ -398,7 +504,7 @@ def phase_serve(cfg, model, params) -> dict:
             ("splitwise 4 x 512", first_batch(30), cluster.serve, False)]
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
-    report, prefills, ragged_prefills, steps = [], 0, 0, 0
+    report, prefills, masked_prefills, steps = [], 0, 0, 0
     for label, reqs, serve, ragged in runs:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -406,9 +512,12 @@ def phase_serve(cfg, model, params) -> dict:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         check_generated(cfg, reqs)
-        prefills += 1
-        ragged_prefills += int(ragged)
-        steps += MAX_NEW - 1
+        # a recurrent model serves a ragged batch one request at a time; the
+        # dense decoder prefills it at once through the masked plain sdpa
+        n = len(reqs) if (ragged and recurrent) else 1
+        prefills += n
+        masked_prefills += int(ragged and not recurrent)
+        steps += n * (MAX_NEW - 1)
         tbt = [t for r in reqs for t in r.tbt_ms]
         report.append({
             "run": label, "requests": len(reqs), "prompt_tokens": int(sum(len(r.prompt) for r in reqs)),
@@ -419,75 +528,181 @@ def phase_serve(cfg, model, params) -> dict:
     counters = read_counters()
     peak_bytes = torch.cuda.max_memory_allocated()
 
-    want = {"flash_attention": L * (prefills - ragged_prefills), "decode_attention": L * steps,
-            "rmsnorm": (2 * L + 1) * (prefills + steps), "sdpa_masked_calls": L * ragged_prefills}
+    forwards = prefills + steps
+    if recurrent:
+        want = {"rmsnorm": (2 * L + 1) * forwards, "wkv6": L * forwards, "flash_attention": 0,
+                "decode_attention": 0, "sdpa_masked_calls": 0}
+    else:
+        want = {"flash_attention": L * (prefills - masked_prefills), "decode_attention": L * steps,
+                "rmsnorm": (2 * L + 1) * forwards, "sdpa_masked_calls": L * masked_prefills, "wkv6": 0}
     if counters != want:
-        raise AssertionError(f"launch counters {counters}, expected {want}")
+        raise AssertionError(f"{cfg.name}: launch counters {counters}, expected {want} ({prefills} prefills, {steps} steps)")
     mono, split = runs[0][1], runs[3][1]
     if [r.generated for r in mono] != [r.generated for r in split]:
-        raise AssertionError("SplitwiseCluster and the monolithic engine disagree on the token ids")
-    per_token = kv_cache_bytes_per_token(zeros_cache(model, 1, MAX_LEN, "cuda"), MAX_LEN)
-    if cluster.kv_bytes_moved != per_token * prompts.size:
-        raise AssertionError(f"kv_bytes_moved {cluster.kv_bytes_moved}, expected {per_token * prompts.size}")
+        raise AssertionError(f"{cfg.name}: SplitwiseCluster and the monolithic engine disagree on the token ids")
+    empty = zeros_cache(model, 1, MAX_LEN, "cuda")
+    per_token = kv_cache_bytes_per_token(empty, MAX_LEN)
+    per_seq = kv_cache_state_bytes_per_seq(empty, MAX_LEN)
+    if recurrent and per_seq != RWKV_STATE_BYTES:
+        raise AssertionError(f"{cfg.name}: {per_seq} bytes of state a sequence, expected {RWKV_STATE_BYTES}")
+    moved = per_token * prompts.size + per_seq * len(prompts)
+    if cluster.kv_bytes_moved != moved:
+        raise AssertionError(f"{cfg.name}: kv_bytes_moved {cluster.kv_bytes_moved}, expected {moved}")
 
-    emit({"phase": "serve", "model": cfg.name, "layers": L, "d_model": cfg.d_model, "d_ff": cfg.d_ff,
-          "vocab": cfg.vocab_size, "params": cfg.param_count(), "max_len": MAX_LEN, "max_new_tokens": MAX_NEW,
-          "runs": report, "peak_memory_bytes": peak_bytes, "kv_bytes_moved": cluster.kv_bytes_moved,
-          "kv_bytes_per_token": per_token, "counters": counters})
+    emit({"phase": phase, "model": cfg.name, "layers": L, "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab_size, "params": cfg.param_count(), "params_counted": n_params,
+          "max_len": MAX_LEN, "max_new_tokens": MAX_NEW, "prefills": prefills, "steps": steps,
+          "runs": report, "peak_memory_bytes": peak_bytes, "init_peak_memory_bytes": init_peak_bytes,
+          "kv_bytes_moved": cluster.kv_bytes_moved, "kv_bytes_per_token": per_token,
+          "state_bytes_per_seq": per_seq, "counters": counters})
     return {"counters": counters, "prompts": prompts, "engine": engine}
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the kernel path against the plain path, same weights, on the card
+# phases 5 and 7: the kernel path against the plain path, same weights, on the card
 # ---------------------------------------------------------------------------
 
 
 @contextlib.contextmanager
-def plain_path():
-    """Masked plain sdpa for every attention and the plain RMSNorm for every norm."""
-    kernel_rmsnorm = kops.rmsnorm
+def plain_path(wkv_chunk=None):
+    """Masked plain sdpa for every attention, the plain RMSNorm for every norm
+    and the plain chunked WKV-6 for every recurrence, in chunks of
+    ``wkv_chunk`` (None: the config's)."""
+    kernel_rmsnorm, kernel_wkv6 = kops.rmsnorm, kops.wkv6
+
+    def wkv6_plain_op(r, k, v, logw, u, state=None, *, chunk=64):
+        y, S = wkv_mod.wkv6_plain(r, k, v, logw, u, state, chunk=wkv_chunk or chunk)
+        if state is not None:
+            state.copy_(S)  # in place, as the kernel writes it
+        return y
+
     kops.rmsnorm = lambda x, scale, *, eps=1e-6: rms_mod.rmsnorm_plain(x, scale, eps)
+    kops.wkv6 = wkv6_plain_op
     try:
         with attention.force_impl("torch"):
             yield
     finally:
-        kops.rmsnorm = kernel_rmsnorm
+        kops.rmsnorm, kops.wkv6 = kernel_rmsnorm, kernel_wkv6
 
 
 @torch.no_grad()
-def phase_serve_parity(cfg, model, engine, prompts) -> None:
-    params = engine.params
-    tokens = torch.from_numpy(prompts).to("cuda")
+def run_paths(model, params, tokens, paths) -> dict:
+    """For each path: the prefill's logits and cache, and the logits of one
+    decode step from a copy of the kernel path's cache."""
     B, T = tokens.shape
-
-    logits_k, cache = model.prefill(params, {"tokens": tokens}, zeros_cache(model, B, MAX_LEN, "cuda"))
-    with plain_path():
-        logits_p, cache_p = model.prefill(params, {"tokens": tokens}, zeros_cache(model, B, MAX_LEN, "cuda"))
-    nxt = logits_k.argmax(-1).to(torch.int32)
+    out = {}
+    for name, ctx in paths.items():
+        with ctx():
+            logits, cache = model.prefill(params, {"tokens": tokens}, zeros_cache(model, B, MAX_LEN, "cuda"))
+        out[name] = {"prefill": logits, "cache": cache}
+    nxt = out["kernel"]["prefill"].argmax(-1).to(torch.int32)
     pos = torch.full((B,), T, dtype=torch.int32, device="cuda")
-    # one decode step from the same cache (the kernel path's), a copy each
-    step_k, _ = model.decode_step(params, {n: x.clone() for n, x in cache.items()}, nxt, pos)
-    with plain_path():
-        step_p, _ = model.decode_step(params, {n: x.clone() for n, x in cache.items()}, nxt, pos)
+    for name, ctx in paths.items():
+        with ctx():
+            cache = {n: x.clone() for n, x in out["kernel"]["cache"].items()}
+            out[name]["decode_step"], _ = model.decode_step(params, cache, nxt, pos)
     torch.cuda.synchronize()
-
-    result = {"phase": "serve_parity", "tol": PARITY_TOL, "logit_abs_max": logits_k.abs().max().item()}
-    for name, a, b in (("prefill", logits_k, logits_p), ("decode_step", step_k, step_p)):
-        if a.shape != (B, cfg.vocab_size) or not torch.isfinite(a).all():
+    for name in ("prefill", "decode_step"):
+        a = out["kernel"][name]
+        if a.shape != (B, model.cfg.vocab_size) or not torch.isfinite(a).all():
             raise AssertionError(f"{name}: logits {tuple(a.shape)} not finite or misshapen")
-        diff = (a - b).abs().max().item()
-        result[f"{name}_max_abs_diff"] = diff
-        result[f"{name}_token_agreement"] = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
-        if diff > PARITY_TOL:
-            raise AssertionError(f"{name}: kernel path and plain path differ by {diff} > {PARITY_TOL}")
-    valid = cache["pos"] >= 0
-    if not torch.equal(cache["pos"], cache_p["pos"]) or int(valid.sum()) != cfg.num_layers * B * T:
+    return out
+
+
+def gaps(a: dict, b: dict) -> dict:
+    """How far two paths' outputs part: logits (absolute), wkv state (over its largest entry)."""
+    out = {f"{n}_max_abs_diff": (a[n] - b[n]).abs().max().item() for n in ("prefill", "decode_step")}
+    out.update({f"{n}_token_agreement": (a[n].argmax(-1) == b[n].argmax(-1)).float().mean().item()
+                for n in ("prefill", "decode_step")})
+    if "wkv" in a["cache"]:
+        S_a, S_b = a["cache"]["wkv"], b["cache"]["wkv"]
+        out["wkv_state_rel_diff"] = ((S_a - S_b).abs().max() / S_b.abs().max()).item()
+    return out
+
+
+PATHS = {"kernel": contextlib.nullcontext, "plain": plain_path}
+# the control: the plain path with another order of the recurrence's sums
+RWKV_PATHS = {**PATHS, "plain_chunk64": lambda: plain_path(wkv_chunk=64)}
+
+
+def phase_serve_parity(phase: str, cfg, model, params, prompts) -> None:
+    """GPT-A: the kernel path against the plain path in bf16, logits within PARITY_TOL."""
+    out = run_paths(model, params, torch.from_numpy(prompts).to("cuda"), PATHS)
+    k, p = out["kernel"], out["plain"]
+    result = {"phase": phase, "model": cfg.name, "tol": PARITY_TOL, "logit_abs_max": k["prefill"].abs().max().item(),
+              **gaps(k, p)}
+    for name in ("prefill", "decode_step"):
+        if result[f"{name}_max_abs_diff"] > PARITY_TOL:
+            raise AssertionError(f"{name}: kernel path and plain path differ by {result[f'{name}_max_abs_diff']} > {PARITY_TOL}")
+    valid = k["cache"]["pos"] >= 0
+    B, T = prompts.shape
+    if not torch.equal(k["cache"]["pos"], p["cache"]["pos"]) or int(valid.sum()) != cfg.num_layers * B * T:
         raise AssertionError("the two paths left different positions in the cache")
-    result["cache_k_max_abs_diff"] = (cache["k"].float() - cache_p["k"].float())[valid].abs().max().item()
+    result["cache_k_max_abs_diff"] = (k["cache"]["k"].float() - p["cache"]["k"].float())[valid].abs().max().item()
     emit(result)
 
 
+def rwkv_parity_f32(cfg, params32) -> dict:
+    """RWKV-6: the kernel path against the plain path with f32 activations, on
+    the f32 weights before they are cast; within RWKV_F32_TOL."""
+    model = build_model(dataclasses.replace(cfg, dtype=torch.float32))
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size, (4, 512))).to("cuda")
+    out = run_paths(model, model.cast_params(params32), tokens, RWKV_PATHS)  # cast_params shares f32 leaves
+    result = {"kernel": gaps(out["kernel"], out["plain"]), "control": gaps(out["plain_chunk64"], out["plain"]),
+              "logit_abs_max": out["kernel"]["prefill"].abs().max().item(), "tol": RWKV_F32_TOL}
+    g = result["kernel"]
+    for key, tol in (("prefill_max_abs_diff", RWKV_F32_TOL["logits"]), ("decode_step_max_abs_diff", RWKV_F32_TOL["logits"]),
+                     ("wkv_state_rel_diff", RWKV_F32_TOL["state_rel"])):
+        if not g[key] <= tol:
+            raise AssertionError(f"f32 {key}: kernel path and plain path part by {g[key]} > {tol}")
+    return result
+
+
+def phase_serve_rwkv_parity(phase: str, cfg, model, params, prompts, f32: dict) -> None:
+    """RWKV-6 in bf16: the kernel path may part from the plain path by at most
+    twice what the control parts by, plus RWKV_BF16_SLACK; ``f32`` holds the
+    f32 comparison made before the weights were cast."""
+    out = run_paths(model, params, torch.from_numpy(prompts).to("cuda"), RWKV_PATHS)
+    if not torch.isfinite(out["kernel"]["cache"]["wkv"]).all():
+        raise AssertionError("the kernel path's wkv state is not finite")
+    g, c = gaps(out["kernel"], out["plain"]), gaps(out["plain_chunk64"], out["plain"])
+    for key, slack in (("prefill_max_abs_diff", RWKV_BF16_SLACK["logits"]),
+                       ("decode_step_max_abs_diff", RWKV_BF16_SLACK["logits"]),
+                       ("wkv_state_rel_diff", RWKV_BF16_SLACK["state_rel"])):
+        if not g[key] <= 2 * c[key] + slack:
+            raise AssertionError(f"bf16 {key}: kernel path and plain path part by {g[key]}, the control by {c[key]}")
+    emit({"phase": phase, "model": cfg.name, "logit_abs_max": out["kernel"]["prefill"].abs().max().item(),
+          "bf16": {"kernel": g, "control": c, "rule": "kernel <= 2 x control + slack", "slack": RWKV_BF16_SLACK},
+          "f32": f32})
+
+
 # ---------------------------------------------------------------------------
+
+
+def serve_model(arch: str, phase: str) -> dict:
+    """Builds ``arch`` at full width from the seed, serves it and holds the
+    kernel path against the plain path; returns the serving path's counters.
+    Everything it made is released when it returns."""
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    params32 = model.init(gen)
+    f32 = rwkv_parity_f32(cfg, params32) if cfg.rwkv is not None else None
+    params = model.cast_params(params32)
+    del params32  # the f32 parameters are dropped once cast
+    served = phase_serve(phase, cfg, model, params)
+    if f32 is None:
+        phase_serve_parity(phase + "_parity", cfg, model, served["engine"].params, served["prompts"])
+    else:
+        phase_serve_rwkv_parity(phase + "_parity", cfg, model, served["engine"].params, served["prompts"], f32)
+    return served["counters"]
+
+
+def release() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -498,17 +713,16 @@ def main() -> int:
     smi = phase_env()
     phase_build()
     rows = phase_kernels()
+    release()
 
-    cfg = get_config("gpt_a")
-    model = build_model(cfg)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED)
-    params = model.cast_params(model.init(gen))  # the f32 parameters are dropped once cast
-    served = phase_serve(cfg, model, params)
-    phase_serve_parity(cfg, model, served["engine"], served["prompts"])
+    counts = {"gpt-a": serve_model("gpt_a", "serve")}
+    release()  # GPT-A's weights go before RWKV-6 7B's 30 GB of f32 parameters are made
+    counts["rwkv6-7b"] = serve_model("rwkv6_7b", "serve_rwkv")
+    release()
 
     for row in rows:
-        row["launches"] = served["counters"][row["name"]]
+        row["launches_by_path"] = {m: c[row["name"]] for m, c in counts.items() if c[row["name"]]}
+        row["launches"] = sum(row["launches_by_path"].values())
         if row["launches"] < 1:
             raise AssertionError(f"{row['name']}: the serving path never launched it")
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time goes when ``repro_torch`` serves GPT-A on the card.
+"""Where the time goes when ``repro_torch`` serves GPT-A or RWKV-6 7B on the card.
 
-    python3 experiments/torch_serve_profile.py [--layers 24] [--steps 8]
+    python3 experiments/torch_serve_profile.py [--arch gpt-a|rwkv6-7b] [--layers N] [--steps 8]
 
 Needs one NVIDIA Hopper card and ``nvcc``.  Serves one batch of 4 prompts of
 512 tokens at full width (random weights from a seed) and traces one prefill
@@ -57,7 +57,8 @@ def traced(fn, top: int = 8) -> dict:
 @torch.no_grad()
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--layers", type=int, default=24, help="depth to run (the width is always GPT-A's)")
+    ap.add_argument("--arch", default="gpt-a", help="gpt-a or rwkv6-7b, at its full width")
+    ap.add_argument("--layers", type=int, default=None, help="depth to run (default: the config's)")
     ap.add_argument("--steps", type=int, default=8, help="decode steps to trace")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -67,7 +68,8 @@ def main(argv=None) -> int:
                          check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"gpu": smi, "torch": torch.__version__}), flush=True)
 
-    cfg = dataclasses.replace(get_config("gpt_a"), num_layers=args.layers)
+    cfg = get_config(args.arch)
+    cfg = dataclasses.replace(cfg, num_layers=args.layers or cfg.num_layers)
     model = build_model(cfg)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -90,11 +92,11 @@ def main(argv=None) -> int:
 
     decode()  # warm-up
     out = traced(prefill)
-    print(json.dumps({"phase": "prefill", "batch": B, "prompt_tokens": T, "layers": cfg.num_layers, **out}), flush=True)
+    print(json.dumps({"phase": "prefill", "model": cfg.name, "batch": B, "prompt_tokens": T, "layers": cfg.num_layers, **out}), flush=True)
     out = traced(decode)
     for k in ("wall_ms", "device_busy_ms", "kernel_launches"):
         out[k + "_per_step"] = out.pop(k) / args.steps
-    print(json.dumps({"phase": "decode", "batch": B, "steps": args.steps, "layers": cfg.num_layers, **out}), flush=True)
+    print(json.dumps({"phase": "decode", "model": cfg.name, "batch": B, "steps": args.steps, "layers": cfg.num_layers, **out}), flush=True)
     return 0
 
 

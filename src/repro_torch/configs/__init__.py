@@ -1,6 +1,6 @@
-"""Architecture registry of the port: the paper's GPT-A / GPT-B testbed models
-and Minitron-4B.  The reference's other nine architectures come with their
-families (MoE, MLA, M-RoPE, encoder, Mamba2, hybrid, RWKV-6).
+"""Architecture registry of the port: the paper's GPT-A / GPT-B testbed models,
+Minitron-4B and RWKV-6 7B.  The reference's other eight architectures come with
+their families (MoE, MLA, M-RoPE, encoder, Mamba2, hybrid).
 
 ``get_config`` returns the full-size config; ``get_smoke_config`` the reduced
 same-family variant the CPU tests use.
@@ -12,7 +12,7 @@ from typing import List
 
 from repro_torch.models.modules import ModelConfig
 
-ARCHS: List[str] = ["minitron_4b", "gpt_a", "gpt_b"]
+ARCHS: List[str] = ["minitron_4b", "gpt_a", "gpt_b", "rwkv6_7b"]
 
 # CLI ids (``--arch <id>``) use dashes
 CLI_IDS = {a.replace("_", "-"): a for a in ARCHS}

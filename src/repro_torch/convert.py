@@ -15,28 +15,46 @@ import numpy as np
 import torch
 
 from repro_torch.models.modules import ModelConfig, Params
+from repro_torch.models.rwkv import F32_KEYS as RWKV_F32_KEYS
+from repro_torch.models.rwkv import LORA as RWKV_LORA
 from repro_torch.models.transformer import NORM_KEYS
 
 _SEP = "/"
 
 
+def _rwkv_layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    L, d, hd = cfg.num_layers, cfg.d_model, cfg.rwkv.head_dim
+    shapes = {f"layers/{m}": (L, d) for m in ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g", "w0", "ln_scale", "mu_ck")}
+    shapes.update({f"layers/{w}": (L, d, d) for w in ("wr", "wk", "wv", "wg", "wo", "cr")})
+    shapes.update({
+        "layers/w_lora_a": (L, d, RWKV_LORA),
+        "layers/w_lora_b": (L, RWKV_LORA, d),
+        "layers/u": (L, d // hd, hd),
+        "layers/ck": (L, d, cfg.d_ff),
+        "layers/cv": (L, cfg.d_ff, d),
+    })
+    return shapes
+
+
 def expected_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
-    """Path -> shape of every leaf of a dense decoder's state."""
+    """Path -> shape of every leaf of a dense decoder's or an RWKV-6 stack's state."""
     L, d, hd = cfg.num_layers, cfg.d_model, cfg.resolved_head_dim
-    shapes = {
-        "embed": (cfg.vocab_size, d),
-        "final_norm": (d,),
-        "layers/ln1": (L, d),
-        "layers/ln2": (L, d),
-        "layers/attn/wq": (L, d, cfg.num_heads * hd),
-        "layers/attn/wk": (L, d, cfg.num_kv_heads * hd),
-        "layers/attn/wv": (L, d, cfg.num_kv_heads * hd),
-        "layers/attn/wo": (L, cfg.num_heads * hd, d),
-        "layers/ffn/w_up": (L, d, cfg.d_ff),
-        "layers/ffn/w_down": (L, cfg.d_ff, d),
-    }
-    if cfg.ffn_activation == "swiglu":
-        shapes["layers/ffn/w_gate"] = (L, d, cfg.d_ff)
+    shapes = {"embed": (cfg.vocab_size, d), "final_norm": (d,)}
+    if cfg.rwkv is not None:
+        shapes.update(_rwkv_layer_shapes(cfg))
+    else:
+        shapes.update({
+            "layers/ln1": (L, d),
+            "layers/ln2": (L, d),
+            "layers/attn/wq": (L, d, cfg.num_heads * hd),
+            "layers/attn/wk": (L, d, cfg.num_kv_heads * hd),
+            "layers/attn/wv": (L, d, cfg.num_kv_heads * hd),
+            "layers/attn/wo": (L, cfg.num_heads * hd, d),
+            "layers/ffn/w_up": (L, d, cfg.d_ff),
+            "layers/ffn/w_down": (L, cfg.d_ff, d),
+        })
+        if cfg.ffn_activation == "swiglu":
+            shapes["layers/ffn/w_gate"] = (L, d, cfg.d_ff)
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, cfg.vocab_size)
     return shapes
@@ -67,10 +85,12 @@ def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
 
 def from_reference(params_numpy: Dict[str, Any], cfg: ModelConfig, device="cpu") -> Params:
     """The reference's tree (nested dict of numpy arrays) as the port's state on
-    ``device``: matrices in ``cfg.param_dtype``, norm scales in f32, as the
-    reference initialises them.  Raises on a missing, extra or misshapen leaf."""
+    ``device``: matrices in ``cfg.param_dtype``, norm scales (and RWKV's mix
+    coefficients, w0 and u) in f32, as the reference initialises them.  Raises
+    on a missing, extra or misshapen leaf."""
     flat = flatten(params_numpy)
     want = expected_shapes(cfg)
+    f32_keys = NORM_KEYS + (RWKV_F32_KEYS if cfg.rwkv is not None else ())
     if set(flat) != set(want):
         raise ValueError(f"parameter paths differ: missing {sorted(set(want) - set(flat))}, extra {sorted(set(flat) - set(want))}")
     out = {}
@@ -78,7 +98,7 @@ def from_reference(params_numpy: Dict[str, Any], cfg: ModelConfig, device="cpu")
         arr = np.asarray(leaf)
         if tuple(arr.shape) != want[path]:
             raise ValueError(f"{path}: shape {tuple(arr.shape)}, expected {want[path]}")
-        dtype = torch.float32 if path.split(_SEP)[-1] in NORM_KEYS else cfg.param_dtype
+        dtype = torch.float32 if path.split(_SEP)[-1] in f32_keys else cfg.param_dtype
         out[path] = torch.from_numpy(np.array(arr)).to(device=device, dtype=dtype)  # a copy: the state never aliases the caller's arrays
     return unflatten(out)
 

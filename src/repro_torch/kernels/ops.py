@@ -15,6 +15,7 @@ import torch
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rms
+from repro_torch.kernels import wkv6 as _wkv
 
 
 def flash_attention(
@@ -50,3 +51,25 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch
     if x.device.type == "cpu":
         return _rms.rmsnorm_plain(x, scale, eps)
     return _rms.rmsnorm_rows(x.reshape(-1, x.shape[-1]), scale, eps).reshape(x.shape)
+
+
+def wkv6(
+    r: torch.Tensor,  # (B, T, H, D)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    logw: torch.Tensor,  # (B, T, H, D) f32, <= 0
+    u: torch.Tensor,  # (H, D) f32
+    state: Optional[torch.Tensor] = None,  # (B, H, D, D) f32
+    *,
+    chunk: int = 64,
+) -> torch.Tensor:
+    """y (B, T, H, D) in r's dtype.  ``state``, where given, is read as the
+    initial state and overwritten with the final one; None starts from zeros.
+    ``chunk`` is the plain version's chunk length; the kernel runs the exact
+    sequential recurrence and takes any T."""
+    if r.device.type == "cpu":
+        y, S = _wkv.wkv6_plain(r, k, v, logw, u, state, chunk=chunk)
+        if state is not None:
+            state.copy_(S)
+        return y
+    return _wkv.wkv6_cuda(r, k, v, logw, u, state)

@@ -3,5 +3,12 @@
 from repro_torch.kernels.decode_attention import NEG_INF, decode_attention_plain as decode_attention_ref
 from repro_torch.kernels.flash_attention import flash_attention_plain as flash_attention_ref
 from repro_torch.kernels.rmsnorm import rmsnorm_plain as rmsnorm_ref
+from repro_torch.kernels.wkv6 import wkv6_plain
 
-__all__ = ["NEG_INF", "decode_attention_ref", "flash_attention_ref", "rmsnorm_ref"]
+
+def wkv6_ref(r, k, v, logw, u):
+    """y of the recurrence from a zero state, the reference's signature."""
+    return wkv6_plain(r, k, v, logw, u)[0]
+
+
+__all__ = ["NEG_INF", "decode_attention_ref", "flash_attention_ref", "rmsnorm_ref", "wkv6_ref"]

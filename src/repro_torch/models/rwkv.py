@@ -1,0 +1,128 @@
+"""RWKV-6 "Finch" block (``repro/models/rwkv.py``): token-shift time mix with
+data-dependent decay (arXiv:2404.05892) and the channel mix, pre-normed.
+
+Per head (dim D), with per-channel decay w_t in (0, 1):
+    S_t   = diag(w_t) S_{t-1} + k_tᵀ v_t
+    out_t = r_t · (S_{t-1} + diag(u) k_tᵀ v_t)
+
+The recurrence goes through ``kernels.ops.wkv6`` for every T, prefill and
+decode alike: the WKV kernel on the card, its plain chunked version on the CPU.
+The reference's one-token einsum branch is the same recurrence over a single
+step, and the kernel takes any T, so the prefill is not padded to a chunk.
+
+Parameters are layer-stacked (leading ``L`` axis) with the reference's keys;
+the state, where given, is updated in place.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models.modules import ModelConfig, Params, dense, dense_init, rmsnorm
+
+LORA = 64  # rank of the decay's data-dependent LoRA
+# leaves the reference makes f32 whatever cfg.param_dtype
+F32_KEYS = ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g", "mu_ck", "w0", "u", "ln_scale")
+
+
+def rwkv6_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int) -> Params:
+    """Layer-stacked block parameters, the reference's keys and shapes."""
+    L, d, hd = n_layers, cfg.d_model, cfg.rwkv.head_dim
+    H = d // hd
+    dev, pdt = gen.device, cfg.param_dtype
+
+    def full(shape, value):
+        return torch.full((L,) + shape, value, dtype=torch.float32, device=dev)
+
+    return {
+        "mu_r": full((d,), 0.5),
+        "mu_k": full((d,), 0.5),
+        "mu_v": full((d,), 0.5),
+        "mu_w": full((d,), 0.5),
+        "mu_g": full((d,), 0.5),
+        "wr": dense_init(gen, (L, d, d), pdt),
+        "wk": dense_init(gen, (L, d, d), pdt),
+        "wv": dense_init(gen, (L, d, d), pdt),
+        "wg": dense_init(gen, (L, d, d), pdt),
+        "wo": dense_init(gen, (L, d, d), pdt),
+        "w0": full((d,), -2.0),
+        "w_lora_a": dense_init(gen, (L, d, LORA), pdt),
+        "w_lora_b": dense_init(gen, (L, LORA, d), pdt, scale=0.1),
+        "u": full((H, hd), 0.0),
+        "ln_scale": full((d,), 1.0),
+        "mu_ck": full((d,), 0.5),
+        "ck": dense_init(gen, (L, d, cfg.d_ff), pdt),
+        "cv": dense_init(gen, (L, cfg.d_ff, d), pdt),
+        "cr": dense_init(gen, (L, d, d), pdt),
+    }
+
+
+def _token_shift(x: torch.Tensor, mu: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:
+    """lerp(x_{t-1}, x_t, mu) in x's dtype; prev (B, d) is the last token of
+    the previous segment (decode state), zeros at the start of a sequence."""
+    first = prev[:, None, :] if prev is not None else torch.zeros_like(x[:, :1])
+    xm1 = torch.cat([first, x[:, :-1]], dim=1)
+    mu = mu.to(x.dtype)
+    return x * mu + xm1 * (1.0 - mu)
+
+
+def rwkv6_apply(
+    params: Params, cfg: ModelConfig, x: torch.Tensor, state: Optional[Params] = None,
+) -> Tuple[torch.Tensor, Params]:
+    """One block (time mix + channel mix).  x (B, T, d).
+
+    state: {"wkv": (B,H,D,D) f32, "shift_t": (B,d), "shift_c": (B,d)}, read
+    and then overwritten in place with the state after x; None starts from
+    zeros.  Returns (out, the state after x)."""
+    B, T, d = x.shape
+    hd = cfg.rwkv.head_dim
+    H = d // hd
+
+    # ---- time mix ----
+    xn = rmsnorm(params["ln_scale"], x)
+    prev_t = state["shift_t"] if state is not None else None
+    xr = _token_shift(xn, params["mu_r"], prev_t)
+    xk = _token_shift(xn, params["mu_k"], prev_t)
+    xv = _token_shift(xn, params["mu_v"], prev_t)
+    xw = _token_shift(xn, params["mu_w"], prev_t)
+    xg = _token_shift(xn, params["mu_g"], prev_t)
+
+    r = dense(params["wr"], xr).reshape(B, T, H, hd)
+    k = dense(params["wk"], xk).reshape(B, T, H, hd)
+    v = dense(params["wv"], xv).reshape(B, T, H, hd)
+    g = F.silu(dense(params["wg"], xg))
+
+    lora = torch.tanh(dense(params["w_lora_a"], xw))
+    w_dd = dense(params["w_lora_b"], lora).float()
+    logw = (-torch.exp(params["w0"] + w_dd)).reshape(B, T, H, hd)  # f32, <= 0
+
+    if state is None:
+        state = {"wkv": torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device),
+                 "shift_t": torch.zeros((B, d), dtype=x.dtype, device=x.device),
+                 "shift_c": torch.zeros((B, d), dtype=x.dtype, device=x.device)}
+    y = kops.wkv6(r, k, v, logw, params["u"], state["wkv"], chunk=cfg.rwkv.chunk)
+    state["shift_t"].copy_(xn[:, -1])
+
+    y = y.reshape(B, T, d).to(x.dtype) * g.to(x.dtype)
+    x = x + dense(params["wo"], y)
+
+    # ---- channel mix ----
+    xn2 = rmsnorm(params["ln_scale"], x)  # the reference shares the scale
+    xk2 = _token_shift(xn2, params["mu_ck"], state["shift_c"])
+    state["shift_c"].copy_(xn2[:, -1])
+    h = torch.square(torch.relu(dense(params["ck"], xk2)))
+    cm = dense(params["cv"], h) * torch.sigmoid(dense(params["cr"], xk2))
+    return x + cm, state
+
+
+def rwkv6_state_shape(cfg: ModelConfig, batch: int):
+    d, hd = cfg.d_model, cfg.rwkv.head_dim
+    H = d // hd
+    return {
+        "wkv": ((batch, H, hd, hd), torch.float32),
+        "shift_t": ((batch, d), cfg.dtype),
+        "shift_c": ((batch, d), cfg.dtype),
+    }

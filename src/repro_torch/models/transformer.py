@@ -1,6 +1,8 @@
-"""The dense decoder's serving half (``repro/models/transformer.py::
-_build_transformer``): ``Model`` with ``init``, ``prefill``, ``decode_step``
-and ``cache_shape``.
+"""The serving half of ``repro/models/transformer.py``: the dense decoder
+(``_build_transformer``) as ``Model`` and the RWKV-6 stack (``_build_rwkv``) as
+``RWKVModel``, each with ``init``, ``cast_params``, ``prefill``,
+``decode_step`` and ``cache_shape``; ``build_model`` dispatches as the
+reference's does.
 
 Parameters are layer-stacked (leading ``L`` axis) as in the reference; the
 reference's ``lax.scan`` over the stack is a Python loop over ``L`` here.
@@ -13,6 +15,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.modules import (
     ModelConfig,
     Params,
@@ -54,6 +57,18 @@ def _head_weight(params: Params, cfg: ModelConfig) -> torch.Tensor:
     return params["lm_head"]
 
 
+def _cast_tree(params: Params, dtype: torch.dtype, keep: Tuple[str, ...]) -> Params:
+    """Every leaf but those under a key in ``keep`` in ``dtype``; a leaf that
+    already has its dtype is shared, not copied."""
+
+    def walk(tree, key=None):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        return tree if key in keep else tree.to(dtype)
+
+    return walk(params)
+
+
 def _default_positions(shape, device) -> torch.Tensor:
     B, T = shape
     return torch.arange(T, dtype=torch.int32, device=device)[None].expand(B, T)
@@ -92,13 +107,7 @@ class Model:
         (``dense`` casts its weight to the activation dtype before the product,
         so casting once beforehand gives the same bits), the norm scales as they
         are.  A leaf that already has its dtype is shared, not copied."""
-
-        def walk(tree, key=None):
-            if isinstance(tree, dict):
-                return {k: walk(v, k) for k, v in tree.items()}
-            return tree if key in NORM_KEYS else tree.to(self.cfg.dtype)
-
-        return walk(params)
+        return _cast_tree(params, self.cfg.dtype, NORM_KEYS)
 
     def _backbone(self, params: Params, x, positions, cache):
         """Loop over the blocks. cache None or a stacked (L, ...) tree, updated in place."""
@@ -134,5 +143,63 @@ class Model:
         return {k: ((self.cfg.num_layers,) + s, d) for k, (s, d) in per.items()}
 
 
-def build_model(cfg: ModelConfig) -> Model:
+class RWKVModel:
+    """The RWKV-6 stack (``repro/models/transformer.py::_build_rwkv``): the same
+    serving methods as ``Model``, over a recurrent state instead of a KV ring."""
+
+    # f32 in the computing copy: RMSNorm takes an f32 scale, and the reference
+    # adds w0 to an f32 term and casts u to f32.  The mu_* are cast: the
+    # reference casts them to the activation dtype on every use.
+    KEEP_F32 = ("ln_scale", "final_norm", "w0", "u")
+
+    def __init__(self, cfg: ModelConfig):
+        if cfg.rwkv is None:
+            raise ValueError(f"{cfg.name}: not an RWKV config")
+        self.cfg = cfg
+
+    def init(self, gen: torch.Generator) -> Params:
+        """Random parameters in ``cfg.param_dtype`` (the reference's f32 leaves f32)."""
+        cfg = self.cfg
+        p: Params = {
+            "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), cfg.param_dtype),
+            "final_norm": rmsnorm_init((cfg.d_model,), gen.device),
+            "layers": rwkv_lib.rwkv6_init(gen, cfg, cfg.num_layers),
+        }
+        if not cfg.tie_embeddings:
+            p["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size), cfg.param_dtype)
+        return p
+
+    def cast_params(self, params: Params) -> Params:
+        """Every leaf but ``KEEP_F32`` in ``cfg.dtype``; a leaf that already has
+        its dtype is shared, not copied."""
+        return _cast_tree(params, self.cfg.dtype, self.KEEP_F32)
+
+    def _backbone(self, params: Params, x, cache):
+        for i in range(self.cfg.num_layers):
+            lc = None if cache is None else _layer(cache, i)
+            x, _ = rwkv_lib.rwkv6_apply(_layer(params["layers"], i), self.cfg, x, lc)
+        return rmsnorm(params["final_norm"], x), cache
+
+    def prefill(self, params: Params, batch: Dict[str, torch.Tensor], cache) -> Tuple[torch.Tensor, Any]:
+        """batch {"tokens" (B,T) int32}; positions, where given, are not read.
+        Returns (last-token logits f32 (B,V), cache); the cache is updated in place."""
+        x = _embed_tokens(params, self.cfg, batch["tokens"])
+        x, cache = self._backbone(params, x, cache)
+        return dense(_head_weight(params, self.cfg), x[:, -1]).float(), cache
+
+    def decode_step(self, params: Params, cache, tokens: torch.Tensor, pos: torch.Tensor):
+        """tokens (B,) int32; pos is not read (the state carries the history)."""
+        x = _embed_tokens(params, self.cfg, tokens[:, None])
+        x, cache = self._backbone(params, x, cache)
+        return dense(_head_weight(params, self.cfg), x[:, 0]).float(), cache
+
+    def cache_shape(self, batch: int, max_len: int):
+        """{name: (shape, dtype)} of the layer-stacked state; no slot ring."""
+        per = rwkv_lib.rwkv6_state_shape(self.cfg, batch)
+        return {k: ((self.cfg.num_layers,) + s, d) for k, (s, d) in per.items()}
+
+
+def build_model(cfg: ModelConfig):
+    if cfg.rwkv is not None:
+        return RWKVModel(cfg)
     return Model(cfg)

@@ -44,12 +44,12 @@ def test_package_has_every_serving_module():
     have = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES[:-1]}
     want = {"__init__.py", "device.py", "convert.py", "models/modules.py", "models/attention.py",
             "models/transformer.py", "configs/__init__.py", "configs/gpt_a.py", "configs/gpt_b.py",
-            "configs/minitron_4b.py", "kernels/build.py", "kernels/ops.py", "kernels/ref.py",
-            "kernels/rmsnorm.py", "kernels/flash_attention.py", "kernels/decode_attention.py",
-            "serving/engine.py", "launch/serve.py"}
+            "configs/minitron_4b.py", "configs/rwkv6_7b.py", "kernels/build.py", "kernels/ops.py",
+            "kernels/ref.py", "kernels/rmsnorm.py", "kernels/flash_attention.py", "kernels/decode_attention.py",
+            "kernels/wkv6.py", "models/rwkv.py", "serving/engine.py", "launch/serve.py"}
     assert want <= have
     csrc = {p.name for p in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").iterdir()}
-    assert {"rmsnorm.cu", "flash_attention.cu", "decode_attention.cu"} <= csrc
+    assert {"rmsnorm.cu", "flash_attention.cu", "decode_attention.cu", "wkv6.cu"} <= csrc
 
 
 _BLOCKED = """
@@ -60,6 +60,7 @@ class Block:
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 import repro_torch.serving.engine, repro_torch.launch.serve, repro_torch.convert, repro_torch.kernels.ref
+import repro_torch.models.rwkv
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro") for m in sys.modules)
 print("imported")
 """
@@ -104,7 +105,8 @@ def test_chip_smoke_fails_without_a_card_and_prints_no_result():
     assert '"ok"' not in r.stdout and r.stdout.strip() == ""
 
 
-@pytest.mark.parametrize("extra", [[], ["--splitwise"], ["--arch", "minitron-4b"]])
+@pytest.mark.parametrize("extra", [[], ["--splitwise"], ["--arch", "minitron-4b"], ["--arch", "rwkv6-7b"],
+                                   ["--arch", "rwkv6-7b", "--splitwise"]])
 def test_serve_cli_runs_on_the_cpu(extra, capsys):
     from repro_torch.launch import serve
 
@@ -124,4 +126,4 @@ def test_build_refuses_where_there_is_no_nvcc(monkeypatch):
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     with pytest.raises(RuntimeError, match="nvcc"):
         build.find_nvcc()
-    assert {"rmsnorm_launch", "flash_attention_launch", "decode_attention_launch"} == set(build.SIGNATURES)
+    assert {"rmsnorm_launch", "flash_attention_launch", "decode_attention_launch", "wkv6_launch"} == set(build.SIGNATURES)

@@ -14,7 +14,7 @@ from repro_torch import configs
 from repro_torch.models import attention, modules
 from torch_helpers import as_f32, to_jax, to_torch, tol
 
-ARCHS = ["gpt_a", "gpt_b", "minitron_4b"]
+ARCHS = ["gpt_a", "gpt_b", "minitron_4b", "rwkv6_7b"]
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -23,6 +23,8 @@ def _same_config(cfg, ref_cfg):
         want, got = getattr(ref_cfg, f.name), getattr(cfg, f.name)
         if f.name in ("dtype", "param_dtype"):
             assert got == _DTYPES[jnp.dtype(want).name], f.name
+        elif dataclasses.is_dataclass(want):  # the sub-configs are the port's own classes
+            assert type(got).__name__ == type(want).__name__ and dataclasses.asdict(got) == dataclasses.asdict(want), f.name
         else:
             assert got == want, f.name
     assert {f.name for f in dataclasses.fields(cfg)} == {f.name for f in dataclasses.fields(ref_cfg)}
@@ -59,8 +61,9 @@ def test_param_count_mirrors_reference_for_every_family():
 def test_canon_and_cli_ids():
     assert configs.canon("gpt-a") == "gpt_a" and configs.canon(" minitron-4b ") == "minitron_4b"
     assert configs.get_config("gpt-b").name == "gpt-b"
+    assert configs.canon("rwkv6-7b") == "rwkv6_7b" and configs.get_config("rwkv6-7b").name == "rwkv6-7b"
     with pytest.raises(KeyError):
-        configs.canon("rwkv6-7b")  # comes with its family
+        configs.canon("zamba2-2p7b")  # comes with its family
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
