@@ -133,7 +133,9 @@ def ptxas_summary(log: str) -> dict:
         if "Compiling entry function" in ln:
             m = re.search(r"(?<=\d)([a-z_]+\d*_kernel)I(.+?)EEv", ln)
             d = re.search(r"Li(\d+)", m.group(2)) if m else None
-            dtype = "bf16" if m and "bfloat16" in m.group(2) else "f32"
+            # the element type: a template argument, or the parameters where the template takes only sizes
+            typed = "" if not m else ln[m.end():] if m.group(2).startswith("L") else m.group(2)
+            dtype = "bf16" if "bfloat16" in typed else "f32"
             fn = f"{m.group(1)}<{dtype}{',' + d.group(1) if d else ''}>" if m else ln.split("'")[1]
         elif "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln:
             out[fn] = ln.split(":", 1)[-1].strip()
@@ -195,10 +197,13 @@ def check_rmsnorm(ck: Checker, gen) -> None:
 
 
 def check_flash(ck: Checker, gen) -> None:
-    # (B, T, S, Hq, Hkv, D)
+    # (B, T, S, Hq, Hkv, D); the last three hit the tensor-core kernel's edges:
+    # exactly one tile, fewer rows than a warp's 16, many tiles with a ragged
+    # last one and a group of 4
     shapes = [(2, 128, 128, 4, 4, 64), (2, 128, 128, 8, 2, 64), (2, 128, 128, 6, 1, 32),
               (2, 300, 300, 4, 2, 64), (1, 70, 300, 4, 2, 128), (1, 300, 70, 6, 3, 32),
-              (4, 512, 512, 32, 32, 128), (1, 300, 300, 32, 32, 128)]
+              (4, 512, 512, 32, 32, 128), (1, 300, 300, 32, 32, 128),
+              (2, 64, 64, 8, 8, 128), (2, 17, 17, 8, 8, 128), (1, 1000, 1000, 4, 1, 128)]
     for dtype in TOL:
         for B, T, S, Hq, Hkv, D in shapes:
             for causal in (True, False):
@@ -338,23 +343,30 @@ def measure_kernels(gen) -> dict:
         "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations",
     }
 
-    # K2: one layer's causal prefill, 4 prompts of 512 tokens, 32 heads of 128
-    B, T, H, D = 4, 512, 32, 128
-    sets = [tuple(randn(gen, (B, T, H, D), dt) for _ in range(3)) for _ in range(2)]
-    nbytes = 4 * B * T * H * D * 2
-    flops = 4 * B * H * D * (T * (T + 1) // 2)
-    out["flash_attention"] = {
-        "shape": f"q,k,v ({B},{T},{H},{D}) bf16 causal",
-        "ms": time_ms(lambda q, k, v: kops.flash_attention(q, k, v, causal=True), sets, iters=5),
-        "plain_ms": time_ms(lambda q, k, v: fa_mod.flash_attention_plain(q, k, v, causal=True), sets, iters=5),
-        "library_ms": time_ms(
-            lambda q, k, v: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True).transpose(1, 2),
-            sets, iters=5),
-        "bytes": nbytes, "flops": flops,
-        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
-        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
-    }
+    # K2: one layer's causal prefill, 4 prompts of 512 tokens, 32 heads of 128;
+    # and ("long_") one prompt at GPT-A's context of 4096 tokens
+    H, D = 32, 128
+    for label, B, T in (("", 4, 512), ("long_", 1, 4096)):
+        sets = [tuple(randn(gen, (B, T, H, D), dt) for _ in range(3)) for _ in range(2)]
+        nbytes = 4 * B * T * H * D * 2
+        flops = 4 * B * H * D * (T * (T + 1) // 2)
+        row = {
+            "shape": f"q,k,v ({B},{T},{H},{D}) bf16 causal",
+            "ms": time_ms(lambda q, k, v: kops.flash_attention(q, k, v, causal=True), sets, iters=5),
+            "plain_ms": time_ms(lambda q, k, v: fa_mod.flash_attention_plain(q, k, v, causal=True), sets, iters=5),
+            "library_ms": time_ms(
+                lambda q, k, v: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True).transpose(1, 2),
+                sets, iters=5),
+            "bytes": nbytes, "flops": flops,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
+            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "operations_ms": flops / BF16_FLOPS * 1e3,
+        }
+        if label:
+            out["flash_attention"].update({label + key: val for key, val in row.items()})
+        else:
+            out["flash_attention"] = row
 
     # K3: one layer's decode step, 4 sequences 520 tokens into a ring of 1024
     B, S, H, D, filled = 4, MAX_LEN, 32, 128, 520

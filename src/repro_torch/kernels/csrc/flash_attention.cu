@@ -1,25 +1,49 @@
 // Blocked attention forward with an online softmax (prefill, T > 1).
 //
-// Replaces the TPU kernel repro/kernels/flash_attention.py::_flash_kernel,
-// whose grid (batch*heads, q blocks, kv blocks) walks the kv axis innermost
-// and carries m, l and the accumulator in VMEM from one grid step to the next.
-// Blocks of a CUDA grid run in no order, so here the kv axis is a loop inside
-// the block: one block owns 64 query rows of one (batch, head) and keeps m, l
-// and its share of the 64 x D accumulator in registers.  Q (scaled in f32
-// before the product, as the reference does), the K tile and the V tile sit in
-// shared memory as f32; the 64 x 64 probabilities reuse the K tile's room, so
-// two blocks fit on an SM.  Each thread computes a 4 x 4 patch of the scores
-// and 4 x D/16 of the output.  The work is bound by operations (4*T*S*D a
-// head, half when causal); this first version multiplies on the CUDA cores in
-// f32, for f32 and bf16 inputs alike, and leaves the tensor cores to a later
-// change.  It reads (B, T, H, D) through strides, masks its own ragged edge in
-// T and S, and when causal stops at the diagonal tile.
+// Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention_bhsd
+// (body _flash_kernel), whose grid (batch*heads, q blocks, kv blocks) walks the
+// kv axis innermost and carries m, l and the accumulator in VMEM from one grid
+// step to the next.  Blocks of a CUDA grid run in no order, so here the kv axis
+// is a loop inside the block: one block owns 64 query rows of one (batch, head)
+// and keeps m, l and the 64 x D accumulator in registers.  Both kernels below
+// read (B, T, H, D) through strides, mask their own ragged edge in T and S
+// (keys past S weigh exactly 0; keys the causal mask hides get the reference's
+// finite -2^30), stop at the diagonal tile when causal, and start the blocks
+// with the longest causal rows first.  The work is 4*T*S*D operations a head
+// (half when causal) on q, k, v read once and o written once: in bf16 on the
+// tensor cores the operations bind from about 1200 causal tokens on and the
+// bytes below that (GPT-A's 512-token prompts); in f32 on the CUDA cores the
+// operations bind from about 160.  The dtype picks the kernel:
+//
+// - bf16, flash_mma_kernel<D>: the tensor cores, in the FlashAttention-2 form.
+//   Four warps own 16 query rows each.  Q, and K and V in two stages, sit in
+//   shared memory as bf16, rows padded by 16 bytes so that ldmatrix reads eight
+//   rows without a bank conflict; cp.async fetches tile kt+1 (zero-filled past
+//   S) while the warps compute on tile kt.  S = Q K^T and O += P V are
+//   mma.sync m16n8k16 bf16 products with f32 sums; Q's fragments stay in
+//   registers for the whole loop.  The scale multiplies the f32 scores after
+//   the product, the online softmax runs on the accumulator fragments (a row
+//   lives in a quad of four threads), and P is rounded to bf16 in registers,
+//   where the m16n8 accumulator layout of two neighbouring key tiles is the
+//   m16k16 A layout, so P never passes through shared memory.  That rounding is
+//   the one the f32 path does not make.
+// - f32, flash_kernel<D>: the CUDA cores, which it keeps to hold the plain
+//   version to 2e-5 (TF32 on the tensor cores keeps about three digits).  Q
+//   (scaled in f32 before the product, as the reference does), K and V tiles
+//   sit in shared memory as f32 and the 64 x 64 probabilities reuse the K
+//   tile's room, so two blocks fit on an SM; each thread computes a 4 x 4 patch
+//   of the scores and 4 x D/16 of the output.
 #include "common.cuh"
 
 namespace {
 
-constexpr int BM = 64;   // query rows a block
-constexpr int BN = 64;   // keys a tile
+constexpr int BM = 64;  // query rows a block
+constexpr int BN = 64;  // keys a tile
+
+// ---------------------------------------------------------------------------
+// f32: the CUDA cores
+// ---------------------------------------------------------------------------
+
 constexpr int NT = 256;  // threads: 16 x 16, thread (ty, tx) owns rows ty*4+i, columns tx+16*j
 constexpr int LDP = BN + 4;
 
@@ -42,10 +66,10 @@ __device__ inline float half_warp_sum(float v) {
   return v;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT, 2)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, int Tq, int S, int Hq, int group, float scale, int causal,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+             float* __restrict__ o, int Tq, int S, int Hq, int group, float scale, int causal,
              int64_t qsb, int64_t qst, int64_t qsh, int64_t ksb, int64_t kst, int64_t ksh,
              int64_t vsb, int64_t vst, int64_t vsh) {
   using L = Layout<D>;
@@ -67,8 +91,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int kvh = h / group;
   const int q0 = qi * BM;
 
-  load_tile_f32<T, D, LDQ>(sQ, q + b * qsb + (int64_t)q0 * qst + h * qsh, qst, BM, Tq - q0, scale,
-                           tid, NT);
+  load_tile_f32<float, D, LDQ>(sQ, q + b * qsb + (int64_t)q0 * qst + h * qsh, qst, BM, Tq - q0,
+                               scale, tid, NT);
 
   float m[4], l[4], acc[4][DC];
 #pragma unroll
@@ -84,10 +108,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
   for (int kt = 0; kt < nkv; ++kt) {
     const int k0 = kt * BN;
-    load_tile_f32<T, D, LDQ>(sK, k + b * ksb + (int64_t)k0 * kst + kvh * ksh, kst, BN, S - k0, 1.0f,
-                             tid, NT);
-    load_tile_f32<T, D, D>(sV, v + b * vsb + (int64_t)k0 * vst + kvh * vsh, vst, BN, S - k0, 1.0f,
-                           tid, NT);
+    load_tile_f32<float, D, LDQ>(sK, k + b * ksb + (int64_t)k0 * kst + kvh * ksh, kst, BN, S - k0,
+                                 1.0f, tid, NT);
+    load_tile_f32<float, D, D>(sV, v + b * vsb + (int64_t)k0 * vst + kvh * vsh, vst, BN, S - k0,
+                               1.0f, tid, NT);
     __syncthreads();
 
     float s[4][4];
@@ -189,20 +213,292 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     for (int c = 0; c < DC; ++c) sQ[(ty * 4 + i) * LDQ + tx + 16 * c] = acc[i][c] * inv;
   }
   __syncthreads();
-  constexpr int V = Vec16<T>::N;
-  constexpr int CPR = D / V;
-  T* ob = o + ((int64_t)b * Tq * Hq + h) * D;
+  constexpr int CPR = D / 4;
+  float* ob = o + ((int64_t)b * Tq * Hq + h) * D;
   for (int c = tid; c < BM * CPR; c += NT) {
     const int r = c / CPR;
-    const int col = (c % CPR) * V;
-    if (q0 + r < Tq) {
-      float buf[V];
-#pragma unroll
-      for (int i = 0; i < V; ++i) buf[i] = sQ[r * LDQ + col + i];
-      Vec16<T>::store(ob + (int64_t)(q0 + r) * Hq * D + col, buf);
-    }
+    const int col = (c % CPR) * 4;
+    if (q0 + r < Tq) Vec16<float>::store(ob + (int64_t)(q0 + r) * Hq * D + col, sQ + r * LDQ + col);
   }
 }
+
+// ---------------------------------------------------------------------------
+// bf16: the tensor cores, through mma.sync
+// ---------------------------------------------------------------------------
+
+constexpr int MMA_NT = 128;  // four warps, 16 query rows each
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct MmaLayout {
+  static constexpr int LD = D + 8;  // bf16 a row: 16 bytes of padding, ldmatrix without conflicts
+  static constexpr int TILE = BN * LD;  // BM == BN
+  static constexpr int BYTES = 5 * TILE * 2;  // Q, then K and V in two stages each
+};
+
+__device__ inline uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, without passing through registers;
+// with `valid` false nothing is read and the 16 bytes become zeros.
+__device__ inline void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,
+// and register i of lane l gets row l/4, columns 2(l%4) and 2(l%4)+1 of it
+// (with .trans: of its transpose).
+__device__ inline void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ inline void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16, column-major).
+// Lane l = 4g + t holds c at rows g and g+8, columns 2t and 2t+1.
+__device__ inline void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ inline uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// BM rows of D bf16 (row r at src + r*stride) into shared memory with row
+// stride LD, 16 bytes a thread a chunk; rows at or past `valid` become zeros.
+template <int D, int LD>
+__device__ inline void cp_async_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                     int64_t stride, int valid, int tid) {
+  constexpr int CPR = D / 8;  // chunks a row
+#pragma unroll
+  for (int i = 0; i < BM * CPR / MMA_NT; ++i) {
+    const int c = tid + i * MMA_NT;
+    const int r = c / CPR;
+    const int col = (c % CPR) * 8;
+    const bool ok = r < valid;
+    cp_async16(smem_addr(dst + r * LD + col), src + (ok ? (int64_t)r * stride + col : 0), ok);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_NT, 2)
+flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Tq, int S,
+                 int Hq, int group, float scale, int causal, int64_t qsb, int64_t qst,
+                 int64_t qsh, int64_t ksb, int64_t kst, int64_t ksh, int64_t vsb, int64_t vst,
+                 int64_t vsh) {
+  using L = MmaLayout<D>;
+  constexpr int LD = L::LD;
+  constexpr int KD = D / 16;  // k-steps of Q K^T
+  constexpr int NS = BN / 8;  // 8-key column tiles of S
+  constexpr int NO = D / 8;   // 8-wide column tiles of O
+  extern __shared__ uint4 smem_mma[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_mma);
+  __nv_bfloat16* sK = sQ + L::TILE;      // two stages
+  __nv_bfloat16* sV = sK + 2 * L::TILE;  // two stages
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;  // the lane's rows in the warp's 16: g and g + 8
+  const int t = lane & 3;   // its columns in an 8-wide tile: 2t and 2t + 1
+  const int qi = gridDim.x - 1 - blockIdx.x;  // the longest rows of a causal head first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / group;
+  const int q0 = qi * BM;
+  const __nv_bfloat16* kb = k + b * ksb + kvh * ksh;
+  const __nv_bfloat16* vb = v + b * vsb + kvh * vsh;
+
+  int nkv = (S + BN - 1) / BN;
+  if (causal && qi + 1 < nkv) nkv = qi + 1;  // BM == BN: the diagonal tile is tile qi
+
+  auto load_kv = [&](int kt, int stage) {
+    const int k0 = kt * BN;
+    cp_async_tile<D, LD>(sK + stage * L::TILE, kb + (int64_t)k0 * kst, kst, S - k0, tid);
+    cp_async_tile<D, LD>(sV + stage * L::TILE, vb + (int64_t)k0 * vst, vst, S - k0, tid);
+  };
+
+  cp_async_tile<D, LD>(sQ, q + b * qsb + (int64_t)q0 * qst + h * qsh, qst, Tq - q0, tid);
+  cp_async_commit();
+  load_kv(0, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q has landed
+  __syncthreads();
+
+  // the warp's 16 rows of Q as A fragments, for the whole loop
+  uint32_t qf[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+    ldmatrix_x4(qf[kk], smem_addr(sQ + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8));
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  // m in the log2 domain; l is this thread's share of its row's sum until the end
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+  const float scale_log2 = scale * LOG2E;
+  const int row0 = q0 + warp * 16 + g;
+
+  for (int kt = 0; kt < nkv; ++kt) {
+    const int stage = kt & 1;
+    if (kt + 1 < nkv) load_kv(kt + 1, stage ^ 1);
+    cp_async_commit();   // an empty group on the last tile keeps the count
+    cp_async_wait<1>();  // tile kt has landed
+    __syncthreads();
+    const __nv_bfloat16* cK = sK + stage * L::TILE;
+    const __nv_bfloat16* cV = sV + stage * L::TILE;
+
+    // S = Q K^T: an x4 ldmatrix of K gives the B fragments of two key tiles
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int j = 0; j < NS; j += 2) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, smem_addr(cK + (j * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
+                                  ((lane >> 3) & 1) * 8));
+        mma_bf16(s[j], qf[kk], kf[0], kf[1]);
+        mma_bf16(s[j + 1], qf[kk], kf[2], kf[3]);
+      }
+    }
+
+    // Scale the f32 scores; mask only the diagonal tile and the ragged last
+    // one.  A key past S is no key (-inf, weight exactly 0); a key the causal
+    // mask hides keeps the reference's finite NEG_INF.
+    const int k0 = kt * BN;
+    const bool edge = k0 + BN > S || (causal && kt == qi);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (edge) {
+          const int col = k0 + j * 8 + 2 * t + (e & 1);
+          if (col >= S) {
+            x = -INFINITY;
+          } else if (causal && col > row0 + (e >> 1) * 8) {
+            x = NEG_INF;
+          }
+        }
+        s[j][e] = x;
+      }
+
+    // online softmax: a row lives in the quad of lanes 4g..4g+3
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    float alpha[2], rs[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - m[e >> 1]);
+        rs[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // O += P V: P's accumulators of key tiles 2kk and 2kk+1, rounded to bf16,
+    // are the A fragment of k-step kk; an x4 ldmatrix.trans of V gives the B
+    // fragments of two 8-wide column tiles of O
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, smem_addr(cV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                        n * 8 + (lane >> 4) * 8));
+        mma_bf16(acc[n], pa, vf[0], vf[1]);
+        mma_bf16(acc[n + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();  // before the next iteration's loads overwrite this stage
+  }
+
+  // The quad's shares make the row's sum; every row has seen at least one key
+  // at its running maximum, so l >= 1.  Each warp stages its 16 rows in Q's
+  // room, then the block stores 16 bytes a thread.
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.0f / l[r];
+  }
+  const int rw = warp * 16 + g;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    *reinterpret_cast<__nv_bfloat162*>(sQ + rw * LD + n * 8 + 2 * t) =
+        __floats2bfloat162_rn(acc[n][0] * inv[0], acc[n][1] * inv[0]);
+    *reinterpret_cast<__nv_bfloat162*>(sQ + (rw + 8) * LD + n * 8 + 2 * t) =
+        __floats2bfloat162_rn(acc[n][2] * inv[1], acc[n][3] * inv[1]);
+  }
+  __syncthreads();
+  constexpr int CPR = D / 8;
+  __nv_bfloat16* ob = o + ((int64_t)b * Tq * Hq + h) * D;
+#pragma unroll
+  for (int i = 0; i < BM * CPR / MMA_NT; ++i) {
+    const int c = tid + i * MMA_NT;
+    const int r = c / CPR;
+    const int col = (c % CPR) * 8;
+    if (q0 + r < Tq)
+      *reinterpret_cast<uint4*>(ob + (int64_t)(q0 + r) * Hq * D + col) =
+          *reinterpret_cast<const uint4*>(sQ + r * LD + col);
+  }
+}
+
+// ---------------------------------------------------------------------------
 
 struct Args {
   const void *q, *k, *v;
@@ -214,42 +510,43 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
-int launch(const Args& a) {
-  constexpr int smem = Layout<D>::FLOATS * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(flash_kernel<T, D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <typename T, typename Kernel>
+int launch_kernel(Kernel kernel, int threads, int smem, const Args& a) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((a.Tq + BM - 1) / BM, a.Hq, a.B);
-  flash_kernel<T, D><<<grid, NT, smem, a.stream>>>(
+  kernel<<<grid, threads, smem, a.stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.o, a.Tq, a.S, a.Hq, a.Hq / a.Hkv, a.scale,
       a.causal, a.qs[0], a.qs[1], a.qs[2], a.ks[0], a.ks[1], a.ks[2], a.vs[0], a.vs[1], a.vs[2]);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(const Args& a, int D) {
-  if (D == 32) return launch<T, 32>(a);
-  if (D == 64) return launch<T, 64>(a);
-  if (D == 128) return launch<T, 128>(a);
-  return -2;
+template <int D>
+int launch(const Args& a, int dtype) {
+  if (dtype == DT_BF16)
+    return launch_kernel<__nv_bfloat16>(flash_mma_kernel<D>, MMA_NT, MmaLayout<D>::BYTES, a);
+  return launch_kernel<float>(flash_kernel<D>, NT, Layout<D>::FLOATS * (int)sizeof(float), a);
 }
 
 }  // namespace
 
 // q (B, T, Hq, D), k and v (B, S, Hkv, D) with element strides (batch, time,
 // head) and a unit stride along D; o (B, T, Hq, D) contiguous.  Every row of
-// q, k and v must start on a 16-byte boundary.  Returns cudaGetLastError() of
-// the launch, -1 for a bad dtype, -2 for a head size without a template.
+// q, k and v must start on a 16-byte boundary.  bf16 runs flash_mma_kernel on
+// the tensor cores, f32 flash_kernel on the CUDA cores.  Returns
+// cudaGetLastError() of the launch, -1 for a bad dtype, -2 for a head size
+// without a template.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B,
                                       int Tq, int S, int Hq, int Hkv, int D, float scale,
                                       int causal, int dtype, int64_t qsb, int64_t qst, int64_t qsh,
                                       int64_t ksb, int64_t kst, int64_t ksh, int64_t vsb,
                                       int64_t vst, int64_t vsh, void* stream) {
   if (B == 0 || Tq == 0) return 0;
+  if (dtype != DT_F32 && dtype != DT_BF16) return -1;
   const Args a{q, k, v, o, B, Tq, S, Hq, Hkv, scale, causal,
                {qsb, qst, qsh}, {ksb, kst, ksh}, {vsb, vst, vsh}, (cudaStream_t)stream};
-  if (dtype == DT_F32) return launch_d<float>(a, D);
-  if (dtype == DT_BF16) return launch_d<__nv_bfloat16>(a, D);
-  return -1;
+  if (D == 32) return launch<32>(a, dtype);
+  if (D == 64) return launch<64>(a, dtype);
+  if (D == 128) return launch<128>(a, dtype);
+  return -2;
 }
