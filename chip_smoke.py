@@ -127,16 +127,16 @@ def phase_env() -> str:
 
 
 def ptxas_summary(log: str) -> dict:
-    """{"kernel<dtype,D>": "N registers; spills"} from what ``ptxas -v`` printed."""
+    """{"kernel<dtype,sizes>": "N registers; spills"} from what ``ptxas -v`` printed."""
     out, fn = {}, "?"
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             m = re.search(r"(?<=\d)([a-z_]+\d*_kernel)I(.+?)EEv", ln)
-            d = re.search(r"Li(\d+)", m.group(2)) if m else None
+            sizes = "".join("," + d for d in re.findall(r"Li(\d+)E?", m.group(2))) if m else ""
             # the element type: a template argument, or the parameters where the template takes only sizes
             typed = "" if not m else ln[m.end():] if m.group(2).startswith("L") else m.group(2)
             dtype = "bf16" if "bfloat16" in typed else "f32"
-            fn = f"{m.group(1)}<{dtype}{',' + d.group(1) if d else ''}>" if m else ln.split("'")[1]
+            fn = f"{m.group(1)}<{dtype}{sizes}>" if m else ln.split("'")[1]
         elif "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln:
             out[fn] = ln.split(":", 1)[-1].strip()
         elif "Used" in ln and "registers" in ln:
@@ -237,17 +237,34 @@ def ring_positions(gen, B: int, S: int, kind: str):
         if B > 1:
             kv[1] = ar[1] + 10_000
         return kv.contiguous(), qp
+    if kind == "one-valid":  # slot 0 alone holds a position: every other tile of the ring is skipped
+        kv = torch.where(ar == 0, ar, -1)
+        return kv.contiguous(), torch.full((B, 1), S // 2, device="cuda", dtype=torch.int32)
+    if kind == "full":  # every slot filled, the query at the newest (with a window: a band at the end)
+        return ar.contiguous(), torch.full((B, 1), S - 1, device="cuda", dtype=torch.int32)
+    if kind == "gaps":  # whole empty tiles in the middle: tiles 2-5 and 9-12 of 64 slots
+        tile = ar // 64
+        kv = torch.where(((tile >= 2) & (tile < 6)) | ((tile >= 9) & (tile < 13)), -1, ar)
+        return kv.contiguous(), torch.full((B, 1), S - 1, device="cuda", dtype=torch.int32)
     raise ValueError(kind)
 
 
 def check_decode(ck: Checker, gen) -> None:
-    # (B, S, Hq, Hkv, D, window, positions)
+    # (B, S, Hq, Hkv, D, window, positions); the last five skip whole tiles,
+    # and the two of 4096 slots give the slices of split_plan several tiles
     cases = [(3, 256, 4, 4, 64, None, "tail-empty"), (3, 256, 8, 2, 64, 128, "tail-empty"),
              (3, 256, 4, 1, 32, 64, "tail-empty"), (3, 1000, 8, 2, 64, None, "tail-empty"),
              (3, 1000, 6, 1, 128, 300, "shuffled"), (2, 256, 4, 4, 64, None, "shuffled"),
              (3, 256, 4, 2, 64, None, "no-valid"), (3, 1000, 32, 32, 128, None, "no-valid"),
              (4, 1024, 32, 32, 128, None, "tail-empty"), (1, 1024, 32, 32, 128, None, "shuffled"),
-             (3, 1024, 32, 32, 128, None, "tail-empty")]
+             (3, 1024, 32, 32, 128, None, "tail-empty"),
+             (2, 4096, 32, 32, 128, None, "tail-empty"), (2, 4096, 32, 4, 128, None, "shuffled"),
+             (3, 1024, 32, 32, 128, None, "one-valid"), (2, 1024, 32, 32, 128, 300, "full"),
+             (2, 1024, 8, 2, 64, None, "gaps")]
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, S, Hq, Hkv, D, window, kind in cases:
+        if S == 4096 and dec_mod.split_plan(B, Hkv, S, sm_count)[1] < 2:
+            raise AssertionError(f"decode_attention {(B, S, Hq, Hkv, D)}: the plan gives its slices one tile")
     for dtype in TOL:
         for B, S, Hq, Hkv, D, window, kind in cases:
             q = randn(gen, (B, 1, Hq, D), dtype)
@@ -368,30 +385,38 @@ def measure_kernels(gen) -> dict:
         else:
             out["flash_attention"] = row
 
-    # K3: one layer's decode step, 4 sequences 520 tokens into a ring of 1024
-    B, S, H, D, filled = 4, MAX_LEN, 32, 128, 520
-    ar = torch.arange(S, device="cuda", dtype=torch.int32)[None].expand(B, S)
-    kv_pos = torch.where(ar < filled, ar, -1).contiguous()
-    q_pos = torch.full((B, 1), filled - 1, device="cuda", dtype=torch.int32)
-    sets = [(randn(gen, (B, 1, H, D), dt), randn(gen, (B, S, H, D), dt), randn(gen, (B, S, H, D), dt), q_pos, kv_pos)
-            for _ in range(4)]
-    valid = int(((kv_pos >= 0) & (kv_pos <= q_pos)).sum().item())
-    # what this run's data needs: K and V of the valid slots only, every position, q and o
-    nbytes = 2 * valid * H * D * 2 + B * S * 4 + B * 4 + 2 * B * H * D * 2
-    flops = 4 * valid * H * D
-    mask = ((kv_pos >= 0) & (kv_pos <= q_pos))[:, None, None, :]
-    out["decode_attention"] = {
-        "shape": f"q ({B},1,{H},{D}), k,v ({B},{S},{H},{D}) bf16, {filled} of {S} slots valid",
-        "ms": time_ms(lambda q, k, v, qp, kp: kops.decode_attention(q, k, v, qp, kp), sets),
-        "plain_ms": time_ms(lambda q, k, v, qp, kp: dec_mod.decode_attention_plain(q, k, v, qp, kp), sets),
-        "library_ms": time_ms(
-            lambda q, k, v, qp, kp: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask).transpose(1, 2),
-            sets),
-        "bytes": nbytes, "flops": flops,
-        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
-        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
-    }
+    # K3: one layer's decode step, 4 sequences 520 tokens into a ring of 1024;
+    # ("full_") the ring full; ("long_") GPT-A's context of 4096 slots, 4000 filled
+    H, D = 32, 128
+    for label, B, S, filled, nsets in (("", 4, MAX_LEN, 520, 4), ("full_", 4, MAX_LEN, MAX_LEN, 4),
+                                       ("long_", 4, 4096, 4000, 2)):
+        ar = torch.arange(S, device="cuda", dtype=torch.int32)[None].expand(B, S)
+        kv_pos = torch.where(ar < filled, ar, -1).contiguous()
+        q_pos = torch.full((B, 1), filled - 1, device="cuda", dtype=torch.int32)
+        sets = [(randn(gen, (B, 1, H, D), dt), randn(gen, (B, S, H, D), dt), randn(gen, (B, S, H, D), dt), q_pos,
+                 kv_pos) for _ in range(nsets)]
+        valid = int(((kv_pos >= 0) & (kv_pos <= q_pos)).sum().item())
+        # what this run's data needs: K and V of the valid slots only, every position, q and o
+        nbytes = 2 * valid * H * D * 2 + B * S * 4 + B * 4 + 2 * B * H * D * 2
+        flops = 4 * valid * H * D
+        mask = ((kv_pos >= 0) & (kv_pos <= q_pos))[:, None, None, :]
+        row = {
+            "shape": f"q ({B},1,{H},{D}), k,v ({B},{S},{H},{D}) bf16, {filled} of {S} slots valid",
+            "ms": time_ms(lambda q, k, v, qp, kp: kops.decode_attention(q, k, v, qp, kp), sets),
+            "plain_ms": time_ms(lambda q, k, v, qp, kp: dec_mod.decode_attention_plain(q, k, v, qp, kp), sets),
+            "library_ms": time_ms(
+                lambda q, k, v, qp, kp: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask).transpose(1, 2),
+                sets),
+            "bytes": nbytes, "flops": flops,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
+            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "operations_ms": flops / BF16_FLOPS * 1e3,
+        }
+        if label:
+            out["decode_attention"].update({label + key: val for key, val in row.items()})
+        else:
+            out["decode_attention"] = row
 
     # K4: one layer of RWKV-6 7B, a prefill of 4 x 512 tokens and a decode step
     # of 4, 64 heads of 64, bf16 r, k, v, the state carried in place.  No

@@ -1,5 +1,5 @@
 // Shared helpers of the Hopper kernels: element types, 16-byte global loads
-// into f32, warp reductions.  Every kernel keeps f32 inside and rounds once,
+// into f32, cp.async copies into shared memory, warp reductions.  Every kernel keeps f32 inside and rounds once,
 // on the store, to the tensor's own type.
 #pragma once
 
@@ -88,6 +88,26 @@ __device__ inline void load_tile_f32(float* dst, const T* src, int64_t stride, i
           make_float4(buf[i] * mul, buf[i + 1] * mul, buf[i + 2] * mul, buf[i + 3] * mul);
     }
   }
+}
+
+// Asynchronous copies from global to shared memory (cp.async, sm_80 and later).
+__device__ inline uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, without passing through registers;
+// with `valid` false nothing is read and the 16 bytes become zeros.
+__device__ inline void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ inline float warp_sum(float v) {

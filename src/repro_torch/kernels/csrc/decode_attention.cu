@@ -3,23 +3,55 @@
 // Replaces the TPU kernel repro/kernels/decode_attention.py::_decode_kernel,
 // whose grid (batch*heads, kv blocks) streams the cache through VMEM in order
 // and carries m, l and the accumulator from one grid step to the next.  The
-// work is bound by bytes: K and V are each read once and everything else is
-// small.  So that a small batch still fills the card, the ring is cut into
-// slices: one block owns (batch, kv head, slice), reads its K and V tiles once
-// with 16-byte loads, serves all `group` query heads of that kv head from that
-// one read, and writes a partial (m, l, acc) to scratch.  A second kernel
-// merges the slices.  A slot is valid by the VALUE in kv_pos (>= 0, <= q_pos,
-// inside the window), never by its index, because a ring leaves positions in
-// any slot order.  Masked scores are the reference's finite NEG_INF, so no
-// slice is skipped for holding no valid slot: a query with no valid key at all
-// gets the mean of V over every slot, as the plain version gives it.
+// work is bound by bytes: one query a head against a long cache, K and V read
+// once, and the `group` query heads of a kv head served from that one read.
+//
+// decode_partial_kernel: one block owns (batch, kv head, up to GC of its query
+// heads, slice).  The ring is cut into tiles of 64 slots, and a slice takes
+// them round robin (slice s reads tiles s, s + nsplit, ...), so that a ring
+// that has not wrapped, whose valid slots lie in one prefix, spreads them over
+// every slice.  The block first reads the slice's positions (kv_pos, 256 B a
+// tile) and marks which slots are valid by VALUE (>= 0, <= q_pos, inside the
+// window), never by index, because a ring leaves positions in any slot order.
+// A tile with no valid slot is not read at all.  That is exact: once a row has
+// one valid slot, its merged maximum m is a real score, and exp(NEG_INF - m)
+// is exactly 0 in f32, so an all-masked tile adds nothing whether it is read
+// or not.  The valid tiles' K and V come into STAGES shared-memory stages by
+// 16-byte cp.async copies, in their own type (rows past S zero-filled), the
+// next tile's copies in flight while the block computes this one; values are
+// widened to f32 only as they are read out.  Lanes run along D
+// (one 16-byte vector each: at D = 128 in bf16, 16 lanes a slot and two slots
+// a warp step) and warps along the tile's slots.  Each lane keeps its part of
+// the scaled f32 Q of the block's heads in registers (Q is scaled first, then
+// multiplied, as the reference does), and a dot product is reduced by
+// shuffles.  The tile's softmax statistics are taken over all 64 scores (every
+// warp computes the same m and l), and each warp adds P V for its own slots
+// into f32 registers, rescaled by alpha a tile; the warps' accumulators are
+// summed once, through shared memory, at the end of the slice.  The slice's
+// (m, l, acc) goes to scratch; a slice with no valid tile writes the marker
+// (m = -inf, l = 0, acc = 0).  Slots past S inside a read tile score -inf and
+// weigh exactly 0; masked slots score the reference's finite NEG_INF.
+//
+// decode_merge_kernel: one block a (batch, query head) weighs each slice by
+// exp(m_slice - m) and divides by the merged l.  Where every slice wrote the
+// marker, the row has no valid slot at all: the reference's finite NEG_INF
+// then gives the uniform mean of V over the S slots, and the merge computes
+// that mean from V itself.  The test for -inf comes before any weight, since
+// exp(-inf - (-inf)) is NaN.
 #include "common.cuh"
 
 namespace {
 
-constexpr int TN = 64;   // slots a tile
-constexpr int NT = 128;  // threads a block
-constexpr int GC = 4;    // query heads that share one pass over a V tile
+constexpr int TN = 64;              // slots a tile
+constexpr int NT = 128;             // threads a block
+constexpr int NW = NT / 32;         // warps a block
+constexpr int SLOTS_W = TN / NW;    // slots of a tile a warp owns
+constexpr int MAX_TILES = 256;      // tiles a slice at most: the size of the valid-slot table
+constexpr int SCAN_U = 4;           // tiles a warp reads the positions of at once
+// K and V tiles a block keeps in flight: two stages of 32 KB in bf16 at D = 128,
+// so that split_plan's grid, two blocks an SM at most, runs in one wave
+constexpr int STAGES = 2;
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Strides {
   int64_t qb, qh;      // q (B, 1, Hq, D)
@@ -27,166 +59,277 @@ struct Strides {
   int64_t vb, vs, vh;
 };
 
-__host__ __device__ inline int padded_heads(int G) { return (G + GC - 1) / GC * GC; }
+template <typename T, int D, int GC>
+struct Layout {
+  static constexpr int V = 16 / sizeof(T);  // elements of a 16-byte vector
+  static constexpr int LPR = D / V;         // lanes a slot
+  static constexpr int SPW = 32 / LPR;      // slots a warp step
+  static constexpr int TILE = TN * D;       // elements of one K or V tile
+  static constexpr int KV_BYTES = STAGES * 2 * TILE * (int)sizeof(T);
+  static constexpr int BYTES = KV_BYTES + GC * TN * (int)sizeof(float);
+  static_assert(LPR <= 32 && SLOTS_W % SPW == 0, "a slot's row must fit in a warp");
+  static_assert(NW * GC * D * (int)sizeof(float) <= KV_BYTES, "the warps' sums reuse the stages");
+};
 
-template <int D>
-__host__ __device__ inline int partial_smem_floats(int G) {
-  return TN * (D + 4) + 2 * G * D + padded_heads(G) * TN + 3 * G + TN;
+// The first tile at or after i that holds a valid slot, or n.
+__device__ inline int next_valid(const unsigned long long* valid, int i, int n) {
+  while (i < n && valid[i] == 0ull) ++i;
+  return i;
 }
 
-template <typename T, int D>
+template <typename T, int D, int GC>
 __global__ void __launch_bounds__(NT)
 decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                       const int* __restrict__ q_pos, const int* __restrict__ kv_pos,
                       float* __restrict__ part_acc, float* __restrict__ part_m,
                       float* __restrict__ part_l, int B, int S, int Hq, int G, int window,
-                      float scale, int tiles_per_split, Strides st) {
-  constexpr int LD = D + 4;
-  extern __shared__ __align__(16) float smem[];
-  const int Gp = padded_heads(G);
-  float* sKV = smem;              // (TN, LD): the K tile, then the V tile
-  float* sQ = sKV + TN * LD;      // (G, D), scaled
-  float* sAcc = sQ + G * D;       // (G, D)
-  float* sS = sAcc + G * D;       // (Gp, TN): scores, then probabilities; rows >= G stay 0
-  float* sM = sS + Gp * TN;       // (G,)
-  float* sL = sM + G;
-  float* sAlpha = sL + G;
-  int* sMask = reinterpret_cast<int*>(sAlpha + G);  // (TN,): 0 past S, 1 masked, 2 valid
+                      float scale, int nsplit, Strides st) {
+  using L = Layout<T, D, GC>;
+  constexpr int V = L::V, LPR = L::LPR, SPW = L::SPW;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sKV = reinterpret_cast<T*>(smem_raw);  // STAGES x (K tile, V tile), (TN, D) each
+  float* sS = reinterpret_cast<float*>(smem_raw + L::KV_BYTES);  // (GC, TN) scores
+  __shared__ unsigned long long sValid[MAX_TILES];  // bit j: slot j of the slice's i-th tile is valid
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int r = lane / LPR;  // the slot of a warp step this lane works on
+  const int c = lane % LPR;  // the 16-byte vector of that slot's row
   const int split = blockIdx.x;
-  const int kvh = blockIdx.y;
+  const int nchunk = (G + GC - 1) / GC;
+  const int kvh = blockIdx.y / nchunk;
+  const int h0 = kvh * G + (blockIdx.y % nchunk) * GC;  // the block's first query head
+  const int heads = min(GC, kvh * G + G - h0);
   const int b = blockIdx.z;
-
-  for (int i = tid; i < G * D; i += NT) {
-    const int g = i / D;
-    const int d = i % D;
-    sQ[i] = to_f32(q[b * st.qb + (int64_t)(kvh * G + g) * st.qh + d]) * scale;
-    sAcc[i] = 0.0f;
-  }
-  for (int i = tid; i < Gp * TN; i += NT) sS[i] = 0.0f;
-  for (int g = tid; g < G; g += NT) {
-    sM[g] = NEG_INF;
-    sL[g] = 0.0f;
-  }
-  const int qp = q_pos[b];
-
   const int ntiles = (S + TN - 1) / TN;
-  const int t0 = split * tiles_per_split;
-  const int t1 = min(t0 + tiles_per_split, ntiles);
-  for (int t = t0; t < t1; ++t) {
-    const int s0 = t * TN;
-    __syncthreads();  // the last tile's V is used up (and, the first time, the set-up is visible)
-    load_tile_f32<T, D, LD>(sKV, k + b * st.kb + (int64_t)s0 * st.ks + kvh * st.kh, st.ks, TN,
-                            S - s0, 1.0f, tid, NT);
-    if (tid < TN) {
-      const int slot = s0 + tid;
-      int code = 0;
-      if (slot < S) {
-        const int p = kv_pos[(int64_t)b * S + slot];
-        const bool ok = p >= 0 && p <= qp && (window <= 0 || p > qp - window);
-        code = ok ? 2 : 1;
-      }
-      sMask[tid] = code;
-    }
-    __syncthreads();
+  const int nlocal = (ntiles - split + nsplit - 1) / nsplit;  // tiles split, split + nsplit, ...
 
-    // scores: one (slot, head) pair a thread
-    for (int i = tid; i < G * TN; i += NT) {
-      const int j = i % TN;
-      const int g = i / TN;
-      const float* kr = sKV + j * LD;
-      const float* qr = sQ + g * D;
-      float dot = 0.0f;
-#pragma unroll 8
-      for (int d = 0; d < D; d += 4) {
-        const float4 kk = *reinterpret_cast<const float4*>(kr + d);
-        const float4 qq = *reinterpret_cast<const float4*>(qr + d);
-        dot = fmaf(qq.x, kk.x, dot);
-        dot = fmaf(qq.y, kk.y, dot);
-        dot = fmaf(qq.z, kk.z, dot);
-        dot = fmaf(qq.w, kk.w, dot);
-      }
-      const int code = sMask[j];
-      sS[g * TN + j] = code == 2 ? dot : (code == 1 ? NEG_INF : -INFINITY);
+  float qr[GC][V];  // this lane's part of the scaled query of each head
+#pragma unroll
+  for (int g = 0; g < GC; ++g) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      qr[g][e] = g < heads ? to_f32(q[b * st.qb + (int64_t)(h0 + g) * st.qh + c * V + e]) * scale : 0.0f;
     }
-    __syncthreads();  // the K tile is used up
+  }
 
-    load_tile_f32<T, D, LD>(sKV, v + b * st.vb + (int64_t)s0 * st.vs + kvh * st.vh, st.vs, TN,
-                            S - s0, 1.0f, tid, NT);
-    // online softmax over the tile: one warp a head
-    for (int g = warp; g < G; g += NT / 32) {
-      const float a0 = sS[g * TN + lane];
-      const float a1 = sS[g * TN + lane + 32];
-      const float m_old = sM[g];
-      const float l_old = sL[g];
-      const float mx = warp_max(fmaxf(a0, a1));
-      const float m_new = fmaxf(m_old, mx);
-      const float p0 = expf(a0 - m_new);
-      const float p1 = expf(a1 - m_new);
-      const float sum = warp_sum(p0 + p1);
-      sS[g * TN + lane] = p0;
-      sS[g * TN + lane + 32] = p1;
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        sAlpha[g] = alpha;
-        sM[g] = m_new;
-        sL[g] = l_old * alpha + sum;
+  // The slice's valid slots, by value: a warp reads SCAN_U tiles' positions at once.
+  const int qp = q_pos[b];
+  const int* pos = kv_pos + (int64_t)b * S;
+  for (int i0 = warp; i0 < nlocal; i0 += NW * SCAN_U) {
+    int p[SCAN_U][2];
+#pragma unroll
+    for (int u = 0; u < SCAN_U; ++u) {
+      const int i = i0 + u * NW;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int slot = (split + i * nsplit) * TN + hh * 32 + lane;
+        p[u][hh] = i < nlocal && slot < S ? pos[slot] : -1;
       }
     }
-    __syncthreads();
-
-    // acc = acc * alpha + P V: one (column, group of GC heads) a thread
-    const int nchunks = Gp / GC;
-    for (int i = tid; i < nchunks * D; i += NT) {
-      const int d = i % D;
-      const int g0 = (i / D) * GC;
-      float a[GC];
 #pragma unroll
-      for (int u = 0; u < GC; ++u) a[u] = 0.0f;
-#pragma unroll 8
-      for (int j = 0; j < TN; ++j) {
-        const float vv = sKV[j * LD + d];
+    for (int u = 0; u < SCAN_U; ++u) {
+      unsigned bits[2];
 #pragma unroll
-        for (int u = 0; u < GC; ++u) a[u] = fmaf(sS[(g0 + u) * TN + j], vv, a[u]);
+      for (int hh = 0; hh < 2; ++hh) {
+        const int x = p[u][hh];
+        bits[hh] = __ballot_sync(FULL, x >= 0 && x <= qp && (window <= 0 || x > qp - window));
       }
-#pragma unroll
-      for (int u = 0; u < GC; ++u) {
-        const int g = g0 + u;
-        if (g < G) sAcc[g * D + d] = sAcc[g * D + d] * sAlpha[g] + a[u];
-      }
+      const int i = i0 + u * NW;
+      if (lane == 0 && i < nlocal) sValid[i] = (unsigned long long)bits[1] << 32 | bits[0];
     }
   }
   __syncthreads();
 
-  const int64_t row0 = ((int64_t)split * B + b) * Hq + kvh * G;
-  for (int i = tid; i < G * D; i += NT) part_acc[row0 * D + i] = sAcc[i];
-  for (int g = tid; g < G; g += NT) {
-    part_m[row0 + g] = sM[g];
-    part_l[row0 + g] = sL[g];
+  const int64_t row0 = ((int64_t)split * B + b) * Hq + h0;
+  int cur = next_valid(sValid, 0, nlocal);
+  if (cur == nlocal) {  // no valid slot in the slice: the marker the merge recognises
+    for (int i = tid; i < heads * D; i += NT) part_acc[row0 * D + i] = 0.0f;
+    if (tid < heads) {
+      part_m[row0 + tid] = -INFINITY;
+      part_l[row0 + tid] = 0.0f;
+    }
+    return;
+  }
+
+  const T* kbase = k + b * st.kb + kvh * st.kh;
+  const T* vbase = v + b * st.vb + kvh * st.vh;
+  // K and V of the slice's i-th tile into `stage`, 16 bytes a copy; rows past S become zeros
+  auto fetch = [&](int i, int stage) {
+    const int s0 = (split + i * nsplit) * TN;
+    T* sK = sKV + stage * 2 * L::TILE;
+    T* sV = sK + L::TILE;
+#pragma unroll
+    for (int u = 0; u < TN * LPR / NT; ++u) {
+      const int idx = tid + u * NT;
+      const int row = idx / LPR;
+      const int col = (idx % LPR) * V;
+      const bool ok = s0 + row < S;
+      cp_async16(smem_addr(sK + row * D + col), kbase + (ok ? (int64_t)(s0 + row) * st.ks + col : 0), ok);
+      cp_async16(smem_addr(sV + row * D + col), vbase + (ok ? (int64_t)(s0 + row) * st.vs + col : 0), ok);
+    }
+  };
+
+  float m[GC], l[GC], acc[GC][V];
+#pragma unroll
+  for (int g = 0; g < GC; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[g][e] = 0.0f;
+  }
+
+  int ahead = cur;  // the next valid tile to copy
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (ahead < nlocal) {
+      fetch(ahead, s);
+      ahead = next_valid(sValid, ahead + 1, nlocal);
+    }
+    cp_async_commit();  // an empty group where the slice has fewer tiles keeps the count
+  }
+
+  const int half = warp * SLOTS_W / 32;  // which 32 of the tile's slots this warp's lie in
+  for (int n = 0; cur < nlocal; ++n) {
+    const int stage = n % STAGES;
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile n has landed for every thread, and every warp is done with tile n - 1
+    if (ahead < nlocal) {
+      fetch(ahead, (n + STAGES - 1) % STAGES);  // into the stage tile n - 1 left
+      ahead = next_valid(sValid, ahead + 1, nlocal);
+    }
+    cp_async_commit();
+
+    const T* sK = sKV + stage * 2 * L::TILE;
+    const T* sV = sK + L::TILE;
+    const unsigned long long valid = sValid[cur];
+    const int s0 = (split + cur * nsplit) * TN;
+
+    // scores of this warp's slots, SPW slots a step
+#pragma unroll
+    for (int step = 0; step < SLOTS_W / SPW; ++step) {
+      const int j = warp * SLOTS_W + step * SPW + r;
+      float kf[V];
+      Vec16<T>::load(sK + j * D + c * V, kf);
+      float dot[GC];
+#pragma unroll
+      for (int g = 0; g < GC; ++g) {
+        dot[g] = 0.0f;
+#pragma unroll
+        for (int e = 0; e < V; ++e) dot[g] = fmaf(qr[g][e], kf[e], dot[g]);
+      }
+#pragma unroll
+      for (int off = LPR / 2; off > 0; off >>= 1) {
+#pragma unroll
+        for (int g = 0; g < GC; ++g) dot[g] += __shfl_xor_sync(FULL, dot[g], off);
+      }
+      if (c == 0) {
+        const bool ok = (valid >> j) & 1ull;
+        const float masked = s0 + j < S ? NEG_INF : -INFINITY;
+#pragma unroll
+        for (int g = 0; g < GC; ++g) sS[g * TN + j] = ok ? dot[g] : masked;
+      }
+    }
+    __syncthreads();
+
+    // the tile's softmax statistics over all 64 scores, the same in every warp
+    float p[GC];  // the probability of slot (32 * half + lane)
+#pragma unroll
+    for (int g = 0; g < GC; ++g) {
+      const float a0 = sS[g * TN + lane];
+      const float a1 = sS[g * TN + 32 + lane];
+      const float m_new = fmaxf(m[g], warp_max(fmaxf(a0, a1)));  // a real score: the tile has a valid slot
+      const float p0 = expf(a0 - m_new);
+      const float p1 = expf(a1 - m_new);
+      const float alpha = expf(m[g] - m_new);  // 0 on the slice's first tile, where m is -inf
+      l[g] = l[g] * alpha + warp_sum(p0 + p1);
+      m[g] = m_new;
+      p[g] = half ? p1 : p0;
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[g][e] *= alpha;
+    }
+
+    // acc += P V over this warp's slots
+#pragma unroll
+    for (int step = 0; step < SLOTS_W / SPW; ++step) {
+      const int j = warp * SLOTS_W + step * SPW + r;
+      float vf[V];
+      Vec16<T>::load(sV + j * D + c * V, vf);
+#pragma unroll
+      for (int g = 0; g < GC; ++g) {
+        const float pj = __shfl_sync(FULL, p[g], j & 31);
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[g][e] = fmaf(pj, vf[e], acc[g][e]);
+      }
+    }
+    cur = next_valid(sValid, cur + 1, nlocal);
+  }
+
+  // the warps' accumulators, summed through the stages' room
+  cp_async_wait<0>();
+  __syncthreads();
+  float* sRed = reinterpret_cast<float*>(smem_raw);  // (NW, GC, D)
+#pragma unroll
+  for (int g = 0; g < GC; ++g) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+#pragma unroll
+      for (int off = LPR; off < 32; off <<= 1) acc[g][e] += __shfl_xor_sync(FULL, acc[g][e], off);
+      if (r == 0) sRed[(warp * GC + g) * D + c * V + e] = acc[g][e];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < heads * D; i += NT) {
+    const int g = i / D;
+    const int d = i % D;
+    float sum = 0.0f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) sum += sRed[(w * GC + g) * D + d];
+    part_acc[row0 * D + i] = sum;
+  }
+  if (tid == 0) {
+#pragma unroll
+    for (int g = 0; g < GC; ++g) {
+      if (g < heads) {
+        part_m[row0 + g] = m[g];
+        part_l[row0 + g] = l[g];
+      }
+    }
   }
 }
 
-// One block a (batch, head), one thread a column: weighs every slice's partial
-// by exp(m_slice - m) and divides by the merged l (>= 1, so never 0).
+// One block a (batch, query head), one thread a column.
 template <typename T>
 __global__ void decode_merge_kernel(const float* __restrict__ part_acc,
                                     const float* __restrict__ part_m,
-                                    const float* __restrict__ part_l, T* __restrict__ o,
-                                    int nsplit, int64_t BH, int D) {
+                                    const float* __restrict__ part_l, const T* __restrict__ v,
+                                    T* __restrict__ o, int nsplit, int Hq, int G, int S, int64_t BH,
+                                    int64_t vb, int64_t vs, int64_t vh) {
   const int64_t bh = blockIdx.x;
   const int d = threadIdx.x;
-  float m = NEG_INF;
+  const int D = blockDim.x;
+  float m = -INFINITY;
   for (int s = 0; s < nsplit; ++s) m = fmaxf(m, part_m[s * BH + bh]);
-  float l = 0.0f, a = 0.0f;
-  for (int s = 0; s < nsplit; ++s) {
-    const float w = expf(part_m[s * BH + bh] - m);
-    l += part_l[s * BH + bh] * w;
-    a += part_acc[(s * BH + bh) * D + d] * w;
+  float out;
+  if (m == -INFINITY) {  // every slice wrote the marker: no valid slot, the mean of V over S slots
+    const int b = (int)(bh / Hq);
+    const int kvh = (int)(bh % Hq) / G;
+    const T* col = v + b * vb + kvh * vh + d;
+    float sum = 0.0f;
+#pragma unroll 8
+    for (int s = 0; s < S; ++s) sum += to_f32(col[(int64_t)s * vs]);
+    out = sum / (float)S;
+  } else {
+    float l = 0.0f, a = 0.0f;
+    for (int s = 0; s < nsplit; ++s) {
+      const float w = expf(part_m[s * BH + bh] - m);  // 0 for a marker
+      l += part_l[s * BH + bh] * w;
+      a += part_acc[(s * BH + bh) * D + d] * w;
+    }
+    out = a / l;  // l >= 1: the slice that holds m adds exp(0) at least
   }
-  o[bh * D + d] = from_f32<T>(a / l);
+  o[bh * D + d] = from_f32<T>(out);
 }
 
 struct Args {
@@ -199,25 +342,47 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
-int launch(const Args& a) {
-  const int G = a.Hq / a.Hkv;
-  const int smem = partial_smem_floats<D>(G) * (int)sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(decode_partial_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <typename T, int D, int GC>
+int launch_partial(const Args& a) {
+  using L = Layout<T, D, GC>;
+  static bool configured[64] = {};  // by device: the kernel's shared memory, set once
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64 || !configured[dev]) {
+    e = cudaFuncSetAttribute(decode_partial_kernel<T, D, GC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(decode_partial_kernel<T, D, GC>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
+    if (dev < 64) configured[dev] = true;
   }
-  const dim3 grid(a.nsplit, a.Hkv, a.B);
-  decode_partial_kernel<T, D><<<grid, NT, smem, a.stream>>>(
+  const int G = a.Hq / a.Hkv;
+  const dim3 grid(a.nsplit, a.Hkv * ((G + GC - 1) / GC), a.B);
+  decode_partial_kernel<T, D, GC><<<grid, NT, L::BYTES, a.stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (const int*)a.q_pos, (const int*)a.kv_pos,
       (float*)a.part_acc, (float*)a.part_m, (float*)a.part_l, a.B, a.S, a.Hq, G, a.window, a.scale,
-      a.tiles_per_split, a.st);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+      a.nsplit, a.st);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch(const Args& a) {
+  const int ntiles = (a.S + TN - 1) / TN;
+  const int per = (ntiles + a.nsplit - 1) / a.nsplit;
+  if (a.nsplit < 1 || a.tiles_per_split < per || per > MAX_TILES) return -3;
+  // heads of a kv head a block: 1, 2, 4 or 8 in registers; a larger group takes several blocks
+  const int G = a.Hq / a.Hkv;
+  const int e = G == 1   ? launch_partial<T, D, 1>(a)
+                : G == 2 ? launch_partial<T, D, 2>(a)
+                : G <= 4 ? launch_partial<T, D, 4>(a)
+                         : launch_partial<T, D, 8>(a);
+  if (e != 0) return e;
   decode_merge_kernel<T><<<(unsigned)(a.B * a.Hq), D, 0, a.stream>>>(
-      (const float*)a.part_acc, (const float*)a.part_m, (const float*)a.part_l, (T*)a.o, a.nsplit,
-      (int64_t)a.B * a.Hq, D);
+      (const float*)a.part_acc, (const float*)a.part_m, (const float*)a.part_l, (const T*)a.v,
+      (T*)a.o, a.nsplit, a.Hq, G, a.S, (int64_t)a.B * a.Hq, a.st.vb, a.st.vs, a.st.vh);
   return (int)cudaGetLastError();
 }
 
@@ -235,9 +400,11 @@ int launch_d(const Args& a, int D) {
 // with element strides (batch, slot, head); unit stride along D and 16-byte
 // aligned rows of k and v; q_pos (B,) and kv_pos (B, S) contiguous int32;
 // o (B, 1, Hq, D) contiguous.  Scratch, all f32: part_acc (nsplit, B, Hq, D),
-// part_m and part_l (nsplit, B, Hq), where nsplit * tiles_per_split * 64 >= S.
-// window <= 0 means no window.  Returns cudaGetLastError() of the launches,
-// -1 for a bad dtype, -2 for a head size without a template.
+// part_m and part_l (nsplit, B, Hq); slice s takes the 64-slot tiles s,
+// s + nsplit, ..., at most tiles_per_split of them.  window <= 0 means no
+// window.  Returns cudaGetLastError() of the launches, -1 for a bad dtype, -2
+// for a head size without a template, -3 for a plan whose slices hold more
+// than tiles_per_split or 256 tiles.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* q_pos, const void* kv_pos, void* o,
                                        void* part_acc, void* part_m, void* part_l, int B, int S,

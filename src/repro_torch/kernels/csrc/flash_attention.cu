@@ -236,25 +236,6 @@ struct MmaLayout {
   static constexpr int BYTES = 5 * TILE * 2;  // Q, then K and V in two stages each
 };
 
-__device__ inline uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, without passing through registers;
-// with `valid` false nothing is read and the 16 bytes become zeros.
-__device__ inline void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ inline void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,
 // and register i of lane l gets row l/4, columns 2(l%4) and 2(l%4)+1 of it
 // (with .trans: of its transpose).

@@ -2,9 +2,9 @@
 version and its launch count.
 
 Replaces the TPU kernel ``repro/kernels/decode_attention.py::decode_attention_bhsd``
-(body ``_decode_kernel``).  Bound by bytes on this card: K and V are read once,
-``2 * B * Hkv * S * D * itemsize`` over the memory rate; see
-``csrc/decode_attention.cu``.
+(body ``_decode_kernel``).  Bound by bytes on this card: K and V of the valid
+slots are read once, and tiles of 64 slots with no valid slot are not read at
+all; see ``csrc/decode_attention.cu``.
 """
 from __future__ import annotations
 
@@ -17,7 +17,12 @@ from repro_torch.kernels._check import DTYPE_CODES, HEAD_DIMS, require, require_
 
 NEG_INF = -2.0**30
 TILE = 64  # slots a tile: TN of csrc/decode_attention.cu
-BLOCKS_PER_SM = 8  # how many blocks an SM should have to choose from before slices grow
+MIN_TILES_PER_SPLIT = 2  # so that one tile's copies can be in flight during another's arithmetic
+MAX_TILES_PER_SPLIT = 256  # MAX_TILES of csrc/decode_attention.cu: its table of valid slots
+# blocks of the partial kernel the plan gives an SM, all in one wave: an SM
+# holds three of 64 KB (bf16), but two with more tiles each measured faster
+# (experiments/torch_decode_plan.py)
+BLOCKS_PER_SM = 2
 launches = 0  # one more for every call that launches the kernels; reset by whoever wants to count a run
 
 
@@ -49,11 +54,19 @@ def decode_attention_plain(
 
 
 def split_plan(B: int, Hkv: int, S: int, sm_count: int) -> tuple:
-    """(number of slices, tiles a slice): slices stay one tile long until the
-    grid offers every SM BLOCKS_PER_SM blocks, then grow."""
+    """(number of slices, the most tiles a slice holds).  Slice s takes the
+    ring's tiles s, s + nsplit, ... (round robin, so that the valid prefix of a
+    ring that has not wrapped spreads over every slice).  There are as many
+    slices as keep the grid of (batch, kv head, slice) blocks within one wave
+    of sm_count * BLOCKS_PER_SM (a second, partial wave costs more than it
+    gives), but a slice holds MIN_TILES_PER_SPLIT tiles where the ring has
+    them and at most MAX_TILES_PER_SPLIT.  A function of the shapes alone:
+    nothing is read from kv_pos."""
     ntiles = -(-S // TILE)
-    tiles_per_split = max(1, (B * Hkv * ntiles) // (sm_count * BLOCKS_PER_SM))
-    return -(-ntiles // tiles_per_split), tiles_per_split
+    nsplit = max(1, sm_count * BLOCKS_PER_SM // (B * Hkv))
+    per = min(ntiles, MAX_TILES_PER_SPLIT, max(MIN_TILES_PER_SPLIT, -(-ntiles // nsplit)))
+    nsplit = -(-ntiles // per)
+    return nsplit, -(-ntiles // nsplit)
 
 
 def decode_attention_cuda(
