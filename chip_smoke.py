@@ -131,7 +131,7 @@ def ptxas_summary(log: str) -> dict:
     out, fn = {}, "?"
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(r"(?<=\d)([a-z_]+\d*_kernel)I(.+?)EEv", ln)
+            m = re.search(r"(?<=\d)([a-z_]+(?:\d[a-z_]+)?\d*_kernel)I(.+?)EEv", ln)
             sizes = "".join("," + d for d in re.findall(r"Li(\d+)E?", m.group(2))) if m else ""
             # the element type: a template argument, or the parameters where the template takes only sizes
             typed = "" if not m else ln[m.end():] if m.group(2).startswith("L") else m.group(2)
@@ -187,13 +187,22 @@ def randn(gen, shape, dtype):
 
 
 def check_rmsnorm(ck: Checker, gen) -> None:
+    # the last seven walk the register kernel's one-wave grid (one row, a wave
+    # and a few rows more, blocks with one row more than others) and give it
+    # rows it leaves to the shared-memory kernel (d not a whole number of
+    # 16-byte pieces, d past the register tile)
     shapes = [(512, 128), (3, 256, 64), (2, 4, 128, 256), (777, 100), (777, 4096), (64, 8192),
-              (4, 512, 4096), (3, 512, 4096), (1, 300, 4096), (4, 1, 4096), (3, 1, 4096), (1, 1, 4096)]
+              (4, 512, 4096), (3, 512, 4096), (1, 300, 4096), (4, 1, 4096), (3, 1, 4096), (1, 1, 4096),
+              (1, 4096), (131, 4096), (133, 4096), (2049, 4096), (5000, 1024), (37, 4100), (3, 8192)]
     for dtype in TOL:
         for shape in shapes:
             x = randn(gen, shape, dtype)
             sc = randn(gen, shape[-1:], torch.float32)
             ck.check("rmsnorm", f"{shape}", kops.rmsnorm(x, sc), rms_mod.rmsnorm_plain(x, sc))
+        # a scale that starts off a 16-byte boundary takes the shared-memory kernel
+        x = randn(gen, (9, 4096), dtype)
+        sc = randn(gen, (4097,), torch.float32)[1:]
+        ck.check("rmsnorm", "scale off 16 bytes", kops.rmsnorm(x, sc), rms_mod.rmsnorm_plain(x, sc))
 
 
 def check_flash(ck: Checker, gen) -> None:
@@ -287,11 +296,28 @@ def wkv_inputs(gen, B, T, H, D, dtype, state: bool):
     return r, k, v, logw, u, S0
 
 
+def wkv6_sequential(r, k, v, logw, u, S0):
+    """The recurrence one step at a time in f32 torch: (y in r's dtype, final state)."""
+    S = S0.float().clone()
+    ys = []
+    for t in range(r.shape[1]):
+        rt, kt, vt = r[:, t].float(), k[:, t].float(), v[:, t].float()
+        kv = kt[..., :, None] * vt[..., None, :]
+        ys.append(torch.einsum("bhd,bhde->bhe", rt, S + u[None, :, :, None] * kv))
+        S = S * torch.exp(logw[:, t])[..., None] + kv
+    return torch.stack(ys, dim=1).to(r.dtype), S
+
+
 def check_wkv6(ck: Checker, gen) -> None:
-    # (B, T, H, D): the reference's sweep, ragged T, the full-width prefill and decode step
+    # (B, T, H, D): the reference's sweep, ragged T, the full-width prefill and
+    # decode step; then T on both sides of the chunked kernel's CHUNKED_T_MIN and
+    # of its chunks of 64 (bf16 at D 64 takes it, f32 the sequential kernel)
+    t_min = wkv_mod.CHUNKED_T_MIN
     shapes = [(2, 128, 2, 64), (2, 96, 4, 32), (2, 128, 1, 64),
               (2, 1, 2, 64), (2, 31, 2, 64), (3, 100, 2, 32), (1, 300, 3, 64),
-              (4, 512, 64, 64), (4, 1, 64, 64)]
+              (4, 512, 64, 64), (4, 1, 64, 64),
+              (2, t_min - 1, 2, 64), (2, t_min, 2, 64), (2, 63, 2, 64), (2, 64, 2, 64), (2, 65, 2, 64),
+              (2, 129, 2, 64), (2, 300, 2, 64)]
     for dtype in WKV_TOL:
         for B, T, H, D in shapes:
             for state in (False, True):
@@ -302,15 +328,38 @@ def check_wkv6(ck: Checker, gen) -> None:
                 y = kops.wkv6(r, k, v, logw, u, S)
                 ck.check("wkv6", case, y, y_p, WKV_TOL)
                 ck.check("wkv6.state", f"{case} {dtype}", S, S_p, WKV_TOL)
-        # inputs that are views: heads-first storage read through strides, logw a slice in time
+        # inputs that are views: heads-first storage read through strides, logw a
+        # slice in time; then logw rows off 16 bytes (the sequential kernel)
         B, T, H, D = 2, 70, 3, 64
         r, k, v, _, u, S0 = wkv_inputs(gen, B, T, H, D, dtype, True)
         r = r.transpose(1, 2).contiguous().transpose(1, 2)
         logw = -torch.exp(randn(gen, (B, T + 9, H, D), torch.float32) * 0.5 - 2.0)[:, 9:]
-        y_p, S_p = wkv_mod.wkv6_plain(r, k, v, logw, u, S0)
-        S = S0.clone()
-        ck.check("wkv6", "strided views", kops.wkv6(r, k, v, logw, u, S), y_p, WKV_TOL)
-        ck.check("wkv6.state", f"strided views {dtype}", S, S_p, WKV_TOL)
+        odd = -torch.exp(randn(gen, (B, T, H, D + 1), torch.float32) * 0.5 - 2.0)[..., 1:]
+        for label, lw in (("strided views", logw), ("rows off 16 bytes", odd)):
+            y_p, S_p = wkv_mod.wkv6_plain(r, k, v, lw, u, S0)
+            S = S0.clone()
+            ck.check("wkv6", label, kops.wkv6(r, k, v, lw, u, S), y_p, WKV_TOL)
+            ck.check("wkv6.state", f"{label} {dtype}", S, S_p, WKV_TOL)
+        # strong decay, about -7 a step and -470 a chunk: exp(-L) of the chunked
+        # plain form overflows, so the kernel is held against the recurrence
+        for B, T, H, D in ((2, 129, 2, 64), (1, 300, 3, 64)):
+            r, k, v, _, u, S0 = wkv_inputs(gen, B, T, H, D, dtype, True)
+            logw = -torch.exp(randn(gen, (B, T, H, D), torch.float32) * 0.5 + 2.0)
+            y_s, S_s = wkv6_sequential(r, k, v, logw, u, S0)
+            S = S0.clone()
+            case = f"{(B, T, H, D)} strong decay"
+            ck.check("wkv6", case, kops.wkv6(r, k, v, logw, u, S), y_s, WKV_TOL)
+            ck.check("wkv6.state", f"{case} {dtype}", S, S_s, WKV_TOL)
+
+
+def wkv6_chunk_flops(B: int, T: int, H: int) -> int:
+    """The tensor-core operations of csrc/wkv6.cu's wkv6_chunk_kernel, counted
+    from its code: per chunk of 64 steps, m16n8k16 products for the scores
+    against earlier sub-chunks (warp w: 2w column tiles x 4 x 3), A V (warp w:
+    w + 1 blocks x 8 tiles x 2), (r exp(Lx)) S_prev (4 x 4 x 8 x 3) and the
+    state update (4 x 4 x 8 x 2); 2 x 16 x 8 x 16 operations each."""
+    per_chunk = sum(24 * w + 16 * (w + 1) for w in range(4)) + 384 + 256
+    return B * H * -(-T // 64) * per_chunk * 2 * 16 * 8 * 16
 
 
 def time_ms(fn, arg_sets, iters: int = 20, reps: int = 7) -> float:
@@ -345,20 +394,26 @@ def measure_kernels(gen) -> dict:
     dt = torch.bfloat16
     out = {}
 
-    # K1: the prefill's rows, 4 x 512 tokens of d_model 4096
-    N, d = 4 * 512, 4096
-    sets = [(randn(gen, (N, d), dt), randn(gen, (d,), torch.float32)) for _ in range(6)]
-    nbytes = 2 * N * d * 2 + d * 4
-    flops = 4 * N * d
-    out["rmsnorm"] = {
-        "shape": f"x ({N},{d}) bf16",
-        "ms": time_ms(lambda x, s: kops.rmsnorm(x, s), sets),
-        "plain_ms": time_ms(lambda x, s: rms_mod.rmsnorm_plain(x, s), sets),
-        "library_ms": time_ms(lambda x, s: F.rms_norm(x, (d,), s.to(x.dtype), 1e-6), sets),
-        "bytes": nbytes, "flops": flops,
-        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3,
-        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations",
-    }
+    # K1: the prefill's rows, 4 x 512 tokens of d_model 4096; ("decode_") a
+    # decode step's 4 rows, which the model hands over warm from the op before
+    d = 4096
+    for label, N, nsets in (("", 4 * 512, 6), ("decode_", 4, 8)):
+        sets = [(randn(gen, (N, d), dt), randn(gen, (d,), torch.float32)) for _ in range(nsets)]
+        nbytes = 2 * N * d * 2 + d * 4
+        flops = 4 * N * d
+        row = {
+            "shape": f"x ({N},{d}) bf16",
+            "ms": time_ms(lambda x, s: kops.rmsnorm(x, s), sets),
+            "plain_ms": time_ms(lambda x, s: rms_mod.rmsnorm_plain(x, s), sets),
+            "library_ms": time_ms(lambda x, s: F.rms_norm(x, (d,), s.to(x.dtype), 1e-6), sets),
+            "bytes": nbytes, "flops": flops,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations",
+        }
+        if label:
+            out["rmsnorm"].update({label + key: val for key, val in row.items()})
+        else:
+            out["rmsnorm"] = row
 
     # K2: one layer's causal prefill, 4 prompts of 512 tokens, 32 heads of 128;
     # and ("long_") one prompt at GPT-A's context of 4096 tokens
@@ -418,8 +473,9 @@ def measure_kernels(gen) -> dict:
         else:
             out["decode_attention"] = row
 
-    # K4: one layer of RWKV-6 7B, a prefill of 4 x 512 tokens and a decode step
-    # of 4, 64 heads of 64, bf16 r, k, v, the state carried in place.  No
+    # K4: one layer of RWKV-6 7B, a prefill of 4 x 512 tokens (the chunked
+    # kernel on the tensor cores) and a decode step of 4 (the sequential
+    # kernel), 64 heads of 64, bf16 r, k, v, the state carried in place.  No
     # single PyTorch call computes this recurrence, so there is no library time.
     H, D = 64, 64
     for label, T, nsets in (("", 512, 2), ("decode_", 1, 8)):
@@ -428,22 +484,27 @@ def measure_kernels(gen) -> dict:
         n = B * T * H * D
         # r, k, v and y in bf16, logw f32, u, and the state read once and written once
         nbytes = 4 * n * 2 + n * 4 + H * D * 4 + 2 * B * H * D * D * 4
-        # a state element a step: r.S (2), S*w + k*v (3); a step: r.u.k (3 D), + v_e * bonus (2 D)
-        flops = B * T * H * (5 * D * D + 5 * D)
+        # the sequential form: a state element a step r.S (2), S*w + k*v (3); a step r.u.k (3 D), + v_e * bonus (2 D)
+        seq_flops = B * T * H * (5 * D * D + 5 * D)
+        chunked = T >= wkv_mod.CHUNKED_T_MIN
+        flops, rate = (wkv6_chunk_flops(B, T, H), BF16_FLOPS) if chunked else (seq_flops, F32_FLOPS)
         row = {
             "shape": f"r,k,v ({B},{T},{H},{D}) bf16, state ({B},{H},{D},{D}) f32",
+            "kernel": "wkv6_chunk_kernel (tensor cores)" if chunked else "wkv6_kernel (sequential, CUDA cores)",
             "ms": time_ms(lambda r, k, v, w, u, S: kops.wkv6(r, k, v, w, u, S), sets),
             "plain_ms": time_ms(lambda r, k, v, w, u, S: wkv_mod.wkv6_plain(r, k, v, w, u, S, chunk=128), sets),
             "library_ms": None,
             "bytes": nbytes, "flops": flops,
-            "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations",
-            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "operations_ms": flops / F32_FLOPS * 1e3,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / rate) * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / rate else "operations",
+            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "operations_ms": flops / rate * 1e3,
+            "sequential_flops": seq_flops, "sequential_operations_ms": seq_flops / F32_FLOPS * 1e3,
         }
         if label:
             out["wkv6"].update({label + key: val for key, val in row.items()})
         else:
             out["wkv6"] = row
+    out["wkv6"]["chunked_t_min"] = wkv_mod.CHUNKED_T_MIN
     return out
 
 

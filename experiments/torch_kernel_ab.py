@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""K1 (RMSNorm) and K4 (WKV-6) kernels of a checkout, timed on the card.
+
+    python3 experiments/torch_kernel_ab.py [--src DIR] [--label NAME]
+
+Needs one NVIDIA Hopper card and ``nvcc``.  Imports ``repro_torch`` from
+``--src`` (default: this checkout's ``src``), so that two checkouts can be
+timed in turns on one card, e.g. a parent unpacked with
+``git archive`` into a directory that ``.gitignore`` lists.  Times, in ms of
+device time (CUDA events around queued calls, median of 7 rounds, as
+``chip_smoke.py`` times them):
+
+* K1 at a prefill's rows, x (2048, 4096) bf16, and a decode step's, (4, 4096);
+* K4 at RWKV-6 7B's prefill, r, k, v (4, 512, 64, 64) bf16 with a state, and
+  its decode step, (4, 1, 64, 64);
+* where the checkout has ``wkv6.CHUNKED_T_MIN``: both K4 kernels at
+  (4, T, 64, 64) bf16 for T from 1 to 128, each forced by setting that
+  threshold, which is how the threshold is chosen.
+
+Prints one JSON line per group and, first, the card's name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+import torch
+
+SPIN_CYCLES = 20_000_000  # about 10 ms of the card's clock
+
+
+def time_ms(fn, arg_sets, iters: int = 20, reps: int = 7) -> float:
+    for a in arg_sets:
+        fn(*a)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", default=os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
+    ap.add_argument("--label", default="this checkout")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(args.src))
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import wkv6 as wkv_mod
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True).stdout.strip(), flush=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def wkv_set(B, T, H=64, D=64):
+        r, k, v = (randn((B, T, H, D)).mul_(0.5).to(torch.bfloat16) for _ in range(3))
+        logw = -torch.exp(randn((B, T, H, D)) * 0.5 - 2.0)
+        return r, k, v, logw, randn((H, D)) * 0.1, randn((B, H, D, D)) * 0.5
+
+    def wkv(r, k, v, w, u, S):
+        return kops.wkv6(r, k, v, w, u, S)
+
+    with torch.no_grad():
+        out = {"label": args.label, "src": args.src}
+        for key, N, nsets in (("rmsnorm_ms", 2048, 6), ("rmsnorm_decode_ms", 4, 8)):
+            sets = [(randn((N, 4096), torch.bfloat16), randn((4096,))) for _ in range(nsets)]
+            out[key] = time_ms(lambda x, s: kops.rmsnorm(x, s), sets)
+        out["wkv6_ms"] = time_ms(wkv, [wkv_set(4, 512) for _ in range(2)])
+        out["wkv6_decode_ms"] = time_ms(wkv, [wkv_set(4, 1) for _ in range(8)])
+        print(json.dumps(out), flush=True)
+
+        t_min = getattr(wkv_mod, "CHUNKED_T_MIN", None)
+        if t_min is not None:
+            sweep = []
+            for T in (1, 2, 4, 8, 16, 24, 32, 36, 40, 48, 64, 128):
+                sets = [wkv_set(4, T) for _ in range(4)]
+                row = {"T": T}
+                for name, forced in (("sequential_ms", 1 << 30), ("chunked_ms", 1)):
+                    wkv_mod.CHUNKED_T_MIN = forced
+                    row[name] = time_ms(wkv, sets)
+                sweep.append(row)
+            wkv_mod.CHUNKED_T_MIN = t_min
+            print(json.dumps({"label": args.label, "chunked_t_min": t_min, "wkv6_sweep": sweep}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,6 +13,16 @@ def require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def require_no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """The kernels compute forward only and write through raw pointers, so an
+    output would carry no gradient and nothing would say so: refuse instead."""
+    require(
+        not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)),
+        f"{name}: the kernel computes no gradients, but an input requires grad; "
+        "call it under torch.no_grad() or use a differentiable path",
+    )
+
+
 def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     dev = tensors[0].device
     require(dev.type == "cuda", f"{name}: the kernel takes CUDA tensors, got one on {dev}")
@@ -21,12 +31,13 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     return dev
 
 
+def rows_aligned(t: torch.Tensor) -> bool:
+    """Every row along the last axis starts on a 16-byte boundary."""
+    per16 = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s % per16 == 0 for s, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1)
+
+
 def require_rows_aligned(name: str, what: str, t: torch.Tensor) -> None:
     """Rows along the last axis are contiguous and start on 16-byte boundaries."""
-    per16 = 16 // t.element_size()
     require(t.stride(-1) == 1, f"{name}: {what} needs a unit stride along its last axis")
-    require(
-        t.data_ptr() % 16 == 0
-        and all(s % per16 == 0 for s, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1),
-        f"{name}: rows of {what} must start on 16-byte boundaries (strides {t.stride()})",
-    )
+    require(rows_aligned(t), f"{name}: rows of {what} must start on 16-byte boundaries (strides {t.stride()})")

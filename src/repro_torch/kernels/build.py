@@ -34,7 +34,7 @@ SIGNATURES = {
     "rmsnorm_launch": [_P, _P, _P, _L, _I, _F, _I, _I, _P],
     "flash_attention_launch": [_P] * 4 + [_I] * 6 + [_F, _I, _I] + [_L] * 9 + [_P],
     "decode_attention_launch": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _I] + [_L] * 8 + [_P],
-    "wkv6_launch": [_P] * 7 + [_I] * 5 + [_L] * 12 + [_P],
+    "wkv6_launch": [_P] * 7 + [_I] * 7 + [_L] * 12 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,6 +1,7 @@
 // Shared helpers of the Hopper kernels: element types, 16-byte global loads
-// into f32, cp.async copies into shared memory, warp reductions.  Every kernel keeps f32 inside and rounds once,
-// on the store, to the tensor's own type.
+// into f32, cp.async copies into shared memory, warp reductions, and the
+// ldmatrix / mma.sync fragments of bf16 tensor-core products.  Every kernel
+// keeps f32 inside and rounds once, on the store, to the tensor's own type.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -17,25 +18,27 @@
 #define DT_BF16 1
 
 template <typename T>
-struct Vec16;  // how many T fill 16 bytes, and how to widen them to f32
+struct Vec16;  // how many T fill 16 bytes, and how to widen them to f32 and narrow them back
 
 template <>
 struct Vec16<float> {
   static constexpr int N = 4;
-  __device__ static void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
+  __device__ static void unpack(const uint4& raw, float* out) {
+    const float4 v = *reinterpret_cast<const float4*>(&raw);
     out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
   }
-  __device__ static void store(float* p, const float* in) {
-    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
+  __device__ static uint4 pack(const float* in) {
+    const float4 v = make_float4(in[0], in[1], in[2], in[3]);
+    return *reinterpret_cast<const uint4*>(&v);
   }
+  __device__ static void load(const float* p, float* out) { unpack(*reinterpret_cast<const uint4*>(p), out); }
+  __device__ static void store(float* p, const float* in) { *reinterpret_cast<uint4*>(p) = pack(in); }
 };
 
 template <>
 struct Vec16<__nv_bfloat16> {
   static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  __device__ static void unpack(const uint4& raw, float* out) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -44,12 +47,18 @@ struct Vec16<__nv_bfloat16> {
       out[2 * i + 1] = f.y;
     }
   }
-  __device__ static void store(__nv_bfloat16* p, const float* in) {
+  __device__ static uint4 pack(const float* in) {
     uint4 raw;
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
 #pragma unroll
     for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = raw;
+    return raw;
+  }
+  __device__ static void load(const __nv_bfloat16* p, float* out) {
+    unpack(*reinterpret_cast<const uint4*>(p), out);
+  }
+  __device__ static void store(__nv_bfloat16* p, const float* in) {
+    *reinterpret_cast<uint4*>(p) = pack(in);
   }
 };
 
@@ -120,4 +129,40 @@ __device__ inline float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 tensor-core products (mma.sync m16n8k16, f32 sums)
+// ---------------------------------------------------------------------------
+
+// Four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,
+// and register i of lane l gets row l/4, columns 2(l%4) and 2(l%4)+1 of it
+// (with .trans: of its transpose).
+__device__ inline void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ inline void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16, column-major).
+// Lane l = 4g + t holds c at rows g and g+8, columns 2t and 2t+1.
+__device__ inline void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ inline uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&p);
 }

@@ -236,38 +236,6 @@ struct MmaLayout {
   static constexpr int BYTES = 5 * TILE * 2;  // Q, then K and V in two stages each
 };
 
-// Four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,
-// and register i of lane l gets row l/4, columns 2(l%4) and 2(l%4)+1 of it
-// (with .trans: of its transpose).
-__device__ inline void ldmatrix_x4(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ inline void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16, column-major).
-// Lane l = 4g + t holds c at rows g and g+8, columns 2t and 2t+1.
-__device__ inline void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ inline uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
 // BM rows of D bf16 (row r at src + r*stride) into shared memory with row
 // stride LD, 16 bytes a thread a chunk; rows at or past `valid` become zeros.
 template <int D, int LD>

@@ -1,18 +1,109 @@
 // RMSNorm over the last axis: y = x * rsqrt(mean(x^2) + eps) * scale.
 //
 // Replaces the TPU kernel repro/kernels/rmsnorm.py::_rmsnorm_kernel, which
-// walks a grid of 256-row blocks held in VMEM.  Here one thread block owns one
-// row: the row is read from device memory once, kept in shared memory as f32
-// while the block reduces the sum of squares (warp shuffles, then one value a
-// warp through shared memory), and written once.  The work is bound by bytes
-// (one read and one write of x), so the only aim is 16-byte loads and stores
-// on neighbouring addresses; rows whose length or address does not allow them
-// take the scalar loop of the same kernel.
+// walks a grid of 256-row blocks held in VMEM.  The work is bound by bytes
+// (one read and one write of x), so the aims are 16-byte loads and stores on
+// neighbouring addresses, enough of them in flight to cover the memory's
+// latency, and no traffic besides x.  The C entry point picks one of two
+// kernels:
+//
+// - rmsnorm_reg_kernel<T, NT> (the served path: rows of up to kElems * NT
+//   elements that split into 16-byte chunks, x, y and scale 16-byte aligned;
+//   d_model 4096 in bf16 is 128 threads of 32 elements).  A row lives in
+//   registers: each thread holds its chunks (chunk c = tid + i * NT, so a warp
+//   reads 512 neighbouring bytes at each i) as raw 16-byte words, and issues
+//   all of its loads before any arithmetic.  The grid is one wave of as many
+//   blocks as the SMs hold; a block walks the rows blockIdx.x, + gridDim.x, ...
+//   and loads the next row's words while it reduces and writes the current
+//   one.  The f32 scale is read once a block, into registers, and serves every
+//   row the block owns.  The sum of squares goes through warp shuffles and
+//   one float a warp in shared memory (two slots, alternating by row, so one
+//   barrier a row suffices).
+// - rmsnorm_kernel<T> (any other row: d that is not a whole number of 16-byte
+//   chunks, an unaligned pointer, or a row longer than the register tile).  One
+//   block owns one row, kept in shared memory as f32 while the block reduces,
+//   with the scalar loop where 16-byte accesses are not allowed.
+//
+// Both keep the reference's order: f32 sum of squares, rsqrt(mean + eps),
+// x times that, times the f32 scale, rounded once to x's type.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // rmsnorm_kernel
+constexpr int kElems = 32;     // rmsnorm_reg_kernel: elements of a row a thread holds, at most
+
+template <typename T, int NT>
+__global__ void __launch_bounds__(NT)
+rmsnorm_reg_kernel(const T* __restrict__ x, const float* __restrict__ scale, T* __restrict__ y,
+                   int64_t n, int d, float eps) {
+  constexpr int V = Vec16<T>::N;
+  constexpr int NV = kElems / V;  // 16-byte chunks a thread
+  constexpr int NW = NT / 32;
+  __shared__ float red[2][NW];
+  const int tid = threadIdx.x;
+  const int chunks = d / V;
+
+  float sc[NV][V];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = tid + i * NT;
+#pragma unroll
+    for (int j = 0; j < V; j += 4) {
+      const float4 s4 = c < chunks ? *reinterpret_cast<const float4*>(scale + c * V + j)
+                                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      sc[i][j] = s4.x; sc[i][j + 1] = s4.y; sc[i][j + 2] = s4.z; sc[i][j + 3] = s4.w;
+    }
+  }
+
+  uint4 cur[NV], nxt[NV];
+  auto fetch = [&](int64_t row, uint4* buf) {
+    const uint4* src = reinterpret_cast<const uint4*>(x + row * d);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = tid + i * NT;
+      buf[i] = c < chunks ? src[c] : make_uint4(0u, 0u, 0u, 0u);  // zeros add nothing to the sum
+    }
+  };
+
+  int64_t row = blockIdx.x;
+  if (row < n) fetch(row, cur);
+  for (int it = 0; row < n; row += gridDim.x, ++it) {
+    const int64_t next = row + gridDim.x;
+    if (next < n) fetch(next, nxt);  // in flight while this row is reduced and written
+
+    float ss = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      float v[V];
+      Vec16<T>::unpack(cur[i], v);
+#pragma unroll
+      for (int j = 0; j < V; ++j) ss += v[j] * v[j];
+    }
+    ss = warp_sum(ss);
+    if ((tid & 31) == 0) red[it & 1][tid >> 5] = ss;
+    __syncthreads();
+    float total = 0.0f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) total += red[it & 1][w];
+    const float inv = rsqrtf(total / (float)d + eps);
+
+    uint4* dst = reinterpret_cast<uint4*>(y + row * d);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = tid + i * NT;
+      if (c < chunks) {
+        float v[V];
+        Vec16<T>::unpack(cur[i], v);
+#pragma unroll
+        for (int j = 0; j < V; ++j) v[j] = v[j] * inv * sc[i][j];
+        dst[c] = Vec16<T>::pack(v);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NV; ++i) cur[i] = nxt[i];
+  }
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -69,9 +160,38 @@ rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ scale, T* __re
   }
 }
 
+// One wave: as many blocks as the card's SMs hold at once, at most one a row.
+// The wave's size is asked of the runtime once a device and kept.
+template <typename T, int NT>
+int launch_reg(const void* x, const void* scale, void* y, int64_t n, int d, float eps,
+               cudaStream_t stream) {
+  constexpr int kDevices = 64;
+  static int64_t wave[kDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= kDevices) return -3;
+  if (wave[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rmsnorm_reg_kernel<T, NT>, NT, 0);
+    if (e != cudaSuccess) return (int)e;
+    wave[dev] = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+  }
+  rmsnorm_reg_kernel<T, NT><<<(unsigned)(n < wave[dev] ? n : wave[dev]), NT, 0, stream>>>(
+      (const T*)x, (const float*)scale, (T*)y, n, d, eps);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* x, const void* scale, void* y, int64_t n, int d, float eps, int vec,
            cudaStream_t stream) {
+  if (vec && d <= 128 * kElems) {
+    if (d <= 32 * kElems) return launch_reg<T, 32>(x, scale, y, n, d, eps, stream);
+    if (d <= 64 * kElems) return launch_reg<T, 64>(x, scale, y, n, d, eps, stream);
+    return launch_reg<T, 128>(x, scale, y, n, d, eps, stream);
+  }
   const size_t smem = (size_t)d * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(rmsnorm_kernel<T>,
@@ -87,7 +207,10 @@ int launch(const void* x, const void* scale, void* y, int64_t n, int d, float ep
 
 // x, y: (n, d) contiguous in `dtype`; scale: (d,) f32.  vec != 0 promises that
 // d is a multiple of 16 bytes' worth of elements and that x, y and scale are
-// 16-byte aligned.  Returns cudaGetLastError() of the launch, -1 for a bad dtype.
+// 16-byte aligned; such rows of up to 128 * kElems elements take
+// rmsnorm_reg_kernel, every other row rmsnorm_kernel.  Returns
+// cudaGetLastError() of the launch (or of the occupancy query), -1 for a bad
+// dtype, -3 for a device index past the kept table.
 extern "C" int rmsnorm_launch(const void* x, const void* scale, void* y, int64_t n, int d,
                               float eps, int dtype, int vec, void* stream) {
   if (n == 0) return 0;

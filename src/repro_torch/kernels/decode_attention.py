@@ -13,7 +13,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._check import DTYPE_CODES, HEAD_DIMS, require, require_cuda, require_rows_aligned
+from repro_torch.kernels._check import DTYPE_CODES, HEAD_DIMS, require, require_cuda, require_no_grad, require_rows_aligned
 
 NEG_INF = -2.0**30
 TILE = 64  # slots a tile: TN of csrc/decode_attention.cu
@@ -77,6 +77,7 @@ def decode_attention_cuda(
     strides; q_pos (B, 1) and kv_pos (B, S) int32 -> (B, 1, Hq, D).  S needs
     divide nothing.  Launches the two kernels (partials, merge) as one call."""
     global launches
+    require_no_grad("decode_attention", q, k, v, q_pos, kv_pos)
     require_cuda("decode_attention", q, k, v, q_pos, kv_pos)
     require(q.dtype in DTYPE_CODES and k.dtype == q.dtype and v.dtype == q.dtype,
             f"decode_attention: q, k, v of one type, f32 or bf16, got {q.dtype}, {k.dtype}, {v.dtype}")

@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._check import DTYPE_CODES, HEAD_DIMS, require, require_cuda, require_rows_aligned
+from repro_torch.kernels._check import DTYPE_CODES, HEAD_DIMS, require, require_cuda, require_no_grad, require_rows_aligned
 
 NEG_INF = -2.0**30
 launches = 0  # one more for every kernel launch; reset by whoever wants to count a run
@@ -54,6 +54,7 @@ def flash_attention_cuda(
     strides (so a transposed or sliced view costs no copy) -> (B, T, Hq, D)
     contiguous.  T and S need divide nothing.  Launches the kernel."""
     global launches
+    require_no_grad("flash_attention", q, k, v)
     require_cuda("flash_attention", q, k, v)
     require(q.dtype in DTYPE_CODES and k.dtype == q.dtype and v.dtype == q.dtype,
             f"flash_attention: q, k, v of one type, f32 or bf16, got {q.dtype}, {k.dtype}, {v.dtype}")

@@ -65,8 +65,10 @@ def wkv6(
 ) -> torch.Tensor:
     """y (B, T, H, D) in r's dtype.  ``state``, where given, is read as the
     initial state and overwritten with the final one; None starts from zeros.
-    ``chunk`` is the plain version's chunk length; the kernel runs the exact
-    sequential recurrence and takes any T."""
+    ``chunk`` is the plain version's chunk length.  On the card any T is taken:
+    bf16 at head size 64 with T >= ``wkv6.CHUNKED_T_MIN`` runs the chunked form
+    on the tensor cores (chunks of 64), everything else (f32, a decode step)
+    the exact sequential recurrence."""
     if r.device.type == "cpu":
         y, S = _wkv.wkv6_plain(r, k, v, logw, u, state, chunk=chunk)
         if state is not None:

@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._check import DTYPE_CODES, require, require_cuda
+from repro_torch.kernels._check import DTYPE_CODES, require, require_cuda, require_no_grad
 
 launches = 0  # one more for every kernel launch; reset by whoever wants to count a run
 
@@ -24,6 +24,7 @@ def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> to
 def rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """x (N, d) contiguous f32/bf16 on the card, scale (d,) f32 -> (N, d).  Launches the kernel."""
     global launches
+    require_no_grad("rmsnorm", x, scale)
     require_cuda("rmsnorm", x, scale)
     require(x.dtype in DTYPE_CODES, f"rmsnorm: f32 or bf16, got {x.dtype}")
     require(x.dim() == 2 and x.is_contiguous(), f"rmsnorm: x must be (N, d) contiguous, got {tuple(x.shape)} strides {x.stride()}")
@@ -34,7 +35,7 @@ def rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> tor
     require(d * 4 <= 227 * 1024, f"rmsnorm: a row of {d} does not fit in shared memory")
     y = torch.empty_like(x)
     per16 = 16 // x.element_size()
-    vec = int(d % per16 == 0 and x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
+    vec = int(d % per16 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, y, scale)))
     lib = build.load()
     code = lib.rmsnorm_launch(
         x.data_ptr(), scale.data_ptr(), y.data_ptr(), n, d, float(eps), DTYPE_CODES[x.dtype], vec,

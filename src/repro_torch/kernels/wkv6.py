@@ -9,10 +9,18 @@ Replaces the TPU kernel ``repro/kernels/wkv6.py::wkv6_bhtd`` (body
 serving needs both, so here the state comes in as ``S0`` and goes out as the
 final state, as ``repro/models/rwkv.py::_wkv_chunked`` carries it.
 
-Bound on this card: at a prefill's length by the f32 operations of the
-recurrence (5 a state element a step) on the CUDA cores, at a decode step's
-length (T = 1) by the bytes of the state, read once and written once.  See
-``csrc/wkv6.cu`` for what the design does about each.
+Two hand-written kernels in ``csrc/wkv6.cu``, chosen in its C entry point:
+
+* ``wkv6_chunk_kernel``: bf16 r, k, v at head size 64 and T >= CHUNKED_T_MIN
+  (the served prefill).  The chunked form on the tensor cores: chunks of 64
+  steps, the 64 x 64 state in ``mma.sync`` accumulators, products of bf16
+  operands split into high and low parts with f32 sums, and only exps of
+  non-positive arguments, so it stays finite where ``wkv6_plain`` overflows.
+  Its bound is the bytes of r, k, v, logw and y.
+* ``wkv6_kernel``: f32, bf16 at head size 32, shorter T (a decode step,
+  T = 1) and rows that do not start on 16 bytes.  The exact sequential
+  recurrence on the CUDA cores: at a prefill's length bound by its f32
+  operations (5 a state element a step), at T = 1 by the state's bytes.
 """
 from __future__ import annotations
 
@@ -22,9 +30,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
-from repro_torch.kernels._check import DTYPE_CODES, require, require_cuda
+from repro_torch.kernels._check import DTYPE_CODES, require, require_cuda, require_no_grad, rows_aligned
 
-HEAD_DIMS = (32, 64)  # the head sizes the kernel is instantiated for
+HEAD_DIMS = (32, 64)  # the head sizes the kernels are instantiated for
+# the shortest T that the chunked kernel takes (bf16, head size 64): below it
+# the sequential kernel is faster on an H100 (experiments/torch_kernel_ab.py)
+CHUNKED_T_MIN = 32
 launches = 0  # one more for every kernel launch; reset by whoever wants to count a run
 
 
@@ -81,9 +92,10 @@ def wkv6_cuda(
     on the card, each read through its strides; u (H, D) f32; state
     (B, H, D, D) f32 contiguous, read as S0 and overwritten with the final state
     (None: S0 = 0 and no final state).  Returns y (B, T, H, D) in r's dtype.
-    Any T >= 1; D in HEAD_DIMS.  Launches the kernel."""
+    Any T >= 1; D in HEAD_DIMS.  Launches one of the two kernels."""
     global launches
     tensors = (r, k, v, logw, u) + (() if state is None else (state,))
+    require_no_grad("wkv6", *tensors)
     require_cuda("wkv6", *tensors)
     require(r.dtype in DTYPE_CODES and k.dtype == r.dtype and v.dtype == r.dtype,
             f"wkv6: r, k, v of one type, f32 or bf16, got {r.dtype}, {k.dtype}, {v.dtype}")
@@ -103,11 +115,13 @@ def wkv6_cuda(
                 f"wkv6: state must be ({B}, {H}, {D}, {D}) f32 contiguous, got {tuple(state.shape)} {state.dtype}")
     y = torch.empty((B, T, H, D), dtype=r.dtype, device=r.device)
     strides = [s for t in (r, k, v, logw) for s in t.stride()[:3]]
+    # the chunked kernel copies 16-byte pieces; a decode step (T = 1) never takes it
+    aligned = T >= CHUNKED_T_MIN and all(rows_aligned(t) for t in (r, k, v, logw))
     lib = build.load()
     code = lib.wkv6_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
         None if state is None else state.data_ptr(), y.data_ptr(),
-        B, T, H, D, DTYPE_CODES[r.dtype], *strides,
+        B, T, H, D, DTYPE_CODES[r.dtype], int(aligned), CHUNKED_T_MIN, *strides,
         torch.cuda.current_stream(r.device).cuda_stream,
     )
     build.check(code, "wkv6")
