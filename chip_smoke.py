@@ -4,18 +4,22 @@
     python3 chip_smoke.py
 
 Needs one NVIDIA Hopper card and ``nvcc``; takes no arguments.  It builds the
-port's four CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each of
-them against its plain PyTorch version on the card, and serves two models at
-full width with random weights from a seed through ``ServingEngine.generate``
-and ``SplitwiseCluster.serve``: GPT-A (24 layers x 4096 x 16384, vocabulary
-50304; RMSNorm, flash and decode attention kernels), then RWKV-6 7B (32 layers
-x 4096 x 14336, vocabulary 65536; RMSNorm and WKV-6 kernels).  For each model
-it checks by the kernels' launch counters that the serving path really went
-through the kernels, and compares the kernel path's logits with the plain
-path's.
+port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (the four forward
+kernels and the backward kernels of RMSNorm and attention), holds each of them
+against its plain PyTorch version on the card, serves two models at full
+width with random weights from a seed through ``ServingEngine.generate`` and
+``SplitwiseCluster.serve`` (GPT-A, 24 layers x 4096 x 16384, vocabulary 50304:
+RMSNorm, flash and decode attention kernels; then RWKV-6 7B, 32 layers x 4096 x
+14336, vocabulary 65536: RMSNorm and WKV-6 kernels), and then trains GPT-A at
+full width with 8 of its 24 layers for 8 steps through
+``repro_torch.launch.train.train`` (RMSNorm and attention forward and backward
+kernels).  For each path it checks by the kernels' launch counters that it
+really went through the kernels, and compares the kernel path's logits, or
+loss and gradients, with the plain path's.
 
-Every phase prints one JSON line.  Any failure raises, so the exit code is not
-0 and the last line is not printed.  The last line of a good run is exactly
+Every phase prints one JSON line (the train phase also the launcher's step
+lines).  Any failure raises, so the exit code is not 0 and the last line is
+not printed.  The last line of a good run is exactly
 ``{"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": 1}}``.
 """
 from __future__ import annotations
@@ -38,12 +42,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import flatten  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, make_batches  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv_mod  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models.transformer import build_model  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
@@ -92,6 +98,39 @@ RWKV_F32_TOL = {"logits": 1e-2, "state_rel": 2e-3}
 RWKV_BF16_SLACK = {"logits": PARITY_TOL, "state_rel": 0.05}
 RWKV_STATE_BYTES = 34_078_720  # a sequence: wkv 32 x 64 x 64 x 64 f32, two shifts 32 x 4096 bf16
 
+# The backward kernels against their plain versions and against autograd
+# through the plain forward: f32 sums over up to 2048 rows (dscale) or 512 x G
+# terms (dk, dv) in another order, hence 1e-4; bf16 one rounding of each output.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the log-sum-exp is f32 whatever the inputs: the forward's sums in another order
+LSE_TOL = {torch.float32: 2e-5}
+
+# Training: GPT-A at full width, its depth cut so that f32 parameters,
+# gradients and two f32 moments fit on one card
+TRAIN_LAYERS = 8
+TRAIN_REDUCED = {"num_layers": "24 -> 8", "why": "83.9 GB of f32 parameters, gradients and moments at full depth"}
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 512
+# Not the launcher's default 3e-3: at this width it diverges.  Adam's first
+# steps move every weight by about lr whatever its gradient's size, so a block
+# of fan-in 16384 changes its output by about lr x 16384 of its own size, and
+# 8 such blocks turn the residual stream round: one step at 1e-5 takes the
+# same batch's loss from 11.57 to 20.5, on the plain path as on the kernel
+# path.  3e-6 is the largest of experiments/torch_train.py's sweep (3e-3 ...
+# 1e-6) whose 8 losses all stay below step 0's.
+TRAIN_LR = 3e-6
+# kernel launches a step with remat="full", counted from the code: each block's
+# forward runs twice (the loss, then the recomputation in the backward), with
+# two norms and one attention a block, plus the final norm once; the backward
+# launches once for each of those.  The decode kernel and WKV-6 are not on the path.
+TRAIN_LAUNCHES_PER_STEP = {"rmsnorm": 2 * 2 * TRAIN_LAYERS + 1, "rmsnorm_bwd": 2 * TRAIN_LAYERS + 1,
+                           "flash_attention": 2 * TRAIN_LAYERS, "flash_attention_bwd": TRAIN_LAYERS,
+                           "decode_attention": 0, "wkv6": 0, "sdpa_masked_calls": 0}
+# One step's loss and gradients, kernel path against plain path on the same
+# weights and batch.  bf16 at 8 layers: the two paths round their bf16
+# activations alike but sum in other orders, and 8 layers of backward carry
+# that into every leaf.  f32 at 2 layers: only the order of f32 sums differs.
+TRAIN_PARITY_TOL = {"bf16": {"loss_rel": 1e-2, "grad_rel": 5e-2}, "f32": {"loss_rel": 1e-4, "grad_rel": 1e-3}}
+
 SPIN_CYCLES = 20_000_000  # about 10 ms of the card's clock: see time_ms
 MAX_LEN = 1024
 MAX_NEW = 16
@@ -132,11 +171,12 @@ def ptxas_summary(log: str) -> dict:
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             m = re.search(r"(?<=\d)([a-z_]+(?:\d[a-z_]+)?\d*_kernel)I(.+?)EEv", ln)
-            sizes = "".join("," + d for d in re.findall(r"Li(\d+)E?", m.group(2))) if m else ""
+            sizes = "".join("," + d for d in re.findall(r"L[ib](\d+)E?", m.group(2))) if m else ""
             # the element type: a template argument, or the parameters where the template takes only sizes
             typed = "" if not m else ln[m.end():] if m.group(2).startswith("L") else m.group(2)
-            dtype = "bf16" if "bfloat16" in typed else "f32"
-            fn = f"{m.group(1)}<{dtype}{sizes}>" if m else ln.split("'")[1]
+            # no type where the kernel takes its arguments in a struct (the attention backward's)
+            dtype = "bf16" if "bfloat16" in typed else "" if "Args" in typed else "f32"
+            fn = f"{m.group(1)}<{(dtype + sizes).lstrip(',')}>" if m else ln.split("'")[1]
         elif "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln:
             out[fn] = ln.split(":", 1)[-1].strip()
         elif "Used" in ln and "registers" in ln:
@@ -228,6 +268,88 @@ def check_flash(ck: Checker, gen) -> None:
         v = randn(gen, (2, 260, 2, 64), dtype)[:, -200:]
         ck.check("flash_attention", "strided views", kops.flash_attention(q, k, v, causal=True),
                  fa_mod.flash_attention_plain(q, k, v, causal=True))
+
+
+def autograd_plain(fn, inputs, dout):
+    """torch.autograd of the plain forward ``fn`` at ``inputs`` against ``dout``."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    with torch.enable_grad():
+        return torch.autograd.grad(fn(*leaves), leaves, dout)
+
+
+def check_rmsnorm_bwd(ck: Checker, gen) -> None:
+    # GPT-A's training rows and a decode step's (4 rows), a wave and a few
+    # rows more, rows that are not a whole number of 16-byte chunks (100 and
+    # 4100 in bf16, 4097 in both), a long row, and a scale off 16 bytes
+    shapes = [(2048, 4096), (4, 4096), (4, 512, 4096), (1, 4096), (2049, 4096), (777, 100), (37, 4100),
+              (33, 4097), (64, 8192), (5000, 1024)]
+    for dtype in BWD_TOL:
+        cases = [(randn(gen, sh, dtype), randn(gen, sh[-1:], torch.float32), f"{sh}") for sh in shapes]
+        cases.append((randn(gen, (9, 4096), dtype), randn(gen, (4097,), torch.float32)[1:], "scale off 16 bytes"))
+        for x, sc, label in cases:
+            dy = randn(gen, x.shape, dtype)
+            d = x.shape[-1]
+            dx, dscale = rms_mod.rmsnorm_bwd_rows(x.reshape(-1, d), sc, dy.reshape(-1, d))
+            want_dx, want_dscale = rms_mod.rmsnorm_bwd_plain(x, sc, dy)
+            ck.check("rmsnorm_bwd", f"{label} dx", dx.reshape(x.shape), want_dx, BWD_TOL)
+            ck.check("rmsnorm_bwd.dscale", f"{label} dscale {dtype}", dscale, want_dscale, BWD_TOL)
+            ag_dx, ag_dscale = autograd_plain(rms_mod.rmsnorm_plain, (x, sc), dy)
+            ck.check("rmsnorm_bwd", f"{label} dx against autograd", dx.reshape(x.shape), ag_dx, BWD_TOL)
+            ck.check("rmsnorm_bwd.dscale", f"{label} dscale against autograd {dtype}", dscale, ag_dscale, BWD_TOL)
+        # the two kernels' results do not depend on the run: no float atomics
+        x, sc, _ = cases[0]
+        dy = randn(gen, x.shape, dtype)
+        a, b = rms_mod.rmsnorm_bwd_rows(x, sc, dy), rms_mod.rmsnorm_bwd_rows(x, sc, dy)
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            raise AssertionError("rmsnorm_bwd: two runs on the same inputs differ")
+        # through the Function, as the model calls it
+        xg, scg = x.clone().requires_grad_(True), sc.clone().requires_grad_(True)
+        with torch.enable_grad():
+            gx, gs = torch.autograd.grad(kops.rmsnorm(xg, scg), (xg, scg), dy)
+        ck.check("rmsnorm_bwd", "RMSNormFn dx", gx, a[0], BWD_TOL)
+        ck.check("rmsnorm_bwd.dscale", f"RMSNormFn dscale {dtype}", gs, a[1], BWD_TOL)
+
+
+def check_flash_bwd(ck: Checker, gen) -> None:
+    # (B, T, S, Hq, Hkv, D, causal): GPT-A's training shape, MHA and GQA
+    # (Minitron-4B's 24/8, the smoke's 4/2), ragged T = S (77, 300, 512), T != S
+    # (full, both ways) and D 32, 64 and 128
+    cases = [(4, 512, 512, 32, 32, 128, True), (2, 77, 77, 4, 2, 64, True), (2, 77, 77, 4, 2, 64, False),
+             (1, 300, 300, 24, 8, 128, True), (1, 300, 300, 24, 8, 128, False), (2, 512, 512, 4, 2, 64, True),
+             (1, 512, 512, 8, 8, 128, False), (1, 70, 300, 4, 2, 128, False), (1, 300, 70, 6, 3, 64, False),
+             (2, 128, 128, 6, 1, 32, True), (2, 17, 17, 8, 8, 128, True)]
+    for dtype in BWD_TOL:
+        for B, T, S, Hq, Hkv, D, causal in cases:
+            q, do = randn(gen, (B, T, Hq, D), dtype), randn(gen, (B, T, Hq, D), dtype)
+            k, v = randn(gen, (B, S, Hkv, D), dtype), randn(gen, (B, S, Hkv, D), dtype)
+            flash_bwd_case(ck, f"{(B, T, S, Hq, Hkv, D)} causal={causal}", q, k, v, do, causal)
+        # views: heads-first storage read through strides, a slice in time, a strided dO
+        q = randn(gen, (2, 4, 200, 64), dtype).transpose(1, 2)
+        k = randn(gen, (2, 2, 200, 64), dtype).transpose(1, 2)
+        v = randn(gen, (2, 260, 2, 64), dtype)[:, -200:]
+        do = randn(gen, (2, 4, 200, 64), dtype).transpose(1, 2)
+        flash_bwd_case(ck, "strided views", q, k, v, do, True)
+
+
+def flash_bwd_case(ck: Checker, case: str, q, k, v, do, causal: bool) -> None:
+    """The LSE-writing forward against the plain forward; the backward kernels
+    against the plain backward on the same q, k, v, o, lse and dO, and against
+    autograd through the plain forward; then the Function, as the model calls it."""
+    o, lse = fa_mod.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    o_p, lse_p = fa_mod.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    ck.check("flash_attention", f"{case} with lse", o, o_p)
+    ck.check("flash_attention.lse", f"{case} {q.dtype}", lse, lse_p, LSE_TOL)
+    grads = fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+    want = fa_mod.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    ag = autograd_plain(lambda a, b, c: fa_mod.flash_attention_plain(a, b, c, causal=causal), (q, k, v), do)
+    for name, got, w, a in zip(("dq", "dk", "dv"), grads, want, ag):
+        ck.check("flash_attention_bwd", f"{case} {name}", got, w, BWD_TOL)
+        ck.check("flash_attention_bwd", f"{case} {name} against autograd", got, a, BWD_TOL)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    with torch.enable_grad():
+        fn_grads = torch.autograd.grad(kops.flash_attention(*leaves, causal=causal), leaves, do)
+    for name, got, w in zip(("dq", "dk", "dv"), fn_grads, grads):
+        ck.check("flash_attention_bwd", f"{case} FlashAttentionFn {name}", got, w, BWD_TOL)
 
 
 def ring_positions(gen, B: int, S: int, kind: str):
@@ -438,6 +560,9 @@ def measure_kernels(gen) -> dict:
         if label:
             out["flash_attention"].update({label + key: val for key, val in row.items()})
         else:
+            # the forward as training calls it, writing the log-sum-exp beside o
+            row["lse_ms"] = time_ms(lambda q, k, v: fa_mod.flash_attention_cuda(q, k, v, causal=True, return_lse=True),
+                                    sets, iters=5)
             out["flash_attention"] = row
 
     # K3: one layer's decode step, 4 sequences 520 tokens into a ring of 1024;
@@ -505,6 +630,69 @@ def measure_kernels(gen) -> dict:
         else:
             out["wkv6"] = row
     out["wkv6"]["chunked_t_min"] = wkv_mod.CHUNKED_T_MIN
+    out.update(measure_backward(gen))
+    return out
+
+
+def measure_backward(gen) -> dict:
+    """Times of the backward kernels at GPT-A's training shapes (bf16): kernel,
+    plain backward, the library's backward on a graph built beforehand, and
+    the card's bound."""
+    import torch.nn.functional as F  # timed here as a yardstick; the port never calls it
+
+    dt = torch.bfloat16
+    out = {}
+
+    # K1 backward: the rows of a 4 x 512 batch, d_model 4096
+    N, d = TRAIN_BATCH * TRAIN_SEQ, 4096
+    sets = [(randn(gen, (N, d), dt), randn(gen, (d,), torch.float32), randn(gen, (N, d), dt)) for _ in range(4)]
+    lib_sets = []
+    for x, sc, dy in sets:
+        xg, wg = x.clone().requires_grad_(True), sc.to(dt).requires_grad_(True)
+        with torch.enable_grad():
+            lib_sets.append((F.rms_norm(xg, (d,), wg, 1e-6), xg, wg, dy))
+    nbytes = 3 * N * d * 2 + 2 * d * 4  # x, dy read, dx written; scale read, dscale written
+    flops = 10 * N * d  # sums of x^2 and g x, g, dx, dscale's term: about ten a element
+    out["rmsnorm_bwd"] = {
+        "shape": f"x, dy ({N},{d}) bf16",
+        "ms": time_ms(lambda x, s, g: rms_mod.rmsnorm_bwd_rows(x, s, g), sets),
+        "plain_ms": time_ms(lambda x, s, g: rms_mod.rmsnorm_bwd_plain(x, s, g), sets),
+        "library_ms": time_ms(lambda y, xg, wg, g: torch.autograd.grad(y, (xg, wg), g, retain_graph=True), lib_sets),
+        "library": "F.rms_norm backward, bf16 weight",
+        "bytes": nbytes, "flops": flops,
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations",
+    }
+    del lib_sets
+
+    # K2 backward: one layer's causal training attention, 4 x 512 tokens, 32 heads of 128
+    B, T, H, D = TRAIN_BATCH, TRAIN_SEQ, 32, 128
+    sets, lib_sets = [], []
+    for _ in range(2):
+        q, k, v, do = (randn(gen, (B, T, H, D), dt) for _ in range(4))
+        o, lse = fa_mod.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+        sets.append((q, k, v, o, lse, do))
+        leaves = [t.transpose(1, 2).clone().requires_grad_(True) for t in (q, k, v)]
+        with torch.enable_grad():
+            lib_sets.append((F.scaled_dot_product_attention(*leaves, is_causal=True), *leaves, do.transpose(1, 2)))
+    nbytes = 8 * B * T * H * D * 2 + 2 * B * H * T * 4  # q, k, v, o, dO read, dq, dk, dv written; lse, D
+    flops = 5 * 2 * B * H * D * (T * (T + 1) // 2)  # five products, the causal half
+    out["flash_attention_bwd"] = {
+        "shape": f"q,k,v,o,dO ({B},{T},{H},{D}) bf16 causal",
+        "kernels": "flash_bwd_rowsum_kernel, flash_bwd_mma_dkdv_kernel, flash_bwd_mma_dq_kernel (bf16: mma.sync)",
+        "ms": time_ms(lambda q, k, v, o, lse, do: fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True),
+                      sets, iters=5),
+        "plain_ms": time_ms(lambda q, k, v, o, lse, do: fa_mod.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True),
+                            sets, iters=5),
+        "library_ms": time_ms(lambda y, a, b, c, g: torch.autograd.grad(y, (a, b, c), g, retain_graph=True),
+                              lib_sets, iters=5),
+        "library": "F.scaled_dot_product_attention backward",
+        "bytes": nbytes, "flops": flops,
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
+        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "operations_ms": flops / BF16_FLOPS * 1e3,
+        "cuda_core_operations_ms": flops / F32_FLOPS * 1e3,
+    }
     return out
 
 
@@ -514,7 +702,12 @@ KERNELS = [
     ("flash_attention", fa_mod, "src/repro_torch/kernels/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:104"),
     ("decode_attention", dec_mod, "src/repro_torch/kernels/csrc/decode_attention.cu", "src/repro/kernels/decode_attention.py:96"),
     ("wkv6", wkv_mod, "src/repro_torch/kernels/csrc/wkv6.cu", "src/repro/kernels/wkv6.py:85"),
+    # the backward of K1 and K2: the TPU kernels have none, XLA derives it for the reference
+    ("rmsnorm_bwd", rms_mod, "src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:35"),
+    ("flash_attention_bwd", fa_mod, "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+     "src/repro/kernels/flash_attention.py:104"),
 ]
+TOLS = {"wkv6": WKV_TOL, "rmsnorm_bwd": BWD_TOL, "flash_attention_bwd": BWD_TOL}
 
 
 def phase_kernels() -> list:
@@ -525,11 +718,13 @@ def phase_kernels() -> list:
     check_flash(ck, gen)
     check_decode(ck, gen)
     check_wkv6(ck, gen)
+    check_rmsnorm_bwd(ck, gen)
+    check_flash_bwd(ck, gen)
     timed = measure_kernels(gen)
     rows = []
     for name, _, source, replaces in KERNELS:
         errs = {dt: ck.max_err[(name, dt)] for dt in ("float32", "bfloat16")}
-        tols = WKV_TOL if name == "wkv6" else TOL
+        tols = TOLS.get(name, TOL)
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "max_abs_err": errs["bfloat16"], "max_err": errs["bfloat16"], "tol": tols[torch.bfloat16],
@@ -539,6 +734,10 @@ def phase_kernels() -> list:
         })
         if name == "wkv6":
             rows[-1]["max_abs_err_state"] = ck.max_err[("wkv6.state", "float32")]
+        if name == "flash_attention":
+            rows[-1]["max_abs_err_lse_f32"] = ck.max_err[("flash_attention.lse", "float32")]
+        if name == "rmsnorm_bwd":
+            rows[-1]["max_abs_err_dscale_f32"] = ck.max_err[("rmsnorm_bwd.dscale", "float32")]  # f32 for both dtypes
     emit({"phase": "kernels", "tolerance": "atol = rtol = tol against the plain version on the same inputs",
           "timing": "device time between CUDA events, calls queued behind a spin kernel, warm-up, median of 7 rounds, inputs cold in L2", "kernels": rows})
     return rows
@@ -551,7 +750,9 @@ def phase_kernels() -> list:
 
 def reset_counters() -> None:
     rms_mod.launches = 0
+    rms_mod.bwd_launches = 0
     fa_mod.launches = 0
+    fa_mod.bwd_launches = 0
     dec_mod.launches = 0
     wkv_mod.launches = 0
     attention.sdpa_masked_calls = 0
@@ -560,6 +761,7 @@ def reset_counters() -> None:
 def read_counters() -> dict:
     return {"rmsnorm": rms_mod.launches, "flash_attention": fa_mod.launches,
             "decode_attention": dec_mod.launches, "wkv6": wkv_mod.launches,
+            "rmsnorm_bwd": rms_mod.bwd_launches, "flash_attention_bwd": fa_mod.bwd_launches,
             "sdpa_masked_calls": attention.sdpa_masked_calls}
 
 
@@ -633,6 +835,7 @@ def phase_serve(phase: str, cfg, model, params) -> dict:
     else:
         want = {"flash_attention": L * (prefills - masked_prefills), "decode_attention": L * steps,
                 "rmsnorm": (2 * L + 1) * forwards, "sdpa_masked_calls": L * masked_prefills, "wkv6": 0}
+    want.update(rmsnorm_bwd=0, flash_attention_bwd=0)  # serving computes no gradients
     if counters != want:
         raise AssertionError(f"{cfg.name}: launch counters {counters}, expected {want} ({prefills} prefills, {steps} steps)")
     mono, split = runs[0][1], runs[3][1]
@@ -775,6 +978,104 @@ def phase_serve_rwkv_parity(phase: str, cfg, model, params, prompts, f32: dict) 
 
 
 # ---------------------------------------------------------------------------
+# phases 8 and 9: GPT-A trained at full width, depth cut, on the card
+# ---------------------------------------------------------------------------
+
+
+def train_config(layers: int, dtype: torch.dtype):
+    """GPT-A at full width with ``layers`` of its 24; the config's remat="full"."""
+    return dataclasses.replace(get_config("gpt_a"), num_layers=layers, dtype=dtype)
+
+
+def phase_train() -> dict:
+    """8 steps of GPT-A (full width, 8 layers, bf16 activations, f32 parameters
+    and moments) on 4 x 512 tokens of ``make_batches(seed 0)`` through
+    ``launch.train.train``, counted from zero; raises unless every loss is
+    finite, the last three fall below step 0's, and the counters show
+    exactly the launches the path owes."""
+    cfg = train_config(TRAIN_LAYERS, torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    out = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR, seed=SEED,
+                log_every=TRAIN_STEPS, device="cuda")
+    counters = read_counters()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    want = {k: n * TRAIN_STEPS for k, n in TRAIN_LAUNCHES_PER_STEP.items()}
+    if counters != want:
+        raise AssertionError(f"train: launch counters {counters}, expected {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: losses {losses} are not all finite")
+    if not statistics.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    n_params = sum(t.numel() for t in flatten(out["params"]).values())
+    step_ms = statistics.median(h["seconds"] for h in hist[2:]) * 1e3
+    emit({"phase": "train", "model": cfg.name, "reduced": TRAIN_REDUCED, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "params": cfg.param_count(),
+          "params_counted": n_params, "remat": cfg.remat, "activations": "bf16", "parameters_and_moments": "f32",
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+          "lr_note": "not the launcher's default 3e-3, which diverges at this width: experiments/torch_train.py", "losses": losses,
+          "grad_norms": [h["grad_norm"] for h in hist], "lrs": [h["lr"] for h in hist],
+          "step_ms": [h["seconds"] * 1e3 for h in hist], "step_ms_median_2_7": step_ms,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3), "peak_memory_bytes": peak_bytes,
+          "counters": counters, "counters_per_step": TRAIN_LAUNCHES_PER_STEP})
+    return counters
+
+
+def loss_and_grads(model, params, batch) -> tuple:
+    """One step's loss and the gradient of every leaf, as the train step takes them."""
+    leaves = list(flatten(params).values())
+    for t in leaves:
+        t.requires_grad_(True)
+    with torch.enable_grad():
+        loss, _ = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+    for t in leaves:
+        t.requires_grad_(False)
+    return float(loss.detach()), dict(zip(flatten(params), grads))
+
+
+def parity_gaps(layers: int, dtype: torch.dtype) -> dict:
+    """The kernel path against the plain path (masked plain sdpa, plain
+    RMSNorm, both through autograd) on the same weights (seed 0) and batch."""
+    cfg = train_config(layers, dtype)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = model.init(gen)
+    batch = next(make_batches(cfg, DataConfig(seed=SEED, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ)))
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
+    reset_counters()
+    loss_k, grads_k = loss_and_grads(model, params, batch)
+    launched = read_counters()
+    if not (launched["rmsnorm_bwd"] and launched["flash_attention_bwd"]):
+        raise AssertionError(f"train_parity: the kernel path launched {launched}")
+    with plain_path():
+        loss_p, grads_p = loss_and_grads(model, params, batch)
+    rel = {path: ((g - grads_p[path]).float().norm() / grads_p[path].float().norm()).item() for path, g in grads_k.items()}
+    worst = max(rel, key=rel.get)
+    return {"layers": layers, "dtype": str(dtype).replace("torch.", ""), "loss_kernel": loss_k, "loss_plain": loss_p,
+            "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p), "grad_rel_diff_max": rel[worst],
+            "grad_rel_diff_worst_leaf": worst, "grad_rel_diff": rel,
+            "finite": all(bool(torch.isfinite(g).all()) for g in grads_k.values())}
+
+
+def phase_train_parity() -> None:
+    """bf16 at 8 layers and f32 at 2 layers, full width; within TRAIN_PARITY_TOL."""
+    result = {"phase": "train_parity", "model": "gpt-a", "reduced": TRAIN_REDUCED, "tol": TRAIN_PARITY_TOL}
+    for key, layers, dtype in (("bf16", TRAIN_LAYERS, torch.bfloat16), ("f32", 2, torch.float32)):
+        g = parity_gaps(layers, dtype)
+        release()
+        result[key] = g
+        tol = TRAIN_PARITY_TOL[key]
+        if not (g["finite"] and g["loss_rel_diff"] <= tol["loss_rel"] and g["grad_rel_diff_max"] <= tol["grad_rel"]):
+            raise AssertionError(f"train_parity {key}: loss {g['loss_rel_diff']} (tol {tol['loss_rel']}), "
+                                 f"gradient {g['grad_rel_diff_max']} at {g['grad_rel_diff_worst_leaf']} (tol {tol['grad_rel']})")
+    emit(result)
+
+
+# ---------------------------------------------------------------------------
 
 
 def serve_model(arch: str, phase: str) -> dict:
@@ -807,6 +1108,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script proves the port on the GPU and has no CPU mode", file=sys.stderr)
         return 1
+    # f32 products in full f32 (the plain references and the f32 parity need it)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     smi = phase_env()
     phase_build()
@@ -817,12 +1121,16 @@ def main() -> int:
     release()  # GPT-A's weights go before RWKV-6 7B's 30 GB of f32 parameters are made
     counts["rwkv6-7b"] = serve_model("rwkv6_7b", "serve_rwkv")
     release()
+    counts["train"] = phase_train()
+    release()
+    phase_train_parity()
+    release()
 
     for row in rows:
         row["launches_by_path"] = {m: c[row["name"]] for m, c in counts.items() if c[row["name"]]}
         row["launches"] = sum(row["launches_by_path"].values())
         if row["launches"] < 1:
-            raise AssertionError(f"{row['name']}: the serving path never launched it")
+            raise AssertionError(f"{row['name']}: no served or trained path launched it")
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})
     print(smi, flush=True)
     emit({"kernels": rows})

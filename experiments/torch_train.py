@@ -1,0 +1,164 @@
+#!/usr/bin/env python3
+"""How ``repro_torch`` trains GPT-A on the card: which learning rates the
+8-layer cut of ``chip_smoke.py``'s train phase tolerates, whether the kernel
+path and the plain path part over several steps, and where a step's time goes.
+
+    python3 experiments/torch_train.py [--layers 8] [--skip-sweep] [--skip-profile]
+
+Needs one NVIDIA Hopper card and ``nvcc``.  GPT-A at full width (d_model
+4096, d_ff 16384, vocabulary 50304) with ``--layers`` of its 24 layers,
+random weights from seed 0, bf16 activations, f32 parameters and moments,
+``remat="full"``, batches of 4 x 512 tokens from ``make_batches(seed 0)``.
+Prints JSON lines:
+
+- ``sweep``: 8 steps through ``launch.train.train`` at each learning rate;
+  "stable" when every later loss stays below step 0's;
+- ``paths``: 3 steps at the launcher's default lr 3e-3, once on the kernel path
+  and once on the plain path (masked plain sdpa and plain RMSNorm through
+  autograd), and the loss of the first batch after them;
+- ``sensitivity``: one update at lr 1e-5 (no decay) on the first batch: that
+  batch's loss before and after, after undoing the update of one group of
+  leaves at a time, and each leaf's update over its own size (rms);
+- ``profile``: one traced train step, then its loss-and-gradient part and its
+  AdamW part apart: the host's wall time, the card's busy time, the idle
+  share, the launches and the kernels that took most of the device time.
+
+The first line names the card and its power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+
+from chip_smoke import plain_path  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.convert import flatten  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, make_batches  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
+from repro_torch.models.transformer import build_model  # noqa: E402
+from repro_torch.optim.optimizer import OptimizerConfig, adamw_update, init_opt_state, make_train_step  # noqa: E402
+from torch_serve_profile import traced  # noqa: E402
+
+SWEEP = (3e-3, 1e-3, 1e-4, 1e-5, 3e-6, 1e-6)
+STEPS, BATCH, SEQ = 8, 4, 512
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def release() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--layers", type=int, default=8, help="depth of GPT-A to train (full width)")
+    ap.add_argument("--skip-sweep", action="store_true")
+    ap.add_argument("--skip-profile", action="store_true")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("no CUDA device: this script measures the card", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    emit({"gpu": smi, "torch": torch.__version__})
+
+    cfg = dataclasses.replace(get_config("gpt_a"), num_layers=args.layers)
+    model = build_model(cfg)
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in b.items()}
+               for b in make_batches(cfg, DataConfig(seed=0, batch_size=BATCH, seq_len=SEQ), num_steps=3)]
+
+    def fresh():
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        return model.init(gen)
+
+    if not args.skip_sweep:
+        for lr in SWEEP:
+            hist = train(cfg, steps=STEPS, batch=BATCH, seq=SEQ, lr=lr, seed=0, log_every=STEPS, device="cuda")["history"]
+            losses = [h["loss"] for h in hist]
+            emit({"phase": "sweep", "layers": args.layers, "lr": lr, "stable": max(losses[1:]) < losses[0],
+                  "losses": losses, "grad_norms": [h["grad_norm"] for h in hist]})
+            release()
+        ocfg = OptimizerConfig(peak_lr=3e-3, warmup_steps=min(20, 3 // 5 + 1), total_steps=3)
+        for name, ctx in (("kernel", contextlib.nullcontext), ("plain", plain_path)):
+            params = fresh()
+            st = init_opt_state(params)
+            step = make_train_step(model.loss, ocfg)
+            losses, norms = [], []
+            with ctx():
+                for b in batches:
+                    params, st, m = step(params, st, b)
+                    losses.append(float(m["loss"]))
+                    norms.append(float(m["grad_norm"]))
+                with torch.no_grad():
+                    after = float(model.loss(params, batches[0])[0])
+            emit({"phase": "paths", "path": name, "lr": 3e-3, "losses": losses, "grad_norms": norms,
+                  "batch0_loss_after": after})
+            del params, st
+            release()
+
+        params = fresh()
+        st = init_opt_state(params)
+        flat = flatten(params)
+        old = {k: v.detach().clone() for k, v in flat.items()}
+        with torch.no_grad():
+            before = float(model.loss(params, batches[0])[0])
+        ocfg = OptimizerConfig(peak_lr=1e-5, warmup_steps=1, total_steps=3, weight_decay=0.0)
+        params, st, _ = make_train_step(model.loss, ocfg)(params, st, batches[0])
+        undone = {}
+        with torch.no_grad():
+            after = float(model.loss(params, batches[0])[0])
+            for group in ("embed", "lm_head", "final_norm", "layers/"):
+                keys = [k for k in flat if k.startswith(group)]
+                new = {k: flat[k].detach().clone() for k in keys}
+                for k in keys:
+                    flat[k].copy_(old[k])
+                undone[group] = float(model.loss(params, batches[0])[0])
+                for k in keys:
+                    flat[k].copy_(new[k])
+                del new
+            rel = {k: float((flat[k] - old[k]).square().mean().sqrt() / old[k].square().mean().sqrt()) for k in flat}
+        emit({"phase": "sensitivity", "lr": 1e-5, "batch0_loss_before": before, "batch0_loss_after": after,
+              "batch0_loss_with_group_undone": undone, "update_rms_over_leaf_rms": rel})
+        del params, st, old, flat
+        release()
+
+    if not args.skip_profile:
+        params = fresh()
+        st = init_opt_state(params)
+        ocfg = OptimizerConfig(peak_lr=3e-6, warmup_steps=2, total_steps=STEPS)
+        step = make_train_step(model.loss, ocfg)
+        for b in batches[:2]:  # warm-up
+            params, st, _ = step(params, st, b)
+        emit({"phase": "profile", "part": "step", "layers": args.layers, **traced(lambda: step(params, st, batches[2]), top=12)})
+        leaves = list(flatten(params).values())
+
+        def loss_and_grad():
+            loss, _ = model.loss(params, batches[2])
+            return torch.autograd.grad(loss, leaves)
+
+        emit({"phase": "profile", "part": "loss_and_grad", **traced(loss_and_grad, top=12)})
+        grads = dict(zip(flatten(params), loss_and_grad()))
+        with torch.no_grad():
+            emit({"phase": "profile", "part": "adamw_update", **traced(lambda: adamw_update(ocfg, grads, params, st), top=8)})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

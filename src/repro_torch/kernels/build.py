@@ -32,7 +32,9 @@ _F = ctypes.c_float
 # argument types of the C entry points, in the order of their declarations
 SIGNATURES = {
     "rmsnorm_launch": [_P, _P, _P, _L, _I, _F, _I, _I, _P],
-    "flash_attention_launch": [_P] * 4 + [_I] * 6 + [_F, _I, _I] + [_L] * 9 + [_P],
+    "rmsnorm_bwd_launch": [_P] * 6 + [_L, _I, _F, _I, _I, _I, _P],
+    "flash_attention_launch": [_P] * 5 + [_I] * 6 + [_F, _I, _I] + [_L] * 9 + [_P],
+    "flash_attention_bwd_launch": [_P] * 10 + [_I] * 6 + [_F, _I, _I] + [_L] * 15 + [_P],
     "decode_attention_launch": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _I] + [_L] * 8 + [_P],
     "wkv6_launch": [_P] * 7 + [_I] * 7 + [_L] * 12 + [_P],
 }

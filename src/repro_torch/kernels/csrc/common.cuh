@@ -114,6 +114,22 @@ __device__ inline void cp_async16(uint32_t dst, const void* src, bool valid) {
 
 __device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 
+// ROWS rows of D bf16 (row r at src + r*stride) into shared memory with row
+// stride LD, NT threads 16 bytes each a chunk; rows at or past `valid` become zeros.
+template <int ROWS, int NT, int D, int LD>
+__device__ inline void cp_async_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                     int64_t stride, int valid, int tid) {
+  constexpr int CPR = D / 8;  // chunks a row
+#pragma unroll
+  for (int i = 0; i < ROWS * CPR / NT; ++i) {
+    const int c = tid + i * NT;
+    const int r = c / CPR;
+    const int col = (c % CPR) * 8;
+    const bool ok = r < valid;
+    cp_async16(smem_addr(dst + r * LD + col), src + (ok ? (int64_t)r * stride + col : 0), ok);
+  }
+}
+
 template <int N>
 __device__ inline void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");

@@ -33,6 +33,11 @@
 //   sit in shared memory as f32 and the 64 x 64 probabilities reuse the K
 //   tile's room, so two blocks fit on an SM; each thread computes a 4 x 4 patch
 //   of the scores and 4 x D/16 of the output.
+//
+// Given a non-null `lse`, both also write every query row's log-sum-exp of
+// its scaled scores, m + log(l) in the natural-log domain (B, Hq, T) f32,
+// which the backward (flash_attention_bwd.cu) reads to recompute P.  Serving
+// passes null.
 #include "common.cuh"
 
 namespace {
@@ -69,8 +74,8 @@ __device__ inline float half_warp_sum(float v) {
 template <int D>
 __global__ void __launch_bounds__(NT, 2)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-             float* __restrict__ o, int Tq, int S, int Hq, int group, float scale, int causal,
-             int64_t qsb, int64_t qst, int64_t qsh, int64_t ksb, int64_t kst, int64_t ksh,
+             float* __restrict__ o, float* __restrict__ lse, int Tq, int S, int Hq, int group,
+             float scale, int causal, int64_t qsb, int64_t qst, int64_t qsh, int64_t ksb, int64_t kst, int64_t ksh,
              int64_t vsb, int64_t vst, int64_t vsh) {
   using L = Layout<D>;
   constexpr int LDQ = L::LDQ;
@@ -206,6 +211,13 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const flo
 
   // Every row has seen at least one key at its running maximum, so l >= 1.
   // Stage the tile in Q's room so that the store is 16 bytes a thread.
+  if (lse != nullptr && tx == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty * 4 + i;
+      if (row < Tq) lse[((int64_t)b * Hq + h) * Tq + row] = m[i] + logf(l[i]);
+    }
+  }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float inv = 1.0f / l[i];
@@ -228,6 +240,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k, const flo
 
 constexpr int MMA_NT = 128;  // four warps, 16 query rows each
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct MmaLayout {
@@ -236,27 +249,12 @@ struct MmaLayout {
   static constexpr int BYTES = 5 * TILE * 2;  // Q, then K and V in two stages each
 };
 
-// BM rows of D bf16 (row r at src + r*stride) into shared memory with row
-// stride LD, 16 bytes a thread a chunk; rows at or past `valid` become zeros.
-template <int D, int LD>
-__device__ inline void cp_async_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                     int64_t stride, int valid, int tid) {
-  constexpr int CPR = D / 8;  // chunks a row
-#pragma unroll
-  for (int i = 0; i < BM * CPR / MMA_NT; ++i) {
-    const int c = tid + i * MMA_NT;
-    const int r = c / CPR;
-    const int col = (c % CPR) * 8;
-    const bool ok = r < valid;
-    cp_async16(smem_addr(dst + r * LD + col), src + (ok ? (int64_t)r * stride + col : 0), ok);
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(MMA_NT, 2)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Tq, int S,
-                 int Hq, int group, float scale, int causal, int64_t qsb, int64_t qst,
+                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                 float* __restrict__ lse, int Tq, int S, int Hq, int group, float scale, int causal,
+                 int64_t qsb, int64_t qst,
                  int64_t qsh, int64_t ksb, int64_t kst, int64_t ksh, int64_t vsb, int64_t vst,
                  int64_t vsh) {
   using L = MmaLayout<D>;
@@ -287,11 +285,11 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 
   auto load_kv = [&](int kt, int stage) {
     const int k0 = kt * BN;
-    cp_async_tile<D, LD>(sK + stage * L::TILE, kb + (int64_t)k0 * kst, kst, S - k0, tid);
-    cp_async_tile<D, LD>(sV + stage * L::TILE, vb + (int64_t)k0 * vst, vst, S - k0, tid);
+    cp_async_tile<BM, MMA_NT, D, LD>(sK + stage * L::TILE, kb + (int64_t)k0 * kst, kst, S - k0, tid);
+    cp_async_tile<BM, MMA_NT, D, LD>(sV + stage * L::TILE, vb + (int64_t)k0 * vst, vst, S - k0, tid);
   };
 
-  cp_async_tile<D, LD>(sQ, q + b * qsb + (int64_t)q0 * qst + h * qsh, qst, Tq - q0, tid);
+  cp_async_tile<BM, MMA_NT, D, LD>(sQ, q + b * qsb + (int64_t)q0 * qst + h * qsh, qst, Tq - q0, tid);
   cp_async_commit();
   load_kv(0, 0);
   cp_async_commit();
@@ -425,6 +423,13 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.0f / l[r];
   }
+  if (lse != nullptr && t == 0) {  // m is in the log2 domain
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + r * 8;
+      if (row < Tq) lse[((int64_t)b * Hq + h) * Tq + row] = m[r] * LN2 + logf(l[r]);
+    }
+  }
   const int rw = warp * 16 + g;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
@@ -452,6 +457,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 struct Args {
   const void *q, *k, *v;
   void* o;
+  float* lse;
   int B, Tq, S, Hq, Hkv;
   float scale;
   int causal;
@@ -465,7 +471,7 @@ int launch_kernel(Kernel kernel, int threads, int smem, const Args& a) {
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((a.Tq + BM - 1) / BM, a.Hq, a.B);
   kernel<<<grid, threads, smem, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.o, a.Tq, a.S, a.Hq, a.Hq / a.Hkv, a.scale,
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.o, a.lse, a.Tq, a.S, a.Hq, a.Hq / a.Hkv, a.scale,
       a.causal, a.qs[0], a.qs[1], a.qs[2], a.ks[0], a.ks[1], a.ks[2], a.vs[0], a.vs[1], a.vs[2]);
   return (int)cudaGetLastError();
 }
@@ -480,19 +486,20 @@ int launch(const Args& a, int dtype) {
 }  // namespace
 
 // q (B, T, Hq, D), k and v (B, S, Hkv, D) with element strides (batch, time,
-// head) and a unit stride along D; o (B, T, Hq, D) contiguous.  Every row of
-// q, k and v must start on a 16-byte boundary.  bf16 runs flash_mma_kernel on
+// head) and a unit stride along D; o (B, T, Hq, D) contiguous; lse null or
+// (B, Hq, T) f32 contiguous.  Every row of q, k and v must start on a 16-byte
+// boundary.  bf16 runs flash_mma_kernel on
 // the tensor cores, f32 flash_kernel on the CUDA cores.  Returns
 // cudaGetLastError() of the launch, -1 for a bad dtype, -2 for a head size
 // without a template.
-extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B,
-                                      int Tq, int S, int Hq, int Hkv, int D, float scale,
+extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
+                                      void* lse, int B, int Tq, int S, int Hq, int Hkv, int D, float scale,
                                       int causal, int dtype, int64_t qsb, int64_t qst, int64_t qsh,
                                       int64_t ksb, int64_t kst, int64_t ksh, int64_t vsb,
                                       int64_t vst, int64_t vsh, void* stream) {
   if (B == 0 || Tq == 0) return 0;
   if (dtype != DT_F32 && dtype != DT_BF16) return -1;
-  const Args a{q, k, v, o, B, Tq, S, Hq, Hkv, scale, causal,
+  const Args a{q, k, v, o, (float*)lse, B, Tq, S, Hq, Hkv, scale, causal,
                {qsb, qst, qsh}, {ksb, kst, ksh}, {vsb, vst, vsh}, (cudaStream_t)stream};
   if (D == 32) return launch<32>(a, dtype);
   if (D == 64) return launch<64>(a, dtype);

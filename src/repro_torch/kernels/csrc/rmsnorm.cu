@@ -26,6 +26,19 @@
 //
 // Both keep the reference's order: f32 sum of squares, rsqrt(mean + eps),
 // x times that, times the f32 scale, rounded once to x's type.
+//
+// The backward, rmsnorm_bwd_kernel<T> + rmsnorm_bwd_reduce_kernel: with
+// g = dy * scale and r = rsqrt(mean(x^2) + eps), dx = r g - x r^3 mean(g x)
+// and dscale = sum over rows of dy x r.  It is the port's counterpart of what
+// XLA derives for the reference's jnp rmsnorm; the TPU kernel has no backward.
+// Bound by bytes: x and dy read once, dx written once.  r is recomputed from
+// x in the same pass (the backward reads x anyway), so the forward saves
+// nothing.  A one-wave grid of blocks walks the rows (row = blockIdx.x, +
+// gridDim.x, ...); a block keeps its row of x and dy as f32 in shared memory
+// while it reduces sum(x^2) and sum(g x) together, and adds dy x r into its
+// own f32 dscale partial, one column a thread, in shared memory.  The second
+// kernel sums the blocks' partials column by column in a fixed order: no
+// float atomics, so every run gives the same bits.
 #include "common.cuh"
 
 namespace {
@@ -160,6 +173,143 @@ rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ scale, T* __re
   }
 }
 
+// VEC: d is a whole number of 16-byte chunks and every pointer 16-byte
+// aligned; a thread then owns chunks of W = Vec16<T>::N columns, else single
+// columns.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scale, const T* __restrict__ dy,
+                   T* __restrict__ dx, float* __restrict__ partial, int64_t n, int d, float eps) {
+  extern __shared__ __align__(16) float bwd_smem[];  // x, dy and the dscale partial: 3 d floats
+  float* xs = bwd_smem;
+  float* gs = xs + d;
+  float* acc = gs + d;
+  __shared__ float part[kThreads / 32][2];
+  __shared__ float total[2];
+  constexpr int W = VEC ? Vec16<T>::N : 1;
+  const int tid = threadIdx.x;
+  // every loop below visits the same columns of a thread, so a thread reads
+  // back only what it wrote itself and the rows need no barrier of their own
+  const int first = tid * W;
+  for (int c = first; c < d; c += kThreads * W)
+#pragma unroll
+    for (int i = 0; i < W; ++i) acc[c + i] = 0.0f;
+
+  for (int64_t row = blockIdx.x; row < n; row += gridDim.x) {
+    const T* xr = x + row * d;
+    const T* gr = dy + row * d;
+    float ss = 0.0f, gx = 0.0f;
+    for (int c = first; c < d; c += kThreads * W) {
+      float xb[W], gb[W];
+      if constexpr (VEC) {
+        Vec16<T>::load(xr + c, xb);
+        Vec16<T>::load(gr + c, gb);
+      } else {
+        xb[0] = to_f32(xr[c]);
+        gb[0] = to_f32(gr[c]);
+      }
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        xs[c + i] = xb[i];
+        gs[c + i] = gb[i];
+        ss += xb[i] * xb[i];
+        gx += gb[i] * scale[c + i] * xb[i];
+      }
+    }
+    ss = warp_sum(ss);
+    gx = warp_sum(gx);
+    if ((tid & 31) == 0) {
+      part[tid >> 5][0] = ss;
+      part[tid >> 5][1] = gx;
+    }
+    __syncthreads();
+    if (tid < 32) {
+      float a = tid < kThreads / 32 ? part[tid][0] : 0.0f;
+      float b = tid < kThreads / 32 ? part[tid][1] : 0.0f;
+      a = warp_sum(a);
+      b = warp_sum(b);
+      if (tid == 0) {
+        total[0] = a;
+        total[1] = b;
+      }
+    }
+    __syncthreads();
+    const float r = rsqrtf(total[0] / (float)d + eps);
+    const float coef = r * r * r * (total[1] / (float)d);
+    T* out = dx + row * d;
+    for (int c = first; c < d; c += kThreads * W) {
+      float buf[W];
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        const float xv = xs[c + i], gv = gs[c + i];
+        buf[i] = r * gv * scale[c + i] - xv * coef;
+        acc[c + i] += gv * xv * r;
+      }
+      if constexpr (VEC) {
+        Vec16<T>::store(out + c, buf);
+      } else {
+        out[c] = from_f32<T>(buf[0]);
+      }
+    }
+  }
+  float* mine = partial + (int64_t)blockIdx.x * d;
+  for (int c = first; c < d; c += kThreads * W)
+#pragma unroll
+    for (int i = 0; i < W; ++i) mine[c + i] = acc[c + i];
+}
+
+// dscale[c] = the blocks' partials of column c.  A block owns 32 columns; its
+// eight warps each sum every eighth partial row of them, in order (a warp
+// reads 128 neighbouring bytes a row), and warp 0 adds the eight sums in
+// order: a fixed order whatever the timing.
+constexpr int kRedCols = 32;
+constexpr int kRedRows = kThreads / kRedCols;
+
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_bwd_reduce_kernel(const float* __restrict__ partial, float* __restrict__ dscale, int blocks,
+                          int d) {
+  __shared__ float part[kRedRows][kRedCols + 1];
+  const int tx = threadIdx.x % kRedCols;
+  const int ty = threadIdx.x / kRedCols;
+  const int c = blockIdx.x * kRedCols + tx;
+  float s = 0.0f;
+  if (c < d)
+    for (int b = ty; b < blocks; b += kRedRows) s += partial[(int64_t)b * d + c];
+  part[ty][tx] = s;
+  __syncthreads();
+  if (ty == 0 && c < d) {
+    float total = 0.0f;
+#pragma unroll
+    for (int r = 0; r < kRedRows; ++r) total += part[r][tx];
+    dscale[c] = total;
+  }
+}
+
+template <typename T, bool VEC>
+cudaError_t launch_bwd_rows(const void* x, const void* scale, const void* dy, void* dx,
+                            void* partial, int64_t n, int d, float eps, int blocks,
+                            cudaStream_t stream) {
+  const size_t smem = (size_t)3 * d * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(rmsnorm_bwd_kernel<T, VEC>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  rmsnorm_bwd_kernel<T, VEC><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      (const T*)x, (const float*)scale, (const T*)dy, (T*)dx, (float*)partial, n, d, eps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* scale, const void* dy, void* dx, void* dscale,
+               void* partial, int64_t n, int d, float eps, int vec, int blocks,
+               cudaStream_t stream) {
+  cudaError_t e = vec ? launch_bwd_rows<T, true>(x, scale, dy, dx, partial, n, d, eps, blocks, stream)
+                      : launch_bwd_rows<T, false>(x, scale, dy, dx, partial, n, d, eps, blocks, stream);
+  if (e != cudaSuccess) return (int)e;
+  rmsnorm_bwd_reduce_kernel<<<(unsigned)((d + kRedCols - 1) / kRedCols), kThreads, 0, stream>>>(
+      (const float*)partial, (float*)dscale, blocks, d);
+  return (int)cudaGetLastError();
+}
+
 // One wave: as many blocks as the card's SMs hold at once, at most one a row.
 // The wave's size is asked of the runtime once a device and kept.
 template <typename T, int NT>
@@ -217,5 +367,24 @@ extern "C" int rmsnorm_launch(const void* x, const void* scale, void* y, int64_t
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == DT_F32) return launch<float>(x, scale, y, n, d, eps, vec, s);
   if (dtype == DT_BF16) return launch<__nv_bfloat16>(x, scale, y, n, d, eps, vec, s);
+  return -1;
+}
+
+// The backward.  x, dy, dx: (n, d) contiguous in `dtype`; scale: (d,) f32;
+// dscale: (d,) f32; partial: (blocks, d) f32 scratch, one row a block of the
+// grid, 1 <= blocks <= n.  vec != 0 promises that d is a multiple of 16 bytes'
+// worth of elements and that x, dy, dx and scale are 16-byte aligned.
+// Returns cudaGetLastError() of the launches, -1 for a bad dtype, -4 for a bad
+// grid.
+extern "C" int rmsnorm_bwd_launch(const void* x, const void* scale, const void* dy, void* dx,
+                                  void* dscale, void* partial, int64_t n, int d, float eps,
+                                  int dtype, int vec, int blocks, void* stream) {
+  if (n == 0) return 0;
+  if (blocks < 1 || blocks > n) return -4;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == DT_F32)
+    return launch_bwd<float>(x, scale, dy, dx, dscale, partial, n, d, eps, vec, blocks, s);
+  if (dtype == DT_BF16)
+    return launch_bwd<__nv_bfloat16>(x, scale, dy, dx, dscale, partial, n, d, eps, vec, blocks, s);
   return -1;
 }

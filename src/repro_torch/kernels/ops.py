@@ -5,6 +5,13 @@ lies on the CPU; a tensor on the card launches the kernel or raises.  There is
 no fall-back of any kind on the card: the kernels read the model's layouts
 through strides and mask their own ragged edges, so T, S and N need divide
 nothing.
+
+Where gradients are enabled and an input requires grad, ``flash_attention``
+and ``rmsnorm`` go through their autograd Functions (``FlashAttentionFn``,
+``RMSNormFn``) on either device: on the card the Function's forward and
+backward launch kernels, on the CPU they call the plain forward and the plain
+backward, so the CPU tests run the backward arithmetic the card runs.  Decode
+attention and WKV-6 have no backward: their wrappers refuse such inputs.
 """
 from __future__ import annotations
 
@@ -18,6 +25,10 @@ from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import wkv6 as _wkv
 
 
+def _differentiated(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, T, Hq, D)
     k: torch.Tensor,  # (B, S, Hkv, D)
@@ -26,6 +37,8 @@ def flash_attention(
     causal: bool = True,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
+    if _differentiated(q, k, v):
+        return _fa.FlashAttentionFn.apply(q, k, v, causal, scale)
     if q.device.type == "cpu":
         return _fa.flash_attention_plain(q, k, v, causal=causal, scale=scale)
     return _fa.flash_attention_cuda(q, k, v, causal=causal, scale=scale)
@@ -48,6 +61,8 @@ def decode_attention(
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     """x (..., d): the leading axes are flattened into rows for the kernel."""
+    if _differentiated(x, scale):
+        return _rms.RMSNormFn.apply(x, scale, eps)
     if x.device.type == "cpu":
         return _rms.rmsnorm_plain(x, scale, eps)
     return _rms.rmsnorm_rows(x.reshape(-1, x.shape[-1]), scale, eps).reshape(x.shape)

@@ -1,0 +1,97 @@
+"""Training launcher: data pipeline -> train step (loss, gradients through the
+kernels' backward, AdamW) -> metrics.  Counterpart of ``repro/launch/train.py``
+on one device.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-a --smoke \\
+      --steps 200 --batch 8 --seq 128
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch gpt-a \\
+      --smoke --steps 4 --batch 8 --seq 32 --log-every 1
+
+Runs on the card; ``--device cpu`` runs the plain PyTorch path on the CPU.
+Not ported yet: the reference's cross-pod pipeline (``--pipeline``,
+``--n-micro``, ``--boundary``, ``--production-mesh``), which comes with the
+many-device slice, and its checkpoints (``--ckpt-dir``, ``--ckpt-every``),
+which come with the checkpoint slice.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, List, Optional
+
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.data.pipeline import DataConfig, make_batches
+from repro_torch.device import resolve_device
+from repro_torch.models.modules import ModelConfig, Params
+from repro_torch.models.transformer import build_model
+from repro_torch.optim.optimizer import OptimizerConfig, init_opt_state, make_train_step
+
+
+def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, lr: float = 3e-3, seed: int = 0,
+          log_every: int = 10, device=None, params: Optional[Params] = None) -> Dict:
+    """Trains ``cfg`` for ``steps`` steps of ``batch`` x ``seq`` tokens from
+    ``make_batches(seed)``, from ``params`` (updated in place) or from random
+    parameters made from ``seed`` on ``device``.  Prints the reference's line
+    every ``log_every`` steps and at the last.  Returns {"params", "opt_state",
+    "history": [{"step", "loss", "grad_norm", "lr", "seconds"}, ...]}, where
+    ``seconds`` is each step's wall time, ending in a synchronisation."""
+    device = resolve_device(device)
+    model = build_model(cfg)
+    if params is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        params = model.init(gen)
+    opt_cfg = OptimizerConfig(peak_lr=lr, warmup_steps=min(20, steps // 5 + 1), total_steps=steps)
+    opt_state = init_opt_state(params)
+    step_fn = make_train_step(model.loss, opt_cfg)
+    data = make_batches(cfg, DataConfig(seed=seed, batch_size=batch, seq_len=seq), num_steps=steps)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    history: List[Dict] = []
+    tokens_done = 0
+    sync()
+    t0 = time.perf_counter()
+    for step, b in enumerate(data):
+        t_step = time.perf_counter()
+        b = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        params, opt_state, metrics = step_fn(params, opt_state, b)
+        sync()
+        now = time.perf_counter()
+        tokens_done += batch * seq
+        history.append({"step": step, "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                        "lr": float(metrics["lr"]), "seconds": now - t_step})
+        if step % log_every == 0 or step == steps - 1:
+            h = history[-1]
+            print(f"step {step:5d} loss {h['loss']:.4f} gnorm {h['grad_norm']:.3f} lr {h['lr']:.2e} "
+                  f"tok/s {tokens_done / max(now - t0, 1e-9):,.0f}", flush=True)
+    return {"params": params, "opt_state": opt_state, "history": history}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--smoke", action="store_true", help="reduced config")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None, help="default: the CUDA device; 'cpu' must be asked for")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    print(f"[train] arch={cfg.name} device={where} params={cfg.param_count() / 1e6:.1f}M")
+    return train(cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr, seed=args.seed,
+                 log_every=args.log_every, device=device)
+
+
+if __name__ == "__main__":
+    main()

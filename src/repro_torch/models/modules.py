@@ -199,3 +199,14 @@ def ffn_apply(params: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
     else:
         raise ValueError(f"unknown activation {activation}")
     return dense(params["w_down"], h)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross entropy; logits (..., V) upcast to f32.  With a mask,
+    the sum over the mask divided by max(mask sum, 1)."""
+    logits = logits.float()
+    nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, labels.long()[..., None])[..., 0]
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

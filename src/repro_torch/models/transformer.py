@@ -1,18 +1,21 @@
-"""The serving half of ``repro/models/transformer.py``: the dense decoder
-(``_build_transformer``) as ``Model`` and the RWKV-6 stack (``_build_rwkv``) as
-``RWKVModel``, each with ``init``, ``cast_params``, ``prefill``,
-``decode_step`` and ``cache_shape``; ``build_model`` dispatches as the
-reference's does.
+"""``repro/models/transformer.py`` for the dense decoder and RWKV-6: the dense
+decoder (``_build_transformer``) as ``Model``, with ``init``, ``cast_params``,
+``loss``, ``prefill``, ``decode_step`` and ``cache_shape``, and the RWKV-6
+stack (``_build_rwkv``) as ``RWKVModel``, which serves only (its training
+needs a WKV-6 backward); ``build_model`` dispatches as the reference's does.
 
 Parameters are layer-stacked (leading ``L`` axis) as in the reference; the
-reference's ``lax.scan`` over the stack is a Python loop over ``L`` here.
-``loss`` and the chunked cross entropy are not ported yet.
+reference's ``lax.scan`` over the stack is a Python loop over ``L`` here, and
+its ``jax.checkpoint`` of the scanned body (``cfg.remat``) a
+``torch.utils.checkpoint`` of each block.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention as attn
 from repro_torch.models import rwkv as rwkv_lib
@@ -28,13 +31,41 @@ from repro_torch.models.modules import (
 )
 
 NORM_KEYS = ("ln1", "ln2", "final_norm")  # f32 scales: RMSNorm runs in f32 whatever cfg.dtype
+LOSS_CHUNK = 256  # sequence chunk for the big-vocabulary cross entropy (bounds the f32 logits)
+
+# the products whose outputs remat "dots" keeps (the reference's
+# dots_with_no_batch_dims_saveable: matrix products without batch dims)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
-def _layer(tree: Any, i: int) -> Any:
-    """Slice layer ``i`` out of a layer-stacked tree (views, no copies)."""
+def _save_dots(ctx, op, *args, **kwargs):
+    return ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn: Callable, policy: str) -> Callable:
+    """``fn`` as the reference's ``_remat`` wraps it: "none" keeps every
+    activation, "full" keeps only the inputs and recomputes the rest in the
+    backward, "dots" keeps the matrix products' outputs as well."""
+    if policy == "none":
+        return fn
+    if policy == "dots":
+        context = functools.partial(ckpt.create_selective_checkpoint_contexts, _save_dots)
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, context_fn=context)
+    if policy == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    raise ValueError(f"unknown remat policy {policy!r}")
+
+
+def _unstack(tree: Any, n: int) -> list:
+    """The ``n`` layers of a layer-stacked tree, each leaf taken apart once by
+    ``unbind``: views, so a cache written in place is written in the stack.
+    Differentiated, its backward stacks the n gradients in one copy, where
+    slicing layer by layer would give every layer's gradient a zero-filled
+    leaf of the whole stack to be added up."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def _block_apply(params: Params, cfg: ModelConfig, x, positions, cache):
@@ -74,6 +105,31 @@ def _default_positions(shape, device) -> torch.Tensor:
     return torch.arange(T, dtype=torch.int32, device=device)[None].expand(B, T)
 
 
+def _lm_loss_chunked(x: torch.Tensor, w_head: torch.Tensor, labels: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next-token cross entropy in sequence chunks of ``min(LOSS_CHUNK, T)``.
+
+    x (B, T, d) already final-normed; labels (B, T) the targets at each
+    position (shifted by the caller); mask (B, T) optional.  T is padded to a
+    multiple of the chunk with mask 0; each chunk's logits are computed in x's
+    dtype, then taken to f32.  Returns sum(nll * mask) / max(sum(mask), 1)."""
+    B, T, d = x.shape
+    chunk = min(LOSS_CHUNK, T)
+    pad = (-T) % chunk
+    pad_mask = torch.ones((B, T), dtype=torch.float32, device=x.device) if mask is None else mask.float()
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+        pad_mask = torch.nn.functional.pad(pad_mask, (0, pad))
+    w = w_head.to(x.dtype)
+    total = x.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, T + pad, chunk):
+        logits = (x[:, c0:c0 + chunk] @ w).float()
+        gold = logits.gather(-1, labels[:, c0:c0 + chunk].long()[..., None])[..., 0]
+        total = total + ((torch.logsumexp(logits, dim=-1) - gold) * pad_mask[:, c0:c0 + chunk]).sum()
+    return total / torch.clamp(pad_mask.sum(), min=1.0)
+
+
 class Model:
     """Functional model object: the methods take the parameters explicitly."""
 
@@ -110,11 +166,41 @@ class Model:
         return _cast_tree(params, self.cfg.dtype, NORM_KEYS)
 
     def _backbone(self, params: Params, x, positions, cache):
-        """Loop over the blocks. cache None or a stacked (L, ...) tree, updated in place."""
-        for i in range(self.cfg.num_layers):
-            lc = None if cache is None else _layer(cache, i)
-            x, _ = _block_apply(_layer(params["layers"], i), self.cfg, x, positions, lc)
+        """Loop over the blocks. cache None or a stacked (L, ...) tree, updated
+        in place.  Differentiated (a loss), each block runs under ``cfg.remat``."""
+        cfg, L = self.cfg, self.cfg.num_layers
+        block = lambda lp, h, lc: _block_apply(lp, cfg, h, positions, lc)[0]  # noqa: E731
+        if torch.is_grad_enabled() and cache is None:
+            block = _remat(block, cfg.remat)
+        caches = [None] * L if cache is None else _unstack(cache, L)
+        for lp, lc in zip(_unstack(params["layers"], L), caches):
+            x = block(lp, x, lc)
         return rmsnorm(params["final_norm"], x), cache
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch {"tokens" (B,T) int32, optional "positions" (B,T), optional
+        "labels" (B,T) with "mask" (B,T)}.  Takes the f32 master parameters:
+        ``dense`` casts each weight to the activation dtype, so autograd gives
+        f32 gradients on the f32 leaves.  Returns (ce + aux, {"ce", "aux"});
+        aux is 0 for the dense decoder.  Without labels the targets are the
+        next tokens, and the last position is masked."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = _embed_tokens(params, cfg, tokens)
+        positions = batch.get("positions")
+        if positions is None:
+            positions = _default_positions(x.shape[:2], x.device)
+        x, _ = self._backbone(params, x, positions, None)
+        targets = batch.get("labels")
+        if targets is None:
+            targets = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
+            mask = torch.ones(targets.shape, dtype=torch.float32, device=x.device)
+            mask[:, -1] = 0.0
+        else:
+            mask = batch.get("mask")
+        ce = _lm_loss_chunked(x, _head_weight(params, cfg), targets, mask)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return ce + aux, {"ce": ce, "aux": aux}
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor], cache) -> Tuple[torch.Tensor, Any]:
         """batch {"tokens" (B,T) int32, optional "positions" (B,T) int32}.
@@ -174,10 +260,14 @@ class RWKVModel:
         its dtype is shared, not copied."""
         return _cast_tree(params, self.cfg.dtype, self.KEEP_F32)
 
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]):
+        raise NotImplementedError(f"{self.cfg.name}: training RWKV-6 needs a WKV-6 backward, which is not ported yet")
+
     def _backbone(self, params: Params, x, cache):
-        for i in range(self.cfg.num_layers):
-            lc = None if cache is None else _layer(cache, i)
-            x, _ = rwkv_lib.rwkv6_apply(_layer(params["layers"], i), self.cfg, x, lc)
+        L = self.cfg.num_layers
+        caches = [None] * L if cache is None else _unstack(cache, L)
+        for lp, lc in zip(_unstack(params["layers"], L), caches):
+            x, _ = rwkv_lib.rwkv6_apply(lp, self.cfg, x, lc)
         return rmsnorm(params["final_norm"], x), cache
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor], cache) -> Tuple[torch.Tensor, Any]:

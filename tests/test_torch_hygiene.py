@@ -46,10 +46,11 @@ def test_package_has_every_serving_module():
             "models/transformer.py", "configs/__init__.py", "configs/gpt_a.py", "configs/gpt_b.py",
             "configs/minitron_4b.py", "configs/rwkv6_7b.py", "kernels/build.py", "kernels/ops.py",
             "kernels/ref.py", "kernels/rmsnorm.py", "kernels/flash_attention.py", "kernels/decode_attention.py",
-            "kernels/wkv6.py", "models/rwkv.py", "serving/engine.py", "launch/serve.py"}
+            "kernels/wkv6.py", "models/rwkv.py", "serving/engine.py", "launch/serve.py",
+            "optim/optimizer.py", "data/pipeline.py", "launch/train.py"}
     assert want <= have
     csrc = {p.name for p in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").iterdir()}
-    assert {"rmsnorm.cu", "flash_attention.cu", "decode_attention.cu", "wkv6.cu"} <= csrc
+    assert {"rmsnorm.cu", "flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu", "wkv6.cu"} <= csrc
 
 
 _BLOCKED = """
@@ -60,7 +61,7 @@ class Block:
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 import repro_torch.serving.engine, repro_torch.launch.serve, repro_torch.convert, repro_torch.kernels.ref
-import repro_torch.models.rwkv
+import repro_torch.models.rwkv, repro_torch.launch.train, repro_torch.optim.optimizer, repro_torch.data.pipeline
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro") for m in sys.modules)
 print("imported")
 """
@@ -75,7 +76,7 @@ def test_engine_imports_where_jax_and_repro_cannot_be_imported():
 def test_entry_points_raise_without_a_card_unless_the_cpu_is_asked_for():
     from repro_torch import configs
     from repro_torch.device import resolve_device
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models.transformer import build_model
     from repro_torch.serving.engine import ServingEngine, SplitwiseCluster
 
@@ -94,6 +95,10 @@ def test_entry_points_raise_without_a_card_unless_the_cpu_is_asked_for():
         SplitwiseCluster(cfg, params, max_batch=2, max_len=16)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--requests", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "gpt-a", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.train(cfg, steps=1, batch=2, seq=8)
 
 
 def test_chip_smoke_fails_without_a_card_and_prints_no_result():
@@ -126,4 +131,5 @@ def test_build_refuses_where_there_is_no_nvcc(monkeypatch):
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     with pytest.raises(RuntimeError, match="nvcc"):
         build.find_nvcc()
-    assert {"rmsnorm_launch", "flash_attention_launch", "decode_attention_launch", "wkv6_launch"} == set(build.SIGNATURES)
+    assert {"rmsnorm_launch", "rmsnorm_bwd_launch", "flash_attention_launch", "flash_attention_bwd_launch",
+            "decode_attention_launch", "wkv6_launch"} == set(build.SIGNATURES)
