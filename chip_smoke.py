@@ -277,14 +277,38 @@ def autograd_plain(fn, inputs, dout):
         return torch.autograd.grad(fn(*leaves), leaves, dout)
 
 
+def rmsnorm_bwd_wave(d: int, dtype: torch.dtype) -> int:
+    """Rows of d the backward's register kernel takes in one wave of its grid:
+    the most rows for which ``bwd_grid`` gives every row its own block."""
+    lo, hi = 1, 1 << 16
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if rms_mod.bwd_grid(mid, d, dtype, 1)[0] == mid else (lo, mid - 1)
+    return lo
+
+
+def rmsnorm_bwd_plan(n: int, d: int, dtype: torch.dtype, vec: int = 1) -> dict:
+    """The backward's first kernel for n rows of d, its grid and the bytes of
+    dscale partials it writes (and the reduction reads back)."""
+    blocks, threads = rms_mod.bwd_grid(n, d, dtype, vec)
+    t = "bf16" if dtype == torch.bfloat16 else "f32"
+    name = f"rmsnorm_bwd_reg_kernel<{t},{threads}>" if threads else f"rmsnorm_bwd_kernel<{t}>"
+    return {"kernel": name, "blocks": blocks, "threads": threads, "partial_bytes": blocks * d * 4}
+
+
 def check_rmsnorm_bwd(ck: Checker, gen) -> None:
     # GPT-A's training rows and a decode step's (4 rows), a wave and a few
     # rows more, rows that are not a whole number of 16-byte chunks (100 and
-    # 4100 in bf16, 4097 in both), a long row, and a scale off 16 bytes
+    # 4100 in bf16, 4097 in both), a long row, and a scale off 16 bytes; then
+    # the register kernel's edges: rows just below, at and one past its wave
+    # at d 4096, Minitron-4B's 3072 (the last chunk of every thread empty), and
+    # 2048 and 1024 (64 and 32 threads in bf16)
     shapes = [(2048, 4096), (4, 4096), (4, 512, 4096), (1, 4096), (2049, 4096), (777, 100), (37, 4100),
-              (33, 4097), (64, 8192), (5000, 1024)]
+              (33, 4097), (64, 8192), (5000, 1024), (2048, 3072), (777, 2048), (1000, 1024), (3, 1024)]
     for dtype in BWD_TOL:
-        cases = [(randn(gen, sh, dtype), randn(gen, sh[-1:], torch.float32), f"{sh}") for sh in shapes]
+        wave = rmsnorm_bwd_wave(4096, dtype)
+        edges = [(wave - 1, 4096), (wave, 4096), (wave + 1, 4096)]
+        cases = [(randn(gen, sh, dtype), randn(gen, sh[-1:], torch.float32), f"{sh}") for sh in shapes + edges]
         cases.append((randn(gen, (9, 4096), dtype), randn(gen, (4097,), torch.float32)[1:], "scale off 16 bytes"))
         for x, sc, label in cases:
             dy = randn(gen, x.shape, dtype)
@@ -508,6 +532,22 @@ def time_ms(fn, arg_sets, iters: int = 20, reps: int = 7) -> float:
     return statistics.median(times)
 
 
+def kernel_times_ms(fn, arg_sets, iters: int = 20) -> dict:
+    """{kernel name: device ms a launch} of the kernels ``fn`` launches, from
+    torch.profiler's device time over ``iters`` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for a in arg_sets:
+        fn(*a)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / iters / 1e3 for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def measure_kernels(gen) -> dict:
     """Times at GPT-A's full-width shapes (bf16): kernel, plain version, the one
     library call that computes the same function, and the card's bound."""
@@ -653,6 +693,8 @@ def measure_backward(gen) -> dict:
             lib_sets.append((F.rms_norm(xg, (d,), wg, 1e-6), xg, wg, dy))
     nbytes = 3 * N * d * 2 + 2 * d * 4  # x, dy read, dx written; scale read, dscale written
     flops = 10 * N * d  # sums of x^2 and g x, g, dx, dscale's term: about ten a element
+    grid = rmsnorm_bwd_plan(N, d, dt)
+    split = kernel_times_ms(lambda x, s, g: rms_mod.rmsnorm_bwd_rows(x, s, g), sets)
     out["rmsnorm_bwd"] = {
         "shape": f"x, dy ({N},{d}) bf16",
         "ms": time_ms(lambda x, s, g: rms_mod.rmsnorm_bwd_rows(x, s, g), sets),
@@ -662,6 +704,13 @@ def measure_backward(gen) -> dict:
         "bytes": nbytes, "flops": flops,
         "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3,
         "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations",
+        # the two kernels apart (the profiler's device time a launch) and the
+        # partials the first writes and the second reads back
+        "rows_kernel": grid["kernel"], "grid_blocks": grid["blocks"], "grid_threads": grid["threads"],
+        "partial_bytes": grid["partial_bytes"],
+        "rows_kernel_ms": sum(t for k, t in split.items() if "reduce" not in k),
+        "reduce_kernel_ms": sum(t for k, t in split.items() if "reduce" in k),
+        "f32_rows_kernel": rmsnorm_bwd_plan(N, d, torch.float32)["kernel"],
     }
     del lib_sets
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""K1 (RMSNorm) and K4 (WKV-6) kernels of a checkout, timed on the card.
+"""K1 (RMSNorm, forward and backward) and K4 (WKV-6) kernels of a checkout,
+timed on the card.
 
-    python3 experiments/torch_kernel_ab.py [--src DIR] [--label NAME]
+    python3 experiments/torch_kernel_ab.py [--src DIR] [--label NAME] [--skip-sweep]
 
 Needs one NVIDIA Hopper card and ``nvcc``.  Imports ``repro_torch`` from
 ``--src`` (default: this checkout's ``src``), so that two checkouts can be
@@ -11,11 +12,14 @@ device time (CUDA events around queued calls, median of 7 rounds, as
 ``chip_smoke.py`` times them):
 
 * K1 at a prefill's rows, x (2048, 4096) bf16, and a decode step's, (4, 4096);
+* K1's backward at a training step's rows, x and dy (2048, 4096) bf16, and
+  (``rmsnorm_bwd_split_ms``) each of its two kernels' device time a launch,
+  from ``torch.profiler``;
 * K4 at RWKV-6 7B's prefill, r, k, v (4, 512, 64, 64) bf16 with a state, and
   its decode step, (4, 1, 64, 64);
-* where the checkout has ``wkv6.CHUNKED_T_MIN``: both K4 kernels at
-  (4, T, 64, 64) bf16 for T from 1 to 128, each forced by setting that
-  threshold, which is how the threshold is chosen.
+* where the checkout has ``wkv6.CHUNKED_T_MIN`` and ``--skip-sweep`` is not
+  given: both K4 kernels at (4, T, 64, 64) bf16 for T from 1 to 128, each
+  forced by setting that threshold, which is how the threshold is chosen.
 
 Prints one JSON line per group and, first, the card's name and power limit.
 """
@@ -50,16 +54,34 @@ def time_ms(fn, arg_sets, iters: int = 20, reps: int = 7) -> float:
     return statistics.median(times)
 
 
+def kernel_times_ms(fn, arg_sets, iters: int = 20) -> dict:
+    """{kernel name: device ms a launch} of the kernels ``fn`` launches, from
+    torch.profiler's device time over ``iters`` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for a in arg_sets:
+        fn(*a)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.self_device_time_total / iters / 1e3 for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
     ap.add_argument("--label", default="this checkout")
+    ap.add_argument("--skip-sweep", action="store_true", help="leave out the sweep of K4's two kernels over T")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.abspath(args.src))
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import rmsnorm as rms_mod
     from repro_torch.kernels import wkv6 as wkv_mod
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -83,12 +105,17 @@ def main() -> int:
         for key, N, nsets in (("rmsnorm_ms", 2048, 6), ("rmsnorm_decode_ms", 4, 8)):
             sets = [(randn((N, 4096), torch.bfloat16), randn((4096,))) for _ in range(nsets)]
             out[key] = time_ms(lambda x, s: kops.rmsnorm(x, s), sets)
+        sets = [(randn((2048, 4096), torch.bfloat16), randn((4096,)), randn((2048, 4096), torch.bfloat16))
+                for _ in range(4)]
+        out["rmsnorm_bwd_ms"] = time_ms(rms_mod.rmsnorm_bwd_rows, sets)
+        out["rmsnorm_bwd_split_ms"] = kernel_times_ms(rms_mod.rmsnorm_bwd_rows, sets)
+        del sets
         out["wkv6_ms"] = time_ms(wkv, [wkv_set(4, 512) for _ in range(2)])
         out["wkv6_decode_ms"] = time_ms(wkv, [wkv_set(4, 1) for _ in range(8)])
         print(json.dumps(out), flush=True)
 
         t_min = getattr(wkv_mod, "CHUNKED_T_MIN", None)
-        if t_min is not None:
+        if t_min is not None and not args.skip_sweep:
             sweep = []
             for T in (1, 2, 4, 8, 16, 24, 32, 36, 40, 48, 64, 128):
                 sets = [wkv_set(4, T) for _ in range(4)]

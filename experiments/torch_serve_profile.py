@@ -31,9 +31,11 @@ from repro_torch.models.transformer import build_model  # noqa: E402
 from repro_torch.serving.engine import zeros_cache  # noqa: E402
 
 
-def traced(fn, top: int = 8) -> dict:
+def traced(fn, top: int = 8, pick=()) -> dict:
     """Runs ``fn`` once untraced for the host's wall time, then once under the
-    profiler for the device times (tracing slows the host down); times in ms."""
+    profiler for the device times (tracing slows the host down); times in ms.
+    ``pick``: substrings of kernel names whose calls and device time are
+    summed apart, wherever they rank."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
@@ -51,6 +53,9 @@ def traced(fn, top: int = 8) -> dict:
         "kernel_launches": sum(e.count for e in kernels),
         "top_kernels": [{"name": e.key[:80], "calls": e.count, "device_ms": e.self_device_time_total / 1e3}
                         for e in kernels[:top]],
+        "picked": {p: {"calls": sum(e.count for e in kernels if p in e.key),
+                       "device_ms": sum(e.self_device_time_total for e in kernels if p in e.key) / 1e3}
+                   for p in pick},
     }
 
 

@@ -21,7 +21,8 @@ Prints JSON lines:
   leaves at a time, and each leaf's update over its own size (rms);
 - ``profile``: one traced train step, then its loss-and-gradient part and its
   AdamW part apart: the host's wall time, the card's busy time, the idle
-  share, the launches and the kernels that took most of the device time.
+  share, the launches, the kernels that took most of the device time, and
+  (``picked``) the backward kernels' calls and device time.
 
 The first line names the card and its power limit.
 """
@@ -51,6 +52,7 @@ from torch_serve_profile import traced  # noqa: E402
 
 SWEEP = (3e-3, 1e-3, 1e-4, 1e-5, 3e-6, 1e-6)
 STEPS, BATCH, SEQ = 8, 4, 512
+PICK = ("rmsnorm_bwd", "flash_bwd")  # the backward kernels' time a step, wherever they rank
 
 
 def emit(obj) -> None:
@@ -146,14 +148,14 @@ def main(argv=None) -> int:
         step = make_train_step(model.loss, ocfg)
         for b in batches[:2]:  # warm-up
             params, st, _ = step(params, st, b)
-        emit({"phase": "profile", "part": "step", "layers": args.layers, **traced(lambda: step(params, st, batches[2]), top=12)})
+        emit({"phase": "profile", "part": "step", "layers": args.layers, **traced(lambda: step(params, st, batches[2]), top=12, pick=PICK)})
         leaves = list(flatten(params).values())
 
         def loss_and_grad():
             loss, _ = model.loss(params, batches[2])
             return torch.autograd.grad(loss, leaves)
 
-        emit({"phase": "profile", "part": "loss_and_grad", **traced(loss_and_grad, top=12)})
+        emit({"phase": "profile", "part": "loss_and_grad", **traced(loss_and_grad, top=12, pick=PICK)})
         grads = dict(zip(flatten(params), loss_and_grad()))
         with torch.no_grad():
             emit({"phase": "profile", "part": "adamw_update", **traced(lambda: adamw_update(ocfg, grads, params, st), top=8)})

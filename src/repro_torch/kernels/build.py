@@ -28,10 +28,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 
 # argument types of the C entry points, in the order of their declarations
 SIGNATURES = {
     "rmsnorm_launch": [_P, _P, _P, _L, _I, _F, _I, _I, _P],
+    "rmsnorm_bwd_grid": [_L, _I, _I, _I, _IP, _IP],
     "rmsnorm_bwd_launch": [_P] * 6 + [_L, _I, _F, _I, _I, _I, _P],
     "flash_attention_launch": [_P] * 5 + [_I] * 6 + [_F, _I, _I] + [_L] * 9 + [_P],
     "flash_attention_bwd_launch": [_P] * 10 + [_I] * 6 + [_F, _I, _I] + [_L] * 15 + [_P],

@@ -27,24 +27,48 @@
 // Both keep the reference's order: f32 sum of squares, rsqrt(mean + eps),
 // x times that, times the f32 scale, rounded once to x's type.
 //
-// The backward, rmsnorm_bwd_kernel<T> + rmsnorm_bwd_reduce_kernel: with
-// g = dy * scale and r = rsqrt(mean(x^2) + eps), dx = r g - x r^3 mean(g x)
-// and dscale = sum over rows of dy x r.  It is the port's counterpart of what
-// XLA derives for the reference's jnp rmsnorm; the TPU kernel has no backward.
-// Bound by bytes: x and dy read once, dx written once.  r is recomputed from
-// x in the same pass (the backward reads x anyway), so the forward saves
-// nothing.  A one-wave grid of blocks walks the rows (row = blockIdx.x, +
-// gridDim.x, ...); a block keeps its row of x and dy as f32 in shared memory
-// while it reduces sum(x^2) and sum(g x) together, and adds dy x r into its
-// own f32 dscale partial, one column a thread, in shared memory.  The second
-// kernel sums the blocks' partials column by column in a fixed order: no
-// float atomics, so every run gives the same bits.
+// The backward: with g = dy * scale and r = rsqrt(mean(x^2) + eps),
+// dx = r g - x r^3 mean(g x) and dscale = sum over rows of dy x r.  It is the
+// port's counterpart of what XLA derives for the reference's jnp rmsnorm; the
+// TPU kernel has no backward.  Bound by bytes: x and dy read once, dx written
+// once.  r is recomputed from x in the same pass (the backward reads x
+// anyway), so the forward saves nothing.  A one-wave grid of blocks walks the
+// rows (row = blockIdx.x, + gridDim.x, ...), and each block adds dy x r of its
+// rows into its own f32 dscale partial, one partial row a block; a second
+// kernel sums the partials in a fixed order: no float atomics, so every run
+// gives the same bits.  The first kernel is one of two, chosen by shape:
+//
+// - rmsnorm_bwd_reg_kernel<T, NT> (rows the forward's register kernel takes:
+//   whole 16-byte chunks, up to 4096 elements, x, dy, dx and scale aligned;
+//   d_model 4096 in bf16 is 128 threads of 32 elements, in f32 256 threads of
+//   16).  Each thread holds kBwdChunks chunks of the current row of x and of
+//   dy as raw 16-byte words (chunk c = tid + i * NT, as the forward) and
+//   issues the next row's loads before it reduces and writes the current
+//   one.  Its columns' scale and dscale partial stay in f32 registers across
+//   every row the block owns.  sum(x^2) and sum(g x) go through warp shuffles
+//   together, one pair a warp in shared memory, two slots alternating by row:
+//   one barrier a row.  The grid is as many blocks as the SMs hold at once
+//   (asked of the runtime once a device), evened out so that every block
+//   walks the same number of rows but the last.
+// - rmsnorm_bwd_kernel<T, VEC> (every other row: d not a whole number of
+//   16-byte chunks, an unaligned pointer, a row past 4096 elements): a block
+//   keeps its row of x and dy as f32 in shared memory while it reduces, and
+//   its partial there too, one column a thread; kBwdBlocksPerSm blocks an SM.
+//
+// rmsnorm_bwd_reduce_kernel<V4> then gives a block 16 columns: four threads
+// across them, 16 bytes each, and 64 row lanes down the partials.  A lane
+// issues the loads of kRedBatch partial rows before it adds them, in row
+// order; the lanes of a warp meet by shuffles, the warps in order.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;  // rmsnorm_kernel
 constexpr int kElems = 32;     // rmsnorm_reg_kernel: elements of a row a thread holds, at most
+constexpr int kRegRow = 128 * kElems;  // the longest row the register kernels take
+constexpr int kBwdChunks = 4;  // rmsnorm_bwd_reg_kernel: 16-byte chunks of x (and of dy) a thread holds
+constexpr int kBwdBlocksPerSm = 4;  // rmsnorm_bwd_kernel: 48 KB of shared memory a block at d 4096
+constexpr int kDevices = 64;   // devices whose wave sizes are kept
 
 template <typename T, int NT>
 __global__ void __launch_bounds__(NT)
@@ -258,31 +282,237 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scale, con
     for (int i = 0; i < W; ++i) mine[c + i] = acc[c + i];
 }
 
-// dscale[c] = the blocks' partials of column c.  A block owns 32 columns; its
-// eight warps each sum every eighth partial row of them, in order (a warp
-// reads 128 neighbouring bytes a row), and warp 0 adds the eight sums in
-// order: a fixed order whatever the timing.
-constexpr int kRedCols = 32;
-constexpr int kRedRows = kThreads / kRedCols;
+template <typename T, int NT>
+__global__ void __launch_bounds__(NT)
+rmsnorm_bwd_reg_kernel(const T* __restrict__ x, const float* __restrict__ scale, const T* __restrict__ dy,
+                       T* __restrict__ dx, float* __restrict__ partial, int64_t n, int d, float eps) {
+  constexpr int V = Vec16<T>::N;
+  constexpr int NV = kBwdChunks;
+  constexpr int NW = NT / 32;
+  __shared__ float2 red[2][NW];
+  const int tid = threadIdx.x;
+  const int chunks = d / V;
 
+  float sc[NV][V], acc[NV][V];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = tid + i * NT;
+#pragma unroll
+    for (int j = 0; j < V; j += 4) {
+      const float4 s4 = c < chunks ? *reinterpret_cast<const float4*>(scale + c * V + j)
+                                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      sc[i][j] = s4.x; sc[i][j + 1] = s4.y; sc[i][j + 2] = s4.z; sc[i][j + 3] = s4.w;
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[i][j] = 0.0f;
+  }
+
+  uint4 cx[NV], cg[NV], nx[NV], ng[NV];
+  auto fetch = [&](int64_t row, uint4* bx, uint4* bg) {
+    const uint4* sx = reinterpret_cast<const uint4*>(x + row * d);
+    const uint4* sg = reinterpret_cast<const uint4*>(dy + row * d);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = tid + i * NT;
+      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);  // zeros add nothing to the sums
+      bx[i] = c < chunks ? sx[c] : zero;
+      bg[i] = c < chunks ? sg[c] : zero;
+    }
+  };
+
+  int64_t row = blockIdx.x;
+  if (row < n) fetch(row, cx, cg);
+  for (int it = 0; row < n; row += gridDim.x, ++it) {
+    const int64_t next = row + gridDim.x;
+    if (next < n) fetch(next, nx, ng);  // in flight while this row is reduced and written
+
+    float ss = 0.0f, gx = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      float xv[V], gv[V];
+      Vec16<T>::unpack(cx[i], xv);
+      Vec16<T>::unpack(cg[i], gv);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        ss += xv[j] * xv[j];
+        gx += gv[j] * sc[i][j] * xv[j];
+      }
+    }
+    ss = warp_sum(ss);
+    gx = warp_sum(gx);
+    if ((tid & 31) == 0) red[it & 1][tid >> 5] = make_float2(ss, gx);
+    __syncthreads();
+    float tss = 0.0f, tgx = 0.0f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      tss += red[it & 1][w].x;
+      tgx += red[it & 1][w].y;
+    }
+    const float r = rsqrtf(tss / (float)d + eps);
+    const float coef = r * r * r * (tgx / (float)d);
+
+    uint4* out = reinterpret_cast<uint4*>(dx + row * d);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = tid + i * NT;
+      if (c < chunks) {
+        float xv[V], gv[V], o[V];
+        Vec16<T>::unpack(cx[i], xv);
+        Vec16<T>::unpack(cg[i], gv);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          o[j] = r * gv[j] * sc[i][j] - xv[j] * coef;
+          acc[i][j] += gv[j] * xv[j] * r;
+        }
+        out[c] = Vec16<T>::pack(o);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      cx[i] = nx[i];
+      cg[i] = ng[i];
+    }
+  }
+  float* mine = partial + (int64_t)blockIdx.x * d;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = tid + i * NT;
+    if (c < chunks)
+#pragma unroll
+      for (int j = 0; j < V; j += 4)
+        *reinterpret_cast<float4*>(mine + c * V + j) =
+            make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
+  }
+}
+
+// dscale[c] = the blocks' partials of column c.  A block owns kRedCols
+// columns: thread (tx, ty) sums 4 of them (16 bytes a partial row, with V4)
+// down the partial rows ty, ty + kRedLanes, ..., in that order, issuing
+// kRedBatch rows' loads before it adds them; then the 8 row lanes of a warp
+// meet by shuffles and the 8 warps' sums are added in order by the first
+// kRedTx threads: a fixed order whatever the timing.
+constexpr int kRedTx = 4;
+constexpr int kRedCols = 4 * kRedTx;
+constexpr int kRedLanes = kThreads / kRedTx;
+constexpr int kRedBatch = 8;
+
+template <bool V4>
 __global__ void __launch_bounds__(kThreads)
 rmsnorm_bwd_reduce_kernel(const float* __restrict__ partial, float* __restrict__ dscale, int blocks,
                           int d) {
-  __shared__ float part[kRedRows][kRedCols + 1];
-  const int tx = threadIdx.x % kRedCols;
-  const int ty = threadIdx.x / kRedCols;
-  const int c = blockIdx.x * kRedCols + tx;
-  float s = 0.0f;
-  if (c < d)
-    for (int b = ty; b < blocks; b += kRedRows) s += partial[(int64_t)b * d + c];
-  part[ty][tx] = s;
-  __syncthreads();
-  if (ty == 0 && c < d) {
-    float total = 0.0f;
+  __shared__ float4 part[kThreads / 32][kRedTx];
+  const int tx = threadIdx.x % kRedTx;
+  const int ty = threadIdx.x / kRedTx;
+  const int c0 = (blockIdx.x * kRedTx + tx) * 4;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float4 s = zero;
+  if (c0 < d) {
+    for (int b0 = ty; b0 < blocks; b0 += kRedBatch * kRedLanes) {
+      float4 v[kRedBatch];
 #pragma unroll
-    for (int r = 0; r < kRedRows; ++r) total += part[r][tx];
-    dscale[c] = total;
+      for (int u = 0; u < kRedBatch; ++u) {
+        const int b = b0 + u * kRedLanes;
+        const float* p = partial + (int64_t)b * d + c0;
+        if (b >= blocks) {
+          v[u] = zero;
+        } else if constexpr (V4) {
+          v[u] = *reinterpret_cast<const float4*>(p);
+        } else {
+          v[u] = make_float4(p[0], c0 + 1 < d ? p[1] : 0.0f, c0 + 2 < d ? p[2] : 0.0f,
+                             c0 + 3 < d ? p[3] : 0.0f);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kRedBatch; ++u) {
+        s.x += v[u].x; s.y += v[u].y; s.z += v[u].z; s.w += v[u].w;
+      }
+    }
   }
+  // lanes tx, tx + kRedTx, ... of a warp hold the same columns
+#pragma unroll
+  for (int o = kRedTx; o < 32; o <<= 1) {
+    s.x += __shfl_xor_sync(0xffffffffu, s.x, o);
+    s.y += __shfl_xor_sync(0xffffffffu, s.y, o);
+    s.z += __shfl_xor_sync(0xffffffffu, s.z, o);
+    s.w += __shfl_xor_sync(0xffffffffu, s.w, o);
+  }
+  if ((threadIdx.x & 31) < kRedTx) part[threadIdx.x >> 5][tx] = s;
+  __syncthreads();
+  if (threadIdx.x < kRedTx && c0 < d) {
+    float4 t = zero;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) {
+      const float4 p = part[w][tx];
+      t.x += p.x; t.y += p.y; t.z += p.z; t.w += p.w;
+    }
+    if constexpr (V4) {
+      *reinterpret_cast<float4*>(dscale + c0) = t;
+    } else {
+      dscale[c0] = t.x;
+      if (c0 + 1 < d) dscale[c0 + 1] = t.y;
+      if (c0 + 2 < d) dscale[c0 + 2] = t.z;
+      if (c0 + 3 < d) dscale[c0 + 3] = t.w;
+    }
+  }
+}
+
+// How many blocks of `kernel` (nt threads, no dynamic shared memory) the card
+// holds at once, or, with per_sm > 0, that many an SM: asked of the runtime on
+// a device's first call and kept in `kept`, one entry a device.  Returns 0, a
+// CUDA error, or -3 for a device index past the table.
+int one_wave(const void* kernel, int nt, int per_sm, int64_t* kept, int64_t* wave) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= kDevices) return -3;
+  if (kept[dev] == 0) {
+    int sms = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess && per_sm <= 0)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, nt, 0);
+    if (e != cudaSuccess) return (int)e;
+    kept[dev] = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+  }
+  *wave = kept[dev];
+  return 0;
+}
+
+// Threads a block of rmsnorm_bwd_reg_kernel for rows of d (vec: whole 16-byte
+// chunks, aligned pointers), or 0 where the rows take rmsnorm_bwd_kernel.
+template <typename T>
+int bwd_threads(int d, int vec) {
+  if (!vec || d > kRegRow) return 0;
+  int nt = 32;
+  while (nt * kBwdChunks * Vec16<T>::N < d) nt *= 2;
+  return nt;  // bf16: 32, 64 or 128; f32: up to 256
+}
+
+template <typename T, int NT>
+int reg_bwd_wave(int64_t* wave) {
+  static int64_t kept[kDevices] = {};
+  return one_wave((const void*)rmsnorm_bwd_reg_kernel<T, NT>, NT, 0, kept, wave);
+}
+
+// The backward's grid for n rows of d: one wave of the first kernel, evened
+// out (each block walks ceil(n / wave) rows, the last block fewer), so no
+// block waits on a row that a smaller grid would not; one partial row a block.
+template <typename T>
+int bwd_grid(int64_t n, int d, int vec, int* blocks, int* threads) {
+  static int64_t kept_smem[kDevices] = {};
+  const int nt = bwd_threads<T>(d, vec);
+  int64_t wave = 0;
+  int e = -4;
+  if (nt == 0) e = one_wave((const void*)rmsnorm_bwd_kernel<T, true>, kThreads, kBwdBlocksPerSm, kept_smem, &wave);
+  if (nt == 32) e = reg_bwd_wave<T, 32>(&wave);
+  if (nt == 64) e = reg_bwd_wave<T, 64>(&wave);
+  if (nt == 128) e = reg_bwd_wave<T, 128>(&wave);
+  if constexpr (Vec16<T>::N == 4)
+    if (nt == 256) e = reg_bwd_wave<T, 256>(&wave);
+  if (e != 0) return e;
+  const int64_t per = (n + wave - 1) / wave;
+  *blocks = (int)((n + per - 1) / per);
+  *threads = nt;
+  return 0;
 }
 
 template <typename T, bool VEC>
@@ -298,38 +528,47 @@ cudaError_t launch_bwd_rows(const void* x, const void* scale, const void* dy, vo
   return cudaGetLastError();
 }
 
+template <typename T, int NT>
+cudaError_t launch_bwd_reg(const void* x, const void* scale, const void* dy, void* dx,
+                           void* partial, int64_t n, int d, float eps, int blocks,
+                           cudaStream_t stream) {
+  rmsnorm_bwd_reg_kernel<T, NT><<<(unsigned)blocks, NT, 0, stream>>>(
+      (const T*)x, (const float*)scale, (const T*)dy, (T*)dx, (float*)partial, n, d, eps);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch_bwd(const void* x, const void* scale, const void* dy, void* dx, void* dscale,
                void* partial, int64_t n, int d, float eps, int vec, int blocks,
                cudaStream_t stream) {
-  cudaError_t e = vec ? launch_bwd_rows<T, true>(x, scale, dy, dx, partial, n, d, eps, blocks, stream)
-                      : launch_bwd_rows<T, false>(x, scale, dy, dx, partial, n, d, eps, blocks, stream);
+  const int nt = bwd_threads<T>(d, vec);
+  cudaError_t e = cudaErrorInvalidValue;
+  if (nt == 0)
+    e = vec ? launch_bwd_rows<T, true>(x, scale, dy, dx, partial, n, d, eps, blocks, stream)
+            : launch_bwd_rows<T, false>(x, scale, dy, dx, partial, n, d, eps, blocks, stream);
+  if (nt == 32) e = launch_bwd_reg<T, 32>(x, scale, dy, dx, partial, n, d, eps, blocks, stream);
+  if (nt == 64) e = launch_bwd_reg<T, 64>(x, scale, dy, dx, partial, n, d, eps, blocks, stream);
+  if (nt == 128) e = launch_bwd_reg<T, 128>(x, scale, dy, dx, partial, n, d, eps, blocks, stream);
+  if constexpr (Vec16<T>::N == 4)
+    if (nt == 256) e = launch_bwd_reg<T, 256>(x, scale, dy, dx, partial, n, d, eps, blocks, stream);
   if (e != cudaSuccess) return (int)e;
-  rmsnorm_bwd_reduce_kernel<<<(unsigned)((d + kRedCols - 1) / kRedCols), kThreads, 0, stream>>>(
-      (const float*)partial, (float*)dscale, blocks, d);
+  const unsigned red_blocks = (unsigned)((d + kRedCols - 1) / kRedCols);
+  if (d % 4 == 0)
+    rmsnorm_bwd_reduce_kernel<true><<<red_blocks, kThreads, 0, stream>>>((const float*)partial, (float*)dscale, blocks, d);
+  else
+    rmsnorm_bwd_reduce_kernel<false><<<red_blocks, kThreads, 0, stream>>>((const float*)partial, (float*)dscale, blocks, d);
   return (int)cudaGetLastError();
 }
 
 // One wave: as many blocks as the card's SMs hold at once, at most one a row.
-// The wave's size is asked of the runtime once a device and kept.
 template <typename T, int NT>
 int launch_reg(const void* x, const void* scale, void* y, int64_t n, int d, float eps,
                cudaStream_t stream) {
-  constexpr int kDevices = 64;
-  static int64_t wave[kDevices] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev >= kDevices) return -3;
-  if (wave[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rmsnorm_reg_kernel<T, NT>, NT, 0);
-    if (e != cudaSuccess) return (int)e;
-    wave[dev] = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
-  }
-  rmsnorm_reg_kernel<T, NT><<<(unsigned)(n < wave[dev] ? n : wave[dev]), NT, 0, stream>>>(
+  static int64_t kept[kDevices] = {};
+  int64_t wave = 0;
+  const int e = one_wave((const void*)rmsnorm_reg_kernel<T, NT>, NT, 0, kept, &wave);
+  if (e != 0) return e;
+  rmsnorm_reg_kernel<T, NT><<<(unsigned)(n < wave ? n : wave), NT, 0, stream>>>(
       (const T*)x, (const float*)scale, (T*)y, n, d, eps);
   return (int)cudaGetLastError();
 }
@@ -337,7 +576,7 @@ int launch_reg(const void* x, const void* scale, void* y, int64_t n, int d, floa
 template <typename T>
 int launch(const void* x, const void* scale, void* y, int64_t n, int d, float eps, int vec,
            cudaStream_t stream) {
-  if (vec && d <= 128 * kElems) {
+  if (vec && d <= kRegRow) {
     if (d <= 32 * kElems) return launch_reg<T, 32>(x, scale, y, n, d, eps, stream);
     if (d <= 64 * kElems) return launch_reg<T, 64>(x, scale, y, n, d, eps, stream);
     return launch_reg<T, 128>(x, scale, y, n, d, eps, stream);
@@ -370,12 +609,27 @@ extern "C" int rmsnorm_launch(const void* x, const void* scale, void* y, int64_t
   return -1;
 }
 
+// The backward's grid for n >= 1 rows of d: *blocks, the blocks of its first
+// kernel and so the rows of the partial scratch that rmsnorm_bwd_launch wants,
+// and *threads, a block's threads of rmsnorm_bwd_reg_kernel, or 0 where the
+// rows take rmsnorm_bwd_kernel.  vec as for rmsnorm_bwd_launch.  The wave's
+// size is asked of the runtime once a device and kept.  Returns 0, a CUDA
+// error of the query, -1 for a bad dtype, -3 for a device index past the kept
+// table, -4 for n < 1.
+extern "C" int rmsnorm_bwd_grid(int64_t n, int d, int dtype, int vec, int* blocks, int* threads) {
+  if (n < 1) return -4;
+  if (dtype == DT_F32) return bwd_grid<float>(n, d, vec, blocks, threads);
+  if (dtype == DT_BF16) return bwd_grid<__nv_bfloat16>(n, d, vec, blocks, threads);
+  return -1;
+}
+
 // The backward.  x, dy, dx: (n, d) contiguous in `dtype`; scale: (d,) f32;
 // dscale: (d,) f32; partial: (blocks, d) f32 scratch, one row a block of the
-// grid, 1 <= blocks <= n.  vec != 0 promises that d is a multiple of 16 bytes'
-// worth of elements and that x, dy, dx and scale are 16-byte aligned.
-// Returns cudaGetLastError() of the launches, -1 for a bad dtype, -4 for a bad
-// grid.
+// grid, 1 <= blocks <= n (rmsnorm_bwd_grid's).  vec != 0 promises that d is a
+// multiple of 16 bytes' worth of elements and that x, dy, dx and scale are
+// 16-byte aligned; such rows of up to 4096 elements take
+// rmsnorm_bwd_reg_kernel, every other row rmsnorm_bwd_kernel.  Returns
+// cudaGetLastError() of the launches, -1 for a bad dtype, -4 for a bad grid.
 extern "C" int rmsnorm_bwd_launch(const void* x, const void* scale, const void* dy, void* dx,
                                   void* dscale, void* partial, int64_t n, int d, float eps,
                                   int dtype, int vec, int blocks, void* stream) {

@@ -11,6 +11,7 @@ itemsize``; see ``csrc/rmsnorm.cu``.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -20,7 +21,6 @@ from repro_torch.kernels._check import DTYPE_CODES, require, require_cuda, requi
 
 launches = 0  # one more for every forward kernel launch; reset by whoever wants to count a run
 bwd_launches = 0  # one more for every backward launch (its two kernels count once)
-BWD_BLOCKS_PER_SM = 4  # the backward's grid: one wave of this many blocks an SM (48 KB of shared memory each at d 4096), each with its dscale partial
 
 
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -68,6 +68,17 @@ def rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> tor
     return y
 
 
+def bwd_grid(n: int, d: int, dtype: torch.dtype, vec: int) -> Tuple[int, int]:
+    """(blocks, threads) of the backward's first kernel for ``n`` rows of
+    ``d``: one dscale partial row a block; ``threads`` is a block's of
+    ``rmsnorm_bwd_reg_kernel``, 0 where the rows take ``rmsnorm_bwd_kernel``.
+    Asked of the C side, which queries the current card once and keeps it."""
+    blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+    code = build.load().rmsnorm_bwd_grid(n, d, DTYPE_CODES[dtype], vec, ctypes.byref(blocks), ctypes.byref(threads))
+    build.check(code, "rmsnorm_bwd grid")
+    return blocks.value, threads.value
+
+
 def rmsnorm_bwd_rows(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, eps: float = 1e-6
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x and dy (N, d) contiguous f32/bf16 on the card, scale (d,) f32 -> (dx
@@ -85,14 +96,13 @@ def rmsnorm_bwd_rows(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, eps
     require(scale.dtype == torch.float32 and scale.shape == (d,) and scale.is_contiguous(),
             f"rmsnorm_bwd: scale must be ({d},) f32 contiguous, got {tuple(scale.shape)} {scale.dtype}")
     require(3 * d * 4 <= 227 * 1024, f"rmsnorm_bwd: a row of {d} does not fit in shared memory")
-    blocks = min(n, BWD_BLOCKS_PER_SM * torch.cuda.get_device_properties(x.device).multi_processor_count)
     dx = torch.empty_like(x)
-    dscale = torch.empty((d,), dtype=torch.float32, device=x.device)
-    partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
     per16 = 16 // x.element_size()
     vec = int(d % per16 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, dy, dx, scale)))
-    lib = build.load()
-    code = lib.rmsnorm_bwd_launch(
+    blocks, _ = bwd_grid(n, d, x.dtype, vec)
+    dscale = torch.empty((d,), dtype=torch.float32, device=x.device)
+    partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    code = build.load().rmsnorm_bwd_launch(
         x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(), dscale.data_ptr(), partial.data_ptr(),
         n, d, float(eps), DTYPE_CODES[x.dtype], vec, blocks, torch.cuda.current_stream(x.device).cuda_stream,
     )

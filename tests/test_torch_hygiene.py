@@ -131,5 +131,5 @@ def test_build_refuses_where_there_is_no_nvcc(monkeypatch):
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     with pytest.raises(RuntimeError, match="nvcc"):
         build.find_nvcc()
-    assert {"rmsnorm_launch", "rmsnorm_bwd_launch", "flash_attention_launch", "flash_attention_bwd_launch",
-            "decode_attention_launch", "wkv6_launch"} == set(build.SIGNATURES)
+    assert {"rmsnorm_launch", "rmsnorm_bwd_grid", "rmsnorm_bwd_launch", "flash_attention_launch",
+            "flash_attention_bwd_launch", "decode_attention_launch", "wkv6_launch"} == set(build.SIGNATURES)
