@@ -10,12 +10,17 @@ against its plain PyTorch version on the card, serves two models at full
 width with random weights from a seed through ``ServingEngine.generate`` and
 ``SplitwiseCluster.serve`` (GPT-A, 24 layers x 4096 x 16384, vocabulary 50304:
 RMSNorm, flash and decode attention kernels; then RWKV-6 7B, 32 layers x 4096 x
-14336, vocabulary 65536: RMSNorm and WKV-6 kernels), and then trains GPT-A at
-full width with 8 of its 24 layers for 8 steps through
+14336, vocabulary 65536: RMSNorm and WKV-6 kernels), trains GPT-A at full
+width with 8 of its 24 layers for 8 steps through
 ``repro_torch.launch.train.train`` (RMSNorm and attention forward and backward
-kernels).  For each path it checks by the kernels' launch counters that it
-really went through the kernels, and compares the kernel path's logits, or
-loss and gradients, with the plain path's.
+kernels), and then serves the MoE family at full width and depth with its
+weights made directly in bf16 (Qwen1.5-MoE-A2.7B, 24 layers x 2048, 60 experts
+top-4, vocabulary 151936: RMSNorm, flash and decode attention kernels; then
+DeepSeek-V2-Lite, 27 layers x 2048, MLA, 64 experts top-6, vocabulary 102400:
+RMSNorm kernel, MLA plain as in the reference).  For each path it checks by
+the kernels' launch counters that it really went through the kernels, and
+compares the kernel path's logits, or loss and gradients, with the plain
+path's.
 
 Every phase prints one JSON line (the train phase also the launcher's step
 lines).  Any failure raises, so the exit code is not 0 and the last line is
@@ -51,6 +56,7 @@ from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv_mod  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.transformer import build_model  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
     Request,
@@ -130,6 +136,36 @@ TRAIN_LAUNCHES_PER_STEP = {"rmsnorm": 2 * 2 * TRAIN_LAYERS + 1, "rmsnorm_bwd": 2
 # activations alike but sum in other orders, and 8 layers of backward carry
 # that into every leaf.  f32 at 2 layers: only the order of f32 sums differs.
 TRAIN_PARITY_TOL = {"bf16": {"loss_rel": 1e-2, "grad_rel": 5e-2}, "f32": {"loss_rel": 1e-4, "grad_rel": 1e-3}}
+
+# The MoE family (Qwen1.5-MoE-A2.7B: K1, K2, K3; DeepSeek-V2-Lite: K1, MLA
+# plain).  Top-k routing turns a rounding into a jump: one bf16 ulp can decide
+# a near-tie of two gates the other way, and the reference's pairing of gate
+# weights with expert-sorted slots (ROADMAP Queue 3 (e)), which the port
+# mirrors, then moves the weights of the rest of that sequence's slots.  So:
+# - the comparison that finds a fault is made in f32, at full width and
+#   MOE_F32_LAYERS layers, with the plain path routed as the kernel path routed
+#   ("pinned": the two differ only in their continuous arithmetic, which is
+#   where the kernels are).  A rounding is 2**-24 there; through 4 layers of
+#   sums of at most 2048 terms the logits (O(1) under random weights) part by
+#   about 1e-5, held at 1e-3 (RWKV-6's f32 held 1e-2 over a 32-layer
+#   recurrence);
+# - in bf16 at full depth the pinned plain path is held within GPT-A's
+#   PARITY_TOL (GPT-A's reasoning: the same roundings, other orders of sums).
+#   Unpinned, the logit gaps and the share of routes that agree are reported
+#   and held to nothing: ``experiments/torch_moe_parity.py`` shows plain paths
+#   with no kernel (the sums in another order; P rounded to bf16 before P·V,
+#   as the flash kernel rounds it) parting from the plain path by up to 1.73
+#   and losing about 40 % of their routes by the last layer, so an unpinned gap
+#   measures the routing's amplification, not the kernels.  The routing is the
+#   same torch code on every path, and a broken kernel fails the pinned
+#   comparisons.
+MOE_F32_LAYERS = 4
+MOE_F32_TOL = {"logits": 1e-3}
+MOE_REDUCED = {"num_layers": "24 -> 4 (qwen2-moe-a2.7b), 27 -> 4 (deepseek-v2-lite-16b), the f32 comparison only",
+               "why": "57.3 and 64.8 GB of f32 parameters at full depth; served and compared in bf16 at full depth"}
+# bf16 ring bytes a token: GPT-A 24 x 2 x 32 x 128 x 2, Qwen 24 x 2 x 16 x 128 x 2,
+# DeepSeek's latent 27 x 576 x 2; RWKV-6 keeps a state a sequence instead
+KV_BYTES_PER_TOKEN = {"gpt-a": 393_216, "rwkv6-7b": 0, "qwen2-moe-a2.7b": 196_608, "deepseek-v2-lite-16b": 31_104}
 
 SPIN_CYCLES = 20_000_000  # about 10 ms of the card's clock: see time_ms
 MAX_LEN = 1024
@@ -233,7 +269,8 @@ def check_rmsnorm(ck: Checker, gen) -> None:
     # 16-byte pieces, d past the register tile)
     shapes = [(512, 128), (3, 256, 64), (2, 4, 128, 256), (777, 100), (777, 4096), (64, 8192),
               (4, 512, 4096), (3, 512, 4096), (1, 300, 4096), (4, 1, 4096), (3, 1, 4096), (1, 1, 4096),
-              (1, 4096), (131, 4096), (133, 4096), (2049, 4096), (5000, 1024), (37, 4100), (3, 8192)]
+              (1, 4096), (131, 4096), (133, 4096), (2049, 4096), (5000, 1024), (37, 4100), (3, 8192),
+              (4, 512, 2048), (4, 1, 2048)]  # the MoE family's d_model: a prefill's rows and a decode step's
     for dtype in TOL:
         for shape in shapes:
             x = randn(gen, shape, dtype)
@@ -252,7 +289,8 @@ def check_flash(ck: Checker, gen) -> None:
     shapes = [(2, 128, 128, 4, 4, 64), (2, 128, 128, 8, 2, 64), (2, 128, 128, 6, 1, 32),
               (2, 300, 300, 4, 2, 64), (1, 70, 300, 4, 2, 128), (1, 300, 70, 6, 3, 32),
               (4, 512, 512, 32, 32, 128), (1, 300, 300, 32, 32, 128),
-              (2, 64, 64, 8, 8, 128), (2, 17, 17, 8, 8, 128), (1, 1000, 1000, 4, 1, 128)]
+              (2, 64, 64, 8, 8, 128), (2, 17, 17, 8, 8, 128), (1, 1000, 1000, 4, 1, 128),
+              (4, 512, 512, 16, 16, 128)]  # Qwen1.5-MoE's prefill: 16 heads of 128
     for dtype in TOL:
         for B, T, S, Hq, Hkv, D in shapes:
             for causal in (True, False):
@@ -415,7 +453,7 @@ def check_decode(ck: Checker, gen) -> None:
              (3, 1024, 32, 32, 128, None, "tail-empty"),
              (2, 4096, 32, 32, 128, None, "tail-empty"), (2, 4096, 32, 4, 128, None, "shuffled"),
              (3, 1024, 32, 32, 128, None, "one-valid"), (2, 1024, 32, 32, 128, 300, "full"),
-             (2, 1024, 8, 2, 64, None, "gaps")]
+             (2, 1024, 8, 2, 64, None, "gaps"), (4, 1024, 16, 16, 128, None, "tail-empty")]  # the last: Qwen1.5-MoE
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     for B, S, Hq, Hkv, D, window, kind in cases:
         if S == 4096 and dec_mod.split_plan(B, Hkv, S, sm_count)[1] < 2:
@@ -557,9 +595,9 @@ def measure_kernels(gen) -> dict:
     out = {}
 
     # K1: the prefill's rows, 4 x 512 tokens of d_model 4096; ("decode_") a
-    # decode step's 4 rows, which the model hands over warm from the op before
-    d = 4096
-    for label, N, nsets in (("", 4 * 512, 6), ("decode_", 4, 8)):
+    # decode step's 4 rows, which the model hands over warm from the op before;
+    # ("moe_") the MoE family's prefill rows, d_model 2048
+    for label, N, d, nsets in (("", 4 * 512, 4096, 6), ("decode_", 4, 4096, 8), ("moe_", 4 * 512, 2048, 6)):
         sets = [(randn(gen, (N, d), dt), randn(gen, (d,), torch.float32)) for _ in range(nsets)]
         nbytes = 2 * N * d * 2 + d * 4
         flops = 4 * N * d
@@ -578,9 +616,10 @@ def measure_kernels(gen) -> dict:
             out["rmsnorm"] = row
 
     # K2: one layer's causal prefill, 4 prompts of 512 tokens, 32 heads of 128;
-    # and ("long_") one prompt at GPT-A's context of 4096 tokens
-    H, D = 32, 128
-    for label, B, T in (("", 4, 512), ("long_", 1, 4096)):
+    # ("long_") one prompt at GPT-A's context of 4096 tokens; ("moe_")
+    # Qwen1.5-MoE's prefill, 16 heads of 128
+    D = 128
+    for label, B, T, H in (("", 4, 512, 32), ("long_", 1, 4096, 32), ("moe_", 4, 512, 16)):
         sets = [tuple(randn(gen, (B, T, H, D), dt) for _ in range(3)) for _ in range(2)]
         nbytes = 4 * B * T * H * D * 2
         flops = 4 * B * H * D * (T * (T + 1) // 2)
@@ -606,10 +645,11 @@ def measure_kernels(gen) -> dict:
             out["flash_attention"] = row
 
     # K3: one layer's decode step, 4 sequences 520 tokens into a ring of 1024;
-    # ("full_") the ring full; ("long_") GPT-A's context of 4096 slots, 4000 filled
-    H, D = 32, 128
-    for label, B, S, filled, nsets in (("", 4, MAX_LEN, 520, 4), ("full_", 4, MAX_LEN, MAX_LEN, 4),
-                                       ("long_", 4, 4096, 4000, 2)):
+    # ("full_") the ring full; ("long_") GPT-A's context of 4096 slots, 4000
+    # filled; ("moe_") Qwen1.5-MoE's step, 16 heads of 128, 520 of 1024 filled
+    D = 128
+    for label, B, S, filled, H, nsets in (("", 4, MAX_LEN, 520, 32, 4), ("full_", 4, MAX_LEN, MAX_LEN, 32, 4),
+                                          ("long_", 4, 4096, 4000, 32, 2), ("moe_", 4, MAX_LEN, 520, 16, 8)):
         ar = torch.arange(S, device="cuda", dtype=torch.int32)[None].expand(B, S)
         kv_pos = torch.where(ar < filled, ar, -1).contiguous()
         q_pos = torch.full((B, 1), filled - 1, device="cuda", dtype=torch.int32)
@@ -828,10 +868,12 @@ def check_generated(cfg, reqs) -> None:
 
 
 def phase_serve(phase: str, cfg, model, params) -> dict:
-    """Four traffic shapes through ``ServingEngine.generate`` and
+    """Five traffic shapes through ``ServingEngine.generate`` and
     ``SplitwiseCluster.serve``, counted from zero; raises unless the counters
     show exactly the launches the path owes, splitwise gives the monolithic
-    engine's token ids, and the handoff moved the bytes it should."""
+    engine's token ids on the uniform and the ragged batch, the cache holds
+    the bytes a token it should and the handoff moved them.  Then a prefill
+    and a decode step are traced (``profile_serving``)."""
     L = cfg.num_layers
     recurrent = cfg.rwkv is not None
     init_peak_bytes = torch.cuda.max_memory_allocated()  # parameters made and cast
@@ -851,6 +893,8 @@ def phase_serve(phase: str, cfg, model, params) -> dict:
             ("single 300", make_requests(rng, cfg, [300], 10), engine.generate, False),
             ("ragged 200/350/512", make_requests(rng, cfg, [200, 350, 512], 20), engine.generate, True),
             ("splitwise 4 x 512", first_batch(30), cluster.serve, False)]
+    runs.append(("splitwise ragged 200/350/512", [Request(40 + i, r.prompt.copy(), max_new_tokens=MAX_NEW)
+                                                   for i, r in enumerate(runs[2][1])], cluster.serve, True))
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
     report, prefills, masked_prefills, steps = [], 0, 0, 0
@@ -881,31 +925,127 @@ def phase_serve(phase: str, cfg, model, params) -> dict:
     if recurrent:
         want = {"rmsnorm": (2 * L + 1) * forwards, "wkv6": L * forwards, "flash_attention": 0,
                 "decode_attention": 0, "sdpa_masked_calls": 0}
+    elif cfg.mla is not None:  # MLA is plain torch, as the reference computes it: no attention kernel, no sdpa
+        want = {"rmsnorm": (2 * L + 1) * forwards, "flash_attention": 0, "decode_attention": 0,
+                "sdpa_masked_calls": 0, "wkv6": 0}
     else:
         want = {"flash_attention": L * (prefills - masked_prefills), "decode_attention": L * steps,
                 "rmsnorm": (2 * L + 1) * forwards, "sdpa_masked_calls": L * masked_prefills, "wkv6": 0}
     want.update(rmsnorm_bwd=0, flash_attention_bwd=0)  # serving computes no gradients
     if counters != want:
         raise AssertionError(f"{cfg.name}: launch counters {counters}, expected {want} ({prefills} prefills, {steps} steps)")
-    mono, split = runs[0][1], runs[3][1]
-    if [r.generated for r in mono] != [r.generated for r in split]:
-        raise AssertionError(f"{cfg.name}: SplitwiseCluster and the monolithic engine disagree on the token ids")
+    for mono, split in ((runs[0], runs[3]), (runs[2], runs[4])):
+        if [r.generated for r in mono[1]] != [r.generated for r in split[1]]:
+            raise AssertionError(f"{cfg.name}: SplitwiseCluster ({split[0]}) and the monolithic engine ({mono[0]}) "
+                                 "disagree on the token ids")
     empty = zeros_cache(model, 1, MAX_LEN, "cuda")
     per_token = kv_cache_bytes_per_token(empty, MAX_LEN)
     per_seq = kv_cache_state_bytes_per_seq(empty, MAX_LEN)
     if recurrent and per_seq != RWKV_STATE_BYTES:
         raise AssertionError(f"{cfg.name}: {per_seq} bytes of state a sequence, expected {RWKV_STATE_BYTES}")
-    moved = per_token * prompts.size + per_seq * len(prompts)
+    if per_token != KV_BYTES_PER_TOKEN[cfg.name]:
+        raise AssertionError(f"{cfg.name}: {per_token} KV bytes a token, expected {KV_BYTES_PER_TOKEN[cfg.name]}")
+    split_runs = [reqs for _, reqs, serve, _ in runs if serve == cluster.serve]
+    moved = sum(per_token * sum(len(r.prompt) for r in reqs) + per_seq * len(reqs) for reqs in split_runs)
     if cluster.kv_bytes_moved != moved:
         raise AssertionError(f"{cfg.name}: kv_bytes_moved {cluster.kv_bytes_moved}, expected {moved}")
+    profile = profile_serving(engine, first_batch(50))
 
     emit({"phase": phase, "model": cfg.name, "layers": L, "d_model": cfg.d_model, "d_ff": cfg.d_ff,
           "vocab": cfg.vocab_size, "params": cfg.param_count(), "params_counted": n_params,
           "max_len": MAX_LEN, "max_new_tokens": MAX_NEW, "prefills": prefills, "steps": steps,
           "runs": report, "peak_memory_bytes": peak_bytes, "init_peak_memory_bytes": init_peak_bytes,
           "kv_bytes_moved": cluster.kv_bytes_moved, "kv_bytes_per_token": per_token,
-          "state_bytes_per_seq": per_seq, "counters": counters})
+          "state_bytes_per_seq": per_seq, "counters": counters, "profile": profile})
     return {"counters": counters, "prompts": prompts, "engine": engine}
+
+
+# the profiler's names of the kernels of K1 to K4, whose calls and device time are summed apart
+KERNEL_NAMES = {"rmsnorm": ("rmsnorm_reg_kernel", "rmsnorm_kernel"), "flash_attention": ("flash_mma_kernel", "flash_kernel"),
+                "decode_attention": ("decode_partial_kernel", "decode_merge_kernel"),
+                "wkv6": ("wkv6_chunk_kernel", "wkv6_kernel")}
+
+
+def serving_ranges(cfg) -> dict:
+    """The layers ``traced`` marks as ranges when ``cfg`` serves: name -> (module, function)."""
+    return {"moe_apply": (moe_lib, "moe_apply"),
+            "attention": (attention, "mla_apply" if cfg.mla is not None else "gqa_apply")}
+
+
+def traced(fn, ranges=None, top: int = 10) -> dict:
+    """Runs ``fn`` once to warm up, once untraced for the host's wall time and
+    once under torch.profiler (tracing slows the host down), each of
+    ``ranges`` (name -> (module, function)) marked as a range there; times in
+    ms.  Gives the card's busy time (the sum of the kernels' device times),
+    the idle share, the launches, the device time under each range, the
+    kernels of KERNEL_NAMES and the ``top`` kernels."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    ranges = ranges or {}
+    originals = {name: getattr(mod, fn_name) for name, (mod, fn_name) in ranges.items()}
+
+    def ranged(name, inner):
+        def call(*args, **kwargs):
+            with record_function(name):
+                return inner(*args, **kwargs)
+        return call
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    for name, (mod, fn_name) in ranges.items():
+        setattr(mod, fn_name, ranged(name, originals[name]))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for name, (mod, fn_name) in ranges.items():
+            setattr(mod, fn_name, originals[name])
+    events = prof.key_averages()
+    # the ranges appear twice: as host ops, whose device time is their kernels', and as device
+    # annotations spanning the card's timeline from their first kernel to their last; only kernels are summed
+    kernels = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in ranges),
+                     key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+
+    def picked(subs):
+        chosen = [e for e in kernels if any(x in e.key for x in subs)]
+        return {"calls": sum(e.count for e in chosen), "device_ms": sum(e.self_device_time_total for e in chosen) / 1e3}
+
+    return {
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": max(0.0, 1 - busy_ms / wall_ms) if busy_ms else None,
+        "kernel_launches": sum(e.count for e in kernels),
+        "ranges_device_ms": {e.key: e.device_time_total / 1e3 for e in events
+                             if e.key in ranges and e.device_type == torch.autograd.DeviceType.CPU},
+        **{f"{name}_kernels": picked(subs) for name, subs in KERNEL_NAMES.items()},
+        "top_kernels": [{"name": e.key[:90], "calls": e.count, "device_ms": e.self_device_time_total / 1e3}
+                        for e in kernels[:top]],
+    }
+
+
+@torch.no_grad()
+def profile_serving(engine, requests) -> dict:
+    """The prefill of ``requests`` and one decode step after it, through
+    ``traced`` with the layers of ``serving_ranges`` marked.  A step also
+    gives the bytes of the weights it must read (every expert of an MoE
+    model: the dispatch is the reference's dense emulation) over the card's
+    memory rate.  Called after the counters are read: its launches count in
+    no path."""
+    model, params = engine.model, engine.params
+    B, T = len(requests), max(len(r.prompt) for r in requests)
+    batch = {"tokens": torch.from_numpy(np.stack([r.prompt for r in requests])).to("cuda")}
+    cache, tok, pos = engine.prefill_batch(requests)
+    ranges = serving_ranges(model.cfg)
+    prefill = traced(lambda: model.prefill(params, batch, zeros_cache(model, B, MAX_LEN, "cuda")), ranges)
+    step = traced(lambda: model.decode_step(params, cache, tok, pos), ranges)  # the same slot, rewritten
+    weight_bytes = sum(t.numel() * t.element_size() for path, t in flatten(params).items() if path != "embed")
+    step.update(weights_read_bytes=weight_bytes, weights_read_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3)
+    return {"batch": B, "prompt_tokens": T, "prefill": prefill, "decode_step": step}
 
 
 # ---------------------------------------------------------------------------
@@ -935,22 +1075,57 @@ def plain_path(wkv_chunk=None):
         kops.rmsnorm, kops.wkv6 = kernel_rmsnorm, kernel_wkv6
 
 
+@contextlib.contextmanager
+def route_log(replay=None):
+    """Records the top-k expert ids of every ``moe_apply`` call into the
+    yielded list.  With ``replay`` (such a list of another path), each call is
+    routed to the replayed ids instead, weighted by this path's own gates
+    there: the two paths then differ only in their continuous arithmetic."""
+    log, top_k = [], moe_lib.top_k
+
+    def recorded(gates, k):
+        if replay is None:
+            values, ids = top_k(gates, k)
+        else:
+            ids = replay[len(log)]
+            values = gates.gather(-1, ids)
+        log.append(ids)
+        return values, ids
+
+    moe_lib.top_k = recorded
+    try:
+        yield log
+    finally:
+        moe_lib.top_k = top_k
+
+
+def route_agreement(a: list, b: list) -> float:
+    """Share of (call, token) routes whose top-k expert sets agree."""
+    same = [(x.sort(-1).values == y.sort(-1).values).all(-1).reshape(-1) for x, y in zip(a, b, strict=True)]
+    return torch.cat(same).float().mean().item()
+
+
 @torch.no_grad()
 def run_paths(model, params, tokens, paths) -> dict:
     """For each path: the prefill's logits and cache, and the logits of one
-    decode step from a copy of the kernel path's cache."""
+    decode step from a copy of the kernel path's cache; for each stage, the
+    routes of the MoE layers (none in a model without them).  A path whose
+    name ends in "_pinned" takes the kernel path's routes."""
     B, T = tokens.shape
     out = {}
     for name, ctx in paths.items():
-        with ctx():
+        replay = out["kernel"]["routes_prefill"] if name.endswith("_pinned") else None
+        with ctx(), route_log(replay) as log:
             logits, cache = model.prefill(params, {"tokens": tokens}, zeros_cache(model, B, MAX_LEN, "cuda"))
-        out[name] = {"prefill": logits, "cache": cache}
+        out[name] = {"prefill": logits, "cache": cache, "routes_prefill": log}
     nxt = out["kernel"]["prefill"].argmax(-1).to(torch.int32)
     pos = torch.full((B,), T, dtype=torch.int32, device="cuda")
     for name, ctx in paths.items():
-        with ctx():
+        replay = out["kernel"]["routes_decode_step"] if name.endswith("_pinned") else None
+        with ctx(), route_log(replay) as log:
             cache = {n: x.clone() for n, x in out["kernel"]["cache"].items()}
             out[name]["decode_step"], _ = model.decode_step(params, cache, nxt, pos)
+        out[name]["routes_decode_step"] = log
     torch.cuda.synchronize()
     for name in ("prefill", "decode_step"):
         a = out["kernel"][name]
@@ -967,12 +1142,17 @@ def gaps(a: dict, b: dict) -> dict:
     if "wkv" in a["cache"]:
         S_a, S_b = a["cache"]["wkv"], b["cache"]["wkv"]
         out["wkv_state_rel_diff"] = ((S_a - S_b).abs().max() / S_b.abs().max()).item()
+    if a["routes_prefill"]:
+        out["route_agreement"] = route_agreement(a["routes_prefill"] + a["routes_decode_step"],
+                                                 b["routes_prefill"] + b["routes_decode_step"])
     return out
 
 
 PATHS = {"kernel": contextlib.nullcontext, "plain": plain_path}
 # the control: the plain path with another order of the recurrence's sums
 RWKV_PATHS = {**PATHS, "plain_chunk64": lambda: plain_path(wkv_chunk=64)}
+# the MoE models: the plain path also routed as the kernel path routed (see MOE_F32_LAYERS)
+MOE_PATHS = {**PATHS, "plain_pinned": plain_path}
 
 
 def phase_serve_parity(phase: str, cfg, model, params, prompts) -> None:
@@ -1024,6 +1204,64 @@ def phase_serve_rwkv_parity(phase: str, cfg, model, params, prompts, f32: dict) 
     emit({"phase": phase, "model": cfg.name, "logit_abs_max": out["kernel"]["prefill"].abs().max().item(),
           "bf16": {"kernel": g, "control": c, "rule": "kernel <= 2 x control + slack", "slack": RWKV_BF16_SLACK},
           "f32": f32})
+
+
+def moe_parity_f32(arch: str) -> dict:
+    """The kernel path against the plain path with f32 activations and f32
+    weights, full width, MOE_F32_LAYERS layers: pinned within
+    MOE_F32_TOL["logits"]; unpinned reported.  Everything it made is released."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=MOE_F32_LAYERS, dtype=torch.float32)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = model.init(gen)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size, (4, 512))).to("cuda")
+    out = run_paths(model, params, tokens, MOE_PATHS)
+    k = out["kernel"]
+    result = {"layers": cfg.num_layers, "logit_abs_max": k["prefill"].abs().max().item(), "tol": MOE_F32_TOL,
+              "pinned": gaps(k, out["plain_pinned"]), "free": gaps(k, out["plain"])}
+    del out, k, params
+    release()
+    for stage in ("prefill", "decode_step"):
+        if not result["pinned"][f"{stage}_max_abs_diff"] <= MOE_F32_TOL["logits"]:
+            raise AssertionError(f"{arch} f32 {stage}: pinned kernel and plain paths part by "
+                                 f"{result['pinned'][f'{stage}_max_abs_diff']} > {MOE_F32_TOL['logits']}: {result}")
+    return result
+
+
+def phase_serve_moe_parity(phase: str, cfg, model, params, prompts, f32: dict) -> None:
+    """The MoE models in bf16 at full depth, the rules above MOE_F32_LAYERS:
+    pinned within PARITY_TOL, unpinned reported;
+    ``f32`` holds the f32 comparison made before the bf16 weights were built."""
+    out = run_paths(model, params, torch.from_numpy(prompts).to("cuda"), MOE_PATHS)
+    k = out["kernel"]
+    pinned = gaps(k, out["plain_pinned"])
+    emit({"phase": phase, "model": cfg.name, "layers": cfg.num_layers, "logit_abs_max": k["prefill"].abs().max().item(),
+          "bf16": {"pinned": pinned, "tol_pinned": PARITY_TOL, "unpinned": gaps(k, out["plain"]),
+                   "rule": "pinned <= PARITY_TOL; unpinned gaps and route agreement reported"},
+          "f32": f32, "reduced": MOE_REDUCED})
+    for stage in ("prefill", "decode_step"):
+        key = f"{stage}_max_abs_diff"
+        if not pinned[key] <= PARITY_TOL:
+            raise AssertionError(f"bf16 {stage}: pinned kernel and plain paths part by {pinned[key]} > {PARITY_TOL}")
+
+
+def serve_moe_model(arch: str, phase: str) -> dict:
+    """The f32 comparison at MOE_F32_LAYERS layers, then ``arch`` at full
+    width and depth with its weights made directly in bf16 (the same bits as
+    the f32 weights cast, never holding them): served, and held against the
+    plain path.  Returns the serving path's counters; everything it made is
+    released when it returns."""
+    f32 = moe_parity_f32(arch)
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(gen, dtype=cfg.dtype)
+    served = phase_serve(phase, cfg, model, params)
+    phase_serve_moe_parity(phase + "_parity", cfg, model, served["engine"].params, served["prompts"], f32)
+    return served["counters"]
 
 
 # ---------------------------------------------------------------------------
@@ -1173,6 +1411,10 @@ def main() -> int:
     counts["train"] = phase_train()
     release()
     phase_train_parity()
+    release()
+    counts["qwen2-moe-a2.7b"] = serve_moe_model("qwen2_moe_a2p7b", "serve_moe")
+    release()
+    counts["deepseek-v2-lite-16b"] = serve_moe_model("deepseek_v2_lite_16b", "serve_mla")
     release()
 
     for row in rows:

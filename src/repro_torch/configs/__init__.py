@@ -1,6 +1,7 @@
 """Architecture registry of the port: the paper's GPT-A / GPT-B testbed models,
-Minitron-4B and RWKV-6 7B.  The reference's other eight architectures come with
-their families (MoE, MLA, M-RoPE, encoder, Mamba2, hybrid).
+Minitron-4B, RWKV-6 7B and the MoE family (Qwen1.5-MoE-A2.7B, DeepSeek-V2-Lite
+with MLA).  The reference's other six architectures come with their families
+(M-RoPE, window, encoder, Mamba2, hybrid).
 
 ``get_config`` returns the full-size config; ``get_smoke_config`` the reduced
 same-family variant the CPU tests use.
@@ -12,10 +13,10 @@ from typing import List
 
 from repro_torch.models.modules import ModelConfig
 
-ARCHS: List[str] = ["minitron_4b", "gpt_a", "gpt_b", "rwkv6_7b"]
+ARCHS: List[str] = ["minitron_4b", "gpt_a", "gpt_b", "rwkv6_7b", "deepseek_v2_lite_16b", "qwen2_moe_a2p7b"]
 
-# CLI ids (``--arch <id>``) use dashes
-CLI_IDS = {a.replace("_", "-"): a for a in ARCHS}
+# CLI ids (``--arch <id>``) use dashes, and "2.7b" where the module reads "2p7b", as the reference's
+CLI_IDS = {a.replace("_", "-").replace("-a2p7b", "-a2.7b"): a for a in ARCHS}
 
 
 def canon(arch: str) -> str:

@@ -36,25 +36,58 @@ def _rwkv_layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     return shapes
 
 
+def _attn_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    L, d, H, hd = cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.resolved_head_dim
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {
+            "layers/attn/wq": (L, d, H * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
+            "layers/attn/w_dkv": (L, d, m.kv_lora_rank + m.qk_rope_head_dim),
+            "layers/attn/w_uk": (L, m.kv_lora_rank, H * m.qk_nope_head_dim),
+            "layers/attn/w_uv": (L, m.kv_lora_rank, H * m.v_head_dim),
+            "layers/attn/wo": (L, H * m.v_head_dim, d),
+        }
+    return {
+        "layers/attn/wq": (L, d, H * hd),
+        "layers/attn/wk": (L, d, cfg.num_kv_heads * hd),
+        "layers/attn/wv": (L, d, cfg.num_kv_heads * hd),
+        "layers/attn/wo": (L, H * hd, d),
+    }
+
+
+def _ffn_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    L, d = cfg.num_layers, cfg.d_model
+    if cfg.moe is not None:
+        m = cfg.moe
+        E, f = m.num_experts, m.expert_d_ff
+        shapes = {
+            "layers/moe/router": (L, d, E),
+            "layers/moe/w_gate": (L, E, d, f),
+            "layers/moe/w_up": (L, E, d, f),
+            "layers/moe/w_down": (L, E, f, d),
+        }
+        if m.num_shared_experts:
+            sf = m.num_shared_experts * f
+            shapes.update({"layers/moe/shared/w_gate": (L, d, sf), "layers/moe/shared/w_up": (L, d, sf),
+                           "layers/moe/shared/w_down": (L, sf, d)})
+        return shapes
+    shapes = {"layers/ffn/w_up": (L, d, cfg.d_ff), "layers/ffn/w_down": (L, cfg.d_ff, d)}
+    if cfg.ffn_activation == "swiglu":
+        shapes["layers/ffn/w_gate"] = (L, d, cfg.d_ff)
+    return shapes
+
+
 def expected_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
-    """Path -> shape of every leaf of a dense decoder's or an RWKV-6 stack's state."""
-    L, d, hd = cfg.num_layers, cfg.d_model, cfg.resolved_head_dim
+    """Path -> shape of every leaf of a decoder's (dense or MoE, GQA or MLA) or
+    an RWKV-6 stack's state."""
+    L, d = cfg.num_layers, cfg.d_model
     shapes = {"embed": (cfg.vocab_size, d), "final_norm": (d,)}
     if cfg.rwkv is not None:
         shapes.update(_rwkv_layer_shapes(cfg))
     else:
-        shapes.update({
-            "layers/ln1": (L, d),
-            "layers/ln2": (L, d),
-            "layers/attn/wq": (L, d, cfg.num_heads * hd),
-            "layers/attn/wk": (L, d, cfg.num_kv_heads * hd),
-            "layers/attn/wv": (L, d, cfg.num_kv_heads * hd),
-            "layers/attn/wo": (L, cfg.num_heads * hd, d),
-            "layers/ffn/w_up": (L, d, cfg.d_ff),
-            "layers/ffn/w_down": (L, cfg.d_ff, d),
-        })
-        if cfg.ffn_activation == "swiglu":
-            shapes["layers/ffn/w_gate"] = (L, d, cfg.d_ff)
+        shapes.update({"layers/ln1": (L, d), "layers/ln2": (L, d)})
+        shapes.update(_attn_shapes(cfg))
+        shapes.update(_ffn_shapes(cfg))
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, cfg.vocab_size)
     return shapes
@@ -86,11 +119,11 @@ def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
 def from_reference(params_numpy: Dict[str, Any], cfg: ModelConfig, device="cpu") -> Params:
     """The reference's tree (nested dict of numpy arrays) as the port's state on
     ``device``: matrices in ``cfg.param_dtype``, norm scales (and RWKV's mix
-    coefficients, w0 and u) in f32, as the reference initialises them.  Raises
-    on a missing, extra or misshapen leaf."""
+    coefficients, w0 and u, and the MoE router) in f32, as the reference
+    initialises them.  Raises on a missing, extra or misshapen leaf."""
     flat = flatten(params_numpy)
     want = expected_shapes(cfg)
-    f32_keys = NORM_KEYS + (RWKV_F32_KEYS if cfg.rwkv is not None else ())
+    f32_keys = NORM_KEYS + ("router",) + (RWKV_F32_KEYS if cfg.rwkv is not None else ())
     if set(flat) != set(want):
         raise ValueError(f"parameter paths differ: missing {sorted(set(want) - set(flat))}, extra {sorted(set(flat) - set(want))}")
     out = {}

@@ -3,8 +3,12 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-a --full \\
       --requests 8 --batch 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --full
 
-Runs on the card; ``--device cpu`` runs the plain PyTorch path on the CPU.
+Runs on the card; ``--device cpu`` runs the plain PyTorch path on the CPU.  On
+the card the weights are made directly in the activation dtype (``Model.init``
+with ``dtype``: the same bits as the f32 weights cast, without holding them),
+which is what lets the 14-16B MoE models fit one H100.
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ def main(argv=None):
     model = build_model(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
-    params = model.init(gen)
+    params = model.init(gen, dtype=cfg.dtype)
     rng = np.random.default_rng(args.seed)
 
     reqs = [

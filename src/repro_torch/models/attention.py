@@ -1,14 +1,17 @@
-"""Attention of the dense decoder: MHA/GQA/MQA with RoPE over explicit position
-ids (``repro/models/attention.py``, GQA part), so that one code path serves
+"""Attention (``repro/models/attention.py``): MHA/GQA/MQA with RoPE and
+DeepSeek-V2's MLA, over explicit position ids, so that one code path serves
 prefill (q_pos == kv_pos) and single-token decode against a ring KV cache.
 
 Layout conventions (the reference's):
   q           (B, T, Hq,  Dh)
   k, v        (B, S, Hkv, Dh)
   kv cache    {"k": (B, S, Hkv, Dh), "v": ..., "pos": (B, S) int32 (-1 = empty)}
+  MLA cache   {"ckv": (B, S, kv_lora), "k_rope": (B, S, rope_dim), "pos": (B, S)}
 
-MLA, M-RoPE and the sliding window are not ported yet; a config that asks for
-one of them raises ``NotImplementedError``.
+GQA goes through the flash and decode kernels; MLA is plain torch, as the
+reference computes it (no kernel of the reference takes the latent form).
+M-RoPE and the sliding window are not ported yet; a config that asks for one
+of them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -59,8 +62,6 @@ def force_impl(impl: str):
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raises for what is not ported yet."""
-    if cfg.mla is not None:
-        raise NotImplementedError(f"{cfg.name}: MLA comes with the rest of the transformer stack")
     if cfg.mrope_sections is not None:
         raise NotImplementedError(f"{cfg.name}: M-RoPE comes with the rest of the transformer stack")
     if cfg.window is not None:
@@ -141,14 +142,16 @@ def sdpa(
 # ---------------------------------------------------------------------------
 
 
-def gqa_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int) -> Params:
-    """Layer-stacked projection weights (leading ``n_layers`` axis)."""
+def gqa_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int, dtype=None) -> Params:
+    """Layer-stacked projection weights (leading ``n_layers`` axis) in ``dtype``
+    (default ``cfg.param_dtype``)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
+    pdt = dtype or cfg.param_dtype
     return {
-        "wq": dense_init(gen, (n_layers, d, cfg.num_heads * hd), cfg.param_dtype),
-        "wk": dense_init(gen, (n_layers, d, cfg.num_kv_heads * hd), cfg.param_dtype),
-        "wv": dense_init(gen, (n_layers, d, cfg.num_kv_heads * hd), cfg.param_dtype),
-        "wo": dense_init(gen, (n_layers, cfg.num_heads * hd, d), cfg.param_dtype),
+        "wq": dense_init(gen, (n_layers, d, cfg.num_heads * hd), pdt),
+        "wk": dense_init(gen, (n_layers, d, cfg.num_kv_heads * hd), pdt),
+        "wv": dense_init(gen, (n_layers, d, cfg.num_kv_heads * hd), pdt),
+        "wo": dense_init(gen, (n_layers, cfg.num_heads * hd, d), pdt),
     }
 
 
@@ -207,5 +210,119 @@ def gqa_cache_shape(cfg: ModelConfig, batch: int, max_len: int):
     return {
         "k": ((batch, S, cfg.num_kv_heads, hd), cfg.dtype),
         "v": ((batch, S, cfg.num_kv_heads, hd), cfg.dtype),
+        "pos": ((batch, S), torch.int32),
+    }
+
+
+# ---------------------------------------------------------------------------
+# MLA — DeepSeek-V2 multi-head latent attention
+# ---------------------------------------------------------------------------
+
+# the up-projections MLA applies in f32 (``mla_apply`` casts them up, so the
+# computing copy keeps them as made)
+MLA_F32_KEYS = ("w_uk", "w_uv")
+
+
+def _last_writer(slots: torch.Tensor, S: int) -> torch.Tensor:
+    """slots (B, T) of a ring of S -> (B, T): for each t, the last t' of its row
+    that writes the same slot.  Writing the value of t' at every t makes a
+    write with repeated slots (a ragged row's pads, all at slot S-1; a prompt
+    longer than the ring) keep the last value, as the reference's scatter
+    does, whatever order the device applies repeated writes in."""
+    B, T = slots.shape
+    t = torch.arange(T, device=slots.device).expand(B, T)
+    last = torch.full((B, S), -1, dtype=t.dtype, device=slots.device).scatter_reduce(1, slots, t, "amax")
+    return last.gather(1, slots)
+
+
+def mla_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int, dtype=None) -> Params:
+    """Layer-stacked MLA weights: the projections in ``dtype`` (default
+    ``cfg.param_dtype``), the up-projections ``MLA_F32_KEYS`` in
+    ``cfg.param_dtype`` whatever ``dtype``."""
+    m, d, H, L = cfg.mla, cfg.d_model, cfg.num_heads, n_layers
+    pdt = dtype or cfg.param_dtype
+    return {
+        # queries: full-rank (V2-Lite has no q-LoRA)
+        "wq": dense_init(gen, (L, d, H * (m.qk_nope_head_dim + m.qk_rope_head_dim)), pdt),
+        # down-projection to the shared latent + decoupled rope key
+        "w_dkv": dense_init(gen, (L, d, m.kv_lora_rank + m.qk_rope_head_dim), pdt),
+        # up-projections from the latent
+        "w_uk": dense_init(gen, (L, m.kv_lora_rank, H * m.qk_nope_head_dim), cfg.param_dtype),
+        "w_uv": dense_init(gen, (L, m.kv_lora_rank, H * m.v_head_dim), cfg.param_dtype),
+        "wo": dense_init(gen, (L, H * m.v_head_dim, d), pdt),
+    }
+
+
+def mla_apply(
+    params: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cache: Optional[Params] = None,
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    """MLA with latent-space ("weight absorbed") attention, in f32:
+        score = ((q_nope W_uk)ᵀ c_kv + q_ropeᵀ k_rope) scale
+        out   = (probs c_kv) W_uv
+    The cache holds only the latent and the shared rope key.  With ``cache``,
+    the T new latents are written at slots ``positions % S`` first (a pad at
+    position -1 lands in slot S-1 and keeps pos -1; of writes to one slot the
+    last is kept, ``_last_writer``) and the queries attend over the ring, the
+    pads' queries (no valid slot) over all of it; **the cache's tensors are
+    updated in place** and returned."""
+    m = cfg.mla
+    B, T, _ = x.shape
+    H = cfg.num_heads
+    dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
+    scale = (dn + dr) ** -0.5
+
+    q = dense(params["wq"], x).reshape(B, T, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    # absorb W_uk into the query: (B,T,H,dn) x (lora,H,dn) -> (B,T,H,lora)
+    w_uk = params["w_uk"].reshape(m.kv_lora_rank, H, dn)
+    q_lat = torch.einsum("bthd,rhd->bthr", q_nope.float(), w_uk.float())
+
+    dkv = dense(params["w_dkv"], x)
+    ckv, k_rope = dkv[..., :m.kv_lora_rank], dkv[..., m.kv_lora_rank:]
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+
+    if cache is None:
+        kv_pos, ckv_all, k_rope_all = positions, ckv, k_rope
+        new_cache = None
+    else:
+        ckv_all, k_rope_all, kv_pos = cache["ckv"], cache["k_rope"], cache["pos"]
+        S = ckv_all.shape[1]
+        slots = torch.remainder(positions, S).long()
+        bidx = torch.arange(B, device=x.device)[:, None]
+        new_ckv, new_k_rope, new_pos = ckv, k_rope, positions
+        if T > 1:
+            src = _last_writer(slots, S)
+            new_ckv = ckv.gather(1, src[..., None].expand(B, T, ckv.shape[-1]))
+            new_k_rope = k_rope.gather(1, src[..., None].expand(B, T, k_rope.shape[-1]))
+            new_pos = positions.gather(1, src)
+        ckv_all[bidx, slots] = new_ckv
+        k_rope_all[bidx, slots] = new_k_rope
+        kv_pos[bidx, slots] = new_pos.to(kv_pos.dtype)
+        new_cache = {"ckv": ckv_all, "k_rope": k_rope_all, "pos": kv_pos}
+
+    scores = torch.einsum("bthr,bsr->bhts", q_lat, ckv_all.float())
+    scores = scores + torch.einsum("bthd,bsd->bhts", q_rope.float(), k_rope_all.float())
+    scores = scores * scale
+    mask = (kv_pos[:, None, :] >= 0) & (kv_pos[:, None, :] <= positions[:, :, None])
+    scores = torch.where(mask[:, None], scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    lat_out = torch.einsum("bhts,bsr->bthr", probs, ckv_all.float())
+    w_uv = params["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    out = torch.einsum("bthr,rhv->bthv", lat_out, w_uv.float())
+    out = out.reshape(B, T, H * m.v_head_dim).to(x.dtype)
+    return dense(params["wo"], out), new_cache
+
+
+def mla_cache_shape(cfg: ModelConfig, batch: int, max_len: int):
+    m = cfg.mla
+    S = min(max_len, cfg.window) if cfg.window else max_len
+    return {
+        "ckv": ((batch, S, m.kv_lora_rank), cfg.dtype),
+        "k_rope": ((batch, S, m.qk_rope_head_dim), cfg.dtype),
         "pos": ((batch, S), torch.int32),
     }

@@ -149,13 +149,16 @@ class ModelConfig:
 
 
 def dense_init(gen: torch.Generator, shape: Sequence[int], dtype=torch.float32, scale: float = 1.0) -> torch.Tensor:
+    """N(0, scale^2 / fan_in) drawn in f32, then cast: the same bits in any dtype
+    as the f32 draw cast afterwards.  Scaled in place, so a leaf costs one f32
+    copy of itself while it is made."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale / math.sqrt(fan_in)
-    return (torch.randn(tuple(shape), generator=gen, device=gen.device) * std).to(dtype)
+    return torch.randn(tuple(shape), generator=gen, device=gen.device).mul_(std).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape: Sequence[int], dtype=torch.float32) -> torch.Tensor:
-    return (torch.randn(tuple(shape), generator=gen, device=gen.device) * 0.02).to(dtype)
+    return torch.randn(tuple(shape), generator=gen, device=gen.device).mul_(0.02).to(dtype)
 
 
 def rmsnorm_init(shape: Sequence[int], device, dtype=torch.float32) -> torch.Tensor:

@@ -28,11 +28,12 @@ LORA = 64  # rank of the decay's data-dependent LoRA
 F32_KEYS = ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g", "mu_ck", "w0", "u", "ln_scale")
 
 
-def rwkv6_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int) -> Params:
-    """Layer-stacked block parameters, the reference's keys and shapes."""
+def rwkv6_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int, dtype=None) -> Params:
+    """Layer-stacked block parameters, the reference's keys and shapes: the
+    matrices in ``dtype`` (default ``cfg.param_dtype``), ``F32_KEYS`` in f32."""
     L, d, hd = n_layers, cfg.d_model, cfg.rwkv.head_dim
     H = d // hd
-    dev, pdt = gen.device, cfg.param_dtype
+    dev, pdt = gen.device, dtype or cfg.param_dtype
 
     def full(shape, value):
         return torch.full((L,) + shape, value, dtype=torch.float32, device=dev)

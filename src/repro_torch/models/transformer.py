@@ -1,6 +1,7 @@
-"""``repro/models/transformer.py`` for the dense decoder and RWKV-6: the dense
-decoder (``_build_transformer``) as ``Model``, with ``init``, ``cast_params``,
-``loss``, ``prefill``, ``decode_step`` and ``cache_shape``, and the RWKV-6
+"""``repro/models/transformer.py`` for the decoder and RWKV-6: the decoder
+(``_build_transformer``; dense, or MoE with GQA or MLA attention) as ``Model``,
+with ``init``, ``cast_params``, ``loss``, ``prefill``, ``decode_step`` and
+``cache_shape``, and the RWKV-6
 stack (``_build_rwkv``) as ``RWKVModel``, which serves only (its training
 needs a WKV-6 backward); ``build_model`` dispatches as the reference's does.
 
@@ -18,6 +19,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.modules import (
     ModelConfig,
@@ -31,6 +33,9 @@ from repro_torch.models.modules import (
 )
 
 NORM_KEYS = ("ln1", "ln2", "final_norm")  # f32 scales: RMSNorm runs in f32 whatever cfg.dtype
+# the leaves the computing copy keeps as made: the norm scales, the MoE router
+# (the reference contracts it in f32) and MLA's up-projections (applied in f32)
+KEEP_KEYS = NORM_KEYS + ("router",) + attn.MLA_F32_KEYS
 LOSS_CHUNK = 256  # sequence chunk for the big-vocabulary cross entropy (bounds the f32 logits)
 
 # the products whose outputs remat "dots" keeps (the reference's
@@ -69,13 +74,18 @@ def _unstack(tree: Any, n: int) -> list:
 
 
 def _block_apply(params: Params, cfg: ModelConfig, x, positions, cache):
-    """One transformer block. Returns (x, new_cache)."""
+    """One transformer block. Returns (x, new_cache, aux): aux is the MoE's
+    load-balance loss, None for a dense block."""
     h = rmsnorm(params["ln1"], x)
-    a, new_cache = attn.gqa_apply(params["attn"], cfg, h, positions, cache)
+    attend = attn.mla_apply if cfg.mla is not None else attn.gqa_apply
+    a, new_cache = attend(params["attn"], cfg, h, positions, cache)
     x = x + a
     h = rmsnorm(params["ln2"], x)
-    x = x + ffn_apply(params["ffn"], h, cfg.ffn_activation)
-    return x, new_cache
+    if cfg.moe is not None:
+        f, aux = moe_lib.moe_apply(params["moe"], cfg, h)
+    else:
+        f, aux = ffn_apply(params["ffn"], h, cfg.ffn_activation), None
+    return x + f, new_cache, aux
 
 
 def _embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -134,63 +144,80 @@ class Model:
     """Functional model object: the methods take the parameters explicitly."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "dense" or cfg.moe is not None or cfg.ssm is not None or cfg.rwkv is not None:
-            raise NotImplementedError(f"{cfg.name}: only the dense decoder is ported (family {cfg.family!r})")
+        if cfg.family not in ("dense", "moe") or (cfg.family == "moe") != (cfg.moe is not None) \
+                or cfg.ssm is not None or cfg.rwkv is not None:
+            raise NotImplementedError(f"{cfg.name}: only the dense decoder and the MoE family (with its "
+                                      f"MoEConfig) are ported (family {cfg.family!r})")
         if not cfg.causal:
             raise NotImplementedError(f"{cfg.name}: the bidirectional encoder comes with the rest of the transformer stack")
         attn.check_supported(cfg)
         self.cfg = cfg
 
-    def init(self, gen: torch.Generator) -> Params:
-        """Random parameters in ``cfg.param_dtype`` on the generator's device."""
+    def init(self, gen: torch.Generator, dtype: Optional[torch.dtype] = None) -> Params:
+        """Random parameters on the generator's device, in ``cfg.param_dtype``.
+        With ``dtype``, every leaf that ``cast_params`` casts is made in
+        ``dtype`` instead, each drawn in f32 and cast as it is made: with
+        ``dtype=cfg.dtype`` the result is bit for bit ``cast_params(init(gen))``
+        without the f32 master ever being held (how a 14-16B MoE fits one card)."""
         cfg, L = self.cfg, self.cfg.num_layers
+        pdt = dtype or cfg.param_dtype
+        layers: Params = {
+            "ln1": rmsnorm_init((L, cfg.d_model), gen.device),
+            "ln2": rmsnorm_init((L, cfg.d_model), gen.device),
+            "attn": attn.mla_init(gen, cfg, L, pdt) if cfg.mla is not None else attn.gqa_init(gen, cfg, L, pdt),
+        }
+        if cfg.moe is not None:
+            layers["moe"] = moe_lib.moe_init(gen, cfg, L, pdt)
+        else:
+            layers["ffn"] = ffn_init(gen, L, cfg.d_model, cfg.d_ff, cfg.ffn_activation, pdt)
         p: Params = {
-            "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), cfg.param_dtype),
+            "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), pdt),
             "final_norm": rmsnorm_init((cfg.d_model,), gen.device),
-            "layers": {
-                "ln1": rmsnorm_init((L, cfg.d_model), gen.device),
-                "ln2": rmsnorm_init((L, cfg.d_model), gen.device),
-                "attn": attn.gqa_init(gen, cfg, L),
-                "ffn": ffn_init(gen, L, cfg.d_model, cfg.d_ff, cfg.ffn_activation, cfg.param_dtype),
-            },
+            "layers": layers,
         }
         if not cfg.tie_embeddings:
-            p["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size), cfg.param_dtype)
+            p["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size), pdt)
         return p
 
     def cast_params(self, params: Params) -> Params:
         """The copy the forward pass computes with: every matrix in ``cfg.dtype``
         (``dense`` casts its weight to the activation dtype before the product,
-        so casting once beforehand gives the same bits), the norm scales as they
-        are.  A leaf that already has its dtype is shared, not copied."""
-        return _cast_tree(params, self.cfg.dtype, NORM_KEYS)
+        so casting once beforehand gives the same bits), the leaves of
+        ``KEEP_KEYS`` as they are (the norm scales, the f32 router, MLA's
+        up-projections).  A leaf that already has its dtype is shared, not copied."""
+        return _cast_tree(params, self.cfg.dtype, KEEP_KEYS)
 
     def _backbone(self, params: Params, x, positions, cache):
         """Loop over the blocks. cache None or a stacked (L, ...) tree, updated
-        in place.  Differentiated (a loss), each block runs under ``cfg.remat``."""
+        in place.  Differentiated (a loss), each block runs under ``cfg.remat``.
+        Returns (normed x, cache, the aux losses summed over the layers)."""
         cfg, L = self.cfg, self.cfg.num_layers
-        block = lambda lp, h, lc: _block_apply(lp, cfg, h, positions, lc)[0]  # noqa: E731
+        block = lambda lp, h, lc: _block_apply(lp, cfg, h, positions, lc)[::2]  # noqa: E731  (x, aux)
         if torch.is_grad_enabled() and cache is None:
             block = _remat(block, cfg.remat)
         caches = [None] * L if cache is None else _unstack(cache, L)
+        aux = torch.zeros((), device=x.device)
         for lp, lc in zip(_unstack(params["layers"], L), caches):
-            x = block(lp, x, lc)
-        return rmsnorm(params["final_norm"], x), cache
+            x, a = block(lp, x, lc)
+            if a is not None:
+                aux = aux + a
+        return rmsnorm(params["final_norm"], x), cache, aux
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch {"tokens" (B,T) int32, optional "positions" (B,T), optional
         "labels" (B,T) with "mask" (B,T)}.  Takes the f32 master parameters:
         ``dense`` casts each weight to the activation dtype, so autograd gives
         f32 gradients on the f32 leaves.  Returns (ce + aux, {"ce", "aux"});
-        aux is 0 for the dense decoder.  Without labels the targets are the
-        next tokens, and the last position is masked."""
+        aux is the MoE load-balance loss summed over the layers, 0 for the
+        dense decoder.  Without labels the targets are the next tokens, and
+        the last position is masked."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = _embed_tokens(params, cfg, tokens)
         positions = batch.get("positions")
         if positions is None:
             positions = _default_positions(x.shape[:2], x.device)
-        x, _ = self._backbone(params, x, positions, None)
+        x, _, aux = self._backbone(params, x, positions, None)
         targets = batch.get("labels")
         if targets is None:
             targets = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
@@ -199,7 +226,6 @@ class Model:
         else:
             mask = batch.get("mask")
         ce = _lm_loss_chunked(x, _head_weight(params, cfg), targets, mask)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return ce + aux, {"ce": ce, "aux": aux}
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor], cache) -> Tuple[torch.Tensor, Any]:
@@ -210,7 +236,7 @@ class Model:
         positions = batch.get("positions")
         if positions is None:
             positions = _default_positions(x.shape[:2], x.device)
-        x, cache = self._backbone(params, x, positions, cache)
+        x, cache, _ = self._backbone(params, x, positions, cache)
         logits = dense(_head_weight(params, cfg), x[:, -1])
         return logits.float(), cache
 
@@ -219,13 +245,15 @@ class Model:
         Returns (logits f32 (B,V), cache); the cache is updated in place."""
         cfg = self.cfg
         x = _embed_tokens(params, cfg, tokens[:, None])
-        x, cache = self._backbone(params, x, pos[:, None].contiguous(), cache)
+        x, cache, _ = self._backbone(params, x, pos[:, None].contiguous(), cache)
         logits = dense(_head_weight(params, cfg), x[:, 0])
         return logits.float(), cache
 
     def cache_shape(self, batch: int, max_len: int):
-        """{name: (shape, dtype)} of the layer-stacked cache."""
-        per = attn.gqa_cache_shape(self.cfg, batch, max_len)
+        """{name: (shape, dtype)} of the layer-stacked cache: the KV ring, or
+        MLA's latent ring."""
+        cache_shape = attn.mla_cache_shape if self.cfg.mla is not None else attn.gqa_cache_shape
+        per = cache_shape(self.cfg, batch, max_len)
         return {k: ((self.cfg.num_layers,) + s, d) for k, (s, d) in per.items()}
 
 
@@ -243,17 +271,21 @@ class RWKVModel:
             raise ValueError(f"{cfg.name}: not an RWKV config")
         self.cfg = cfg
 
-    def init(self, gen: torch.Generator) -> Params:
-        """Random parameters in ``cfg.param_dtype`` (the reference's f32 leaves f32)."""
+    def init(self, gen: torch.Generator, dtype: Optional[torch.dtype] = None) -> Params:
+        """Random parameters in ``cfg.param_dtype`` (the reference's f32 leaves
+        f32).  With ``dtype``, the matrices are made in it and the result is
+        ``cast_params``'d: bit for bit ``cast_params(init(gen))`` for
+        ``dtype=cfg.dtype``, as ``Model.init``."""
         cfg = self.cfg
+        pdt = dtype or cfg.param_dtype
         p: Params = {
-            "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), cfg.param_dtype),
+            "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), pdt),
             "final_norm": rmsnorm_init((cfg.d_model,), gen.device),
-            "layers": rwkv_lib.rwkv6_init(gen, cfg, cfg.num_layers),
+            "layers": rwkv_lib.rwkv6_init(gen, cfg, cfg.num_layers, pdt),
         }
         if not cfg.tie_embeddings:
-            p["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size), cfg.param_dtype)
-        return p
+            p["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size), pdt)
+        return p if dtype is None else self.cast_params(p)
 
     def cast_params(self, params: Params) -> Params:
         """Every leaf but ``KEEP_F32`` in ``cfg.dtype``; a leaf that already has

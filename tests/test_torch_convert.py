@@ -83,3 +83,51 @@ def test_flatten_unflatten_inverse():
     flat = convert.flatten(tree)
     assert flat == {"a/b": 1, "a/c/d": 2, "e": 3}
     assert convert.unflatten(flat) == tree
+
+
+@pytest.mark.parametrize("arch", ["qwen2_moe_a2p7b", "deepseek_v2_lite_16b"])
+def test_moe_keys_and_shapes_match_the_reference_checkpoint_paths(arch):
+    """The MoE leaves (router, experts (L, E, d, f) and (L, E, f, d), shared
+    experts) and MLA's (wq, w_dkv, w_uk, w_uv, wo) under the reference's paths;
+    the router f32 whatever param_dtype, as the reference makes it."""
+    ref_cfg, cfg = ref_configs.get_smoke_config(arch), configs.get_smoke_config(arch)
+    ref_params, tree = reference_params(ref_cfg)
+    ref_flat = ref_flatten(ref_params)
+    flat = convert.flatten(convert.from_reference(tree, cfg))
+    assert set(flat) == set(ref_flat) == set(convert.expected_shapes(cfg))
+    moe_leaves = {"layers/moe/" + k for k in ("router", "w_gate", "w_up", "w_down", "shared/w_gate",
+                                              "shared/w_up", "shared/w_down")}
+    attn_leaves = {"layers/attn/" + k for k in (("wq", "w_dkv", "w_uk", "w_uv", "wo") if cfg.mla is not None
+                                                  else ("wq", "wk", "wv", "wo"))}
+    assert moe_leaves | attn_leaves <= set(flat) and not any(p.startswith("layers/ffn") for p in flat)
+    L, E = cfg.num_layers, cfg.moe.num_experts
+    assert flat["layers/moe/w_gate"].shape == (L, E, cfg.d_model, cfg.moe.expert_d_ff)
+    assert flat["layers/moe/w_down"].shape == (L, E, cfg.moe.expert_d_ff, cfg.d_model)
+    for path, t in flat.items():
+        assert tuple(t.shape) == ref_flat[path].shape, path
+    own = convert.flatten(build_model(cfg).init(torch.Generator().manual_seed(0)))
+    assert {p: tuple(t.shape) for p, t in own.items()} == {p: tuple(t.shape) for p, t in flat.items()}
+    # in bf16 parameters the router stays f32, as the reference's moe_init makes it
+    ref16 = dataclasses.replace(ref_cfg, param_dtype=jnp.bfloat16)
+    cfg16 = dataclasses.replace(cfg, param_dtype=torch.bfloat16)
+    ref_p16, tree16 = reference_params(ref16, seed=2)
+    state = convert.flatten(convert.from_reference(tree16, cfg16))
+    assert state["layers/moe/router"].dtype == torch.float32 == _torch_dtype(ref_p16["layers"]["moe"]["router"])
+    assert state["layers/moe/w_up"].dtype == torch.bfloat16 == _torch_dtype(ref_p16["layers"]["moe"]["w_up"])
+    back = convert.flatten(convert.to_reference(convert.unflatten(state)))
+    for path, leaf in convert.flatten(numpy_tree(ref_p16)).items():
+        np.testing.assert_array_equal(back[path], leaf, err_msg=path)
+
+
+def _torch_dtype(a):
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[jnp.dtype(a.dtype).name]
+
+
+@pytest.mark.parametrize("arch", ["qwen2_moe_a2p7b", "deepseek_v2_lite_16b"])
+def test_moe_round_trip_is_exact(arch):
+    ref_cfg, cfg = ref_configs.get_smoke_config(arch), configs.get_smoke_config(arch)
+    _, tree = reference_params(ref_cfg, seed=3)
+    back = convert.flatten(convert.to_reference(convert.from_reference(tree, cfg)))
+    for path, leaf in convert.flatten(tree).items():
+        assert back[path].dtype == leaf.dtype
+        np.testing.assert_array_equal(back[path], leaf, err_msg=path)

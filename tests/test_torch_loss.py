@@ -156,3 +156,65 @@ def test_remat_rejects_an_unknown_policy():
         t.requires_grad_(True)
     with pytest.raises(ValueError, match="remat"):
         model.loss(params, {"tokens": torch.zeros((1, 8), dtype=torch.int32)})
+
+
+# -- the MoE family: ce + the summed aux loss, and the gradients of every leaf ---
+
+
+def _ref_value_and_grad(ref_cfg, ref_params, tokens):
+    (loss, metrics), grads = jax.value_and_grad(ref_build_model(ref_cfg).loss, has_aux=True)(
+        ref_params, {"tokens": jnp.asarray(tokens)})
+    return loss, metrics, convert.flatten(jax.tree.map(lambda a: np.asarray(a, np.float32), grads))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [32, 300])
+@pytest.mark.parametrize("arch", ["qwen2_moe_a2p7b", "deepseek_v2_lite_16b"])
+def test_moe_loss_aux_and_grads_match_reference(arch, T, dtype):
+    """``Model.loss`` returns ce + aux with aux the Switch load-balance loss
+    summed over the layers, as the reference does, within LOSS_TOL.
+
+    f32: every leaf's gradient (the f32 router's through the gates and the aux
+    loss included) within GRAD_TOL.  bf16: top-k routing is discrete, and one
+    bf16 rounding can decide a near-tie the other way (T 32: 1 of 128 routes of
+    qwen2-moe smoke differ between the packages); the reference's pairing of
+    gate weights with sorted slots (ROADMAP Queue 3 (e)) then moves the
+    weights of the rest of the sequence, so a gradient leaf can move by more
+    than GRAD_TOL.  The reference does the same to itself: its bf16 gradients
+    part from its f32 gradients by 0.07-1.10 a leaf here.  So in bf16 each
+    leaf's gap to the reference is held against that control on the same
+    leaf: at most twice the control's gap plus GRAD_TOL."""
+    ref_cfg, cfg, ref_params, tree = _setup(arch, dtype)
+    tokens = np.random.default_rng(8).integers(0, cfg.vocab_size, size=(2, T)).astype(np.int32)
+    ref_loss, ref_metrics, ref_flat = _ref_value_and_grad(ref_cfg, ref_params, tokens)
+    loss, metrics, grads = _port_value_and_grad(cfg, tree, {"tokens": tokens})
+    assert set(metrics) == {"ce", "aux"} and float(metrics["aux"]) > 0
+    assert metrics["aux"].dtype == torch.float32 and metrics["aux"].shape == ()
+    for got, want in ((loss, ref_loss), (metrics["ce"], ref_metrics["ce"]), (metrics["aux"], ref_metrics["aux"])):
+        np.testing.assert_allclose(float(got.detach()), float(want), rtol=LOSS_TOL[dtype], atol=LOSS_TOL[dtype])
+    assert float(loss.detach()) == pytest.approx(float((metrics["ce"] + metrics["aux"]).detach()), abs=1e-6)
+    assert set(grads) == set(ref_flat) and "layers/moe/router" in grads
+    assert all(g.dtype == torch.float32 for g in grads.values())  # f32 gradients on the f32 master leaves
+    gaps = {path: _rel(g.numpy(), ref_flat[path]) for path, g in grads.items()}
+    if dtype == "float32":
+        assert max(gaps.values()) <= GRAD_TOL[dtype], gaps
+        return
+    ref32_cfg, _, ref32_params, _ = _setup(arch, "float32")
+    control = _ref_value_and_grad(ref32_cfg, ref32_params, tokens)[2]
+    for path, gap in gaps.items():
+        control_gap = _rel(ref_flat[path], control[path])
+        assert gap <= 2 * control_gap + GRAD_TOL[dtype], (path, gap, control_gap)
+
+
+def test_moe_remat_full_gives_the_gradients_of_none():
+    """The block returns its aux beside x through the checkpoint: "full" gives
+    bit-equal loss, aux and gradients to "none"."""
+    out = {}
+    for remat in ("none", "full"):
+        _, cfg, _, tree = _setup("qwen2_moe_a2p7b", "float32", remat=remat)
+        tokens = np.random.default_rng(6).integers(0, cfg.vocab_size, size=(2, 40)).astype(np.int32)
+        loss, metrics, grads = _port_value_and_grad(cfg, tree, {"tokens": tokens})
+        out[remat] = (float(loss.detach()), float(metrics["aux"].detach()), grads)
+    assert out["full"][:2] == out["none"][:2]
+    for path, g in out["full"][2].items():
+        assert torch.equal(g, out["none"][2][path]), path

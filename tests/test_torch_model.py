@@ -131,3 +131,118 @@ def test_unported_families_raise():
     for change in (dict(family="moe"), dict(causal=False), dict(window=16)):
         with pytest.raises(NotImplementedError):
             build_model(dataclasses.replace(cfg, **change))
+
+
+# -- the MoE family: Qwen1.5-MoE (GQA) and DeepSeek-V2-Lite (MLA) ---------------
+
+MOE_ARCHS = ["qwen2_moe_a2p7b", "deepseek_v2_lite_16b"]
+
+
+@pytest.fixture(scope="module", params=[(a, d) for a in MOE_ARCHS for d in ("float32", "bfloat16")],
+                ids=lambda p: f"{p[0]}-{p[1]}")
+def moe_both(request):
+    arch, dtype = request.param
+    cfg, ref_model, ref_params, model, params, tokens = _setup(arch, dtype)
+    ref_logits, ref_cache = ref_model.prefill(
+        ref_params, {"tokens": jnp.asarray(tokens)}, ref_zeros_cache(ref_model, B, MAX_LEN))
+    with torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": torch.from_numpy(tokens)}, zeros_cache(model, B, MAX_LEN, "cpu"))
+    return dict(dtype=dtype, cfg=cfg, ref_model=ref_model, ref_params=ref_params, model=model, params=params,
+                tokens=tokens, ref_logits=ref_logits, ref_cache=ref_cache, logits=logits, cache=cache)
+
+
+def test_moe_prefill_logits_and_cache_match_reference(moe_both):
+    """Logits, and every floating-point leaf of the cache (k, v or MLA's ckv,
+    k_rope) on the valid slots."""
+    b = moe_both
+    np.testing.assert_allclose(as_f32(b["logits"]), as_f32(b["ref_logits"]), **LOGIT_TOL[b["dtype"]])
+    assert set(b["cache"]) == set(b["ref_cache"])
+    np.testing.assert_array_equal(b["cache"]["pos"].numpy(), np.asarray(b["ref_cache"]["pos"]))
+    valid = b["cache"]["pos"].numpy() >= 0
+    assert valid.sum() == b["cfg"].num_layers * B * T
+    for name in set(b["cache"]) - {"pos"}:
+        assert tuple(b["cache"][name].shape) == b["ref_cache"][name].shape and b["cache"][name].dtype == b["cfg"].dtype
+        np.testing.assert_allclose(as_f32(b["cache"][name])[valid], as_f32(b["ref_cache"][name])[valid],
+                                   **LOGIT_TOL[b["dtype"]])
+
+
+def test_moe_decode_steps_match_reference(moe_both):
+    """Three greedy decode steps from the prefill's cache (a decode step's
+    capacity is 8 slots an expert)."""
+    b = moe_both
+    nxt = np.asarray(b["ref_logits"]).argmax(-1).astype(np.int32)
+    ref_cache = b["ref_cache"]
+    cache = {k: v.clone() for k, v in b["cache"].items()}  # decode_step writes in place
+    for step in range(3):
+        pos = np.full((B,), T + step, np.int32)
+        ref_logits, ref_cache = b["ref_model"].decode_step(b["ref_params"], ref_cache, jnp.asarray(nxt), jnp.asarray(pos))
+        with torch.no_grad():
+            logits, cache = b["model"].decode_step(b["params"], cache, torch.from_numpy(nxt), torch.from_numpy(pos))
+        np.testing.assert_allclose(as_f32(logits), as_f32(ref_logits), **LOGIT_TOL[b["dtype"]])
+        np.testing.assert_array_equal(cache["pos"].numpy(), np.asarray(ref_cache["pos"]))
+        nxt = np.asarray(ref_logits).argmax(-1).astype(np.int32)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_decode_after_shorter_prefill_parts_from_full_prefill_as_the_reference(arch):
+    """For the dense decoder, decode_step after prefill(T-1) sees what prefill(T)
+    sees at its last token.  For the MoE it does not, in the reference as in the
+    port: the reference weights each expert slot with the gate of whichever
+    (token, k) pair the sort put there (ROADMAP Queue 3 (e)), so a token's
+    output depends on the other tokens it was sorted with.  Both numbers of
+    each package agree with the other package's."""
+    cfg, ref_model, ref_params, model, params, tokens = _setup(arch, "float32")
+    toks = torch.from_numpy(tokens)
+    ref_full, _ = ref_model.prefill(ref_params, {"tokens": jnp.asarray(tokens)}, ref_zeros_cache(ref_model, B, MAX_LEN))
+    _, ref_cache = ref_model.prefill(ref_params, {"tokens": jnp.asarray(tokens[:, :-1])}, ref_zeros_cache(ref_model, B, MAX_LEN))
+    ref_step, _ = ref_model.decode_step(ref_params, ref_cache, jnp.asarray(tokens[:, -1]), jnp.full((B,), T - 1, jnp.int32))
+    with torch.no_grad():
+        full, _ = model.prefill(params, {"tokens": toks}, zeros_cache(model, B, MAX_LEN, "cpu"))
+        _, cache = model.prefill(params, {"tokens": toks[:, :-1]}, zeros_cache(model, B, MAX_LEN, "cpu"))
+        step, _ = model.decode_step(params, cache, toks[:, -1], torch.full((B,), T - 1, dtype=torch.int32))
+    np.testing.assert_allclose(as_f32(full), as_f32(ref_full), **LOGIT_TOL["float32"])
+    np.testing.assert_allclose(as_f32(step), as_f32(ref_step), **LOGIT_TOL["float32"])
+    ref_gap = np.abs(as_f32(ref_step) - as_f32(ref_full)).max()
+    assert ref_gap > 1e-2 and np.abs(as_f32(step) - as_f32(full)).max() > 1e-2, ref_gap
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS + ["gpt_a"])
+def test_init_in_the_activation_dtype_is_the_cast_f32_init(arch):
+    """``init(gen, dtype=cfg.dtype)`` gives bit for bit ``cast_params(init(gen))``
+    from the same seed: each leaf is drawn in f32 and cast as it is made.  The
+    norm scales and the MoE router are f32 in both, MLA's up-projections in
+    ``cfg.param_dtype``."""
+    cfg = configs.get_smoke_config(arch)
+    model = build_model(cfg)
+    direct = convert.flatten(model.init(torch.Generator().manual_seed(5), dtype=cfg.dtype))
+    cast = convert.flatten(model.cast_params(model.init(torch.Generator().manual_seed(5))))
+    assert set(direct) == set(cast)
+    for path, t in direct.items():
+        assert t.dtype == cast[path].dtype and torch.equal(t, cast[path]), path
+        leaf = path.split("/")[-1]
+        want = torch.float32 if leaf in ("ln1", "ln2", "final_norm", "router", "w_uk", "w_uv") else cfg.dtype
+        assert t.dtype == want, path
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_cast_params_keeps_the_f32_leaves(arch):
+    """The router is contracted in f32 and MLA's up-projections are applied in
+    f32 by the reference, so the computing copy shares them uncast."""
+    cfg = configs.get_smoke_config(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    cast = model.cast_params(params)
+    assert cast["layers"]["moe"]["router"] is params["layers"]["moe"]["router"]
+    assert cast["layers"]["moe"]["router"].dtype == torch.float32
+    assert cast["layers"]["moe"]["w_gate"].dtype == cfg.dtype
+    if cfg.mla is not None:
+        assert cast["layers"]["attn"]["w_uk"] is params["layers"]["attn"]["w_uk"]
+        assert cast["layers"]["attn"]["w_dkv"].dtype == cfg.dtype
+
+
+def test_moe_family_needs_its_moe_config():
+    cfg = configs.get_smoke_config("qwen2_moe_a2p7b")
+    with pytest.raises(NotImplementedError):
+        build_model(dataclasses.replace(cfg, moe=None))
+    with pytest.raises(NotImplementedError):
+        build_model(dataclasses.replace(cfg, family="dense"))

@@ -191,7 +191,7 @@ def test_sdpa_dispatch_follows_the_reference():
 
 def test_unported_attention_flavours_raise():
     cfg = configs.get_smoke_config("gpt_a")
-    for change in (dict(window=64), dict(mrope_sections=(8, 12, 12)), dict(mla=modules.MLAConfig())):
+    for change in (dict(window=64), dict(mrope_sections=(8, 12, 12))):  # MLA is ported: tests/test_torch_mla.py
         with pytest.raises(NotImplementedError):
             attention.check_supported(dataclasses.replace(cfg, **change))
 

@@ -249,3 +249,77 @@ def test_splitwise_token_ids_equal_the_reference_cluster(twins):
     got = cluster.serve([Request(i, x.copy(), max_new_tokens=5) for i, x in enumerate(p[:3])])
     assert [r.generated for r in got] == [r.generated for r in want]
     assert cluster.kv_bytes_moved == ref_cluster.kv_bytes_moved
+
+
+# -- the MoE family: Qwen1.5-MoE (GQA, KV ring) and DeepSeek-V2-Lite (MLA, latent ring)
+
+MOE_ARCHS = ["qwen2_moe_a2p7b", "deepseek_v2_lite_16b"]
+
+
+@pytest.fixture(scope="module", params=MOE_ARCHS)
+def moe_twins(request):
+    ref_cfg = dataclasses.replace(ref_configs.get_smoke_config(request.param), dtype=jnp.float32)
+    cfg = dataclasses.replace(configs.get_smoke_config(request.param), dtype=torch.float32)
+    ref_params, tree = reference_params(ref_cfg, seed=0)
+    return ref_cfg, ref_params, cfg, convert.from_reference(tree, cfg)
+
+
+def test_moe_greedy_token_ids_equal_the_reference_engine(moe_twins):
+    """Dense, ragged (pads take capacity slots in their sequence, as in the
+    reference) and single batches."""
+    ref_cfg, ref_params, cfg, params = moe_twins
+    ref_engine = RefServingEngine(ref_cfg, ref_params, max_batch=3, max_len=64)
+    engine = ServingEngine(cfg, params, max_batch=3, max_len=64, device="cpu")
+    p = _prompts(cfg)
+    for batch in ([p[0], p[1]], [p[2], p[3], p[0]], [p[3]]):
+        want = ref_engine.generate([RefRequest(i, x.copy(), max_new_tokens=6) for i, x in enumerate(batch)])
+        got = engine.generate([Request(i, x.copy(), max_new_tokens=6) for i, x in enumerate(batch)])
+        assert [r.generated for r in got] == [r.generated for r in want]
+
+
+def test_moe_splitwise_token_ids_and_bytes_equal_the_reference_cluster(moe_twins):
+    ref_cfg, ref_params, cfg, params = moe_twins
+    ref_cluster = RefSplitwiseCluster(ref_cfg, ref_params, max_batch=3, max_len=64)
+    cluster = SplitwiseCluster(cfg, params, max_batch=3, max_len=64, device="cpu")
+    p = _prompts(cfg)
+    for batch in (p[:2], p[1:4]):  # dense, then ragged
+        want = ref_cluster.serve([RefRequest(i, x.copy(), max_new_tokens=5) for i, x in enumerate(batch)])
+        got = cluster.serve([Request(i, x.copy(), max_new_tokens=5) for i, x in enumerate(batch)])
+        assert [r.generated for r in got] == [r.generated for r in want]
+    assert cluster.kv_bytes_moved == ref_cluster.kv_bytes_moved > 0
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_cache_leaves_count_as_ring_bytes(arch):
+    """zeros_cache marks every slot empty, every floating-point leaf (k and v,
+    or MLA's ckv and k_rope) has the ring at dim 2 and counts per token, and
+    no leaf counts per sequence; the full configs give 196,608 and 31,104
+    bytes a token in bf16."""
+    cfg = configs.get_smoke_config(arch)
+    model = build_model(cfg)
+    cache = zeros_cache(model, 2, 16, "cpu")
+    assert (cache["pos"] == -1).all() and all((v == 0).all() for k, v in cache.items() if k != "pos")
+    want = {"ckv", "k_rope", "pos"} if cfg.mla is not None else {"k", "v", "pos"}
+    assert set(cache) == want
+    per_token = sum(v[0, 0, 0].numel() * v.element_size() for k, v in cache.items() if k != "pos") * cfg.num_layers
+    assert kv_cache_bytes_per_token(cache, 16) == per_token and kv_cache_state_bytes_per_seq(cache, 16) == 0
+    full = build_model(configs.get_config(arch))
+    shapes = full.cache_shape(1, 8)
+    full_bytes = sum(torch.Size(s[:2] + s[3:]).numel() * torch.tensor([], dtype=d).element_size()
+                     for k, (s, d) in shapes.items() if k != "pos")
+    assert full_bytes == {"qwen2_moe_a2p7b": 196_608, "deepseek_v2_lite_16b": 31_104}[arch]
+
+
+def test_moe_handoff_clones_the_latent_ring():
+    """The splitwise handoff copies MLA's ckv and k_rope like k and v: the
+    decode side writes its own copy, the prefill side's cache is untouched."""
+    cfg = configs.get_smoke_config("deepseek_v2_lite_16b")
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    cluster = SplitwiseCluster(cfg, params, max_batch=2, max_len=32, device="cpu")
+    reqs = [Request(i, np.arange(3 + i, dtype=np.int32) % cfg.vocab_size, max_new_tokens=4) for i in range(2)]
+    cache, tok, pos = cluster.prefill_engine.prefill_batch(reqs)
+    before = {k: v.clone() for k, v in cache.items()}
+    handed = {k: v.clone() for k, v in cache.items()}
+    cluster.decode_engine.decode_batch(reqs, handed, tok, pos, 3)
+    assert all(torch.equal(cache[k], before[k]) for k in cache)
+    assert not torch.equal(handed["ckv"], cache["ckv"]) and (handed["pos"] >= 0).sum() > (cache["pos"] >= 0).sum()
