@@ -17,13 +17,22 @@ kernels), and then serves the MoE family at full width and depth with its
 weights made directly in bf16 (Qwen1.5-MoE-A2.7B, 24 layers x 2048, 60 experts
 top-4, vocabulary 151936: RMSNorm, flash and decode attention kernels; then
 DeepSeek-V2-Lite, 27 layers x 2048, MLA, 64 experts top-6, vocabulary 102400:
-RMSNorm kernel, MLA plain as in the reference).  For each path it checks by
+RMSNorm kernel, MLA plain as in the reference), and then the rest of the
+transformer stack at full width, weights made directly in bf16, one model at
+a time: DeepSeek-Coder 33B (62 x 7168, 56/8 heads), Granite-34B-Code (60 of
+its 88 layers x 6144, 48/1 heads), Nemotron-4 15B (32 x 6144, 48/8 heads,
+squared ReLU) and Qwen2-VL 7B (28 x 3584, 28/4 heads, M-RoPE; also one
+pipeline batch of image-patch embeddings, which the model pins to the masked
+plain attention) served as above (RMSNorm, flash and decode attention
+kernels), and HuBERT-XLarge's bidirectional encoder (48 x 1280, 16 heads of
+80) through ``Model.loss`` and ``Model.prefill`` on 4 x 1024 frames (RMSNorm
+kernel, flash kernel non-causal at head size 80).  For each path it checks by
 the kernels' launch counters that it really went through the kernels, and
 compares the kernel path's logits, or loss and gradients, with the plain
 path's.
 
 Every phase prints one JSON line (the train phase also the launcher's step
-lines).  Any failure raises, so the exit code is not 0 and the last line is
+lines), with its peak device memory.  Any failure raises, so the exit code is not 0 and the last line is
 not printed.  The last line of a good run is exactly
 ``{"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": 1}}``.
 """
@@ -165,7 +174,33 @@ MOE_REDUCED = {"num_layers": "24 -> 4 (qwen2-moe-a2.7b), 27 -> 4 (deepseek-v2-li
                "why": "57.3 and 64.8 GB of f32 parameters at full depth; served and compared in bf16 at full depth"}
 # bf16 ring bytes a token: GPT-A 24 x 2 x 32 x 128 x 2, Qwen 24 x 2 x 16 x 128 x 2,
 # DeepSeek's latent 27 x 576 x 2; RWKV-6 keeps a state a sequence instead
-KV_BYTES_PER_TOKEN = {"gpt-a": 393_216, "rwkv6-7b": 0, "qwen2-moe-a2.7b": 196_608, "deepseek-v2-lite-16b": 31_104}
+KV_BYTES_PER_TOKEN = {"gpt-a": 393_216, "rwkv6-7b": 0, "qwen2-moe-a2.7b": 196_608, "deepseek-v2-lite-16b": 31_104,
+                      # L x 2 x Hkv x 128 x 2: DeepSeek-Coder 62 x 8, Granite 60 (of 88) x 1, Nemotron 32 x 8, Qwen2-VL 28 x 4
+                      "deepseek-coder-33b": 253_952, "granite-34b": 30_720, "nemotron-4-15b": 131_072,
+                      "qwen2-vl-7b": 57_344}
+
+# The rest of the transformer stack: the dense decoders DeepSeek-Coder 33B,
+# Granite-34B-Code and Nemotron-4 15B and the VLM Qwen2-VL 7B (K1, K2, K3 at
+# groups 7, 48 and 6), weights made directly in bf16, layer by layer; HuBERT-
+# XLarge's encoder (K1, and K2 non-causal at head size 80).  Granite does not
+# fit one card at its 88 layers (94.50 GB of bf16 parameters, 530,055,098 a
+# layer): 60 of them are 64.81 GB.  Every other model runs at full depth.
+STACK_DECODERS = (("deepseek_coder_33b", "serve_coder", None), ("granite_34b", "serve_granite", 60),
+                  ("nemotron_4_15b", "serve_nemotron", None), ("qwen2_vl_7b", "serve_vl", None))
+# the comparison that finds a fault, made in f32 at full width (GPT-A's reasoning
+# for the f32 MoE comparison: only the order of f32 sums differs, through a few
+# layers of sums of at most d_ff terms; logits O(1) under random weights)
+STACK_F32_LAYERS = 2
+STACK_F32_TOL = {"logits": 1e-3}
+STACK_REDUCED = {"granite-34b": "88 -> 60 layers: 94.50 GB of bf16 parameters at 88, 64.81 GB at 60",
+                 "f32 comparison": f"{STACK_F32_LAYERS} layers at full width: the bf16 weights fill the card"}
+INIT_PEAK_LIMIT = 70e9  # bytes while DeepSeek-Coder's 66.68 GB of bf16 weights are made
+# HuBERT-XLarge: the pipeline's audio batch of 4 x 1024 frames through Model.loss
+# and Model.prefill(cache=None), the kernel path against the plain path: bf16
+# as GPT-A's parity (logits) and its training parity (the loss, a mean over
+# 4096 frames); f32 at full depth, where only the order of f32 sums differs
+HUBERT_BATCH, HUBERT_FRAMES = 4, 1024
+HUBERT_TOL = {"bf16": {"loss_rel": 1e-2, "logits": PARITY_TOL}, "f32": {"loss_rel": 1e-4, "logits": 1e-3}}
 
 SPIN_CYCLES = 20_000_000  # about 10 ms of the card's clock: see time_ms
 MAX_LEN = 1024
@@ -270,7 +305,12 @@ def check_rmsnorm(ck: Checker, gen) -> None:
     shapes = [(512, 128), (3, 256, 64), (2, 4, 128, 256), (777, 100), (777, 4096), (64, 8192),
               (4, 512, 4096), (3, 512, 4096), (1, 300, 4096), (4, 1, 4096), (3, 1, 4096), (1, 1, 4096),
               (1, 4096), (131, 4096), (133, 4096), (2049, 4096), (5000, 1024), (37, 4100), (3, 8192),
-              (4, 512, 2048), (4, 1, 2048)]  # the MoE family's d_model: a prefill's rows and a decode step's
+              (4, 512, 2048), (4, 1, 2048),  # the MoE family's d_model: a prefill's rows and a decode step's
+              # the rest of the transformer stack: DeepSeek-Coder's 7168 and Granite's and Nemotron's 6144
+              # (past the register kernel's 4096: the shared-memory kernel), Qwen2-VL's 3584 (448 chunks of
+              # 16 bytes in bf16, 3.5 a thread: the register kernel masks the last), HuBERT's 1280 frames
+              (4, 512, 7168), (4, 1, 7168), (4, 512, 6144), (4, 1, 6144), (4, 512, 3584), (4, 1, 3584),
+              (4, 1024, 1280), (3, 1280)]
     for dtype in TOL:
         for shape in shapes:
             x = randn(gen, shape, dtype)
@@ -290,7 +330,12 @@ def check_flash(ck: Checker, gen) -> None:
               (2, 300, 300, 4, 2, 64), (1, 70, 300, 4, 2, 128), (1, 300, 70, 6, 3, 32),
               (4, 512, 512, 32, 32, 128), (1, 300, 300, 32, 32, 128),
               (2, 64, 64, 8, 8, 128), (2, 17, 17, 8, 8, 128), (1, 1000, 1000, 4, 1, 128),
-              (4, 512, 512, 16, 16, 128)]  # Qwen1.5-MoE's prefill: 16 heads of 128
+              (4, 512, 512, 16, 16, 128),  # Qwen1.5-MoE's prefill: 16 heads of 128
+              # the decoders' groups: DeepSeek-Coder 56/8 and Qwen2-VL 28/4 (7), Granite 48/1 (MQA, 48),
+              # Nemotron 48/8 (6); then head size 80 (HuBERT-XLarge 16/16 over 1024 frames), ragged
+              (4, 512, 512, 56, 8, 128), (4, 512, 512, 48, 1, 128), (4, 512, 512, 48, 8, 128),
+              (4, 512, 512, 28, 4, 128), (4, 1024, 1024, 16, 16, 80), (1, 300, 300, 16, 16, 80),
+              (2, 17, 17, 4, 4, 80), (1, 70, 300, 4, 2, 80), (1, 300, 70, 6, 3, 80)]
     for dtype in TOL:
         for B, T, S, Hq, Hkv, D in shapes:
             for causal in (True, False):
@@ -306,6 +351,11 @@ def check_flash(ck: Checker, gen) -> None:
         v = randn(gen, (2, 260, 2, 64), dtype)[:, -200:]
         ck.check("flash_attention", "strided views", kops.flash_attention(q, k, v, causal=True),
                  fa_mod.flash_attention_plain(q, k, v, causal=True))
+        q = randn(gen, (2, 4, 200, 80), dtype).transpose(1, 2)
+        k = randn(gen, (2, 4, 200, 80), dtype).transpose(1, 2)
+        v = randn(gen, (2, 260, 4, 80), dtype)[:, -200:]
+        ck.check("flash_attention", "strided views D 80", kops.flash_attention(q, k, v, causal=False),
+                 fa_mod.flash_attention_plain(q, k, v, causal=False))
 
 
 def autograd_plain(fn, inputs, dout):
@@ -453,7 +503,13 @@ def check_decode(ck: Checker, gen) -> None:
              (3, 1024, 32, 32, 128, None, "tail-empty"),
              (2, 4096, 32, 32, 128, None, "tail-empty"), (2, 4096, 32, 4, 128, None, "shuffled"),
              (3, 1024, 32, 32, 128, None, "one-valid"), (2, 1024, 32, 32, 128, 300, "full"),
-             (2, 1024, 8, 2, 64, None, "gaps"), (4, 1024, 16, 16, 128, None, "tail-empty")]  # the last: Qwen1.5-MoE
+             (2, 1024, 8, 2, 64, None, "gaps"), (4, 1024, 16, 16, 128, None, "tail-empty"),  # Qwen1.5-MoE
+             # the decoders' groups: 7 (DeepSeek-Coder, Qwen2-VL: one head of the block's 8 idle), 48
+             # (Granite: six blocks a kv head), 6 (Nemotron), with windows over a wrapped and a full ring
+             (4, 1024, 56, 8, 128, None, "tail-empty"), (4, 1024, 48, 1, 128, None, "tail-empty"),
+             (4, 1024, 48, 8, 128, None, "shuffled"), (4, 1024, 28, 4, 128, None, "tail-empty"),
+             (4, 1024, 56, 8, 128, 300, "full"), (2, 1024, 48, 1, 128, 200, "shuffled"),
+             (3, 1024, 28, 4, 128, 64, "shuffled")]
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     for B, S, Hq, Hkv, D, window, kind in cases:
         if S == 4096 and dec_mod.split_plan(B, Hkv, S, sm_count)[1] < 2:
@@ -711,7 +767,77 @@ def measure_kernels(gen) -> dict:
             out["wkv6"] = row
     out["wkv6"]["chunked_t_min"] = wkv_mod.CHUNKED_T_MIN
     out.update(measure_backward(gen))
+    measure_stack(gen, out)
     return out
+
+
+def timed_row(shape: str, kernel, plain, library, sets, nbytes: int, flops: int, rate: float, iters: int = 20) -> dict:
+    """One row of times (kernel, plain version, library call) at ``sets``
+    beside the card's bound for ``nbytes`` and ``flops`` at ``rate``."""
+    return {"shape": shape, "ms": time_ms(kernel, sets, iters), "plain_ms": time_ms(plain, sets, iters),
+            "library_ms": time_ms(library, sets, iters), "bytes": nbytes, "flops": flops,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / rate) * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / rate else "operations"}
+
+
+def measure_stack(gen, out: dict) -> None:
+    """Times at the rest of the transformer stack's full-width shapes (bf16),
+    added to ``out``'s rows under a prefix a model (``coder_``: DeepSeek-Coder
+    33B, ``granite_``, ``nemotron_``, ``vl_``: Qwen2-VL 7B, ``hubert_``): K1 at
+    a prefill's 4 x 512 rows (HuBERT: 4 x 1024 frames), K2 at one layer's
+    prefill (HuBERT non-causal at head size 80), K3 at one layer's decode
+    step, 520 of 1024 slots valid.  The library calls take the group as it is
+    (``enable_gqa``)."""
+    import torch.nn.functional as F  # timed here as a yardstick; the port never calls it
+
+    def add(name, label, row):
+        out[name].update({label + key: val for key, val in row.items()})
+
+    dt = torch.bfloat16
+    for label, N, d in (("coder_", 2048, 7168), ("granite_", 2048, 6144), ("vl_", 2048, 3584), ("hubert_", 4096, 1280)):
+        sets = [(randn(gen, (N, d), dt), randn(gen, (d,), torch.float32)) for _ in range(6)]
+        add("rmsnorm", label, timed_row(
+            f"x ({N},{d}) bf16", lambda x, s: kops.rmsnorm(x, s), lambda x, s: rms_mod.rmsnorm_plain(x, s),
+            lambda x, s: F.rms_norm(x, (x.shape[-1],), s.to(x.dtype), 1e-6), sets, 2 * N * d * 2 + d * 4, 4 * N * d,
+            F32_FLOPS))
+
+    for label, B, T, Hq, Hkv, D, causal in (("coder_", 4, 512, 56, 8, 128, True), ("granite_", 4, 512, 48, 1, 128, True),
+                                            ("nemotron_", 4, 512, 48, 8, 128, True), ("vl_", 4, 512, 28, 4, 128, True),
+                                            ("hubert_", 4, 1024, 16, 16, 80, False)):
+        sets = [(randn(gen, (B, T, Hq, D), dt), randn(gen, (B, T, Hkv, D), dt), randn(gen, (B, T, Hkv, D), dt))
+                for _ in range(2)]
+        add("flash_attention", label, timed_row(
+            f"q ({B},{T},{Hq},{D}), k,v ({B},{T},{Hkv},{D}) bf16 {'causal' if causal else 'non-causal'}",
+            lambda q, k, v: kops.flash_attention(q, k, v, causal=causal),
+            lambda q, k, v: fa_mod.flash_attention_plain(q, k, v, causal=causal),
+            lambda q, k, v: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                                           is_causal=causal, enable_gqa=True).transpose(1, 2),
+            sets, (2 * B * T * Hq * D + 2 * B * T * Hkv * D) * 2,  # q read, o written, k and v read
+            4 * B * Hq * D * (T * (T + 1) // 2 if causal else T * T), BF16_FLOPS, iters=5))
+
+    B, S, filled, D = 4, MAX_LEN, 520, 128
+    ar = torch.arange(S, device="cuda", dtype=torch.int32)[None].expand(B, S)
+    kv_pos = torch.where(ar < filled, ar, -1).contiguous()
+    q_pos = torch.full((B, 1), filled - 1, device="cuda", dtype=torch.int32)
+    mask = ((kv_pos >= 0) & (kv_pos <= q_pos))[:, None, None, :]
+    valid = int(mask.sum().item())
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, Hq, Hkv in (("coder_", 56, 8), ("granite_", 48, 1), ("nemotron_", 48, 8), ("vl_", 28, 4)):
+        sets = [(randn(gen, (B, 1, Hq, D), dt), randn(gen, (B, S, Hkv, D), dt), randn(gen, (B, S, Hkv, D), dt))
+                for _ in range(8)]
+        G = Hq // Hkv
+        nsplit, per = dec_mod.split_plan(B, Hkv, S, sm_count)
+        add("decode_attention", label, {**timed_row(
+            f"q ({B},1,{Hq},{D}), k,v ({B},{S},{Hkv},{D}) bf16, {filled} of {S} slots valid",
+            lambda q, k, v: kops.decode_attention(q, k, v, q_pos, kv_pos),
+            lambda q, k, v: dec_mod.decode_attention_plain(q, k, v, q_pos, kv_pos),
+            lambda q, k, v: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                                           attn_mask=mask, enable_gqa=True).transpose(1, 2),
+            sets, 2 * valid * Hkv * D * 2 + B * S * 4 + B * 4 + 2 * B * Hq * D * 2, 4 * valid * Hq * D, BF16_FLOPS),
+            # split_plan sizes its one wave by B x Hkv alone; a group past 8 takes ceil(G / 8) blocks a kv head
+            "plan_slices": nsplit, "plan_tiles_per_slice": per,
+            "partial_blocks": nsplit * B * Hkv * (-(-G // 8) if G > 4 else 1),
+            "one_wave_blocks": sm_count * dec_mod.BLOCKS_PER_SM})
 
 
 def measure_backward(gen) -> dict:
@@ -1155,12 +1281,14 @@ RWKV_PATHS = {**PATHS, "plain_chunk64": lambda: plain_path(wkv_chunk=64)}
 MOE_PATHS = {**PATHS, "plain_pinned": plain_path}
 
 
-def phase_serve_parity(phase: str, cfg, model, params, prompts) -> None:
-    """GPT-A: the kernel path against the plain path in bf16, logits within PARITY_TOL."""
+def phase_serve_parity(phase: str, cfg, model, params, prompts, extra=None) -> None:
+    """GPT-A and the rest of the dense stack: the kernel path against the plain
+    path in bf16, logits within PARITY_TOL; ``extra`` joins the printed line."""
+    torch.cuda.reset_peak_memory_stats()
     out = run_paths(model, params, torch.from_numpy(prompts).to("cuda"), PATHS)
     k, p = out["kernel"], out["plain"]
-    result = {"phase": phase, "model": cfg.name, "tol": PARITY_TOL, "logit_abs_max": k["prefill"].abs().max().item(),
-              **gaps(k, p)}
+    result = {"phase": phase, "model": cfg.name, "layers": cfg.num_layers, "tol": PARITY_TOL,
+              "logit_abs_max": k["prefill"].abs().max().item(), **gaps(k, p), **(extra or {})}
     for name in ("prefill", "decode_step"):
         if result[f"{name}_max_abs_diff"] > PARITY_TOL:
             raise AssertionError(f"{name}: kernel path and plain path differ by {result[f'{name}_max_abs_diff']} > {PARITY_TOL}")
@@ -1169,6 +1297,7 @@ def phase_serve_parity(phase: str, cfg, model, params, prompts) -> None:
     if not torch.equal(k["cache"]["pos"], p["cache"]["pos"]) or int(valid.sum()) != cfg.num_layers * B * T:
         raise AssertionError("the two paths left different positions in the cache")
     result["cache_k_max_abs_diff"] = (k["cache"]["k"].float() - p["cache"]["k"].float())[valid].abs().max().item()
+    result["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     emit(result)
 
 
@@ -1262,6 +1391,171 @@ def serve_moe_model(arch: str, phase: str) -> dict:
     served = phase_serve(phase, cfg, model, params)
     phase_serve_moe_parity(phase + "_parity", cfg, model, served["engine"].params, served["prompts"], f32)
     return served["counters"]
+
+
+# ---------------------------------------------------------------------------
+# the rest of the transformer stack: four decoders served, HuBERT's encoder
+# ---------------------------------------------------------------------------
+
+
+def stack_parity_f32(cfg) -> dict:
+    """The kernel path against the plain path with f32 activations and f32
+    weights, at ``cfg``'s full width and STACK_F32_LAYERS layers, within
+    STACK_F32_TOL.  Everything it made is released."""
+    cfg = dataclasses.replace(cfg, num_layers=STACK_F32_LAYERS, dtype=torch.float32)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = model.init(gen)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size, (4, 512))).to("cuda")
+    out = run_paths(model, params, tokens, PATHS)
+    result = {"layers": cfg.num_layers, "logit_abs_max": out["kernel"]["prefill"].abs().max().item(),
+              "tol": STACK_F32_TOL, **gaps(out["kernel"], out["plain"])}
+    del out, params
+    release()
+    for stage in ("prefill", "decode_step"):
+        if not result[f"{stage}_max_abs_diff"] <= STACK_F32_TOL["logits"]:
+            raise AssertionError(f"{cfg.name} f32 {stage}: kernel and plain paths part by "
+                                 f"{result[f'{stage}_max_abs_diff']} > {STACK_F32_TOL['logits']}")
+    return result
+
+
+def counters_owed(L: int, forwards: int, flash: int = 0, decode: int = 0, masked: int = 0) -> dict:
+    """The launch counters of ``forwards`` forwards of an L-layer transformer:
+    two norms a block and the final one each, ``flash``, ``decode`` and
+    ``masked`` attention calls in all, no backward, no WKV-6."""
+    return {"rmsnorm": (2 * L + 1) * forwards, "flash_attention": flash, "decode_attention": decode,
+            "sdpa_masked_calls": masked, "wkv6": 0, "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
+
+
+@torch.no_grad()
+def phase_vlm_batch(phase: str, cfg, model, params) -> dict:
+    """One pipeline VLM batch (embeds and three position rows that differ:
+    image patches at temporal position 0) through ``Model.prefill(...,
+    cache=None)``, counted from zero: the model pins it to the masked plain
+    sdpa (L calls, no flash launch); its last-token logits within PARITY_TOL
+    of the plain path's.  No decode follows such a prefill (ROADMAP Queue 3
+    (f): its patches would share ring slot 0).  Returns the counters."""
+    L = cfg.num_layers
+    raw = next(make_batches(cfg, DataConfig(seed=SEED, batch_size=4, seq_len=512)))
+    batch = {k: torch.from_numpy(raw[k]).to("cuda") for k in ("embeds", "positions")}
+    pos = batch["positions"]
+    if pos.shape != (3, 4, 512) or torch.equal(pos[0], pos[1]) or torch.equal(pos[1], pos[2]):
+        raise AssertionError(f"{cfg.name}: the VLM batch's position rows do not differ")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    logits, _ = model.prefill(params, batch, None)
+    counters = read_counters()
+    want = counters_owed(L, 1, masked=L)
+    if counters != want:
+        raise AssertionError(f"{cfg.name} VLM batch: launch counters {counters}, expected {want}")
+    with plain_path():
+        plain, _ = model.prefill(params, batch, None)
+    torch.cuda.synchronize()
+    if logits.shape != (4, cfg.vocab_size) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{cfg.name} VLM batch: logits {tuple(logits.shape)} not finite or misshapen")
+    gap = (logits - plain).abs().max().item()
+    emit({"phase": phase, "model": cfg.name, "batch": "make_batches(vlm, seed 0): 4 x 512, 128 image patches",
+          "counters": counters, "logit_abs_max": logits.abs().max().item(), "prefill_max_abs_diff": gap,
+          "token_agreement": (logits.argmax(-1) == plain.argmax(-1)).float().mean().item(), "tol": PARITY_TOL,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    if not gap <= PARITY_TOL:
+        raise AssertionError(f"{cfg.name} VLM batch: kernel and plain paths part by {gap} > {PARITY_TOL}")
+    return counters
+
+
+def serve_stack_model(arch: str, phase: str, layers) -> dict:
+    """The f32 comparison at STACK_F32_LAYERS layers, then ``arch`` at full
+    width (``layers`` of its depth, None for all) with its weights made
+    directly in bf16: served, held against the plain path, and for the VLM
+    one pipeline batch of embeddings.  Returns {path: counters}; everything it
+    made is released when it returns."""
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    f32 = stack_parity_f32(cfg)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(gen, dtype=cfg.dtype)
+    if torch.cuda.max_memory_allocated() > INIT_PEAK_LIMIT:
+        raise AssertionError(f"{cfg.name}: {torch.cuda.max_memory_allocated()} bytes while the weights were made")
+    served = phase_serve(phase, cfg, model, params)
+    reduced = STACK_REDUCED if cfg.name in STACK_REDUCED else {"f32 comparison": STACK_REDUCED["f32 comparison"]}
+    phase_serve_parity(phase + "_parity", cfg, model, served["engine"].params, served["prompts"],
+                       {"f32": f32, "reduced": reduced})
+    counts = {cfg.name: served["counters"]}
+    if cfg.family == "vlm":
+        counts[cfg.name + " (VLM batch)"] = phase_vlm_batch(phase + "_vlm_batch", cfg, model, served["engine"].params)
+    return counts
+
+
+def hubert_run(cfg, batch) -> dict:
+    """HuBERT-XLarge at ``cfg.dtype`` (weights made in it): ``Model.loss`` and
+    ``Model.prefill(..., cache=None)`` under no_grad on ``batch``, counted from
+    zero, each owing L flash launches (non-causal, head size 80) and 2L + 1
+    norms; then both on the plain path.  Releases what it made."""
+    L = cfg.num_layers
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(gen, dtype=cfg.dtype)
+    inputs = {"embeds": batch["embeds"]}
+    with torch.no_grad():
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = model.loss(params, batch)
+        torch.cuda.synchronize()
+        loss_ms = (time.perf_counter() - t0) * 1e3
+        after_loss = read_counters()
+        logits, _ = model.prefill(params, inputs, None)
+        counters = read_counters()
+        for got, n in ((after_loss, 1), (counters, 2)):
+            want = counters_owed(L, n, flash=n * L)
+            if got != want:
+                raise AssertionError(f"{cfg.name} {cfg.dtype}: launch counters {got}, expected {want}")
+        with plain_path():
+            loss_p, _ = model.loss(params, batch)
+            logits_p, _ = model.prefill(params, inputs, None)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(loss) and logits.shape == (batch["embeds"].shape[0], cfg.vocab_size)
+                and torch.isfinite(logits).all()):
+            raise AssertionError(f"{cfg.name}: loss {loss} or logits {tuple(logits.shape)} not finite or misshapen")
+        out = {"dtype": str(cfg.dtype).replace("torch.", ""), "loss_kernel": loss.item(), "loss_plain": loss_p.item(),
+               "loss_rel_diff": abs(loss.item() - loss_p.item()) / abs(loss_p.item()),
+               "logit_abs_max": logits.abs().max().item(), "prefill_max_abs_diff": (logits - logits_p).abs().max().item(),
+               "loss_ms": loss_ms, "counters": counters, "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        if cfg.dtype == torch.bfloat16:
+            out["profile_prefill"] = traced(lambda: model.prefill(params, inputs, None),
+                                            {"attention": (attention, "gqa_apply")})
+    del params
+    release()
+    return out
+
+
+def encode_hubert() -> dict:
+    """HuBERT-XLarge's encoder at full width and depth (48 x 1280, 16 heads
+    of 80) on the pipeline's audio batch of 4 x 1024 frames: in f32 and in bf16
+    (``hubert_run``), each within HUBERT_TOL of its plain path.  Returns the
+    bf16 run's counters."""
+    cfg = get_config("hubert_xlarge")
+    raw = next(make_batches(cfg, DataConfig(seed=SEED, batch_size=HUBERT_BATCH, seq_len=HUBERT_FRAMES)))
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in raw.items()}
+    runs = {key: hubert_run(dataclasses.replace(cfg, dtype=dt), batch)
+            for key, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    emit({"phase": "encode_hubert", "model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "heads": cfg.num_heads, "head_dim": cfg.head_dim, "causal": cfg.causal, "params": cfg.param_count(),
+          "batch": f"make_batches(audio, seed 0): {HUBERT_BATCH} x {HUBERT_FRAMES} frames", "tol": HUBERT_TOL,
+          **runs})
+    for key, r in runs.items():
+        tol = HUBERT_TOL[key]
+        if not (r["loss_rel_diff"] <= tol["loss_rel"] and r["prefill_max_abs_diff"] <= tol["logits"]):
+            raise AssertionError(f"encode_hubert {key}: loss {r['loss_rel_diff']} (tol {tol['loss_rel']}), "
+                                 f"logits {r['prefill_max_abs_diff']} (tol {tol['logits']})")
+    return {cfg.name: runs["bf16"]["counters"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1415,6 +1709,11 @@ def main() -> int:
     counts["qwen2-moe-a2.7b"] = serve_moe_model("qwen2_moe_a2p7b", "serve_moe")
     release()
     counts["deepseek-v2-lite-16b"] = serve_moe_model("deepseek_v2_lite_16b", "serve_mla")
+    release()
+    for arch, phase, layers in STACK_DECODERS:
+        counts.update(serve_stack_model(arch, phase, layers))
+        release()
+    counts.update(encode_hubert())
     release()
 
     for row in rows:

@@ -54,6 +54,7 @@ constexpr int LDP = BN + 4;
 
 template <int D>
 struct Layout {
+  static_assert(D % 16 == 0, "a thread owns D / 16 output columns");
   static constexpr int LDQ = D + 4;  // 16-byte aligned rows, conflict-free float4 reads
   static constexpr int KP = (BN * LDQ > BM * LDP) ? BN * LDQ : BM * LDP;  // K tile, then P
   static constexpr int FLOATS = BM * LDQ + KP + BN * D;
@@ -242,8 +243,17 @@ constexpr int MMA_NT = 128;  // four warps, 16 query rows each
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+// Every D the entry point takes (32, 64, 80, 128) is a whole number of 16-wide
+// k-steps and of pairs of 8-wide output tiles (D 80: 5 k-steps, 5 pairs), and
+// 64 rows of D / 8 16-byte chunks are a whole number of the block's 128
+// threads (D 80: 640 chunks, 5 a thread); the static_asserts hold the kernels
+// to that.  A row of D + 8 bf16 (D 80: 176 bytes, 44 words) stays on 16 bytes,
+// and the eight rows an ldmatrix reads start 44 words, 12 banks modulo 32,
+// apart, so their 16 bytes each fall on 8 distinct groups of 4 banks, as rows
+// of 80, 144 and 272 bytes (D 32, 64, 128) do.
 template <int D>
 struct MmaLayout {
+  static_assert(D % 16 == 0 && (D / 8) % 2 == 0 && (BM * (D / 8)) % MMA_NT == 0, "D: whole k-steps, tile pairs, chunks");
   static constexpr int LD = D + 8;  // bf16 a row: 16 bytes of padding, ldmatrix without conflicts
   static constexpr int TILE = BN * LD;  // BM == BN
   static constexpr int BYTES = 5 * TILE * 2;  // Q, then K and V in two stages each
@@ -488,7 +498,7 @@ int launch(const Args& a, int dtype) {
 // q (B, T, Hq, D), k and v (B, S, Hkv, D) with element strides (batch, time,
 // head) and a unit stride along D; o (B, T, Hq, D) contiguous; lse null or
 // (B, Hq, T) f32 contiguous.  Every row of q, k and v must start on a 16-byte
-// boundary.  bf16 runs flash_mma_kernel on
+// boundary.  D is 32, 64, 80 or 128.  bf16 runs flash_mma_kernel on
 // the tensor cores, f32 flash_kernel on the CUDA cores.  Returns
 // cudaGetLastError() of the launch, -1 for a bad dtype, -2 for a head size
 // without a template.
@@ -503,6 +513,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                {qsb, qst, qsh}, {ksb, kst, ksh}, {vsb, vst, vsh}, (cudaStream_t)stream};
   if (D == 32) return launch<32>(a, dtype);
   if (D == 64) return launch<64>(a, dtype);
+  if (D == 80) return launch<80>(a, dtype);  // HuBERT-XLarge
   if (D == 128) return launch<128>(a, dtype);
   return -2;
 }

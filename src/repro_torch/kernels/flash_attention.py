@@ -28,7 +28,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels._check import (
-    DTYPE_CODES, HEAD_DIMS, require, require_cuda, require_no_grad, require_rows_aligned, rows_aligned,
+    DTYPE_CODES, FLASH_HEAD_DIMS, HEAD_DIMS, require, require_cuda, require_no_grad, require_rows_aligned,
+    rows_aligned,
 )
 
 NEG_INF = -2.0**30
@@ -114,7 +115,7 @@ def flash_attention_cuda(
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     require(k.shape[0] == B and k.shape[3] == D, f"flash_attention: k {tuple(k.shape)} does not match q {tuple(q.shape)}")
-    require(D in HEAD_DIMS, f"flash_attention: head size {D} not in {HEAD_DIMS}")
+    require(D in FLASH_HEAD_DIMS, f"flash_attention: head size {D} not in {FLASH_HEAD_DIMS}")
     require(Hkv >= 1 and Hq % Hkv == 0, f"flash_attention: {Hq} query heads over {Hkv} kv heads")
     require(B >= 1 and T >= 1 and S >= 1, "flash_attention: empty input")
     require(Hq <= 65535 and B <= 65535, "flash_attention: too many heads or batch rows for one grid")

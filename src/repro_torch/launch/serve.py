@@ -4,15 +4,22 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-a --full \\
       --requests 8 --batch 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-34b --full --layers 60
 
 Runs on the card; ``--device cpu`` runs the plain PyTorch path on the CPU.  On
 the card the weights are made directly in the activation dtype (``Model.init``
-with ``dtype``: the same bits as the f32 weights cast, without holding them),
-which is what lets the 14-16B MoE models fit one H100.
+with ``dtype``: the same bits as the f32 weights cast, without holding them,
+each layer-stacked leaf drawn one layer at a time), which is what lets the
+14-16B MoE models and DeepSeek-Coder 33B (66.68 GB) fit one H100.
+``--layers`` cuts the depth: Granite-34B-Code's 88 layers are 94.50 GB, 60 of
+them 64.81 GB.  The audio encoder (HuBERT-XLarge) does not decode: it is
+refused here; its entry points are ``Model.loss`` and ``Model.prefill``
+without a cache.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -36,10 +43,15 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: the CUDA device; 'cpu' must be asked for")
     ap.add_argument("--full", action="store_true", help="the full-size config instead of the smoke config")
+    ap.add_argument("--layers", type=int, default=None, help="serve this many of the config's layers")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
+    if not cfg.causal:
+        raise ValueError(f"{cfg.name}: an encoder does not decode; call Model.loss or Model.prefill(..., cache=None)")
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    device = resolve_device(args.device)
     model = build_model(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)

@@ -1,17 +1,20 @@
-"""Attention (``repro/models/attention.py``): MHA/GQA/MQA with RoPE and
-DeepSeek-V2's MLA, over explicit position ids, so that one code path serves
+"""Attention (``repro/models/attention.py``): MHA/GQA/MQA with RoPE or
+Qwen2-VL's M-RoPE, causal or bidirectional, with an optional sliding window,
+and DeepSeek-V2's MLA, over explicit position ids, so that one code path serves
 prefill (q_pos == kv_pos) and single-token decode against a ring KV cache.
 
 Layout conventions (the reference's):
   q           (B, T, Hq,  Dh)
   k, v        (B, S, Hkv, Dh)
+  positions   (B, T), or (3, B, T) under M-RoPE (temporal, height, width)
   kv cache    {"k": (B, S, Hkv, Dh), "v": ..., "pos": (B, S) int32 (-1 = empty)}
   MLA cache   {"ckv": (B, S, kv_lora), "k_rope": (B, S, rope_dim), "pos": (B, S)}
 
 GQA goes through the flash and decode kernels; MLA is plain torch, as the
-reference computes it (no kernel of the reference takes the latent form).
-M-RoPE and the sliding window are not ported yet; a config that asks for one
-of them raises ``NotImplementedError``.
+reference computes it (no kernel of the reference takes the latent form).  A
+windowed prefill takes the masked plain ``sdpa`` (the flash kernel has no
+window, as the reference's kernel route requires ``window is None``); a
+windowed decode step goes to the decode kernel, which takes the window.
 """
 from __future__ import annotations
 
@@ -61,11 +64,17 @@ def force_impl(impl: str):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raises for what is not ported yet."""
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE comes with the rest of the transformer stack")
-    if cfg.window is not None:
-        raise NotImplementedError(f"{cfg.name}: the sliding window comes with the rest of the transformer stack")
+    """Raises for a config the attention cannot run: M-RoPE on MLA (the
+    reference rotates MLA's keys with plain RoPE over (B, T) positions, so
+    it has no such path either), or M-RoPE sections that do not split the
+    rotary half of the head (the reference asserts it when it traces)."""
+    if cfg.mrope_sections is None:
+        return
+    if cfg.mla is not None:
+        raise NotImplementedError(f"{cfg.name}: M-RoPE on MLA has no reference path")
+    if sum(cfg.mrope_sections) != cfg.resolved_head_dim // 2:
+        raise ValueError(f"{cfg.name}: M-RoPE sections {cfg.mrope_sections} do not sum to half the head "
+                         f"size {cfg.resolved_head_dim}")
 
 
 # ---------------------------------------------------------------------------
@@ -80,13 +89,37 @@ def _rope_angles(positions: torch.Tensor, head_dim: int, theta: float) -> torch.
     return positions.float()[..., None] * freqs
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x (B, T, H, D), positions (B, T) -> rotated x (rotate-half form)."""
-    ang = _rope_angles(positions, x.shape[-1], theta)[..., None, :]  # (B,T,1,D/2)
+def _rotate_half(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x (B, T, H, D) rotated by ang (B, T, 1, D/2) in the rotate-half form, in f32."""
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x (B, T, H, D), positions (B, T) -> rotated x (rotate-half form)."""
+    return _rotate_half(x, _rope_angles(positions, x.shape[-1], theta)[..., None, :])
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections: Tuple[int, int, int], theta: float) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE: x (B, T, H, D), positions (3, B, T), the
+    temporal, height and width ids (text tokens carry (t, t, t), and then this
+    is ``apply_rope``).  ``sections`` split the rotary half of D; section i
+    takes its angles from positions[i]."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to {half}")
+    ang_all = _rope_angles(positions, x.shape[-1], theta)  # (3, B, T, half)
+    bounds = [0, sections[0], sections[0] + sections[1], half]
+    ang = torch.cat([ang_all[i, ..., bounds[i]:bounds[i + 1]] for i in range(3)], dim=-1)
+    return _rotate_half(x, ang[..., None, :])
+
+
+def _rotate(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    if cfg.mrope_sections is not None:
+        return apply_mrope(x, positions, cfg.mrope_sections, cfg.rope_theta)
+    return apply_rope(x, positions, cfg.rope_theta)
 
 
 # ---------------------------------------------------------------------------
@@ -162,32 +195,38 @@ def gqa_apply(
     positions: torch.Tensor,
     cache: Optional[Params] = None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """x (B, T, d), positions (B, T).
+    """x (B, T, d), positions (B, T), or (3, B, T) under M-RoPE, whose
+    temporal row ``positions[0]`` is what the mask and the ring see.
 
-    With ``cache``: a prefill (T > 1) attends over the prompt's own
-    full-resolution K/V and only then writes the last S tokens into the ring at
-    slots ``pos % S``; a decode step (T == 1) writes first and then attends
-    over the ring.  **The cache's tensors are updated in place** and returned.
+    With ``cache``: a prefill (T > 1) attends causally (whatever
+    ``cfg.causal``, as the reference) over the prompt's own full-resolution
+    K/V and only then writes the last S tokens into the ring at slots
+    ``pos % S``; a decode step (T == 1) writes first and then attends over the
+    ring.  **The cache's tensors are updated in place** and returned.  The
+    slots are distinct only where the positions are (the reference assumes
+    it): a VLM batch's image patches, all at temporal position 0, all write
+    slot 0, which keeps one of them, which one unspecified (ROADMAP Queue 3).
     """
     B, T, _ = x.shape
     hd = cfg.resolved_head_dim
     q = dense(params["wq"], x).reshape(B, T, cfg.num_heads, hd)
     k = dense(params["wk"], x).reshape(B, T, cfg.num_kv_heads, hd)
     v = dense(params["wv"], x).reshape(B, T, cfg.num_kv_heads, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    scalar_pos = positions if positions.dim() == 2 else positions[0]
+    q = _rotate(cfg, q, positions)
+    k = _rotate(cfg, k, positions)
 
     if cache is None:
-        out = sdpa(q, k, v, positions, positions, causal=cfg.causal, window=cfg.window)
+        out = sdpa(q, k, v, scalar_pos, scalar_pos, causal=cfg.causal, window=cfg.window)
         new_cache = None
     else:
         ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
         S = ck.shape[1]
         if T > 1:
-            out = sdpa(q, k, v, positions, positions, causal=True, window=cfg.window)
-            kw, vw, pw = k[:, -S:], v[:, -S:], positions[:, -S:]
+            out = sdpa(q, k, v, scalar_pos, scalar_pos, causal=True, window=cfg.window)
+            kw, vw, pw = k[:, -S:], v[:, -S:], scalar_pos[:, -S:]
         else:
-            kw, vw, pw = k, v, positions
+            kw, vw, pw = k, v, scalar_pos
         # the non-negative remainder: pads (position -1) all land in slot S-1,
         # which keeps pos = -1 and so stays masked whichever pad wrote last
         slots = torch.remainder(pw, S).long()
@@ -196,7 +235,7 @@ def gqa_apply(
         cv[bidx, slots] = vw
         cpos[bidx, slots] = pw.to(cpos.dtype)
         if T == 1:
-            out = sdpa(q, ck, cv, positions, cpos, causal=True, window=cfg.window)
+            out = sdpa(q, ck, cv, scalar_pos, cpos, causal=True, window=cfg.window)
         new_cache = {"k": ck, "v": cv, "pos": cpos}
 
     out = out.reshape(B, T, cfg.num_heads * hd)

@@ -150,11 +150,19 @@ class ModelConfig:
 
 def dense_init(gen: torch.Generator, shape: Sequence[int], dtype=torch.float32, scale: float = 1.0) -> torch.Tensor:
     """N(0, scale^2 / fan_in) drawn in f32, then cast: the same bits in any dtype
-    as the f32 draw cast afterwards.  Scaled in place, so a leaf costs one f32
-    copy of itself while it is made."""
+    as the f32 draw cast afterwards.  A layer-stacked leaf (three axes or more,
+    the leading one the layers) is made in ``dtype`` first and drawn one layer
+    at a time into it, in every dtype alike, so that making it costs one f32
+    layer beside the leaf, not an f32 copy of the whole stack (DeepSeek-Coder
+    33B's FFN leaf is 34 GB in f32)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale / math.sqrt(fan_in)
-    return torch.randn(tuple(shape), generator=gen, device=gen.device).mul_(std).to(dtype)
+    if len(shape) < 3:
+        return torch.randn(tuple(shape), generator=gen, device=gen.device).mul_(std).to(dtype)
+    out = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+    for layer in out:
+        layer.copy_(torch.randn(tuple(shape[1:]), generator=gen, device=gen.device).mul_(std))
+    return out
 
 
 def embed_init(gen: torch.Generator, shape: Sequence[int], dtype=torch.float32) -> torch.Tensor:

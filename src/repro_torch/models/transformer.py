@@ -1,7 +1,8 @@
-"""``repro/models/transformer.py`` for the decoder and RWKV-6: the decoder
-(``_build_transformer``; dense, or MoE with GQA or MLA attention) as ``Model``,
-with ``init``, ``cast_params``, ``loss``, ``prefill``, ``decode_step`` and
-``cache_shape``, and the RWKV-6
+"""``repro/models/transformer.py`` for the transformer stack and RWKV-6: the
+transformer (``_build_transformer``; the dense decoder, the MoE with GQA or
+MLA attention, the VLM over precomputed embeddings and M-RoPE positions, and
+the bidirectional audio encoder) as ``Model``, with ``init``, ``cast_params``,
+``loss``, ``prefill``, ``decode_step`` and ``cache_shape``, and the RWKV-6
 stack (``_build_rwkv``) as ``RWKVModel``, which serves only (its training
 needs a WKV-6 backward); ``build_model`` dispatches as the reference's does.
 
@@ -12,6 +13,7 @@ its ``jax.checkpoint`` of the scanned body (``cfg.remat``) a
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -115,6 +117,35 @@ def _default_positions(shape, device) -> torch.Tensor:
     return torch.arange(T, dtype=torch.int32, device=device)[None].expand(B, T)
 
 
+def _inputs_to_embeds(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    """(x, positions, route) of a batch, as the reference's ``inputs_to_embeds``:
+    ``embeds`` (a VLM's or an audio model's precomputed frontend) cast to
+    ``cfg.dtype``, else the tokens embedded; the batch's ``positions``, else
+    the default 0..T-1, broadcast to (3, B, T) under M-RoPE.
+
+    ``route`` is the context to run the batch's layers in: the masked plain
+    ``sdpa`` (``force_impl("torch")``) for a batch of ``embeds`` with
+    positions of its own, the current impl for any other.  That is the
+    pipeline's VLM batch, whose image patches share temporal position 0 and
+    attend one another both ways under the reference's position mask, which the
+    flash kernel (causal by index, no positions) cannot give.  The choice
+    follows from the batch's keys alone, with no look at the positions and so
+    no host sync; a decode step never makes it.  Token batches keep the kernel
+    (the serving engine pins its ragged ones itself), as do ``embeds`` without
+    positions (an audio batch: dense by construction)."""
+    if "embeds" in batch:
+        x = batch["embeds"].to(cfg.dtype)
+    else:
+        x = _embed_tokens(params, cfg, batch["tokens"])
+    positions = batch.get("positions")
+    if positions is None:
+        positions = _default_positions(x.shape[:2], x.device)
+        if cfg.mrope_sections is not None:
+            positions = positions[None].expand(3, *positions.shape)
+    pinned = "embeds" in batch and "positions" in batch
+    return x, positions, attn.force_impl("torch") if pinned else contextlib.nullcontext()
+
+
 def _lm_loss_chunked(x: torch.Tensor, w_head: torch.Tensor, labels: torch.Tensor,
                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Next-token cross entropy in sequence chunks of ``min(LOSS_CHUNK, T)``.
@@ -144,12 +175,10 @@ class Model:
     """Functional model object: the methods take the parameters explicitly."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in ("dense", "moe") or (cfg.family == "moe") != (cfg.moe is not None) \
+        if cfg.family not in ("dense", "moe", "vlm", "audio") or (cfg.family == "moe") != (cfg.moe is not None) \
                 or cfg.ssm is not None or cfg.rwkv is not None:
-            raise NotImplementedError(f"{cfg.name}: only the dense decoder and the MoE family (with its "
-                                      f"MoEConfig) are ported (family {cfg.family!r})")
-        if not cfg.causal:
-            raise NotImplementedError(f"{cfg.name}: the bidirectional encoder comes with the rest of the transformer stack")
+            raise NotImplementedError(f"{cfg.name}: the transformer families (dense, MoE with its MoEConfig, VLM, "
+                                      f"audio) are ported, not family {cfg.family!r} (Mamba2 and the hybrid stack)")
         attn.check_supported(cfg)
         self.cfg = cfg
 
@@ -204,48 +233,54 @@ class Model:
         return rmsnorm(params["final_norm"], x), cache, aux
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """batch {"tokens" (B,T) int32, optional "positions" (B,T), optional
-        "labels" (B,T) with "mask" (B,T)}.  Takes the f32 master parameters:
-        ``dense`` casts each weight to the activation dtype, so autograd gives
-        f32 gradients on the f32 leaves.  Returns (ce + aux, {"ce", "aux"});
-        aux is the MoE load-balance loss summed over the layers, 0 for the
-        dense decoder.  Without labels the targets are the next tokens, and
-        the last position is masked."""
+        """batch {"tokens" (B,T) int32 or "embeds" (B,T,d), optional
+        "positions" (B,T) or (3,B,T), optional "labels" (B,T) with "mask"
+        (B,T)}.  Takes the f32 master parameters: ``dense`` casts each weight
+        to the activation dtype, so autograd gives f32 gradients on the f32
+        leaves.  Returns (ce + aux, {"ce", "aux"}); aux is the MoE load-balance
+        loss summed over the layers, 0 for the other families.  A decoder
+        without labels takes the next tokens as targets, the last position
+        masked; the encoder (``cfg.causal`` False) classifies every frame
+        against ``labels``, weighted by ``mask``.  A batch of ``embeds`` with
+        its own positions runs under the masked plain ``sdpa``
+        (``_inputs_to_embeds``)."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = _embed_tokens(params, cfg, tokens)
-        positions = batch.get("positions")
-        if positions is None:
-            positions = _default_positions(x.shape[:2], x.device)
-        x, _, aux = self._backbone(params, x, positions, None)
-        targets = batch.get("labels")
-        if targets is None:
-            targets = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
+        x, positions, route = _inputs_to_embeds(params, cfg, batch)
+        with route:
+            x, _, aux = self._backbone(params, x, positions, None)
+        if cfg.causal and "labels" not in batch:
+            targets = torch.nn.functional.pad(batch["tokens"][:, 1:], (0, 1))
             mask = torch.ones(targets.shape, dtype=torch.float32, device=x.device)
             mask[:, -1] = 0.0
         else:
-            mask = batch.get("mask")
+            targets, mask = batch["labels"], batch.get("mask")
         ce = _lm_loss_chunked(x, _head_weight(params, cfg), targets, mask)
         return ce + aux, {"ce": ce, "aux": aux}
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor], cache) -> Tuple[torch.Tensor, Any]:
-        """batch {"tokens" (B,T) int32, optional "positions" (B,T) int32}.
-        Returns (last-token logits f32 (B,V), cache); the cache is updated in place."""
+        """batch {"tokens" (B,T) int32 or "embeds" (B,T,d), optional
+        "positions" (B,T) or (3,B,T) int32}.  Returns (last-token logits f32
+        (B,V), cache); the cache, where given, is updated in place, and with
+        one the attention is causal whatever ``cfg.causal`` (the reference's
+        rule).  A batch of ``embeds`` with its own positions runs under the
+        masked plain ``sdpa`` (``_inputs_to_embeds``)."""
         cfg = self.cfg
-        x = _embed_tokens(params, cfg, batch["tokens"])
-        positions = batch.get("positions")
-        if positions is None:
-            positions = _default_positions(x.shape[:2], x.device)
-        x, cache, _ = self._backbone(params, x, positions, cache)
+        x, positions, route = _inputs_to_embeds(params, cfg, batch)
+        with route:
+            x, cache, _ = self._backbone(params, x, positions, cache)
         logits = dense(_head_weight(params, cfg), x[:, -1])
         return logits.float(), cache
 
     def decode_step(self, params: Params, cache, tokens: torch.Tensor, pos: torch.Tensor):
-        """tokens (B,) int32; pos (B,) int32 absolute positions.
-        Returns (logits f32 (B,V), cache); the cache is updated in place."""
+        """tokens (B,) int32; pos (B,) int32 absolute positions, broadcast to
+        (3, B, 1) under M-RoPE.  Returns (logits f32 (B,V), cache); the cache
+        is updated in place."""
         cfg = self.cfg
         x = _embed_tokens(params, cfg, tokens[:, None])
-        x, cache, _ = self._backbone(params, x, pos[:, None].contiguous(), cache)
+        positions = pos[:, None].contiguous()
+        if cfg.mrope_sections is not None:
+            positions = positions[None].expand(3, *positions.shape)
+        x, cache, _ = self._backbone(params, x, positions, cache)
         logits = dense(_head_weight(params, cfg), x[:, 0])
         return logits.float(), cache
 

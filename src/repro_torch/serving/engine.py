@@ -116,10 +116,10 @@ class ServingEngine:
             n = len(r.prompt)
             toks[i, T - n:] = r.prompt  # right-align
             pos2d[i, T - n:] = np.arange(n)
-        batch = {
-            "tokens": torch.from_numpy(toks).to(self.device),
-            "positions": torch.from_numpy(pos2d).to(self.device),
-        }
+        positions = torch.from_numpy(pos2d).to(self.device)
+        if self.cfg.mrope_sections is not None:  # text tokens carry (t, t, t)
+            positions = positions[None].expand(3, B, T)
+        batch = {"tokens": torch.from_numpy(toks).to(self.device), "positions": positions}
         cache = zeros_cache(self.model, B, self.max_len, self.device)
         self._sync()
         t0 = time.perf_counter()

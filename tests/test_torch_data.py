@@ -12,10 +12,9 @@ from repro_torch import configs
 from repro_torch.data.pipeline import DataConfig, input_batch_for, make_batches
 from repro_torch.models.modules import ModelConfig
 
-# the reference's smoke configs of each family; the port's own for the LM
-# family, and for audio and VLM a port ModelConfig with the fields the
-# pipeline reads (family, d_model, vocabulary), as those families' models are
-# not ported yet
+# the reference's smoke configs of each family against the port's own (every
+# family here is ported; ``_port_cfg`` builds a config with the fields the
+# pipeline reads for an architecture the port has not)
 FAMILIES = {"gpt_a": {"tokens"}, "minitron_4b": {"tokens"}, "hubert_xlarge": {"embeds", "labels", "mask"},
             "qwen2_vl_7b": {"embeds", "positions", "labels", "mask"}}
 

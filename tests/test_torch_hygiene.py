@@ -47,7 +47,10 @@ def test_package_has_every_serving_module():
             "configs/minitron_4b.py", "configs/rwkv6_7b.py", "kernels/build.py", "kernels/ops.py",
             "kernels/ref.py", "kernels/rmsnorm.py", "kernels/flash_attention.py", "kernels/decode_attention.py",
             "kernels/wkv6.py", "models/rwkv.py", "serving/engine.py", "launch/serve.py",
-            "optim/optimizer.py", "data/pipeline.py", "launch/train.py"}
+            "optim/optimizer.py", "data/pipeline.py", "launch/train.py", "models/moe.py",
+            "configs/qwen2_moe_a2p7b.py", "configs/deepseek_v2_lite_16b.py", "configs/deepseek_coder_33b.py",
+            "configs/granite_34b.py", "configs/nemotron_4_15b.py", "configs/qwen2_vl_7b.py",
+            "configs/hubert_xlarge.py"}
     assert want <= have
     csrc = {p.name for p in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").iterdir()}
     assert {"rmsnorm.cu", "flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu", "wkv6.cu"} <= csrc
@@ -111,7 +114,9 @@ def test_chip_smoke_fails_without_a_card_and_prints_no_result():
 
 
 @pytest.mark.parametrize("extra", [[], ["--splitwise"], ["--arch", "minitron-4b"], ["--arch", "rwkv6-7b"],
-                                   ["--arch", "rwkv6-7b", "--splitwise"]])
+                                   ["--arch", "rwkv6-7b", "--splitwise"], ["--arch", "deepseek-coder-33b"],
+                                   ["--arch", "granite-34b", "--splitwise", "--layers", "1"],
+                                   ["--arch", "nemotron-4-15b"], ["--arch", "qwen2-vl-7b", "--splitwise"]])
 def test_serve_cli_runs_on_the_cpu(extra, capsys):
     from repro_torch.launch import serve
 
@@ -133,3 +138,10 @@ def test_build_refuses_where_there_is_no_nvcc(monkeypatch):
         build.find_nvcc()
     assert {"rmsnorm_launch", "rmsnorm_bwd_grid", "rmsnorm_bwd_launch", "flash_attention_launch",
             "flash_attention_bwd_launch", "decode_attention_launch", "wkv6_launch"} == set(build.SIGNATURES)
+
+
+def test_serve_cli_refuses_the_encoder():
+    from repro_torch.launch import serve
+
+    with pytest.raises(ValueError, match="does not decode"):
+        serve.main(["--device", "cpu", "--arch", "hubert-xlarge", "--requests", "1"])

@@ -127,10 +127,14 @@ def test_cast_params_shares_leaves_already_cast():
 
 
 def test_unported_families_raise():
+    """Mamba2 and the hybrid stack (Zamba2) are not ported; the bidirectional
+    encoder and the window are (tests/test_torch_encoder.py, test_torch_window.py)."""
     cfg = configs.get_smoke_config("gpt_a")
-    for change in (dict(family="moe"), dict(causal=False), dict(window=16)):
+    for change in (dict(family="ssm"), dict(family="hybrid"), dict(family="moe")):
         with pytest.raises(NotImplementedError):
             build_model(dataclasses.replace(cfg, **change))
+    for change in (dict(causal=False), dict(window=16)):
+        build_model(dataclasses.replace(cfg, **change))
 
 
 # -- the MoE family: Qwen1.5-MoE (GQA) and DeepSeek-V2-Lite (MLA) ---------------
@@ -206,7 +210,8 @@ def test_moe_decode_after_shorter_prefill_parts_from_full_prefill_as_the_referen
     assert ref_gap > 1e-2 and np.abs(as_f32(step) - as_f32(full)).max() > 1e-2, ref_gap
 
 
-@pytest.mark.parametrize("arch", MOE_ARCHS + ["gpt_a"])
+@pytest.mark.parametrize("arch", MOE_ARCHS + ["gpt_a", "deepseek_coder_33b", "granite_34b", "nemotron_4_15b",
+                                  "qwen2_vl_7b", "hubert_xlarge"])
 def test_init_in_the_activation_dtype_is_the_cast_f32_init(arch):
     """``init(gen, dtype=cfg.dtype)`` gives bit for bit ``cast_params(init(gen))``
     from the same seed: each leaf is drawn in f32 and cast as it is made.  The

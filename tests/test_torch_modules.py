@@ -190,10 +190,18 @@ def test_sdpa_dispatch_follows_the_reference():
 
 
 def test_unported_attention_flavours_raise():
+    """The window and M-RoPE are ported (tests/test_torch_window.py,
+    test_torch_mrope.py); M-RoPE sections that do not split the rotary half
+    raise, as the reference's assertion does, and M-RoPE on MLA, which has no
+    reference path, raises too."""
     cfg = configs.get_smoke_config("gpt_a")
-    for change in (dict(window=64), dict(mrope_sections=(8, 12, 12))):  # MLA is ported: tests/test_torch_mla.py
-        with pytest.raises(NotImplementedError):
-            attention.check_supported(dataclasses.replace(cfg, **change))
+    for change in (dict(window=64), dict(mrope_sections=(8, 12, 12))):
+        attention.check_supported(dataclasses.replace(cfg, **change))
+    with pytest.raises(ValueError):
+        attention.check_supported(dataclasses.replace(cfg, mrope_sections=(8, 12, 16)))
+    with pytest.raises(NotImplementedError):
+        attention.check_supported(dataclasses.replace(configs.get_smoke_config("deepseek_v2_lite_16b"),
+                                                      mrope_sections=(8, 12, 12)))
 
 
 def test_initialisers_follow_their_generator():
@@ -203,3 +211,16 @@ def test_initialisers_follow_their_generator():
     assert abs(a.std().item() - 1 / 8) < 0.01  # std = 1/sqrt(fan_in), fan_in = 64
     e = modules.embed_init(g1, (512, 16), torch.bfloat16)
     assert e.dtype == torch.bfloat16 and abs(e.float().std().item() - 0.02) < 0.002
+
+
+def test_a_stacked_leaf_is_drawn_layer_by_layer_into_its_dtype():
+    """A layer-stacked leaf is made in its dtype and drawn one layer at a
+    time: the layers are the generator's successive draws of one layer, and
+    the bf16 leaf is the f32 leaf cast, bit for bit."""
+    shape = (3, 64, 32)
+    f32 = modules.dense_init(torch.Generator().manual_seed(9), shape)
+    bf16 = modules.dense_init(torch.Generator().manual_seed(9), shape, torch.bfloat16)
+    assert bf16.dtype == torch.bfloat16 and torch.equal(bf16, f32.to(torch.bfloat16))
+    g = torch.Generator().manual_seed(9)
+    layers = [torch.randn(shape[1:], generator=g) / 8 for _ in range(shape[0])]  # std 1/sqrt(64)
+    assert torch.equal(f32, torch.stack(layers))
