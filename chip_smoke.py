@@ -425,16 +425,27 @@ def check_rmsnorm_bwd(ck: Checker, gen) -> None:
 def check_flash_bwd(ck: Checker, gen) -> None:
     # (B, T, S, Hq, Hkv, D, causal): GPT-A's training shape, MHA and GQA
     # (Minitron-4B's 24/8, the smoke's 4/2), ragged T = S (77, 300, 512), T != S
-    # (full, both ways) and D 32, 64 and 128
+    # (full, both ways) and D 32, 64 and 128; then head size 80: HuBERT-XLarge's
+    # encoder (4 x 1024 frames, 16 heads, non-causal), a ragged causal group of
+    # 3 and a T != S
     cases = [(4, 512, 512, 32, 32, 128, True), (2, 77, 77, 4, 2, 64, True), (2, 77, 77, 4, 2, 64, False),
              (1, 300, 300, 24, 8, 128, True), (1, 300, 300, 24, 8, 128, False), (2, 512, 512, 4, 2, 64, True),
              (1, 512, 512, 8, 8, 128, False), (1, 70, 300, 4, 2, 128, False), (1, 300, 70, 6, 3, 64, False),
-             (2, 128, 128, 6, 1, 32, True), (2, 17, 17, 8, 8, 128, True)]
+             (2, 128, 128, 6, 1, 32, True), (2, 17, 17, 8, 8, 128, True),
+             (4, 1024, 1024, 16, 16, 80, False), (2, 200, 200, 6, 2, 80, True), (1, 150, 260, 4, 4, 80, False)]
     for dtype in BWD_TOL:
         for B, T, S, Hq, Hkv, D, causal in cases:
             q, do = randn(gen, (B, T, Hq, D), dtype), randn(gen, (B, T, Hq, D), dtype)
             k, v = randn(gen, (B, S, Hkv, D), dtype), randn(gen, (B, S, Hkv, D), dtype)
             flash_bwd_case(ck, f"{(B, T, S, Hq, Hkv, D)} causal={causal}", q, k, v, do, causal)
+        # every output tile has one owner and nothing is added with atomics: two runs give the same bits
+        for B, T, S, Hq, Hkv, D, causal in (cases[0], cases[11], cases[12]):
+            q, do = randn(gen, (B, T, Hq, D), dtype), randn(gen, (B, T, Hq, D), dtype)
+            k, v = randn(gen, (B, S, Hkv, D), dtype), randn(gen, (B, S, Hkv, D), dtype)
+            o, lse = fa_mod.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+            runs = [fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal) for _ in range(2)]
+            if not all(torch.equal(x, y) for x, y in zip(*runs)):
+                raise AssertionError(f"flash_attention_bwd {(B, T, S, Hq, Hkv, D)} {dtype}: two runs differ")
         # views: heads-first storage read through strides, a slice in time, a strided dO
         q = randn(gen, (2, 4, 200, 64), dtype).transpose(1, 2)
         k = randn(gen, (2, 2, 200, 64), dtype).transpose(1, 2)
@@ -841,9 +852,10 @@ def measure_stack(gen, out: dict) -> None:
 
 
 def measure_backward(gen) -> dict:
-    """Times of the backward kernels at GPT-A's training shapes (bf16): kernel,
-    plain backward, the library's backward on a graph built beforehand, and
-    the card's bound."""
+    """Times of the backward kernels at GPT-A's training shapes (bf16), K2's
+    also at a 4K context and at HuBERT-XLarge's shape: kernel (and its kernels
+    apart), plain backward, the library's backward on a graph built
+    beforehand, and the card's bound."""
     import torch.nn.functional as F  # timed here as a yardstick; the port never calls it
 
     dt = torch.bfloat16
@@ -880,35 +892,59 @@ def measure_backward(gen) -> dict:
     }
     del lib_sets
 
-    # K2 backward: one layer's causal training attention, 4 x 512 tokens, 32 heads of 128
-    B, T, H, D = TRAIN_BATCH, TRAIN_SEQ, 32, 128
+    # K2 backward: one layer's causal training attention, 4 x 512 tokens, 32 heads of 128;
+    # ("long_") a 4K context, one sequence; ("hubert_") HuBERT-XLarge's encoder, non-causal, heads of 80
+    out["flash_attention_bwd"] = flash_bwd_row(gen, TRAIN_BATCH, TRAIN_SEQ, 32, 128, True)
+    for label, B, T, H, D, causal in (("long_", 1, 4096, 32, 128, True), ("hubert_", 4, 1024, 16, 80, False)):
+        out["flash_attention_bwd"].update({label + key: val for key, val in
+                                           flash_bwd_row(gen, B, T, H, D, causal, iters=3).items()})
+    return out
+
+
+def flash_bwd_row(gen, B: int, T: int, H: int, D: int, causal: bool, iters: int = 5) -> dict:
+    """K2's backward at q, k, v, o, dO (B, T, H, D) bf16: the kernels, each of
+    them apart (the profiler's device time a launch), the plain backward, the
+    library's backward on a graph built beforehand, and the card's bound."""
+    import torch.nn.functional as F  # timed here as a yardstick; the port never calls it
+
+    dt = torch.bfloat16
     sets, lib_sets = [], []
     for _ in range(2):
         q, k, v, do = (randn(gen, (B, T, H, D), dt) for _ in range(4))
-        o, lse = fa_mod.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+        o, lse = fa_mod.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
         sets.append((q, k, v, o, lse, do))
         leaves = [t.transpose(1, 2).clone().requires_grad_(True) for t in (q, k, v)]
         with torch.enable_grad():
-            lib_sets.append((F.scaled_dot_product_attention(*leaves, is_causal=True), *leaves, do.transpose(1, 2)))
+            lib_sets.append((F.scaled_dot_product_attention(*leaves, is_causal=causal), *leaves, do.transpose(1, 2)))
     nbytes = 8 * B * T * H * D * 2 + 2 * B * H * T * 4  # q, k, v, o, dO read, dq, dk, dv written; lse, D
-    flops = 5 * 2 * B * H * D * (T * (T + 1) // 2)  # five products, the causal half
-    out["flash_attention_bwd"] = {
-        "shape": f"q,k,v,o,dO ({B},{T},{H},{D}) bf16 causal",
-        "kernels": "flash_bwd_rowsum_kernel, flash_bwd_mma_dkdv_kernel, flash_bwd_mma_dq_kernel (bf16: mma.sync)",
-        "ms": time_ms(lambda q, k, v, o, lse, do: fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True),
-                      sets, iters=5),
-        "plain_ms": time_ms(lambda q, k, v, o, lse, do: fa_mod.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True),
-                            sets, iters=5),
+    flops = 5 * 2 * B * H * D * (T * (T + 1) // 2 if causal else T * T)  # five products
+
+    def kernel(q, k, v, o, lse, do):
+        return fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+
+    split = kernel_times_ms(kernel, sets, iters=iters)
+    row = {
+        "shape": f"q,k,v,o,dO ({B},{T},{H},{D}) bf16 {'causal' if causal else 'non-causal'}",
+        "kernels": "flash_bwd_rowsum_kernel, then flash_bwd_wg_dkdv_kernel and flash_bwd_wg_dq_kernel "
+                   "(bf16: wgmma, TMA ring, dependent launches)",
+        "ms": time_ms(kernel, sets, iters=iters),
+        "plain_ms": time_ms(lambda q, k, v, o, lse, do: fa_mod.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                                                         causal=causal),
+                            sets, iters=iters),
         "library_ms": time_ms(lambda y, a, b, c, g: torch.autograd.grad(y, (a, b, c), g, retain_graph=True),
-                              lib_sets, iters=5),
+                              lib_sets, iters=iters),
         "library": "F.scaled_dot_product_attention backward",
         "bytes": nbytes, "flops": flops,
         "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
         "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
         "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "operations_ms": flops / BF16_FLOPS * 1e3,
-        "cuda_core_operations_ms": flops / F32_FLOPS * 1e3,
+        # the three kernels apart: the profiler's device time a launch
+        "rowsum_kernel_ms": sum(t for name, t in split.items() if "rowsum" in name),
+        "dkdv_kernel_ms": sum(t for name, t in split.items() if "dkdv" in name),
+        "dq_kernel_ms": sum(t for name, t in split.items() if "_dq_" in name),
     }
-    return out
+    del sets, lib_sets
+    return row
 
 
 KERNELS = [
@@ -1098,13 +1134,15 @@ def serving_ranges(cfg) -> dict:
             "attention": (attention, "mla_apply" if cfg.mla is not None else "gqa_apply")}
 
 
-def traced(fn, ranges=None, top: int = 10) -> dict:
+def traced(fn, ranges=None, top: int = 10, pick=()) -> dict:
     """Runs ``fn`` once to warm up, once untraced for the host's wall time and
     once under torch.profiler (tracing slows the host down), each of
     ``ranges`` (name -> (module, function)) marked as a range there; times in
     ms.  Gives the card's busy time (the sum of the kernels' device times),
     the idle share, the launches, the device time under each range, the
-    kernels of KERNEL_NAMES and the ``top`` kernels."""
+    kernels of KERNEL_NAMES and the ``top`` kernels; with ``pick``
+    (substrings of kernel names), also ``picked``: the calls and device time
+    of each substring's kernels, wherever they rank."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     ranges = ranges or {}
@@ -1142,7 +1180,7 @@ def traced(fn, ranges=None, top: int = 10) -> dict:
         chosen = [e for e in kernels if any(x in e.key for x in subs)]
         return {"calls": sum(e.count for e in chosen), "device_ms": sum(e.self_device_time_total for e in chosen) / 1e3}
 
-    return {
+    out = {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1 - busy_ms / wall_ms) if busy_ms else None,
         "kernel_launches": sum(e.count for e in kernels),
@@ -1152,6 +1190,9 @@ def traced(fn, ranges=None, top: int = 10) -> dict:
         "top_kernels": [{"name": e.key[:90], "calls": e.count, "device_ms": e.self_device_time_total / 1e3}
                         for e in kernels[:top]],
     }
+    if pick:
+        out["picked"] = {p: picked((p,)) for p in pick}
+    return out
 
 
 @torch.no_grad()

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""K1 (RMSNorm, forward and backward) and K4 (WKV-6) kernels of a checkout,
-timed on the card.
+"""K1 (RMSNorm, forward and backward), K2's backward and K4 (WKV-6) kernels of
+a checkout, timed on the card.
 
     python3 experiments/torch_kernel_ab.py [--src DIR] [--label NAME] [--skip-sweep]
 
@@ -15,6 +15,14 @@ device time (CUDA events around queued calls, median of 7 rounds, as
 * K1's backward at a training step's rows, x and dy (2048, 4096) bf16, and
   (``rmsnorm_bwd_split_ms``) each of its two kernels' device time a launch,
   from ``torch.profiler``;
+* K2's backward (``flash_attention_bwd_cuda``, bf16) at GPT-A's training
+  shape, q, k, v, o, dO (4, 512, 32, 128) causal, at a 4K context, (1, 4096,
+  32, 128) causal, and at HuBERT-XLarge's, (4, 1024, 16, 80) non-causal: the
+  whole call, each of its kernels' device time a launch (``torch.profiler``),
+  the backward of ``F.scaled_dot_product_attention`` on a graph built
+  beforehand, and the card's bound; a checkout whose wrapper refuses a shape
+  gets ``"refused"`` there.  Beside them, what ``ptxas -v`` said of the
+  checkout's ``flash_bwd`` kernels;
 * K4 at RWKV-6 7B's prefill, r, k, v (4, 512, 64, 64) bf16 with a state, and
   its decode step, (4, 1, 64, 64);
 * where the checkout has ``wkv6.CHUNKED_T_MIN`` and ``--skip-sweep`` is not
@@ -35,6 +43,7 @@ import sys
 import torch
 
 SPIN_CYCLES = 20_000_000  # about 10 ms of the card's clock
+HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12  # one H100 SXM's published peaks at 700 W
 
 
 def time_ms(fn, arg_sets, iters: int = 20, reps: int = 7) -> float:
@@ -70,6 +79,52 @@ def kernel_times_ms(fn, arg_sets, iters: int = 20) -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
+def ptxas_lines(log: str, sub: str) -> dict:
+    """{mangled kernel name: "registers; spills"} of the kernels whose name
+    holds ``sub``, from what ``ptxas -v`` printed."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1] if sub in ln else None
+        elif fn and "Used" in ln and "registers" in ln:
+            out[fn] = ln.split("Used", 1)[1].split(",")[0].strip() + "; " + out.get(fn, "")
+        elif fn and "spill" in ln:
+            out[fn] = out.get(fn, "") + ln.split(":", 1)[-1].strip()
+    return out
+
+
+def flash_bwd_row(fa_mod, randn, B, T, H, D, causal) -> dict:
+    """K2's backward at (B, T, H, D) bf16: the whole call, its kernels apart,
+    the library's backward and the bound (inputs read once, outputs written once)."""
+    import torch.nn.functional as F  # timed here as a yardstick; the port never calls it
+
+    dt = torch.bfloat16
+    sets, lib_sets = [], []
+    for _ in range(2):
+        q, k, v, do = (randn((B, T, H, D), dt) for _ in range(4))
+        o, lse = fa_mod.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+        sets.append((q, k, v, o, lse, do))
+        leaves = [t.transpose(1, 2).clone().requires_grad_(True) for t in (q, k, v)]
+        with torch.enable_grad():
+            lib_sets.append((F.scaled_dot_product_attention(*leaves, is_causal=causal), *leaves, do.transpose(1, 2)))
+    nbytes = 8 * B * T * H * D * 2 + 2 * B * H * T * 4  # q, k, v, o, dO read, dq, dk, dv written; lse, D
+    flops = 5 * 2 * B * H * D * (T * (T + 1) // 2 if causal else T * T)  # five products
+    row = {"shape": f"q,k,v,o,dO ({B},{T},{H},{D}) bf16 {'causal' if causal else 'non-causal'}",
+           "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+           "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
+           "library_ms": time_ms(lambda y, a, b, c, g: torch.autograd.grad(y, (a, b, c), g, retain_graph=True),
+                                 lib_sets, iters=5)}
+
+    def bwd(q, k, v, o, lse, do):
+        return fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
+
+    try:
+        bwd(*sets[0])
+    except ValueError as e:
+        return {**row, "ms": "refused", "why": str(e)}
+    return {**row, "ms": time_ms(bwd, sets, iters=5), "split_ms": kernel_times_ms(bwd, sets, iters=5)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
@@ -80,6 +135,8 @@ def main() -> int:
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.abspath(args.src))
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import rmsnorm as rms_mod
     from repro_torch.kernels import wkv6 as wkv_mod
@@ -110,6 +167,9 @@ def main() -> int:
         out["rmsnorm_bwd_ms"] = time_ms(rms_mod.rmsnorm_bwd_rows, sets)
         out["rmsnorm_bwd_split_ms"] = kernel_times_ms(rms_mod.rmsnorm_bwd_rows, sets)
         del sets
+        out["flash_bwd"] = [flash_bwd_row(fa_mod, randn, *shape)
+                            for shape in ((4, 512, 32, 128, True), (1, 4096, 32, 128, True), (4, 1024, 16, 80, False))]
+        out["flash_bwd_ptxas"] = ptxas_lines(build.build_log, "flash_bwd")
         out["wkv6_ms"] = time_ms(wkv, [wkv_set(4, 512) for _ in range(2)])
         out["wkv6_decode_ms"] = time_ms(wkv, [wkv_set(4, 1) for _ in range(8)])
         print(json.dumps(out), flush=True)

@@ -41,7 +41,7 @@ from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv_mod  # noqa: E402
 from repro_torch.models import rwkv  # noqa: E402
 from repro_torch.models.modules import dense, rmsnorm  # noqa: E402
-from repro_torch.models.transformer import _embed_tokens, _head_weight, _layer, build_model  # noqa: E402
+from repro_torch.models.transformer import _embed_tokens, _head_weight, _unstack, build_model  # noqa: E402
 
 KERNEL_RMSNORM, KERNEL_WKV6 = kops.rmsnorm, kops.wkv6
 
@@ -104,7 +104,7 @@ def layer0_wkv(model, params, x):
 
     kops.wkv6 = capture
     try:
-        rwkv.rwkv6_apply(_layer(params["layers"], 0), model.cfg, x, None)
+        rwkv.rwkv6_apply(_unstack(params["layers"], model.cfg.num_layers)[0], model.cfg, x, None)
     finally:
         kops.wkv6 = KERNEL_WKV6
     a = seen
@@ -151,8 +151,7 @@ def main(argv=None) -> int:
         states = {name: {n: torch.zeros(s, dtype=d, device="cuda") for n, (s, d) in
                          rwkv.rwkv6_state_shape(cfg, args.batch).items()} for name in PATHS}
         wkv_last = {}
-        for i in range(cfg.num_layers):
-            lp = _layer(params["layers"], i)
+        for i, lp in enumerate(_unstack(params["layers"], cfg.num_layers)):
             for name in PATHS:
                 st = states[name]
                 for t in st.values():

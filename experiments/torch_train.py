@@ -41,14 +41,13 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-from chip_smoke import plain_path  # noqa: E402
+from chip_smoke import plain_path, traced  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import flatten  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, make_batches  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models.transformer import build_model  # noqa: E402
 from repro_torch.optim.optimizer import OptimizerConfig, adamw_update, init_opt_state, make_train_step  # noqa: E402
-from torch_serve_profile import traced  # noqa: E402
 
 SWEEP = (3e-3, 1e-3, 1e-4, 1e-5, 3e-6, 1e-6)
 STEPS, BATCH, SEQ = 8, 4, 512

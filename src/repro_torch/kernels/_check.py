@@ -6,7 +6,7 @@ import torch
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # DT_F32, DT_BF16 of csrc/common.cuh
 HEAD_DIMS = (32, 64, 128)  # the head sizes the attention kernels are instantiated for
-FLASH_HEAD_DIMS = HEAD_DIMS + (80,)  # the flash forward's also (HuBERT-XLarge)
+FLASH_HEAD_DIMS = HEAD_DIMS + (80,)  # the flash forward's and backward's also (HuBERT-XLarge)
 
 
 def require(cond: bool, msg: str) -> None:

@@ -112,6 +112,13 @@ __device__ inline void cp_async16(uint32_t dst, const void* src, bool valid) {
                : "memory");
 }
 
+// 4 bytes from global to shared memory (cp.async.ca: .cg takes 16 only);
+// with `valid` false nothing is read and the 4 bytes become zeros.
+__device__ inline void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
 __device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 
 // ROWS rows of D bf16 (row r at src + r*stride) into shared memory with row
@@ -134,6 +141,13 @@ template <int N>
 __device__ inline void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+
+// Programmatic dependent launch (sm_90): let the next kernel in the stream,
+// launched with programmatic stream serialization, start its blocks; and wait
+// until the kernels this one may have overlapped have ended and their writes
+// are visible (at once where the launch was an ordinary one).
+__device__ inline void launch_dependents() { asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory"); }
+__device__ inline void grid_dependency_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
 
 __device__ inline float warp_sum(float v) {
 #pragma unroll

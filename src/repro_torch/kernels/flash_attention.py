@@ -16,9 +16,11 @@ The backward is the port's counterpart of what XLA derives for the reference's
 attention when it trains: the FlashAttention-2 form in
 ``csrc/flash_attention_bwd.cu``, the row sums D = rowsum(dO * O), then dK and
 dV (the group's query heads summed inside the block) and dQ, P recomputed from
-the LSE, no atomics.  bf16 runs them on the tensor cores (``mma.sync``, P and
-dS rounded to bf16 before their products, as the forward rounds P); f32 on the
-CUDA cores, which keeps it within 1e-4 of the plain backward.
+the LSE, no atomics, so two runs give the same bits.  bf16 runs them on
+Hopper's warpgroup products (``wgmma``, tiles moved by TMA through a
+four-stage ring, P and dS rounded to bf16 before their products, as the
+forward rounds P); f32 on the CUDA cores, which keeps it within 1e-4 of the
+plain backward.  Both take head sizes 32, 64, 80 and 128.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels._check import (
-    DTYPE_CODES, FLASH_HEAD_DIMS, HEAD_DIMS, require, require_cuda, require_no_grad, require_rows_aligned,
+    DTYPE_CODES, FLASH_HEAD_DIMS, require, require_cuda, require_no_grad, require_rows_aligned,
     rows_aligned,
 )
 
@@ -143,7 +145,8 @@ def flash_attention_bwd_cuda(
     """The backward on the card: q, o and dO (B, T, Hq, D), k and v (B, S, Hkv,
     D), all read through their strides, lse (B, Hq, T) f32 contiguous as the
     forward wrote it -> (dq, dk, dv) contiguous in the shapes and dtype of q,
-    k, v.  Launches the three backward kernels."""
+    k, v.  D is one of ``FLASH_HEAD_DIMS`` (32, 64, 80, 128); T and S need
+    divide nothing.  Launches the three backward kernels."""
     global bwd_launches
     require_no_grad("flash_attention_bwd", q, k, v, o, do)
     require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
@@ -154,7 +157,7 @@ def flash_attention_bwd_cuda(
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     require(k.shape[0] == B and k.shape[3] == D, f"flash_attention_bwd: k {tuple(k.shape)} does not match q {tuple(q.shape)}")
-    require(D in HEAD_DIMS, f"flash_attention_bwd: head size {D} not in {HEAD_DIMS}")
+    require(D in FLASH_HEAD_DIMS, f"flash_attention_bwd: head size {D} not in {FLASH_HEAD_DIMS}")
     require(Hkv >= 1 and Hq % Hkv == 0, f"flash_attention_bwd: {Hq} query heads over {Hkv} kv heads")
     require(B >= 1 and T >= 1 and S >= 1, "flash_attention_bwd: empty input")
     require(Hq <= 65535 and B <= 65535, "flash_attention_bwd: too many heads or batch rows for one grid")

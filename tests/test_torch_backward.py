@@ -87,10 +87,12 @@ def _qkv(seed, B, T, S, Hq, Hkv, D):
 
 
 # (B, T, S, Hq, Hkv, D): MHA, GQA of 2 and of 3 (Minitron-4B's 24/8), ragged
-# T = S, T != S both ways (full), and a causal T != S
+# T = S, T != S both ways (full), and a causal T != S; then head size 80
+# (HuBERT-XLarge's), causal with a group of 2 and full with T != S
 ATTN_CASES = [(2, 16, 16, 4, 4, 32, True), (2, 16, 16, 4, 4, 32, False), (2, 33, 33, 4, 2, 32, True),
               (1, 33, 33, 6, 2, 64, False), (2, 24, 24, 6, 2, 32, True), (1, 20, 45, 4, 2, 32, False),
-              (1, 45, 20, 4, 1, 32, False), (1, 30, 50, 4, 2, 32, True)]
+              (1, 45, 20, 4, 1, 32, False), (1, 30, 50, 4, 2, 32, True),
+              (1, 33, 33, 4, 2, 80, True), (2, 20, 45, 2, 2, 80, False)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -115,10 +117,11 @@ def test_flash_attention_bwd_plain_matches_autograd_and_reference(B, T, S, Hq, H
 
 
 def mma_bwd_order(q, k, v, o, lse, do, *, causal: bool):
-    """The bf16 backward kernels' order (``flash_bwd_mma_*_kernel``): scores
-    in f32 from bf16 q and k, scaled after the product; P and dS rounded to
-    bf16 before the products into dV, dK and dQ (f32 sums); each output
-    rounded once."""
+    """The bf16 backward kernels' roundings (``flash_bwd_wg_*_kernel``):
+    scores in f32 from bf16 q and k, scaled after the product; P and dS
+    rounded to bf16 before the products into dV, dK and dQ (f32 sums); each
+    output rounded once.  Their tiles, steps and exp2 are
+    tests/test_torch_flash_bwd_order.py's."""
     B, T, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G, scale = Hq // Hkv, D**-0.5
