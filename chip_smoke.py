@@ -26,7 +26,11 @@ pipeline batch of image-patch embeddings, which the model pins to the masked
 plain attention) served as above (RMSNorm, flash and decode attention
 kernels), and HuBERT-XLarge's bidirectional encoder (48 x 1280, 16 heads of
 80) through ``Model.loss`` and ``Model.prefill`` on 4 x 1024 frames (RMSNorm
-kernel, flash kernel non-causal at head size 80).  For each path it checks by
+kernel, flash kernel non-causal at head size 80), and last Zamba2-2.7B at full
+width and depth (54 layers x 2560: 9 groups of 5 Mamba2 layers and the shared
+attention block, 32 heads of 80, vocabulary 32000; RMSNorm kernel for every
+norm and Mamba2's gated norm, flash kernel causal and decode kernel at head
+size 80 in the shared block).  For each path it checks by
 the kernels' launch counters that it really went through the kernels, and
 compares the kernel path's logits, or loss and gradients, with the plain
 path's.
@@ -66,11 +70,13 @@ from repro_torch.kernels import wkv6 as wkv_mod  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.models import ssm as ssm_lib  # noqa: E402
 from repro_torch.models.transformer import build_model  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
     Request,
     ServingEngine,
     SplitwiseCluster,
+    _is_ring_leaf,
     kv_cache_bytes_per_token,
     kv_cache_state_bytes_per_seq,
     zeros_cache,
@@ -177,7 +183,29 @@ MOE_REDUCED = {"num_layers": "24 -> 4 (qwen2-moe-a2.7b), 27 -> 4 (deepseek-v2-li
 KV_BYTES_PER_TOKEN = {"gpt-a": 393_216, "rwkv6-7b": 0, "qwen2-moe-a2.7b": 196_608, "deepseek-v2-lite-16b": 31_104,
                       # L x 2 x Hkv x 128 x 2: DeepSeek-Coder 62 x 8, Granite 60 (of 88) x 1, Nemotron 32 x 8, Qwen2-VL 28 x 4
                       "deepseek-coder-33b": 253_952, "granite-34b": 30_720, "nemotron-4-15b": 131_072,
-                      "qwen2-vl-7b": 57_344}
+                      "qwen2-vl-7b": 57_344,
+                      # Zamba2-2.7B: 9 shared-block invocations x 2 x 32 x 80 x 2
+                      "zamba2-2.7b": 92_160}
+
+# Zamba2-2.7B (K1, K2 and K3 at head size 80): a forward owes 2 x 45 norms in the
+# Mamba2 layers (``ln`` and the gated norm), 2 x 9 in the shared block and the
+# final one; a dense prefill 9 flash launches, a decode step 9 decode launches.
+HYBRID_OWED = {"rmsnorm": 109, "flash_attention": 9, "decode_attention": 9}
+# its recurrent state a sequence: 45 Mamba2 layers of ssm 80 x 64 x 64 f32 and
+# the two convolutions' last 3 inputs (5120 + 128 channels) in bf16
+ZAMBA_STATE_BYTES = 60_399_360
+# f32 activations on the f32 weights at full depth (8.2 GB fit the card): only
+# the order of f32 sums differs, as in the other decoders' f32 comparisons
+HYBRID_F32_TOL = {"logits": 1e-3}
+# In bf16 Zamba2's 45 Mamba2 layers amplify a rounding as RWKV-6's recurrence
+# does: the plain path with the SSD scan in chunks of 64 instead of 128 (f32
+# sums in another order, no kernel anywhere) parts from the plain path by more
+# than GPT-A's 0.25 at logits of about 4 (experiments/torch_moe_parity.py
+# --arch zamba2-2.7b on an H100 shows it and other orders).  So the bf16 kernel
+# path is held as RWKV-6's is, against that control: at most twice what the
+# control parts by, plus RWKV_BF16_SLACK (logits, and the last Mamba2 layer's
+# ssm state over its largest entry); the f32 comparison finds a fault.
+HYBRID_CONTROL = "plain_chunk64"
 
 # The rest of the transformer stack: the dense decoders DeepSeek-Coder 33B,
 # Granite-34B-Code and Nemotron-4 15B and the VLM Qwen2-VL 7B (K1, K2, K3 at
@@ -310,7 +338,9 @@ def check_rmsnorm(ck: Checker, gen) -> None:
               # (past the register kernel's 4096: the shared-memory kernel), Qwen2-VL's 3584 (448 chunks of
               # 16 bytes in bf16, 3.5 a thread: the register kernel masks the last), HuBERT's 1280 frames
               (4, 512, 7168), (4, 1, 7168), (4, 512, 6144), (4, 1, 6144), (4, 512, 3584), (4, 1, 3584),
-              (4, 1024, 1280), (3, 1280)]
+              (4, 1024, 1280), (3, 1280),
+              # Zamba2-2.7B: d_model 2560, and its gated norm's rows of d_inner 5120 (past the register kernel)
+              (4, 512, 2560), (4, 1, 2560), (4, 512, 5120), (4, 1, 5120)]
     for dtype in TOL:
         for shape in shapes:
             x = randn(gen, shape, dtype)
@@ -335,7 +365,8 @@ def check_flash(ck: Checker, gen) -> None:
               # Nemotron 48/8 (6); then head size 80 (HuBERT-XLarge 16/16 over 1024 frames), ragged
               (4, 512, 512, 56, 8, 128), (4, 512, 512, 48, 1, 128), (4, 512, 512, 48, 8, 128),
               (4, 512, 512, 28, 4, 128), (4, 1024, 1024, 16, 16, 80), (1, 300, 300, 16, 16, 80),
-              (2, 17, 17, 4, 4, 80), (1, 70, 300, 4, 2, 80), (1, 300, 70, 6, 3, 80)]
+              (2, 17, 17, 4, 4, 80), (1, 70, 300, 4, 2, 80), (1, 300, 70, 6, 3, 80),
+              (4, 512, 512, 32, 32, 80)]  # Zamba2-2.7B's shared block: a prefill of 4 x 512, 32 heads of 80
     for dtype in TOL:
         for B, T, S, Hq, Hkv, D in shapes:
             for causal in (True, False):
@@ -520,7 +551,15 @@ def check_decode(ck: Checker, gen) -> None:
              (4, 1024, 56, 8, 128, None, "tail-empty"), (4, 1024, 48, 1, 128, None, "tail-empty"),
              (4, 1024, 48, 8, 128, None, "shuffled"), (4, 1024, 28, 4, 128, None, "tail-empty"),
              (4, 1024, 56, 8, 128, 300, "full"), (2, 1024, 48, 1, 128, 200, "shuffled"),
-             (3, 1024, 28, 4, 128, 64, "shuffled")]
+             (3, 1024, 28, 4, 128, 64, "shuffled"),
+             # head size 80 (Zamba2-2.7B's shared block, 32/32): its step, a ring of 4096 whose slices
+             # get several tiles, a ragged shuffled ring, a window over a full ring, the kinds with no,
+             # one and gapped valid slots, and groups of 2, 4 and 8 (the reference takes any group)
+             (4, 1024, 32, 32, 80, None, "tail-empty"), (2, 4096, 32, 32, 80, None, "tail-empty"),
+             (3, 1000, 32, 32, 80, None, "shuffled"), (2, 1024, 32, 32, 80, 300, "full"),
+             (3, 1024, 32, 32, 80, None, "no-valid"), (3, 1024, 32, 32, 80, None, "one-valid"),
+             (2, 1024, 32, 32, 80, None, "gaps"), (2, 1024, 8, 4, 80, None, "tail-empty"),
+             (2, 1024, 16, 4, 80, None, "shuffled"), (2, 1000, 16, 2, 80, 300, "shuffled")]
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     for B, S, Hq, Hkv, D, window, kind in cases:
         if S == 4096 and dec_mod.split_plan(B, Hkv, S, sm_count)[1] < 2:
@@ -534,6 +573,16 @@ def check_decode(ck: Checker, gen) -> None:
             ck.check("decode_attention", f"{(B, S, Hq, Hkv, D)} window={window} {kind}",
                      kops.decode_attention(q, k, v, q_pos, kv_pos, window=window),
                      dec_mod.decode_attention_plain(q, k, v, q_pos, kv_pos, window=window))
+    # a head size without a template raises on the card: there is no fall-back
+    q, k = randn(gen, (2, 1, 4, 48), torch.bfloat16), randn(gen, (2, 256, 4, 48), torch.bfloat16)
+    kv_pos, q_pos = ring_positions(gen, 2, 256, "full")
+    try:
+        kops.decode_attention(q, k, k, q_pos, kv_pos)
+    except ValueError as e:
+        if "head size 48" not in str(e):
+            raise
+    else:
+        raise AssertionError("decode_attention took head size 48")
 
 
 def wkv_inputs(gen, B, T, H, D, dtype, state: bool):
@@ -794,18 +843,20 @@ def timed_row(shape: str, kernel, plain, library, sets, nbytes: int, flops: int,
 def measure_stack(gen, out: dict) -> None:
     """Times at the rest of the transformer stack's full-width shapes (bf16),
     added to ``out``'s rows under a prefix a model (``coder_``: DeepSeek-Coder
-    33B, ``granite_``, ``nemotron_``, ``vl_``: Qwen2-VL 7B, ``hubert_``): K1 at
-    a prefill's 4 x 512 rows (HuBERT: 4 x 1024 frames), K2 at one layer's
-    prefill (HuBERT non-causal at head size 80), K3 at one layer's decode
-    step, 520 of 1024 slots valid.  The library calls take the group as it is
-    (``enable_gqa``)."""
+    33B, ``granite_``, ``nemotron_``, ``vl_``: Qwen2-VL 7B, ``hubert_``,
+    ``zamba_``: Zamba2-2.7B, ``zamba_gated_``: its Mamba2 gated norm over
+    d_inner): K1 at a prefill's 4 x 512 rows (HuBERT: 4 x 1024 frames), K2 at
+    one layer's prefill (HuBERT non-causal, Zamba2 causal, at head size 80),
+    K3 at one layer's decode step, 520 of 1024 slots valid (Zamba2 at head
+    size 80).  The library calls take the group as it is (``enable_gqa``)."""
     import torch.nn.functional as F  # timed here as a yardstick; the port never calls it
 
     def add(name, label, row):
         out[name].update({label + key: val for key, val in row.items()})
 
     dt = torch.bfloat16
-    for label, N, d in (("coder_", 2048, 7168), ("granite_", 2048, 6144), ("vl_", 2048, 3584), ("hubert_", 4096, 1280)):
+    for label, N, d in (("coder_", 2048, 7168), ("granite_", 2048, 6144), ("vl_", 2048, 3584), ("hubert_", 4096, 1280),
+                        ("zamba_", 2048, 2560), ("zamba_gated_", 2048, 5120)):
         sets = [(randn(gen, (N, d), dt), randn(gen, (d,), torch.float32)) for _ in range(6)]
         add("rmsnorm", label, timed_row(
             f"x ({N},{d}) bf16", lambda x, s: kops.rmsnorm(x, s), lambda x, s: rms_mod.rmsnorm_plain(x, s),
@@ -814,7 +865,8 @@ def measure_stack(gen, out: dict) -> None:
 
     for label, B, T, Hq, Hkv, D, causal in (("coder_", 4, 512, 56, 8, 128, True), ("granite_", 4, 512, 48, 1, 128, True),
                                             ("nemotron_", 4, 512, 48, 8, 128, True), ("vl_", 4, 512, 28, 4, 128, True),
-                                            ("hubert_", 4, 1024, 16, 16, 80, False)):
+                                            ("hubert_", 4, 1024, 16, 16, 80, False),
+                                            ("zamba_", 4, 512, 32, 32, 80, True)):
         sets = [(randn(gen, (B, T, Hq, D), dt), randn(gen, (B, T, Hkv, D), dt), randn(gen, (B, T, Hkv, D), dt))
                 for _ in range(2)]
         add("flash_attention", label, timed_row(
@@ -826,14 +878,15 @@ def measure_stack(gen, out: dict) -> None:
             sets, (2 * B * T * Hq * D + 2 * B * T * Hkv * D) * 2,  # q read, o written, k and v read
             4 * B * Hq * D * (T * (T + 1) // 2 if causal else T * T), BF16_FLOPS, iters=5))
 
-    B, S, filled, D = 4, MAX_LEN, 520, 128
+    B, S, filled = 4, MAX_LEN, 520
     ar = torch.arange(S, device="cuda", dtype=torch.int32)[None].expand(B, S)
     kv_pos = torch.where(ar < filled, ar, -1).contiguous()
     q_pos = torch.full((B, 1), filled - 1, device="cuda", dtype=torch.int32)
     mask = ((kv_pos >= 0) & (kv_pos <= q_pos))[:, None, None, :]
     valid = int(mask.sum().item())
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
-    for label, Hq, Hkv in (("coder_", 56, 8), ("granite_", 48, 1), ("nemotron_", 48, 8), ("vl_", 28, 4)):
+    for label, Hq, Hkv, D in (("coder_", 56, 8, 128), ("granite_", 48, 1, 128), ("nemotron_", 48, 8, 128),
+                              ("vl_", 28, 4, 128), ("zamba_", 32, 32, 80)):
         sets = [(randn(gen, (B, 1, Hq, D), dt), randn(gen, (B, S, Hkv, D), dt), randn(gen, (B, S, Hkv, D), dt))
                 for _ in range(8)]
         G = Hq // Hkv
@@ -1029,15 +1082,33 @@ def check_generated(cfg, reqs) -> None:
             raise AssertionError(f"request {r.req_id}: ttft {r.ttft_ms} tbt {len(r.tbt_ms)}")
 
 
+def attention_layers(cfg) -> int:
+    """The attention calls of one forward: every layer of a transformer, none
+    in RWKV-6 or the Mamba2 stack, one a group in the hybrid (its shared block)."""
+    if cfg.rwkv is not None or cfg.family == "ssm":
+        return 0
+    return cfg.num_layers // cfg.attn_period if cfg.family == "hybrid" else cfg.num_layers
+
+
+def state_bytes_per_seq(model, batch: int) -> float:
+    """``kv_cache_state_bytes_per_seq`` of an empty cache of ``batch`` rows (on
+    the meta device: nothing is allocated), as the split counts it after a
+    prefill of ``batch`` requests."""
+    meta = {n: torch.empty(shape, dtype=dt, device="meta") for n, (shape, dt) in model.cache_shape(batch, MAX_LEN).items()}
+    return kv_cache_state_bytes_per_seq(meta, MAX_LEN)
+
+
 def phase_serve(phase: str, cfg, model, params) -> dict:
     """Five traffic shapes through ``ServingEngine.generate`` and
     ``SplitwiseCluster.serve``, counted from zero; raises unless the counters
     show exactly the launches the path owes, splitwise gives the monolithic
     engine's token ids on the uniform and the ragged batch, the cache holds
-    the bytes a token it should and the handoff moved them.  Then a prefill
-    and a decode step are traced (``profile_serving``)."""
+    the bytes a token it should and the handoff moved what the engine's own
+    count gives at each batch it served.  Then a prefill and a decode step are
+    traced (``profile_serving``)."""
     L = cfg.num_layers
-    recurrent = cfg.rwkv is not None
+    A = attention_layers(cfg)
+    recurrent = cfg.rwkv is not None or cfg.family in ("ssm", "hybrid")
     init_peak_bytes = torch.cuda.max_memory_allocated()  # parameters made and cast
     n_params = sum(t.numel() for t in flatten(params).values())
     engine = ServingEngine(cfg, params, max_batch=4, max_len=MAX_LEN)
@@ -1084,15 +1155,15 @@ def phase_serve(phase: str, cfg, model, params) -> dict:
     peak_bytes = torch.cuda.max_memory_allocated()
 
     forwards = prefills + steps
-    if recurrent:
+    if cfg.rwkv is not None:
         want = {"rmsnorm": (2 * L + 1) * forwards, "wkv6": L * forwards, "flash_attention": 0,
                 "decode_attention": 0, "sdpa_masked_calls": 0}
     elif cfg.mla is not None:  # MLA is plain torch, as the reference computes it: no attention kernel, no sdpa
         want = {"rmsnorm": (2 * L + 1) * forwards, "flash_attention": 0, "decode_attention": 0,
                 "sdpa_masked_calls": 0, "wkv6": 0}
     else:
-        want = {"flash_attention": L * (prefills - masked_prefills), "decode_attention": L * steps,
-                "rmsnorm": (2 * L + 1) * forwards, "sdpa_masked_calls": L * masked_prefills, "wkv6": 0}
+        want = {"flash_attention": A * (prefills - masked_prefills), "decode_attention": A * steps,
+                "rmsnorm": (2 * L + 1) * forwards, "sdpa_masked_calls": A * masked_prefills, "wkv6": 0}
     want.update(rmsnorm_bwd=0, flash_attention_bwd=0)  # serving computes no gradients
     if counters != want:
         raise AssertionError(f"{cfg.name}: launch counters {counters}, expected {want} ({prefills} prefills, {steps} steps)")
@@ -1103,12 +1174,21 @@ def phase_serve(phase: str, cfg, model, params) -> dict:
     empty = zeros_cache(model, 1, MAX_LEN, "cuda")
     per_token = kv_cache_bytes_per_token(empty, MAX_LEN)
     per_seq = kv_cache_state_bytes_per_seq(empty, MAX_LEN)
-    if recurrent and per_seq != RWKV_STATE_BYTES:
+    # the state a sequence truly holds: the floating leaves without a ring of a cache of one row
+    true_state = sum(x.numel() * x.element_size() for x in empty.values()
+                     if x.is_floating_point() and not _is_ring_leaf(x, MAX_LEN))
+    if cfg.rwkv is not None and per_seq != RWKV_STATE_BYTES:
         raise AssertionError(f"{cfg.name}: {per_seq} bytes of state a sequence, expected {RWKV_STATE_BYTES}")
+    if cfg.family == "hybrid" and true_state != ZAMBA_STATE_BYTES:
+        raise AssertionError(f"{cfg.name}: {true_state} bytes of state a sequence, expected {ZAMBA_STATE_BYTES}")
     if per_token != KV_BYTES_PER_TOKEN[cfg.name]:
         raise AssertionError(f"{cfg.name}: {per_token} KV bytes a token, expected {KV_BYTES_PER_TOKEN[cfg.name]}")
-    split_runs = [reqs for _, reqs, serve, _ in runs if serve == cluster.serve]
-    moved = sum(per_token * sum(len(r.prompt) for r in reqs) + per_seq * len(reqs) for reqs in split_runs)
+    # each prefill the split made: a recurrent model's ragged batch one request at a
+    # time, any other batch at once, its state counted at the batch it was served in
+    handoffs = [[r] for _, reqs, serve, ragged in runs if serve == cluster.serve and ragged and recurrent for r in reqs]
+    handoffs += [reqs for _, reqs, serve, ragged in runs if serve == cluster.serve and not (ragged and recurrent)]
+    moved = sum(per_token * sum(len(r.prompt) for r in reqs) + state_bytes_per_seq(model, len(reqs)) * len(reqs)
+                for reqs in handoffs)
     if cluster.kv_bytes_moved != moved:
         raise AssertionError(f"{cfg.name}: kv_bytes_moved {cluster.kv_bytes_moved}, expected {moved}")
     profile = profile_serving(engine, first_batch(50))
@@ -1118,7 +1198,8 @@ def phase_serve(phase: str, cfg, model, params) -> dict:
           "max_len": MAX_LEN, "max_new_tokens": MAX_NEW, "prefills": prefills, "steps": steps,
           "runs": report, "peak_memory_bytes": peak_bytes, "init_peak_memory_bytes": init_peak_bytes,
           "kv_bytes_moved": cluster.kv_bytes_moved, "kv_bytes_per_token": per_token,
-          "state_bytes_per_seq": per_seq, "counters": counters, "profile": profile})
+          "state_bytes_per_seq": per_seq, "state_bytes_per_seq_by_batch": {b: state_bytes_per_seq(model, b) for b in (1, 2, 4)},
+          "state_bytes_per_seq_true": true_state, "counters": counters, "profile": profile})
     return {"counters": counters, "prompts": prompts, "engine": engine}
 
 
@@ -1130,7 +1211,7 @@ KERNEL_NAMES = {"rmsnorm": ("rmsnorm_reg_kernel", "rmsnorm_kernel"), "flash_atte
 
 def serving_ranges(cfg) -> dict:
     """The layers ``traced`` marks as ranges when ``cfg`` serves: name -> (module, function)."""
-    return {"moe_apply": (moe_lib, "moe_apply"),
+    return {"moe_apply": (moe_lib, "moe_apply"), "mamba2_apply": (ssm_lib, "mamba2_apply"),
             "attention": (attention, "mla_apply" if cfg.mla is not None else "gqa_apply")}
 
 
@@ -1306,9 +1387,10 @@ def gaps(a: dict, b: dict) -> dict:
     out = {f"{n}_max_abs_diff": (a[n] - b[n]).abs().max().item() for n in ("prefill", "decode_step")}
     out.update({f"{n}_token_agreement": (a[n].argmax(-1) == b[n].argmax(-1)).float().mean().item()
                 for n in ("prefill", "decode_step")})
-    if "wkv" in a["cache"]:
-        S_a, S_b = a["cache"]["wkv"], b["cache"]["wkv"]
-        out["wkv_state_rel_diff"] = ((S_a - S_b).abs().max() / S_b.abs().max()).item()
+    for leaf, key in (("wkv", "wkv_state_rel_diff"), ("mamba/ssm", "ssm_state_rel_diff")):
+        if leaf in a["cache"]:
+            S_a, S_b = a["cache"][leaf], b["cache"][leaf]
+            out[key] = ((S_a - S_b).abs().max() / S_b.abs().max()).item()
     if a["routes_prefill"]:
         out["route_agreement"] = route_agreement(a["routes_prefill"] + a["routes_decode_step"],
                                                  b["routes_prefill"] + b["routes_decode_step"])
@@ -1322,24 +1404,39 @@ RWKV_PATHS = {**PATHS, "plain_chunk64": lambda: plain_path(wkv_chunk=64)}
 MOE_PATHS = {**PATHS, "plain_pinned": plain_path}
 
 
-def phase_serve_parity(phase: str, cfg, model, params, prompts, extra=None) -> None:
-    """GPT-A and the rest of the dense stack: the kernel path against the plain
-    path in bf16, logits within PARITY_TOL; ``extra`` joins the printed line."""
+def phase_serve_parity(phase: str, cfg, model, params, prompts, extra=None, control=None) -> None:
+    """GPT-A, the rest of the dense stack and the hybrid: the kernel path
+    against the plain path in bf16, logits within PARITY_TOL; with ``control``
+    ((name, context): the plain path with the recurrence's sums in another
+    order) within twice what that parts by plus RWKV_BF16_SLACK instead, as
+    RWKV-6's; ``extra`` joins the printed line."""
     torch.cuda.reset_peak_memory_stats()
-    out = run_paths(model, params, torch.from_numpy(prompts).to("cuda"), PATHS)
+    paths = PATHS if control is None else {**PATHS, control[0]: control[1]}
+    out = run_paths(model, params, torch.from_numpy(prompts).to("cuda"), paths)
     k, p = out["kernel"], out["plain"]
     result = {"phase": phase, "model": cfg.name, "layers": cfg.num_layers, "tol": PARITY_TOL,
               "logit_abs_max": k["prefill"].abs().max().item(), **gaps(k, p), **(extra or {})}
-    for name in ("prefill", "decode_step"):
-        if result[f"{name}_max_abs_diff"] > PARITY_TOL:
-            raise AssertionError(f"{name}: kernel path and plain path differ by {result[f'{name}_max_abs_diff']} > {PARITY_TOL}")
-    valid = k["cache"]["pos"] >= 0
+    ring = "attn/" if cfg.family == "hybrid" else ""  # the hybrid's cache names its shared block's ring so
+    valid = k["cache"][ring + "pos"] >= 0
     B, T = prompts.shape
-    if not torch.equal(k["cache"]["pos"], p["cache"]["pos"]) or int(valid.sum()) != cfg.num_layers * B * T:
-        raise AssertionError("the two paths left different positions in the cache")
-    result["cache_k_max_abs_diff"] = (k["cache"]["k"].float() - p["cache"]["k"].float())[valid].abs().max().item()
+    result["cache_k_max_abs_diff"] = (k["cache"][ring + "k"].float() - p["cache"][ring + "k"].float())[valid].abs().max().item()
     result["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-    emit(result)
+    c = None if control is None else gaps(out[control[0]], p)
+    if c is not None:
+        result.update({"control": c, "slack": RWKV_BF16_SLACK,
+                       "rule": f"kernel <= 2 x {control[0]} + slack: the recurrence amplifies bf16 roundings"})
+    emit(result)  # before the checks, so that a failed run shows its gaps
+    for name in ("prefill", "decode_step"):
+        key = f"{name}_max_abs_diff"
+        bound = PARITY_TOL if c is None else 2 * c[key] + PARITY_TOL
+        if not result[key] <= bound:
+            raise AssertionError(f"{name}: kernel path and plain path differ by {result[key]} > {bound}")
+    if c is not None:
+        key = "ssm_state_rel_diff"
+        if not result[key] <= 2 * c[key] + RWKV_BF16_SLACK["state_rel"]:
+            raise AssertionError(f"{key}: kernel path and plain path part by {result[key]}, the control by {c[key]}")
+    if not torch.equal(k["cache"][ring + "pos"], p["cache"][ring + "pos"]) or int(valid.sum()) != attention_layers(cfg) * B * T:
+        raise AssertionError("the two paths left different positions in the cache")
 
 
 def rwkv_parity_f32(cfg, params32) -> dict:
@@ -1600,6 +1697,65 @@ def encode_hubert() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Zamba2-2.7B: Mamba2 and the hybrid stack at full width and depth
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def ssd_chunk(model, chunk: int):
+    """The plain path with the Mamba2 scan in chunks of ``chunk``: the same
+    arithmetic with its sums in another order, the control of a recurrence."""
+    cfg = model.cfg
+    model.cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, chunk=chunk))
+    try:
+        with plain_path():
+            yield
+    finally:
+        model.cfg = cfg
+
+
+def serve_hybrid() -> dict:
+    """Zamba2-2.7B at full width and all 54 layers, weights made in f32 from
+    the seed (reported beside ``param_count``): the kernel path against the
+    plain path with f32 activations on them, within HYBRID_F32_TOL; then the
+    weights cast to bf16, served (``phase_serve``, whose counters must show
+    HYBRID_OWED a forward, prefill and step) and held against the plain path
+    in bf16 against the plain path with the scan in chunks of 64
+    (HYBRID_CONTROL).  Returns {path: counters}; everything it made is
+    released when it returns."""
+    cfg = get_config("zamba2_2p7b")
+    owed = {"rmsnorm": 2 * cfg.num_layers + 1, "flash_attention": attention_layers(cfg),
+            "decode_attention": attention_layers(cfg)}
+    if owed != HYBRID_OWED:
+        raise AssertionError(f"{cfg.name}: a forward owes {owed}, expected {HYBRID_OWED}")
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    params32 = model.init(gen)
+    n_params = sum(t.numel() for t in flatten(params32).values())
+    f32_bytes = sum(t.numel() * t.element_size() for t in flatten(params32).values())
+    model32 = build_model(dataclasses.replace(cfg, dtype=torch.float32))
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size, (4, 512))).to("cuda")
+    out = run_paths(model32, model32.cast_params(params32), tokens, PATHS)  # cast_params shares f32 leaves
+    f32 = {"layers": cfg.num_layers, "logit_abs_max": out["kernel"]["prefill"].abs().max().item(),
+           "tol": HYBRID_F32_TOL, "params_counted": n_params, "f32_weight_bytes": f32_bytes,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(), **gaps(out["kernel"], out["plain"])}
+    del out
+    for stage in ("prefill", "decode_step"):
+        if not f32[f"{stage}_max_abs_diff"] <= HYBRID_F32_TOL["logits"]:
+            raise AssertionError(f"{cfg.name} f32 {stage}: kernel and plain paths part by {f32[f'{stage}_max_abs_diff']}")
+    params = model.cast_params(params32)
+    del params32
+    release()
+    served = phase_serve("serve_hybrid", cfg, model, params)  # counters exactly HYBRID_OWED a forward, prefill, step
+    phase_serve_parity("serve_hybrid_parity", cfg, model, served["engine"].params, served["prompts"],
+                       {"f32": f32, "control_path": "plain path, the Mamba2 scan in chunks of 64 (the config's: 128)"},
+                       control=(HYBRID_CONTROL, lambda: ssd_chunk(model, 64)))
+    return {cfg.name: served["counters"]}
+
+
+# ---------------------------------------------------------------------------
 # phases 8 and 9: GPT-A trained at full width, depth cut, on the card
 # ---------------------------------------------------------------------------
 
@@ -1755,6 +1911,8 @@ def main() -> int:
         counts.update(serve_stack_model(arch, phase, layers))
         release()
     counts.update(encode_hubert())
+    release()
+    counts.update(serve_hybrid())
     release()
 
     for row in rows:

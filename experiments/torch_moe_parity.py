@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""How far correct ways of computing the MoE family part on the card, in bf16.
+"""How far correct ways of computing the MoE family (and Zamba2's hybrid) part
+on the card, in bf16.
 
-    python3 experiments/torch_moe_parity.py [--arch qwen2-moe-a2.7b|deepseek-v2-lite-16b] [--layers N]
+    python3 experiments/torch_moe_parity.py [--arch qwen2-moe-a2.7b|deepseek-v2-lite-16b|zamba2-2.7b] [--layers N]
 
 Needs one NVIDIA Hopper card and ``nvcc``.  Makes the model at full width
 (depth ``--layers``, default the config's) with its weights made directly in
@@ -19,11 +20,15 @@ step, on several paths at once (``chip_smoke.run_paths``), each held against
   before P·V (``sdpa_p_bf16``), the one extra rounding of
   ``flash_mma_kernel``'s design (``tests/test_torch_flash_mma.py``), and
   otherwise the same;
-- ``kernel_reverse``: the kernel path with the plain RMSNorm over reversed rows.
+- ``kernel_reverse``: the kernel path with the plain RMSNorm over reversed rows;
+- ``plain_chunk64`` (Zamba2 only): the plain path with the Mamba2 scan in
+  chunks of 64 (``chip_smoke.ssd_chunk``), the control ``chip_smoke.py`` holds
+  the hybrid's bf16 kernel path against.
 
 For each path it prints the logits' largest gap to ``plain`` after the
 prefill and after the decode step, the share of (layer, token) routes whose
-top-k sets agree with ``plain``'s, and that share layer by layer; then the
+top-k sets agree with ``plain``'s, and that share layer by layer (a model
+without routes: the ssm state's gap instead); then the
 kernel path's gaps to ``plain_pinned``.  The last
 line but one names the card and its power limit.
 """
@@ -121,14 +126,18 @@ def main(argv=None) -> int:
     gen.manual_seed(cs.SEED)
     params = model.init(gen, dtype=cfg.dtype)
     tokens = torch.from_numpy(np.random.default_rng(cs.SEED).integers(0, cfg.vocab_size, (4, 512))).to("cuda")
-    out = cs.run_paths(model, params, tokens, PATHS)
+    paths = dict(PATHS)
+    if cfg.ssm is not None:
+        paths["plain_chunk64"] = lambda: cs.ssd_chunk(model, 64)
+    out = cs.run_paths(model, params, tokens, paths)
     plain = out["plain"]
     rows = {}
     for name, o in out.items():
         if name == "plain":
             continue
         g = cs.gaps(o, plain)
-        g["route_agreement_by_layer"] = by_layer(o["routes_prefill"], plain["routes_prefill"], cfg.num_layers)
+        if o["routes_prefill"]:
+            g["route_agreement_by_layer"] = by_layer(o["routes_prefill"], plain["routes_prefill"], cfg.num_layers)
         rows[name] = g
     pinned = cs.gaps(out["kernel"], out["plain_pinned"])  # what chip_smoke.py holds within PARITY_TOL
     print(json.dumps({"model": cfg.name, "layers": cfg.num_layers, "dtype": "bf16",

@@ -3,7 +3,9 @@
 The reference's parameters are a nested dict of arrays whose ``"/"``-joined
 paths (``repro/ckpt/checkpoint.py::_flatten``) read ``embed``, ``final_norm``,
 ``lm_head``, ``layers/ln1``, ``layers/attn/wq``, ``layers/ffn/w_up``, ...; the
-layers are stacked on a leading ``L`` axis.  The port keeps the same keys and
+layers are stacked on a leading ``L`` axis (the hybrid's ``groups/mamba/...`` on
+(G, M), its ``groups/gate`` (G,), and ``shared_attn/...``, one block with no
+layer axis).  The port keeps the same keys and
 the same stacking, so conversion is one to one and exact.  numpy has no bf16:
 such leaves travel as f32, which holds every bf16 value exactly.
 """
@@ -17,7 +19,7 @@ import torch
 from repro_torch.models.modules import ModelConfig, Params
 from repro_torch.models.rwkv import F32_KEYS as RWKV_F32_KEYS
 from repro_torch.models.rwkv import LORA as RWKV_LORA
-from repro_torch.models.transformer import NORM_KEYS
+from repro_torch.models.transformer import NORM_KEYS, SSMModel
 
 _SEP = "/"
 
@@ -36,58 +38,75 @@ def _rwkv_layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     return shapes
 
 
-def _attn_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
-    L, d, H, hd = cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.resolved_head_dim
+def _attn_shapes(cfg: ModelConfig, pre: str, lead: tuple) -> Dict[str, tuple]:
+    d, H, hd = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim
     if cfg.mla is not None:
         m = cfg.mla
-        return {
-            "layers/attn/wq": (L, d, H * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
-            "layers/attn/w_dkv": (L, d, m.kv_lora_rank + m.qk_rope_head_dim),
-            "layers/attn/w_uk": (L, m.kv_lora_rank, H * m.qk_nope_head_dim),
-            "layers/attn/w_uv": (L, m.kv_lora_rank, H * m.v_head_dim),
-            "layers/attn/wo": (L, H * m.v_head_dim, d),
+        shapes = {
+            "wq": (d, H * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
+            "w_dkv": (d, m.kv_lora_rank + m.qk_rope_head_dim),
+            "w_uk": (m.kv_lora_rank, H * m.qk_nope_head_dim),
+            "w_uv": (m.kv_lora_rank, H * m.v_head_dim),
+            "wo": (H * m.v_head_dim, d),
         }
-    return {
-        "layers/attn/wq": (L, d, H * hd),
-        "layers/attn/wk": (L, d, cfg.num_kv_heads * hd),
-        "layers/attn/wv": (L, d, cfg.num_kv_heads * hd),
-        "layers/attn/wo": (L, H * hd, d),
-    }
+    else:
+        shapes = {"wq": (d, H * hd), "wk": (d, cfg.num_kv_heads * hd), "wv": (d, cfg.num_kv_heads * hd),
+                  "wo": (H * hd, d)}
+    return {f"{pre}attn/{k}": lead + s for k, s in shapes.items()}
 
 
-def _ffn_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
-    L, d = cfg.num_layers, cfg.d_model
+def _ffn_shapes(cfg: ModelConfig, pre: str, lead: tuple) -> Dict[str, tuple]:
+    d = cfg.d_model
     if cfg.moe is not None:
         m = cfg.moe
         E, f = m.num_experts, m.expert_d_ff
-        shapes = {
-            "layers/moe/router": (L, d, E),
-            "layers/moe/w_gate": (L, E, d, f),
-            "layers/moe/w_up": (L, E, d, f),
-            "layers/moe/w_down": (L, E, f, d),
-        }
+        shapes = {"moe/router": (d, E), "moe/w_gate": (E, d, f), "moe/w_up": (E, d, f), "moe/w_down": (E, f, d)}
         if m.num_shared_experts:
             sf = m.num_shared_experts * f
-            shapes.update({"layers/moe/shared/w_gate": (L, d, sf), "layers/moe/shared/w_up": (L, d, sf),
-                           "layers/moe/shared/w_down": (L, sf, d)})
-        return shapes
-    shapes = {"layers/ffn/w_up": (L, d, cfg.d_ff), "layers/ffn/w_down": (L, cfg.d_ff, d)}
-    if cfg.ffn_activation == "swiglu":
-        shapes["layers/ffn/w_gate"] = (L, d, cfg.d_ff)
+            shapes.update({"moe/shared/w_gate": (d, sf), "moe/shared/w_up": (d, sf), "moe/shared/w_down": (sf, d)})
+    else:
+        shapes = {"ffn/w_up": (d, cfg.d_ff), "ffn/w_down": (cfg.d_ff, d)}
+        if cfg.ffn_activation == "swiglu":
+            shapes["ffn/w_gate"] = (d, cfg.d_ff)
+    return {f"{pre}{k}": lead + s for k, s in shapes.items()}
+
+
+def _block_shapes(cfg: ModelConfig, pre: str, lead: tuple) -> Dict[str, tuple]:
+    """A transformer block's leaves under ``pre``, with leading axes ``lead``."""
+    shapes = {f"{pre}ln1": lead + (cfg.d_model,), f"{pre}ln2": lead + (cfg.d_model,)}
+    shapes.update(_attn_shapes(cfg, pre, lead))
+    shapes.update(_ffn_shapes(cfg, pre, lead))
     return shapes
 
 
+def _mamba_shapes(cfg: ModelConfig, pre: str, lead: tuple) -> Dict[str, tuple]:
+    """A pre-normed Mamba2 layer's leaves (``ln`` and ``mamba/*``) under ``pre``."""
+    s, d = cfg.ssm, cfg.d_model
+    d_in = d * s.expand
+    H, n2 = d_in // s.head_dim, 2 * s.d_state
+    shapes = {"ln": (d,), "mamba/w_z": (d, d_in), "mamba/w_x": (d, d_in), "mamba/w_bc": (d, n2),
+              "mamba/w_dt": (d, H), "mamba/conv_x": (s.conv_width, d_in), "mamba/conv_bc": (s.conv_width, n2),
+              "mamba/A_log": (H,), "mamba/D": (H,), "mamba/dt_bias": (H,), "mamba/w_out": (d_in, d),
+              "mamba/norm_scale": (d_in,)}
+    return {f"{pre}{k}": lead + v for k, v in shapes.items()}
+
+
 def expected_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
-    """Path -> shape of every leaf of a decoder's (dense or MoE, GQA or MLA) or
-    an RWKV-6 stack's state."""
+    """Path -> shape of every leaf of a decoder's (dense or MoE, GQA or MLA), an
+    RWKV-6 stack's, a Mamba2 stack's or the hybrid's state."""
     L, d = cfg.num_layers, cfg.d_model
     shapes = {"embed": (cfg.vocab_size, d), "final_norm": (d,)}
     if cfg.rwkv is not None:
         shapes.update(_rwkv_layer_shapes(cfg))
+    elif cfg.family == "hybrid":
+        G = L // cfg.attn_period
+        shapes.update(_mamba_shapes(cfg, "groups/mamba/", (G, cfg.attn_period - 1)))
+        shapes["groups/gate"] = (G,)
+        shapes.update(_block_shapes(cfg, "shared_attn/", ()))
+    elif cfg.family == "ssm":
+        shapes.update(_mamba_shapes(cfg, "layers/", (L,)))
     else:
-        shapes.update({"layers/ln1": (L, d), "layers/ln2": (L, d)})
-        shapes.update(_attn_shapes(cfg))
-        shapes.update(_ffn_shapes(cfg))
+        shapes.update(_block_shapes(cfg, "layers/", (L,)))
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, cfg.vocab_size)
     return shapes
@@ -119,11 +138,13 @@ def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
 def from_reference(params_numpy: Dict[str, Any], cfg: ModelConfig, device="cpu") -> Params:
     """The reference's tree (nested dict of numpy arrays) as the port's state on
     ``device``: matrices in ``cfg.param_dtype``, norm scales (and RWKV's mix
-    coefficients, w0 and u, and the MoE router) in f32, as the reference
-    initialises them.  Raises on a missing, extra or misshapen leaf."""
+    coefficients, w0 and u, the MoE router, Mamba2's A_log, D and dt_bias and
+    the hybrid's gate) in f32, as the reference initialises them.  Raises on a
+    missing, extra or misshapen leaf."""
     flat = flatten(params_numpy)
     want = expected_shapes(cfg)
-    f32_keys = NORM_KEYS + ("router",) + (RWKV_F32_KEYS if cfg.rwkv is not None else ())
+    f32_keys = NORM_KEYS + ("router",) + (RWKV_F32_KEYS if cfg.rwkv is not None else
+                                          SSMModel.KEEP_F32 if cfg.ssm is not None else ())
     if set(flat) != set(want):
         raise ValueError(f"parameter paths differ: missing {sorted(set(want) - set(flat))}, extra {sorted(set(flat) - set(want))}")
     out = {}

@@ -5,8 +5,11 @@ from __future__ import annotations
 import torch
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # DT_F32, DT_BF16 of csrc/common.cuh
-HEAD_DIMS = (32, 64, 128)  # the head sizes the attention kernels are instantiated for
-FLASH_HEAD_DIMS = HEAD_DIMS + (80,)  # the flash forward's and backward's also (HuBERT-XLarge)
+# the head sizes each attention kernel is instantiated for; 80 is HuBERT-XLarge's
+# (the flash forward and backward) and Zamba2-2.7B's (its shared block's prefill
+# and decode step)
+FLASH_HEAD_DIMS = (32, 64, 80, 128)
+DECODE_HEAD_DIMS = (32, 64, 80, 128)
 
 
 def require(cond: bool, msg: str) -> None:

@@ -21,7 +21,12 @@
 // next tile's copies in flight while the block computes this one; values are
 // widened to f32 only as they are read out.  Lanes run along D
 // (one 16-byte vector each: at D = 128 in bf16, 16 lanes a slot and two slots
-// a warp step) and warps along the tile's slots.  Each lane keeps its part of
+// a warp step) and warps along the tile's slots.  A slot takes D / V vectors
+// rounded up to a power of two lanes, so that its lanes are an aligned group
+// the xor shuffles reduce and a warp step still divides a warp's 16 slots: at
+// D = 80, 10 vectors in bf16 take 16 lanes (two slots a step) and 20 in f32
+// take 32 (one slot a step); the lanes past D / V hold a zero query, load
+// nothing and add 0 to every sum.  Each lane keeps its part of
 // the scaled f32 Q of the block's heads in registers (Q is scaled first, then
 // multiplied, as the reference does), and a dot product is reduced by
 // shuffles.  The tile's softmax statistics are taken over all 64 scores (every
@@ -62,14 +67,29 @@ struct Strides {
 template <typename T, int D, int GC>
 struct Layout {
   static constexpr int V = 16 / sizeof(T);  // elements of a 16-byte vector
-  static constexpr int LPR = D / V;         // lanes a slot
+  static constexpr int VPR = D / V;         // 16-byte vectors a row
+  // lanes a slot: VPR rounded up to a power of two
+  static constexpr int LPR = VPR <= 1 ? 1 : VPR <= 2 ? 2 : VPR <= 4 ? 4 : VPR <= 8 ? 8 : VPR <= 16 ? 16 : 32;
   static constexpr int SPW = 32 / LPR;      // slots a warp step
   static constexpr int TILE = TN * D;       // elements of one K or V tile
   static constexpr int KV_BYTES = STAGES * 2 * TILE * (int)sizeof(T);
   static constexpr int BYTES = KV_BYTES + GC * TN * (int)sizeof(float);
-  static_assert(LPR <= 32 && SLOTS_W % SPW == 0, "a slot's row must fit in a warp");
+  static_assert(D % V == 0 && VPR <= 32 && SLOTS_W % SPW == 0, "a slot's row must fit in a warp");
+  static_assert(TN * VPR % NT == 0, "a tile's 16-byte copies split evenly over the block's threads");
   static_assert(NW * GC * D * (int)sizeof(float) <= KV_BYTES, "the warps' sums reuse the stages");
 };
+
+// The lane's 16-byte vector of a row in shared memory, widened to f32; zeros
+// on a lane past the row's vectors, which reads nothing.
+template <typename T, int V>
+__device__ inline void load_or_zero(const T* p, bool on, float (&out)[V]) {
+  if (on) {
+    Vec16<T>::load(p, out);
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) out[e] = 0.0f;
+  }
+}
 
 // The first tile at or after i that holds a valid slot, or n.
 __device__ inline int next_valid(const unsigned long long* valid, int i, int n) {
@@ -85,7 +105,7 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
                       float* __restrict__ part_l, int B, int S, int Hq, int G, int window,
                       float scale, int nsplit, Strides st) {
   using L = Layout<T, D, GC>;
-  constexpr int V = L::V, LPR = L::LPR, SPW = L::SPW;
+  constexpr int V = L::V, VPR = L::VPR, LPR = L::LPR, SPW = L::SPW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sKV = reinterpret_cast<T*>(smem_raw);  // STAGES x (K tile, V tile), (TN, D) each
   float* sS = reinterpret_cast<float*>(smem_raw + L::KV_BYTES);  // (GC, TN) scores
@@ -96,6 +116,7 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   const int warp = tid >> 5;
   const int r = lane / LPR;  // the slot of a warp step this lane works on
   const int c = lane % LPR;  // the 16-byte vector of that slot's row
+  const bool on = c < VPR;   // a lane past the row's vectors holds zeros
   const int split = blockIdx.x;
   const int nchunk = (G + GC - 1) / GC;
   const int kvh = blockIdx.y / nchunk;
@@ -110,7 +131,7 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   for (int g = 0; g < GC; ++g) {
 #pragma unroll
     for (int e = 0; e < V; ++e) {
-      qr[g][e] = g < heads ? to_f32(q[b * st.qb + (int64_t)(h0 + g) * st.qh + c * V + e]) * scale : 0.0f;
+      qr[g][e] = g < heads && on ? to_f32(q[b * st.qb + (int64_t)(h0 + g) * st.qh + c * V + e]) * scale : 0.0f;
     }
   }
 
@@ -161,10 +182,10 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     T* sK = sKV + stage * 2 * L::TILE;
     T* sV = sK + L::TILE;
 #pragma unroll
-    for (int u = 0; u < TN * LPR / NT; ++u) {
+    for (int u = 0; u < TN * VPR / NT; ++u) {
       const int idx = tid + u * NT;
-      const int row = idx / LPR;
-      const int col = (idx % LPR) * V;
+      const int row = idx / VPR;
+      const int col = (idx % VPR) * V;
       const bool ok = s0 + row < S;
       cp_async16(smem_addr(sK + row * D + col), kbase + (ok ? (int64_t)(s0 + row) * st.ks + col : 0), ok);
       cp_async16(smem_addr(sV + row * D + col), vbase + (ok ? (int64_t)(s0 + row) * st.vs + col : 0), ok);
@@ -211,7 +232,7 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     for (int step = 0; step < SLOTS_W / SPW; ++step) {
       const int j = warp * SLOTS_W + step * SPW + r;
       float kf[V];
-      Vec16<T>::load(sK + j * D + c * V, kf);
+      load_or_zero<T, V>(sK + j * D + c * V, on, kf);
       float dot[GC];
 #pragma unroll
       for (int g = 0; g < GC; ++g) {
@@ -255,7 +276,7 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     for (int step = 0; step < SLOTS_W / SPW; ++step) {
       const int j = warp * SLOTS_W + step * SPW + r;
       float vf[V];
-      Vec16<T>::load(sV + j * D + c * V, vf);
+      load_or_zero<T, V>(sV + j * D + c * V, on, vf);
 #pragma unroll
       for (int g = 0; g < GC; ++g) {
         const float pj = __shfl_sync(FULL, p[g], j & 31);
@@ -276,7 +297,7 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     for (int e = 0; e < V; ++e) {
 #pragma unroll
       for (int off = LPR; off < 32; off <<= 1) acc[g][e] += __shfl_xor_sync(FULL, acc[g][e], off);
-      if (r == 0) sRed[(warp * GC + g) * D + c * V + e] = acc[g][e];
+      if (r == 0 && on) sRed[(warp * GC + g) * D + c * V + e] = acc[g][e];
     }
   }
   __syncthreads();
@@ -390,6 +411,7 @@ template <typename T>
 int launch_d(const Args& a, int D) {
   if (D == 32) return launch<T, 32>(a);
   if (D == 64) return launch<T, 64>(a);
+  if (D == 80) return launch<T, 80>(a);
   if (D == 128) return launch<T, 128>(a);
   return -2;
 }

@@ -13,7 +13,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._check import DTYPE_CODES, HEAD_DIMS, require, require_cuda, require_no_grad, require_rows_aligned
+from repro_torch.kernels._check import (
+    DECODE_HEAD_DIMS, DTYPE_CODES, require, require_cuda, require_no_grad, require_rows_aligned,
+)
 
 NEG_INF = -2.0**30
 TILE = 64  # slots a tile: TN of csrc/decode_attention.cu
@@ -86,7 +88,7 @@ def decode_attention_cuda(
     S, Hkv = k.shape[1], k.shape[2]
     require(T == 1, f"decode_attention: one query a row, got T={T}")
     require(k.shape[0] == B and k.shape[3] == D, f"decode_attention: k {tuple(k.shape)} does not match q {tuple(q.shape)}")
-    require(D in HEAD_DIMS, f"decode_attention: head size {D} not in {HEAD_DIMS}")
+    require(D in DECODE_HEAD_DIMS, f"decode_attention: head size {D} not in {DECODE_HEAD_DIMS}")
     require(Hkv >= 1 and Hq % Hkv == 0, f"decode_attention: {Hq} query heads over {Hkv} kv heads")
     require(B >= 1 and S >= 1, "decode_attention: empty input")
     require(Hkv <= 65535 and B <= 65535, "decode_attention: too many heads or batch rows for one grid")

@@ -5,6 +5,7 @@
       --requests 8 --batch 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-34b --full --layers 60
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --full --splitwise
 
 Runs on the card; ``--device cpu`` runs the plain PyTorch path on the CPU.  On
 the card the weights are made directly in the activation dtype (``Model.init``
@@ -12,7 +13,7 @@ with ``dtype``: the same bits as the f32 weights cast, without holding them,
 each layer-stacked leaf drawn one layer at a time), which is what lets the
 14-16B MoE models and DeepSeek-Coder 33B (66.68 GB) fit one H100.
 ``--layers`` cuts the depth: Granite-34B-Code's 88 layers are 94.50 GB, 60 of
-them 64.81 GB.  The audio encoder (HuBERT-XLarge) does not decode: it is
+them 64.81 GB (for Zamba2 it must stay a whole number of its groups of 6).  The audio encoder (HuBERT-XLarge) does not decode: it is
 refused here; its entry points are ``Model.loss`` and ``Model.prefill``
 without a cache.
 """

@@ -1,0 +1,189 @@
+"""Mamba2 (SSD, state-space duality) block (``repro/models/ssm.py``): the
+chunked-parallel form for prefill and training, the O(1)-state recurrence for
+a decode step.
+
+Recurrence (per head h, head_dim p, state n):
+    h_t = a_t * h_{t-1} + dt_t * x_t ⊗ B_t          a_t = exp(dt_t * A_h)  (a scalar a head)
+    y_t = C_t · h_t + D_h * x_t
+The chunked form is the reference's: an attention-like masked product inside
+each chunk, then the chunks' carried states (the reference's ``lax.scan`` is a
+loop over the chunks here).  The reference has no kernel for it, so neither has
+the port: its products are ``torch`` operations.  Every exponent is at most 0:
+the within-chunk decays are masked with -inf above the diagonal, and
+``ltot - lcum`` and ``lcum`` are sums of dt * A <= 0.
+
+The gated RMS norm goes through ``modules.rmsnorm`` (the RMSNorm kernel on the
+card), which is term for term the reference's inline expression.
+
+Parameters are stacked on leading axes (``lead``: (L,) in the SSM stack, (G, M)
+in the hybrid's groups) with the reference's keys; a state, where given, is
+updated in place.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.modules import ModelConfig, Params, dense, dense_init, rmsnorm
+
+# leaves the reference makes f32 whatever cfg.param_dtype, and the forward reads in f32
+F32_KEYS = ("A_log", "D", "dt_bias", "norm_scale")
+
+
+def mamba2_init(gen: torch.Generator, cfg: ModelConfig, lead: Sequence[int], dtype=None) -> Params:
+    """The block's parameters with leading axes ``lead``: the matrices and the
+    two convolutions in ``dtype`` (default ``cfg.param_dtype``), ``F32_KEYS``
+    in f32, valued as the reference initialises them."""
+    s, d, dev = cfg.ssm, cfg.d_model, gen.device
+    lead = tuple(lead)
+    d_in = d * s.expand
+    nheads = d_in // s.head_dim
+    pdt = dtype or cfg.param_dtype
+
+    def full(n, value):
+        return torch.full(lead + (n,), value, dtype=torch.float32, device=dev)
+
+    return {
+        "w_z": dense_init(gen, lead + (d, d_in), pdt),  # gate
+        "w_x": dense_init(gen, lead + (d, d_in), pdt),
+        "w_bc": dense_init(gen, lead + (d, 2 * s.d_state), pdt),
+        "w_dt": dense_init(gen, lead + (d, nheads), pdt),
+        "conv_x": dense_init(gen, lead + (s.conv_width, d_in), pdt),
+        "conv_bc": dense_init(gen, lead + (s.conv_width, 2 * s.d_state), pdt),
+        "A_log": full(nheads, 0.0),
+        "D": full(nheads, 1.0),
+        "dt_bias": full(nheads, 0.0),
+        "w_out": dense_init(gen, lead + (d_in, d), pdt),
+        "norm_scale": full(d_in, 1.0),
+    }
+
+
+def _causal_conv(x: torch.Tensor, conv_w: torch.Tensor, state: Optional[torch.Tensor]):
+    """Depthwise causal conv1d and SiLU. x (B, T, C); conv_w (W, C); state
+    (B, W-1, C) or None (zeros).  Returns (out, the last W-1 inputs): for a
+    prompt shorter than W-1 those still hold the end of ``state``."""
+    W = conv_w.shape[0]
+    if state is None:
+        pad = x.new_zeros(x.shape[:1] + (W - 1,) + x.shape[2:])
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)  # (B, T+W-1, C)
+    T = x.shape[1]
+    out = sum(xp[:, i:i + T] * conv_w[i].to(x.dtype) for i in range(W))
+    new_state = xp[:, -(W - 1):] if W > 1 else pad[:, :0]
+    return F.silu(out), new_state
+
+
+def _ssd_chunked(x, B, C, dt, A, chunk: int, h0: Optional[torch.Tensor] = None):
+    """The chunked SSD scan, in f32.
+
+    x (b, T, H, P), B and C (b, T, N), dt (b, T, H), A (H,) negative; T a
+    multiple of ``chunk``; h0 (b, H, P, N) or None (zeros).
+    Returns y (b, T, H, P) f32 and the final state (b, H, P, N) f32."""
+    b, T, H, Pd = x.shape
+    N = B.shape[-1]
+    nc = T // chunk
+    xc = x.reshape(b, nc, chunk, H, Pd).float()
+    Bc = B.reshape(b, nc, chunk, N).float()
+    Cc = C.reshape(b, nc, chunk, N).float()
+    dtc = dt.reshape(b, nc, chunk, H).float()
+
+    la = dtc * A  # log decay a step (b, nc, c, H), <= 0
+    lcum = torch.cumsum(la, dim=2)  # inclusive cumulative log decay
+    ltot = lcum[:, :, -1]  # (b, nc, H)
+
+    # within a chunk: a masked attention-like product
+    cb = torch.einsum("bktn,bksn->bkts", Cc, Bc)
+    seg = lcum[:, :, :, None, :] - lcum[:, :, None, :, :]  # (b, nc, t, s, H)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    dec = torch.exp(torch.where(mask[None, None, :, :, None], seg, -torch.inf))
+    att = cb[..., None] * dec * dtc[:, :, None, :, :]  # (b, nc, t, s, H)
+    y_intra = torch.einsum("bktsh,bkshp->bkthp", att, xc)
+
+    # each chunk's summary state: S_k = sum_s exp(ltot - lcum_s) dt_s B_s x_s^T
+    w = torch.exp(ltot[:, :, None, :] - lcum) * dtc  # (b, nc, c, H)
+    S = torch.einsum("bkch,bkchp,bkcn->bkhpn", w, xc, Bc)
+
+    # across chunks: the carried state, the state entering each chunk kept
+    h = x.new_zeros((b, H, Pd, N), dtype=torch.float32) if h0 is None else h0.float()
+    entering = []
+    for k in range(nc):
+        entering.append(h)
+        h = h * torch.exp(ltot[:, k])[:, :, None, None] + S[:, k]
+    h_prevs = torch.stack(entering, dim=1)  # (b, nc, H, P, N)
+
+    # the carried state's share: y_t += C_t · (exp(lcum_t) * h_prev)
+    y_inter = torch.einsum("bktn,bkth,bkhpn->bkthp", Cc, torch.exp(lcum), h_prevs)
+    return (y_intra + y_inter).reshape(b, T, H, Pd), h
+
+
+def mamba2_apply(
+    params: Params, cfg: ModelConfig, x: torch.Tensor, state: Optional[Params] = None,
+) -> Tuple[torch.Tensor, Params]:
+    """x (B, T, d).  state {"ssm": (B, H, P, N) f32, "conv_x": (B, W-1, d_in),
+    "conv_bc": (B, W-1, 2N)}, read and then overwritten in place with the state
+    after x; None starts from zeros.  Returns (out, the state after x).
+
+    As the reference: T > 1 or no state takes the chunked form, T padded with
+    zeros to a multiple of ``chunk`` (dt = 0 there leaves the state as it is)
+    and y cut back to T; one token with a state takes the recurrence."""
+    s = cfg.ssm
+    B_, T, d = x.shape
+    d_in = d * s.expand
+    nheads = d_in // s.head_dim
+
+    z = dense(params["w_z"], x)
+    xs = dense(params["w_x"], x)
+    bc = dense(params["w_bc"], x)
+    dt = dense(params["w_dt"], x)
+    dt = F.softplus(dt.float() + params["dt_bias"])
+    A = -torch.exp(params["A_log"])  # (H,)
+
+    cx = state["conv_x"] if state is not None else None
+    cb = state["conv_bc"] if state is not None else None
+    xs, new_cx = _causal_conv(xs, params["conv_x"], cx)
+    bc, new_cb = _causal_conv(bc, params["conv_bc"], cb)
+    Bmat, Cmat = bc.chunk(2, dim=-1)
+    xh = xs.reshape(B_, T, nheads, s.head_dim)
+
+    if T > 1 or state is None:
+        h0 = state["ssm"] if state is not None else None
+        pad = (-T) % s.chunk
+        if pad:
+            def padded(a):
+                return F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
+            y, h_new = _ssd_chunked(padded(xh), padded(Bmat), padded(Cmat), padded(dt), A, s.chunk, h0)
+            y = y[:, :T]
+        else:
+            y, h_new = _ssd_chunked(xh, Bmat, Cmat, dt, A, s.chunk, h0)
+    else:  # one step of the recurrence
+        h_prev = state["ssm"]  # (B, H, P, N)
+        a = torch.exp(dt[:, 0] * A)  # (B, H)
+        upd = torch.einsum("bh,bhp,bn->bhpn", dt[:, 0], xh[:, 0].float(), Bmat[:, 0].float())
+        h_new = h_prev * a[:, :, None, None] + upd
+        y = torch.einsum("bhpn,bn->bhp", h_new, Cmat[:, 0].float())[:, None]
+
+    y = y + params["D"][None, None, :, None] * xh.float()
+    y = y.reshape(B_, T, d_in).to(x.dtype)
+    # the gated RMS norm (Mamba2's): an RMSNorm of y * silu(z), eps 1e-6
+    yz = rmsnorm(params["norm_scale"], y * F.silu(z))
+    if state is None:
+        state = {"ssm": h_new, "conv_x": new_cx, "conv_bc": new_cb}
+    else:
+        state["ssm"].copy_(h_new)
+        state["conv_x"].copy_(new_cx)
+        state["conv_bc"].copy_(new_cb)
+    return dense(params["w_out"], yz), state
+
+
+def mamba2_state_shape(cfg: ModelConfig, batch: int):
+    s = cfg.ssm
+    d_in = cfg.d_model * s.expand
+    nheads = d_in // s.head_dim
+    return {
+        "ssm": ((batch, nheads, s.head_dim, s.d_state), torch.float32),
+        "conv_x": ((batch, s.conv_width - 1, d_in), cfg.dtype),
+        "conv_bc": ((batch, s.conv_width - 1, 2 * s.d_state), cfg.dtype),
+    }

@@ -1,15 +1,21 @@
-"""``repro/models/transformer.py`` for the transformer stack and RWKV-6: the
-transformer (``_build_transformer``; the dense decoder, the MoE with GQA or
-MLA attention, the VLM over precomputed embeddings and M-RoPE positions, and
-the bidirectional audio encoder) as ``Model``, with ``init``, ``cast_params``,
-``loss``, ``prefill``, ``decode_step`` and ``cache_shape``, and the RWKV-6
-stack (``_build_rwkv``) as ``RWKVModel``, which serves only (its training
-needs a WKV-6 backward); ``build_model`` dispatches as the reference's does.
+"""``repro/models/transformer.py``: the transformer (``_build_transformer``;
+the dense decoder, the MoE with GQA or MLA attention, the VLM over precomputed
+embeddings and M-RoPE positions, and the bidirectional audio encoder) as
+``Model``, with ``init``, ``cast_params``, ``loss``, ``prefill``,
+``decode_step`` and ``cache_shape``; the RWKV-6 stack (``_build_rwkv``) as
+``RWKVModel``, which serves only (its training needs a WKV-6 backward); the
+pure Mamba2 stack (``_build_ssm``) as ``SSMModel`` and the Zamba2 hybrid
+(``_build_hybrid``: groups of Mamba2 layers, each followed by one *shared*
+transformer block) as ``HybridModel``, both with the same methods;
+``build_model`` dispatches as the reference's does.
 
-Parameters are layer-stacked (leading ``L`` axis) as in the reference; the
-reference's ``lax.scan`` over the stack is a Python loop over ``L`` here, and
-its ``jax.checkpoint`` of the scanned body (``cfg.remat``) a
-``torch.utils.checkpoint`` of each block.
+Parameters are layer-stacked (leading ``L`` axis; the hybrid's Mamba2 layers
+``(G, M)``) as in the reference; the reference's ``lax.scan`` over the stack is
+a Python loop here, and its ``jax.checkpoint`` of the scanned body
+(``cfg.remat``) a ``torch.utils.checkpoint`` of each block (of each group in the
+hybrid).  A cache is a flat dict of tensors: the hybrid's nested tree reads
+``mamba/ssm``, ``mamba/conv_x``, ``mamba/conv_bc``, ``attn/k``, ``attn/v`` and
+``attn/pos``, with the reference's shapes leaf for leaf.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.modules import (
     ModelConfig,
     Params,
@@ -75,19 +82,37 @@ def _unstack(tree: Any, n: int) -> list:
     return list(tree.unbind(0))
 
 
-def _block_apply(params: Params, cfg: ModelConfig, x, positions, cache):
+def _block_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int, dtype) -> Params:
+    """``n_layers`` transformer blocks, layer-stacked: the norm scales in f32,
+    the attention and the FFN (or the MoE) in ``dtype``."""
+    p: Params = {
+        "ln1": rmsnorm_init((n_layers, cfg.d_model), gen.device),
+        "ln2": rmsnorm_init((n_layers, cfg.d_model), gen.device),
+        "attn": (attn.mla_init if cfg.mla is not None else attn.gqa_init)(gen, cfg, n_layers, dtype),
+    }
+    if cfg.moe is not None:
+        p["moe"] = moe_lib.moe_init(gen, cfg, n_layers, dtype)
+    else:
+        p["ffn"] = ffn_init(gen, n_layers, cfg.d_model, cfg.d_ff, cfg.ffn_activation, dtype)
+    return p
+
+
+def _block_apply(params: Params, cfg: ModelConfig, x, positions, cache, gate=None):
     """One transformer block. Returns (x, new_cache, aux): aux is the MoE's
-    load-balance loss, None for a dense block."""
+    load-balance loss, None for a dense block.  ``gate`` (a 0-d tensor,
+    optional) multiplies the residual deltas, cast to the activation dtype as
+    the reference casts it: the hybrid's per-group gate on its shared block."""
+    g = None if gate is None else gate.to(cfg.dtype)
     h = rmsnorm(params["ln1"], x)
     attend = attn.mla_apply if cfg.mla is not None else attn.gqa_apply
     a, new_cache = attend(params["attn"], cfg, h, positions, cache)
-    x = x + a
+    x = x + (a if g is None else a * g)
     h = rmsnorm(params["ln2"], x)
     if cfg.moe is not None:
         f, aux = moe_lib.moe_apply(params["moe"], cfg, h)
     else:
         f, aux = ffn_apply(params["ffn"], h, cfg.ffn_activation), None
-    return x + f, new_cache, aux
+    return x + (f if g is None else f * g), new_cache, aux
 
 
 def _embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -171,14 +196,24 @@ def _lm_loss_chunked(x: torch.Tensor, w_head: torch.Tensor, labels: torch.Tensor
     return total / torch.clamp(pad_mask.sum(), min=1.0)
 
 
+def _next_token_targets(tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(targets, mask) of a language model: the next token at each position,
+    the last position (which has none) masked."""
+    targets = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
+    mask = torch.ones(targets.shape, dtype=torch.float32, device=tokens.device)
+    mask[:, -1] = 0.0
+    return targets, mask
+
+
 class Model:
     """Functional model object: the methods take the parameters explicitly."""
 
     def __init__(self, cfg: ModelConfig):
         if cfg.family not in ("dense", "moe", "vlm", "audio") or (cfg.family == "moe") != (cfg.moe is not None) \
                 or cfg.ssm is not None or cfg.rwkv is not None:
-            raise NotImplementedError(f"{cfg.name}: the transformer families (dense, MoE with its MoEConfig, VLM, "
-                                      f"audio) are ported, not family {cfg.family!r} (Mamba2 and the hybrid stack)")
+            raise NotImplementedError(f"{cfg.name}: Model takes the transformer families (dense, MoE with its "
+                                      f"MoEConfig, VLM, audio), not family {cfg.family!r} with these sub-configs; "
+                                      "build_model gives RWKV-6, Mamba2 and the hybrid their own classes")
         attn.check_supported(cfg)
         self.cfg = cfg
 
@@ -190,15 +225,7 @@ class Model:
         without the f32 master ever being held (how a 14-16B MoE fits one card)."""
         cfg, L = self.cfg, self.cfg.num_layers
         pdt = dtype or cfg.param_dtype
-        layers: Params = {
-            "ln1": rmsnorm_init((L, cfg.d_model), gen.device),
-            "ln2": rmsnorm_init((L, cfg.d_model), gen.device),
-            "attn": attn.mla_init(gen, cfg, L, pdt) if cfg.mla is not None else attn.gqa_init(gen, cfg, L, pdt),
-        }
-        if cfg.moe is not None:
-            layers["moe"] = moe_lib.moe_init(gen, cfg, L, pdt)
-        else:
-            layers["ffn"] = ffn_init(gen, L, cfg.d_model, cfg.d_ff, cfg.ffn_activation, pdt)
+        layers = _block_init(gen, cfg, L, pdt)  # drawn before the embedding, as before
         p: Params = {
             "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), pdt),
             "final_norm": rmsnorm_init((cfg.d_model,), gen.device),
@@ -249,9 +276,7 @@ class Model:
         with route:
             x, _, aux = self._backbone(params, x, positions, None)
         if cfg.causal and "labels" not in batch:
-            targets = torch.nn.functional.pad(batch["tokens"][:, 1:], (0, 1))
-            mask = torch.ones(targets.shape, dtype=torch.float32, device=x.device)
-            mask[:, -1] = 0.0
+            targets, mask = _next_token_targets(batch["tokens"])
         else:
             targets, mask = batch["labels"], batch.get("mask")
         ce = _lm_loss_chunked(x, _head_weight(params, cfg), targets, mask)
@@ -356,7 +381,163 @@ class RWKVModel:
         return {k: ((self.cfg.num_layers,) + s, d) for k, (s, d) in per.items()}
 
 
+class SSMModel:
+    """The pure Mamba2 stack (``repro/models/transformer.py::_build_ssm``):
+    ``init``, ``cast_params``, ``loss``, ``prefill``, ``decode_step`` and
+    ``cache_shape``, over a recurrent state (the cache leaves ``ssm``,
+    ``conv_x``, ``conv_bc``, layer-stacked) instead of a KV ring."""
+
+    # f32 in the computing copy: the norm scales (RMSNorm takes an f32 scale)
+    # and the leaves Mamba2 reads in f32 (A_log, D, dt_bias), and the hybrid's
+    # gate, which the block casts to the activation dtype where it is used
+    KEEP_F32 = NORM_KEYS + ("ln", "gate") + ssm_lib.F32_KEYS
+
+    def __init__(self, cfg: ModelConfig):
+        if cfg.ssm is None or cfg.rwkv is not None:
+            raise ValueError(f"{cfg.name}: not a Mamba2 config")
+        self.cfg = cfg
+
+    def _head(self, gen: torch.Generator, pdt) -> Params:
+        cfg = self.cfg
+        p: Params = {"embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), pdt),
+                     "final_norm": rmsnorm_init((cfg.d_model,), gen.device)}
+        if not cfg.tie_embeddings:
+            p["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size), pdt)
+        return p
+
+    def _mamba_layers(self, gen: torch.Generator, lead: Tuple[int, ...], pdt) -> Params:
+        return {"ln": rmsnorm_init(lead + (self.cfg.d_model,), gen.device),
+                "mamba": ssm_lib.mamba2_init(gen, self.cfg, lead, pdt)}
+
+    def init(self, gen: torch.Generator, dtype: Optional[torch.dtype] = None) -> Params:
+        """Random parameters in ``cfg.param_dtype`` (the reference's f32 leaves
+        f32).  With ``dtype``, the matrices are made in it and the result is
+        ``cast_params``'d, as ``RWKVModel.init``."""
+        pdt = dtype or self.cfg.param_dtype
+        p = self._head(gen, pdt)
+        p["layers"] = self._mamba_layers(gen, (self.cfg.num_layers,), pdt)
+        return p if dtype is None else self.cast_params(p)
+
+    def cast_params(self, params: Params) -> Params:
+        """Every leaf but ``KEEP_F32`` in ``cfg.dtype``; a leaf that already has
+        its dtype is shared, not copied."""
+        return _cast_tree(params, self.cfg.dtype, self.KEEP_F32)
+
+    def _mamba(self, lp: Params, x, lc):
+        """One pre-normed Mamba2 layer with its residual."""
+        y, _ = ssm_lib.mamba2_apply(lp["mamba"], self.cfg, rmsnorm(lp["ln"], x), lc)
+        return x + y
+
+    def _backbone(self, params: Params, x, positions, cache):
+        """Loop over the layers (positions are not read). cache None or the
+        layer-stacked state, updated in place; each layer under ``cfg.remat``
+        when differentiated.  Returns (normed x, cache)."""
+        L = self.cfg.num_layers
+        layer = self._mamba
+        if torch.is_grad_enabled() and cache is None:
+            layer = _remat(layer, self.cfg.remat)
+        caches = [None] * L if cache is None else _unstack(cache, L)
+        for lp, lc in zip(_unstack(params["layers"], L), caches):
+            x = layer(lp, x, lc)
+        return rmsnorm(params["final_norm"], x), cache
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch {"tokens" (B,T) int32}: the next-token cross entropy, the last
+        position masked.  Returns (ce, {"ce"}), as the reference."""
+        tokens = batch["tokens"]
+        x = _embed_tokens(params, self.cfg, tokens)
+        x, _ = self._backbone(params, x, _default_positions(tokens.shape, x.device), None)
+        targets, mask = _next_token_targets(tokens)
+        ce = _lm_loss_chunked(x, _head_weight(params, self.cfg), targets, mask)
+        return ce, {"ce": ce}
+
+    def prefill(self, params: Params, batch: Dict[str, torch.Tensor], cache) -> Tuple[torch.Tensor, Any]:
+        """batch {"tokens" (B,T) int32}.  The positions are 0..T-1 whatever the
+        batch holds, as the reference's (the engine serves a recurrent family's
+        ragged batch one request at a time).  Returns (last-token logits f32
+        (B,V), cache); the cache is updated in place."""
+        tokens = batch["tokens"]
+        x = _embed_tokens(params, self.cfg, tokens)
+        x, cache = self._backbone(params, x, _default_positions(tokens.shape, x.device), cache)
+        return dense(_head_weight(params, self.cfg), x[:, -1]).float(), cache
+
+    def decode_step(self, params: Params, cache, tokens: torch.Tensor, pos: torch.Tensor):
+        """tokens (B,) int32; pos (B,) int32 absolute positions (read by the
+        hybrid's attention only).  Returns (logits f32 (B,V), cache); the cache
+        is updated in place."""
+        x = _embed_tokens(params, self.cfg, tokens[:, None])
+        x, cache = self._backbone(params, x, pos[:, None].contiguous(), cache)
+        return dense(_head_weight(params, self.cfg), x[:, 0]).float(), cache
+
+    def cache_shape(self, batch: int, max_len: int):
+        """{name: (shape, dtype)} of the layer-stacked state; no slot ring."""
+        per = ssm_lib.mamba2_state_shape(self.cfg, batch)
+        return {k: ((self.cfg.num_layers,) + s, d) for k, (s, d) in per.items()}
+
+
+class HybridModel(SSMModel):
+    """Zamba2's hybrid stack (``repro/models/transformer.py::_build_hybrid``):
+    G = num_layers / attn_period groups, each of M = attn_period - 1 Mamba2
+    layers and then the one shared transformer block, whose residual deltas
+    the group's ``gate`` multiplies.  Parameters ``groups/mamba/...`` (G, M,
+    ...), ``groups/gate`` (G,) and ``shared_attn/...`` (one block, no layer
+    axis); the cache ``mamba/*`` (G, M, B, ...) and ``attn/*`` (G, B, S, ...)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg)
+        if not cfg.attn_period or cfg.num_layers % cfg.attn_period:
+            raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not whole groups of {cfg.attn_period}")
+        attn.check_supported(cfg)
+        self.groups, self.m_per = cfg.num_layers // cfg.attn_period, cfg.attn_period - 1
+
+    def init(self, gen: torch.Generator, dtype: Optional[torch.dtype] = None) -> Params:
+        pdt = dtype or self.cfg.param_dtype
+        p = self._head(gen, pdt)
+        p["groups"] = {"mamba": self._mamba_layers(gen, (self.groups, self.m_per), pdt),
+                       # a gate of 0 makes a group's shared block the identity
+                       "gate": torch.ones((self.groups,), dtype=torch.float32, device=gen.device)}
+        block = _block_init(gen, self.cfg, 1, pdt)
+        p["shared_attn"] = _unstack(block, 1)[0]
+        return p if dtype is None else self.cast_params(p)
+
+    def _backbone(self, params: Params, x, positions, cache):
+        """Loop over the groups: the group's Mamba2 layers, then the shared
+        block with the group's gate and attention cache.  Differentiated, each
+        group runs under ``cfg.remat``.  Returns (normed x, cache)."""
+        cfg, G, M = self.cfg, self.groups, self.m_per
+        shared = params["shared_attn"]
+
+        def group(gp, h, gc):
+            mcaches = [None] * M if gc is None else _unstack(gc[0], M)
+            for lp, lc in zip(_unstack(gp["mamba"], M), mcaches):
+                h = self._mamba(lp, h, lc)
+            return _block_apply(shared, cfg, h, positions, None if gc is None else gc[1], gate=gp["gate"])[0]
+
+        if torch.is_grad_enabled() and cache is None:
+            group = _remat(group, cfg.remat)
+        if cache is None:
+            caches = [None] * G
+        else:
+            part = {s: {k.split("/", 1)[1]: v for k, v in cache.items() if k.startswith(s + "/")}
+                    for s in ("mamba", "attn")}
+            caches = list(zip(_unstack(part["mamba"], G), _unstack(part["attn"], G)))
+        for gp, gc in zip(_unstack(params["groups"], G), caches):
+            x = group(gp, x, gc)
+        return rmsnorm(params["final_norm"], x), cache
+
+    def cache_shape(self, batch: int, max_len: int):
+        """{name: (shape, dtype)}: ``mamba/*`` (G, M, B, ...), ``attn/*`` (G, B, S, ...)."""
+        G, M = self.groups, self.m_per
+        out = {f"mamba/{k}": ((G, M) + s, d) for k, (s, d) in ssm_lib.mamba2_state_shape(self.cfg, batch).items()}
+        out.update({f"attn/{k}": ((G,) + s, d) for k, (s, d) in attn.gqa_cache_shape(self.cfg, batch, max_len).items()})
+        return out
+
+
 def build_model(cfg: ModelConfig):
     if cfg.rwkv is not None:
         return RWKVModel(cfg)
+    if cfg.family == "hybrid":
+        return HybridModel(cfg)
+    if cfg.family == "ssm":
+        return SSMModel(cfg)
     return Model(cfg)

@@ -50,7 +50,7 @@ def test_package_has_every_serving_module():
             "optim/optimizer.py", "data/pipeline.py", "launch/train.py", "models/moe.py",
             "configs/qwen2_moe_a2p7b.py", "configs/deepseek_v2_lite_16b.py", "configs/deepseek_coder_33b.py",
             "configs/granite_34b.py", "configs/nemotron_4_15b.py", "configs/qwen2_vl_7b.py",
-            "configs/hubert_xlarge.py"}
+            "configs/hubert_xlarge.py", "models/ssm.py", "configs/zamba2_2p7b.py"}
     assert want <= have
     csrc = {p.name for p in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").iterdir()}
     assert {"rmsnorm.cu", "flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu", "wkv6.cu"} <= csrc
@@ -64,7 +64,7 @@ class Block:
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 import repro_torch.serving.engine, repro_torch.launch.serve, repro_torch.convert, repro_torch.kernels.ref
-import repro_torch.models.rwkv, repro_torch.launch.train, repro_torch.optim.optimizer, repro_torch.data.pipeline
+import repro_torch.models.rwkv, repro_torch.models.ssm, repro_torch.launch.train, repro_torch.optim.optimizer, repro_torch.data.pipeline
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro") for m in sys.modules)
 print("imported")
 """
@@ -116,7 +116,8 @@ def test_chip_smoke_fails_without_a_card_and_prints_no_result():
 @pytest.mark.parametrize("extra", [[], ["--splitwise"], ["--arch", "minitron-4b"], ["--arch", "rwkv6-7b"],
                                    ["--arch", "rwkv6-7b", "--splitwise"], ["--arch", "deepseek-coder-33b"],
                                    ["--arch", "granite-34b", "--splitwise", "--layers", "1"],
-                                   ["--arch", "nemotron-4-15b"], ["--arch", "qwen2-vl-7b", "--splitwise"]])
+                                   ["--arch", "nemotron-4-15b"], ["--arch", "qwen2-vl-7b", "--splitwise"],
+                                   ["--arch", "zamba2-2.7b"], ["--arch", "zamba2-2.7b", "--splitwise"]])
 def test_serve_cli_runs_on_the_cpu(extra, capsys):
     from repro_torch.launch import serve
 

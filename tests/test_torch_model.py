@@ -13,7 +13,7 @@ from repro.models.transformer import build_model as ref_build_model
 from repro.serving.engine import zeros_cache as ref_zeros_cache
 from repro_torch import configs, convert
 from repro_torch.models import attention
-from repro_torch.models.transformer import build_model
+from repro_torch.models.transformer import HybridModel, SSMModel, build_model
 from repro_torch.serving.engine import zeros_cache
 from torch_helpers import as_f32, reference_params
 
@@ -127,11 +127,19 @@ def test_cast_params_shares_leaves_already_cast():
 
 
 def test_unported_families_raise():
-    """Mamba2 and the hybrid stack (Zamba2) are not ported; the bidirectional
-    encoder and the window are (tests/test_torch_encoder.py, test_torch_window.py)."""
+    """Every family of the reference is ported: Mamba2 and the hybrid stack
+    (Zamba2) build (tests/test_torch_hybrid.py), as do the bidirectional
+    encoder and the window (tests/test_torch_encoder.py, test_torch_window.py).
+    What still raises is a config no family can run: the MoE family without its
+    MoEConfig, and a Mamba2 or hybrid family without its SSMConfig."""
     cfg = configs.get_smoke_config("gpt_a")
-    for change in (dict(family="ssm"), dict(family="hybrid"), dict(family="moe")):
-        with pytest.raises(NotImplementedError):
+    zamba = configs.get_smoke_config("zamba2_2p7b")
+    assert type(build_model(zamba)) is HybridModel
+    assert type(build_model(dataclasses.replace(zamba, family="ssm"))) is SSMModel
+    with pytest.raises(NotImplementedError):
+        build_model(dataclasses.replace(cfg, family="moe"))
+    for change in (dict(family="ssm"), dict(family="hybrid")):
+        with pytest.raises(ValueError, match="not a Mamba2 config"):
             build_model(dataclasses.replace(cfg, **change))
     for change in (dict(causal=False), dict(window=16)):
         build_model(dataclasses.replace(cfg, **change))

@@ -62,8 +62,10 @@ def test_canon_and_cli_ids():
     assert configs.canon("gpt-a") == "gpt_a" and configs.canon(" minitron-4b ") == "minitron_4b"
     assert configs.get_config("gpt-b").name == "gpt-b"
     assert configs.canon("rwkv6-7b") == "rwkv6_7b" and configs.get_config("rwkv6-7b").name == "rwkv6-7b"
+    assert configs.canon("zamba2-2.7b") == configs.canon("zamba2-2p7b") == "zamba2_2p7b"
+    assert configs.get_config("zamba2-2.7b").name == "zamba2-2.7b"
     with pytest.raises(KeyError):
-        configs.canon("zamba2-2p7b")  # comes with its family
+        configs.canon("zamba3-2.7b")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
