@@ -13,9 +13,12 @@ RMSNorm, flash and decode attention kernels; then RWKV-6 7B, 32 layers x 4096 x
 14336, vocabulary 65536: RMSNorm and WKV-6 kernels), trains GPT-A at full
 width with 8 of its 24 layers for 8 steps through
 ``repro_torch.launch.train.train`` (RMSNorm and attention forward and backward
-kernels), and then serves the MoE family at full width and depth with its
-weights made directly in bf16 (Qwen1.5-MoE-A2.7B, 24 layers x 2048, 60 experts
-top-4, vocabulary 151936: RMSNorm, flash and decode attention kernels; then
+kernels), trains HuBERT-XLarge (48 x 1280) and Zamba2-2.7B (54 layers) at full
+width and depth the same way, checkpointing HuBERT's train state and holding
+its restore and a run resumed from it against the live run, and then serves
+the MoE family at full width and depth with its weights made directly in bf16
+(Qwen1.5-MoE-A2.7B, 24 layers x 2048, 60 experts top-4, vocabulary 151936:
+RMSNorm, flash and decode attention kernels; then
 DeepSeek-V2-Lite, 27 layers x 2048, MLA, 64 experts top-6, vocabulary 102400:
 RMSNorm kernel, MLA plain as in the reference), and then the rest of the
 transformer stack at full width, weights made directly in bf16, one model at
@@ -45,9 +48,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import itertools
 import json
+import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -58,6 +64,7 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
+from repro_torch.ckpt.checkpoint import _walk, load_pytree  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import flatten  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, make_batches  # noqa: E402
@@ -67,11 +74,12 @@ from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv_mod  # noqa: E402
-from repro_torch.launch.train import train  # noqa: E402
+from repro_torch.launch.train import optimizer_config, train  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import ssm as ssm_lib  # noqa: E402
 from repro_torch.models.transformer import build_model  # noqa: E402
+from repro_torch.optim.optimizer import gradients, make_train_step  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
     Request,
     ServingEngine,
@@ -139,18 +147,65 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 512
 # path.  3e-6 is the largest of experiments/torch_train.py's sweep (3e-3 ...
 # 1e-6) whose 8 losses all stay below step 0's.
 TRAIN_LR = 3e-6
-# kernel launches a step with remat="full", counted from the code: each block's
-# forward runs twice (the loss, then the recomputation in the backward), with
-# two norms and one attention a block, plus the final norm once; the backward
-# launches once for each of those.  The decode kernel and WKV-6 are not on the path.
-TRAIN_LAUNCHES_PER_STEP = {"rmsnorm": 2 * 2 * TRAIN_LAYERS + 1, "rmsnorm_bwd": 2 * TRAIN_LAYERS + 1,
-                           "flash_attention": 2 * TRAIN_LAYERS, "flash_attention_bwd": TRAIN_LAYERS,
-                           "decode_attention": 0, "wkv6": 0, "sdpa_masked_calls": 0}
+
+
+def train_owed(norms: int, attns: int) -> dict:
+    """Kernel launches a train step owes with remat="full", counted from the
+    code: ``norms`` and ``attns`` are the RMSNorms and attentions of one forward
+    inside the rematerialised blocks, each of which runs twice (the loss, then
+    the recomputation in the backward); the final norm, outside them, once;
+    the backward launches once for each of those.  The decode kernel and
+    WKV-6 are not on the path."""
+    return {"rmsnorm": 2 * norms + 1, "rmsnorm_bwd": norms + 1, "flash_attention": 2 * attns,
+            "flash_attention_bwd": attns, "decode_attention": 0, "wkv6": 0, "sdpa_masked_calls": 0}
+
+
+# GPT-A: two norms and one attention a block
+TRAIN_LAUNCHES_PER_STEP = train_owed(2 * TRAIN_LAYERS, TRAIN_LAYERS)
 # One step's loss and gradients, kernel path against plain path on the same
 # weights and batch.  bf16 at 8 layers: the two paths round their bf16
 # activations alike but sum in other orders, and 8 layers of backward carry
 # that into every leaf.  f32 at 2 layers: only the order of f32 sums differs.
 TRAIN_PARITY_TOL = {"bf16": {"loss_rel": 1e-2, "grad_rel": 5e-2}, "f32": {"loss_rel": 1e-4, "grad_rel": 1e-3}}
+
+# HuBERT-XLarge (48 x 1280, 16 heads of 80, non-causal) and Zamba2-2.7B (54
+# layers: 9 groups of 5 Mamba2 layers and the shared block, 32 heads of 80,
+# causal) trained at full width and full depth, 8 steps of 4 x seq, f32
+# parameters and moments, bf16 activations, remat="full", nothing cut.
+# HuBERT: 48 blocks of two norms and one attention (193 / 97 / 96 / 48 a step).
+# Zamba2: a group owes two norms a Mamba2 layer (``ln`` and the gated norm over
+# d_inner 5120) and the shared block's two norms and one attention (217 / 109
+# / 18 / 9 a step).  Mamba2's SSD trains through autograd of the plain torch.
+HUBERT_TRAIN_SEQ, HYBRID_TRAIN_SEQ = 1024, 512
+HUBERT_TRAIN_OWED = train_owed(2 * 48, 48)
+HYBRID_TRAIN_OWED = train_owed(9 * (2 * 5 + 2), 9)
+# The learning rates: the largest of experiments/torch_train.py's sweep (3e-3
+# ... 1e-6, --arch hubert_xlarge --seq 1024 and --arch zamba2_2p7b) whose 8
+# losses all stay below step 0's, as GPT-A's was chosen.  HuBERT: 3e-3 and 1e-3
+# diverge (step 3 at 1e-3 reads 10.0 from 6.50), 1e-4 rises at step 1 (6.54)
+# and falls after, 1e-5 falls at every step (6.496 -> 6.279).  Zamba2: 3e-3 ...
+# 1e-4 jump at steps 1-2 (18.7, 16.5, 13.7 from 10.99), 1e-5 falls at every
+# step (10.99 -> 9.52).  Measured on one NVIDIA H100 80GB HBM3, 700 W.
+HUBERT_TRAIN_LR = 1e-5
+HYBRID_TRAIN_LR = 1e-5
+# Zamba2's bf16 gradients against the plain path: GPT-A's bf16 tolerances
+# first; a miss of grad_rel is held leaf by leaf against the control of its
+# serving parity (HYBRID_CONTROL: the plain path with the SSD in chunks of 64),
+# each leaf at twice the control's gap on that leaf plus GPT-A's 5e-2, and never
+# above HYBRID_GRAD_CAP: a zeroed or doubled gradient reads 1.0 and a halved one
+# 0.5, so a limit near 1 would let a wrong backward pass.  The control's
+# readings are reported beside the result.
+HYBRID_GRAD_SLACK = TRAIN_PARITY_TOL["bf16"]["grad_rel"]
+HYBRID_GRAD_CAP = 0.4
+
+# The checkpoint on the card: HuBERT's train phase saves {"params", "opt"}
+# (f32 parameters and two f32 moments, 12 B x 945,008,640 = 11.34 GB a save)
+# at loop index 4 and after step 7, into a directory .gitignore lists, removed
+# at the end of the phase.  The 105.9 GB of host memory and 80.2 GB of free
+# disk measured on a one-H100 machine hold both
+# saves with room; Zamba2's 24.6 GB a save would too, HuBERT's is the smaller.
+CKPT_EVERY = 4
+CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "local", "chip_smoke_ckpt")
 
 # The MoE family (Qwen1.5-MoE-A2.7B: K1, K2, K3; DeepSeek-V2-Lite: K1, MLA
 # plain).  Top-k routing turns a rounding into a jump: one bf16 ulp can decide
@@ -421,9 +476,12 @@ def check_rmsnorm_bwd(ck: Checker, gen) -> None:
     # 4100 in bf16, 4097 in both), a long row, and a scale off 16 bytes; then
     # the register kernel's edges: rows just below, at and one past its wave
     # at d 4096, Minitron-4B's 3072 (the last chunk of every thread empty), and
-    # 2048 and 1024 (64 and 32 threads in bf16)
+    # 2048 and 1024 (64 and 32 threads in bf16); then the rows HuBERT-XLarge
+    # and Zamba2-2.7B train at: 4 x 1024 frames of 1280, 4 x 512 of 2560, and
+    # Zamba2's gated norm over 5120 (``rmsnorm_bwd_kernel``: past 4096)
     shapes = [(2048, 4096), (4, 4096), (4, 512, 4096), (1, 4096), (2049, 4096), (777, 100), (37, 4100),
-              (33, 4097), (64, 8192), (5000, 1024), (2048, 3072), (777, 2048), (1000, 1024), (3, 1024)]
+              (33, 4097), (64, 8192), (5000, 1024), (2048, 3072), (777, 2048), (1000, 1024), (3, 1024),
+              (4096, 1280), (2048, 2560), (2048, 5120)]
     for dtype in BWD_TOL:
         wave = rmsnorm_bwd_wave(4096, dtype)
         edges = [(wave - 1, 4096), (wave, 4096), (wave + 1, 4096)]
@@ -458,12 +516,13 @@ def check_flash_bwd(ck: Checker, gen) -> None:
     # (Minitron-4B's 24/8, the smoke's 4/2), ragged T = S (77, 300, 512), T != S
     # (full, both ways) and D 32, 64 and 128; then head size 80: HuBERT-XLarge's
     # encoder (4 x 1024 frames, 16 heads, non-causal), a ragged causal group of
-    # 3 and a T != S
+    # 3 and a T != S, and Zamba2-2.7B's shared block (4 x 512, 32 heads, causal)
     cases = [(4, 512, 512, 32, 32, 128, True), (2, 77, 77, 4, 2, 64, True), (2, 77, 77, 4, 2, 64, False),
              (1, 300, 300, 24, 8, 128, True), (1, 300, 300, 24, 8, 128, False), (2, 512, 512, 4, 2, 64, True),
              (1, 512, 512, 8, 8, 128, False), (1, 70, 300, 4, 2, 128, False), (1, 300, 70, 6, 3, 64, False),
              (2, 128, 128, 6, 1, 32, True), (2, 17, 17, 8, 8, 128, True),
-             (4, 1024, 1024, 16, 16, 80, False), (2, 200, 200, 6, 2, 80, True), (1, 150, 260, 4, 4, 80, False)]
+             (4, 1024, 1024, 16, 16, 80, False), (2, 200, 200, 6, 2, 80, True), (1, 150, 260, 4, 4, 80, False),
+             (4, 512, 512, 32, 32, 80, True)]
     for dtype in BWD_TOL:
         for B, T, S, Hq, Hkv, D, causal in cases:
             q, do = randn(gen, (B, T, Hq, D), dtype), randn(gen, (B, T, Hq, D), dtype)
@@ -905,17 +964,36 @@ def measure_stack(gen, out: dict) -> None:
 
 
 def measure_backward(gen) -> dict:
-    """Times of the backward kernels at GPT-A's training shapes (bf16), K2's
-    also at a 4K context and at HuBERT-XLarge's shape: kernel (and its kernels
-    apart), plain backward, the library's backward on a graph built
-    beforehand, and the card's bound."""
+    """Times of the backward kernels at GPT-A's training shapes (bf16), K1's
+    also at the rows HuBERT-XLarge and Zamba2-2.7B train at, K2's also at a 4K
+    context, HuBERT's and Zamba2's shapes: kernel (and its kernels apart),
+    plain backward, the library's backward on a graph built beforehand, and
+    the card's bound."""
+    # K1 backward: the rows of a 4 x 512 batch, d_model 4096; ("hubert_") 4 x
+    # 1024 frames of 1280; ("zamba_") 4 x 512 of 2560 and ("zamba_gated_")
+    # Zamba2's gated norm over d_inner 5120
+    out = {"rmsnorm_bwd": rmsnorm_bwd_row(gen, TRAIN_BATCH * TRAIN_SEQ, 4096)}
+    for label, N, d in (("hubert_", 4096, 1280), ("zamba_", 2048, 2560), ("zamba_gated_", 2048, 5120)):
+        out["rmsnorm_bwd"].update({label + key: val for key, val in rmsnorm_bwd_row(gen, N, d).items()})
+
+    # K2 backward: one layer's causal training attention, 4 x 512 tokens, 32 heads of 128;
+    # ("long_") a 4K context, one sequence; ("hubert_") HuBERT-XLarge's encoder, non-causal,
+    # heads of 80; ("zamba_") Zamba2-2.7B's shared block, causal, heads of 80
+    out["flash_attention_bwd"] = flash_bwd_row(gen, TRAIN_BATCH, TRAIN_SEQ, 32, 128, True)
+    for label, B, T, H, D, causal in (("long_", 1, 4096, 32, 128, True), ("hubert_", 4, 1024, 16, 80, False),
+                                      ("zamba_", 4, 512, 32, 80, True)):
+        out["flash_attention_bwd"].update({label + key: val for key, val in
+                                           flash_bwd_row(gen, B, T, H, D, causal, iters=3).items()})
+    return out
+
+
+def rmsnorm_bwd_row(gen, N: int, d: int) -> dict:
+    """K1's backward at x, dy (N, d) bf16: the kernels (and the two apart, the
+    profiler's device time a launch), the plain backward, the library's
+    backward on a graph built beforehand, and the card's bound."""
     import torch.nn.functional as F  # timed here as a yardstick; the port never calls it
 
     dt = torch.bfloat16
-    out = {}
-
-    # K1 backward: the rows of a 4 x 512 batch, d_model 4096
-    N, d = TRAIN_BATCH * TRAIN_SEQ, 4096
     sets = [(randn(gen, (N, d), dt), randn(gen, (d,), torch.float32), randn(gen, (N, d), dt)) for _ in range(4)]
     lib_sets = []
     for x, sc, dy in sets:
@@ -926,7 +1004,7 @@ def measure_backward(gen) -> dict:
     flops = 10 * N * d  # sums of x^2 and g x, g, dx, dscale's term: about ten a element
     grid = rmsnorm_bwd_plan(N, d, dt)
     split = kernel_times_ms(lambda x, s, g: rms_mod.rmsnorm_bwd_rows(x, s, g), sets)
-    out["rmsnorm_bwd"] = {
+    row = {
         "shape": f"x, dy ({N},{d}) bf16",
         "ms": time_ms(lambda x, s, g: rms_mod.rmsnorm_bwd_rows(x, s, g), sets),
         "plain_ms": time_ms(lambda x, s, g: rms_mod.rmsnorm_bwd_plain(x, s, g), sets),
@@ -944,14 +1022,7 @@ def measure_backward(gen) -> dict:
         "f32_rows_kernel": rmsnorm_bwd_plan(N, d, torch.float32)["kernel"],
     }
     del lib_sets
-
-    # K2 backward: one layer's causal training attention, 4 x 512 tokens, 32 heads of 128;
-    # ("long_") a 4K context, one sequence; ("hubert_") HuBERT-XLarge's encoder, non-causal, heads of 80
-    out["flash_attention_bwd"] = flash_bwd_row(gen, TRAIN_BATCH, TRAIN_SEQ, 32, 128, True)
-    for label, B, T, H, D, causal in (("long_", 1, 4096, 32, 128, True), ("hubert_", 4, 1024, 16, 80, False)):
-        out["flash_attention_bwd"].update({label + key: val for key, val in
-                                           flash_bwd_row(gen, B, T, H, D, causal, iters=3).items()})
-    return out
+    return row
 
 
 def flash_bwd_row(gen, B: int, T: int, H: int, D: int, causal: bool, iters: int = 5) -> dict:
@@ -1756,7 +1827,9 @@ def serve_hybrid() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 8 and 9: GPT-A trained at full width, depth cut, on the card
+# phases 8 and 9: GPT-A trained at full width, depth cut, on the card; then
+# HuBERT-XLarge (its state checkpointed and restored) and Zamba2-2.7B at full
+# width and depth
 # ---------------------------------------------------------------------------
 
 
@@ -1765,92 +1838,260 @@ def train_config(layers: int, dtype: torch.dtype):
     return dataclasses.replace(get_config("gpt_a"), num_layers=layers, dtype=dtype)
 
 
-def phase_train() -> dict:
-    """8 steps of GPT-A (full width, 8 layers, bf16 activations, f32 parameters
-    and moments) on 4 x 512 tokens of ``make_batches(seed 0)`` through
-    ``launch.train.train``, counted from zero; raises unless every loss is
-    finite, the last three fall below step 0's, and the counters show
-    exactly the launches the path owes."""
-    cfg = train_config(TRAIN_LAYERS, torch.bfloat16)
+def run_train(phase: str, cfg, *, seq: int, lr: float, owed: dict, log_every: int, extra: dict,
+              ckpt_dir=None) -> dict:
+    """TRAIN_STEPS steps of ``cfg`` (bf16 activations, f32 parameters and
+    moments) on TRAIN_BATCH x ``seq`` of ``make_batches(seed 0)`` through
+    ``launch.train.train`` (with ``ckpt_dir``, saving every CKPT_EVERY),
+    counted from zero; raises unless every loss is finite, the mean of the
+    last three falls below step 0's, and the counters show exactly ``owed``
+    a step.  The step time is the median of steps 2 on that overlap no
+    checkpoint write (``phase_checkpoint`` reports those that do).  Emits the
+    phase's line; returns ``train``'s result and the counters."""
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
-    out = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR, seed=SEED,
-                log_every=TRAIN_STEPS, device="cuda")
+    out = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=seq, lr=lr, seed=SEED, log_every=log_every,
+                device="cuda", ckpt_dir=ckpt_dir, ckpt_every=CKPT_EVERY)
     counters = read_counters()
     peak_bytes = torch.cuda.max_memory_allocated()
     hist = out["history"]
     losses = [h["loss"] for h in hist]
-    want = {k: n * TRAIN_STEPS for k, n in TRAIN_LAUNCHES_PER_STEP.items()}
+    want = {k: n * TRAIN_STEPS for k, n in owed.items()}
     if counters != want:
-        raise AssertionError(f"train: launch counters {counters}, expected {want}")
+        raise AssertionError(f"{phase}: launch counters {counters}, expected {want}")
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"train: losses {losses} are not all finite")
+        raise AssertionError(f"{phase}: losses {losses} are not all finite")
     if not statistics.mean(losses[-3:]) < losses[0]:
-        raise AssertionError(f"train: the loss did not fall: {losses}")
+        raise AssertionError(f"{phase}: the loss did not fall: {losses}")
     n_params = sum(t.numel() for t in flatten(out["params"]).values())
-    step_ms = statistics.median(h["seconds"] for h in hist[2:]) * 1e3
-    emit({"phase": "train", "model": cfg.name, "reduced": TRAIN_REDUCED, "layers": cfg.num_layers,
-          "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "params": cfg.param_count(),
-          "params_counted": n_params, "remat": cfg.remat, "activations": "bf16", "parameters_and_moments": "f32",
-          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
-          "lr_note": "not the launcher's default 3e-3, which diverges at this width: experiments/torch_train.py", "losses": losses,
+    saves = out["checkpoint"]["saves"] if out["checkpoint"] else []
+    timed = [h for h in hist[2:] if not during_write(h, saves)]
+    step_ms = statistics.median(h["seconds"] for h in timed) * 1e3
+    emit({"phase": phase, "model": cfg.name, **extra, "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "params": cfg.param_count(), "params_counted": n_params,
+          "remat": cfg.remat, "activations": "bf16", "parameters_and_moments": "f32", "batch": TRAIN_BATCH,
+          "seq": seq, "steps": TRAIN_STEPS, "lr": lr, "losses": losses,
           "grad_norms": [h["grad_norm"] for h in hist], "lrs": [h["lr"] for h in hist],
-          "step_ms": [h["seconds"] * 1e3 for h in hist], "step_ms_median_2_7": step_ms,
-          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3), "peak_memory_bytes": peak_bytes,
-          "counters": counters, "counters_per_step": TRAIN_LAUNCHES_PER_STEP})
-    return counters
+          "step_ms": [h["seconds"] * 1e3 for h in hist], "step_ms_median": step_ms,
+          "timed_steps": [h["step"] for h in timed],
+          "tokens_per_s": TRAIN_BATCH * seq / (step_ms / 1e3), "peak_memory_bytes": peak_bytes,
+          "counters": counters, "counters_per_step": owed})
+    out["counters"] = counters
+    return out
+
+
+def phase_train() -> dict:
+    """GPT-A at full width with TRAIN_LAYERS layers (``run_train``)."""
+    return run_train("train", train_config(TRAIN_LAYERS, torch.bfloat16), seq=TRAIN_SEQ, lr=TRAIN_LR,
+                     owed=TRAIN_LAUNCHES_PER_STEP, log_every=TRAIN_STEPS,
+                     extra={"reduced": TRAIN_REDUCED, "lr_note": "not the launcher's default 3e-3, which diverges at "
+                            "this width: experiments/torch_train.py"})["counters"]
+
+
+def during_write(h: dict, saves) -> bool:
+    """Whether the step of history entry ``h`` overlapped the background write
+    of one of ``saves`` (``AsyncCheckpointer.timings``)."""
+    return any(s["write_started"] < h["started"] + h["seconds"] and h["started"] < s["write_ended"] for s in saves)
+
+
+def phase_checkpoint(phase: str, cfg, out: dict, seq: int, lr: float) -> None:
+    """The train state ``train`` saved into CKPT_DIR at loop index CKPT_EVERY
+    and after the last step: its bytes on disk and in the leaves, the seconds
+    of each save's host-blocking snapshot and background write, of
+    ``load_pytree``, and the steps that ran while a write was on beside those
+    that did not.  Raises unless (a) the final checkpoint, loaded onto the card
+    with the live state as ``like``, equals the live state bit for bit, and (b)
+    the CKPT_EVERY checkpoint, loaded and run on through the last steps, gives
+    the uninterrupted run's losses: bit-equal if one step from one state is
+    bit-reproducible on the card (measured first, from two loads), else
+    within the f32 loss tolerance of TRAIN_PARITY_TOL."""
+    ck, hist = out["checkpoint"], out["history"]
+    names = [f"step_{CKPT_EVERY:08d}.npz", f"step_{TRAIN_STEPS:08d}.npz"]
+    on_disk = sorted(f for f in os.listdir(CKPT_DIR) if f.endswith(".npz"))
+    if on_disk != names or os.path.basename(ck["path"]) != names[-1]:
+        raise AssertionError(f"{phase}: checkpoints {on_disk}, latest {ck['path']}; expected {names}")
+
+    live = {"params": out["params"], "opt": out["opt_state"]}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final = load_pytree(ck["path"], live)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    want, got = dict(_walk(live)), dict(_walk(final))
+    unequal = [k for k in want if not (got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]))]
+    if unequal or set(got) != set(want):
+        raise AssertionError(f"{phase}: (a) the final checkpoint differs from the live state at {unequal[:8]}")
+    del final, got
+
+    # (b): two loads of the CKPT_EVERY checkpoint, one step from each, then one of them run on
+    path = os.path.join(CKPT_DIR, names[0])
+    a, b = load_pytree(path, live), load_pytree(path, live)
+    start = int(a["opt"].step)
+    step_fn = make_train_step(build_model(cfg).loss, optimizer_config(lr, TRAIN_STEPS))
+    data = make_batches(cfg, DataConfig(seed=SEED, batch_size=TRAIN_BATCH, seq_len=seq), num_steps=TRAIN_STEPS)
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in bt.items()} for bt in itertools.islice(data, start, None)]
+    pa, oa, ma = step_fn(a["params"], a["opt"], batches[0])
+    pb, ob, mb = step_fn(b["params"], b["opt"], batches[0])
+    la, lb = dict(_walk({"params": pa, "opt": oa})), dict(_walk({"params": pb, "opt": ob}))
+    differ = [k for k in la if not torch.equal(la[k], lb[k])]
+    reproducible = not differ and float(ma["loss"]) == float(mb["loss"])
+    del b, pb, ob, lb
+    resumed = [float(ma["loss"])]
+    for batch in batches[1:]:
+        pa, oa, m = step_fn(pa, oa, batch)
+        resumed.append(float(m["loss"]))
+    uninterrupted = [h["loss"] for h in hist[start:]]
+    rtol = 0.0 if reproducible else TRAIN_PARITY_TOL["f32"]["loss_rel"]
+    result = {
+        "phase": phase, "model": cfg.name, "dir": "local/chip_smoke_ckpt (.gitignore lists local/; removed after)",
+        "ckpt_every": CKPT_EVERY, "files": {f: os.path.getsize(os.path.join(CKPT_DIR, f)) for f in names},
+        "leaf_bytes": [s["bytes"] for s in ck["saves"]], "snapshot_s": [s["snapshot_s"] for s in ck["saves"]],
+        "write_s": [s["write_ended"] - s["write_started"] for s in ck["saves"]], "load_s": load_s,
+        "steps_during_write": [h["step"] for h in hist if during_write(h, ck["saves"])],
+        "step_ms_during_write": [h["seconds"] * 1e3 for h in hist if during_write(h, ck["saves"])],
+        "step_ms_apart": [h["seconds"] * 1e3 for h in hist if not during_write(h, ck["saves"])],
+        "final_bit_equal": True, "step_bit_reproducible": reproducible, "leaves_differing_after_one_step": differ,
+        "resumed_from_updates": start, "resumed_losses": resumed, "uninterrupted_losses": uninterrupted,
+        "resume_held": "bit-equal" if reproducible else f"{rtol} relative",
+    }
+    emit(result)
+    if len(resumed) != len(uninterrupted) or not all(abs(g - w) <= rtol * abs(w) for g, w in zip(resumed, uninterrupted)):
+        raise AssertionError(f"{phase}: (b) resumed losses {resumed} against {uninterrupted} ({result['resume_held']})")
+
+
+def train_hubert() -> dict:
+    """HuBERT-XLarge at full width and depth on the audio family's batches
+    (``run_train``), its state checkpointed at loop index CKPT_EVERY and at the
+    end and then restored (``phase_checkpoint``); the directory goes at the end."""
+    cfg = dataclasses.replace(get_config("hubert_xlarge"), dtype=torch.bfloat16)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    try:
+        out = run_train("train_hubert", cfg, seq=HUBERT_TRAIN_SEQ, lr=HUBERT_TRAIN_LR, owed=HUBERT_TRAIN_OWED,
+                        log_every=1, ckpt_dir=CKPT_DIR,
+                        extra={"batches": "make_batches(audio, seed 0): embeds, labels, mask",
+                               "lr_note": "the sweep's largest stable lr: experiments/torch_train.py --arch hubert_xlarge"})
+        phase_checkpoint("train_hubert_checkpoint", cfg, out, HUBERT_TRAIN_SEQ, HUBERT_TRAIN_LR)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return out["counters"]
+
+
+def train_hybrid() -> dict:
+    """Zamba2-2.7B at full width and depth (``run_train``)."""
+    cfg = dataclasses.replace(get_config("zamba2_2p7b"), dtype=torch.bfloat16)
+    return run_train("train_hybrid", cfg, seq=HYBRID_TRAIN_SEQ, lr=HYBRID_TRAIN_LR, owed=HYBRID_TRAIN_OWED,
+                     log_every=1, extra={"lr_note": "the sweep's largest stable lr: experiments/torch_train.py "
+                                                    "--arch zamba2_2p7b"})["counters"]
 
 
 def loss_and_grads(model, params, batch) -> tuple:
-    """One step's loss and the gradient of every leaf, as the train step takes them."""
+    """One step's loss and the gradient of every leaf, as the train step takes
+    them (zeros for a leaf the loss does not read)."""
     leaves = list(flatten(params).values())
     for t in leaves:
         t.requires_grad_(True)
     with torch.enable_grad():
         loss, _ = model.loss(params, batch)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = gradients(loss, leaves)
     for t in leaves:
         t.requires_grad_(False)
     return float(loss.detach()), dict(zip(flatten(params), grads))
 
 
-def parity_gaps(layers: int, dtype: torch.dtype) -> dict:
+def grad_gaps(grads: dict, ref: dict) -> dict:
+    """Each leaf's gradient against ``ref``'s, relative in norm (0 where both are 0)."""
+    out = {}
+    for path, g in grads.items():
+        num, den = (g - ref[path]).float().norm().item(), ref[path].float().norm().item()
+        out[path] = num / den if den else (0.0 if num == 0 else math.inf)
+    return out
+
+
+def parity_gaps(cfg, seq: int, control=None) -> dict:
     """The kernel path against the plain path (masked plain sdpa, plain
-    RMSNorm, both through autograd) on the same weights (seed 0) and batch."""
-    cfg = train_config(layers, dtype)
+    RMSNorm, both through autograd) on the same weights (seed 0) and batch
+    (``make_batches(seed 0)``, TRAIN_BATCH x ``seq``); with ``control`` (name,
+    a context of the model), that path against the plain path too."""
     model = build_model(cfg)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     params = model.init(gen)
-    batch = next(make_batches(cfg, DataConfig(seed=SEED, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ)))
+    batch = next(make_batches(cfg, DataConfig(seed=SEED, batch_size=TRAIN_BATCH, seq_len=seq)))
     batch = {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
     reset_counters()
     loss_k, grads_k = loss_and_grads(model, params, batch)
     launched = read_counters()
     if not (launched["rmsnorm_bwd"] and launched["flash_attention_bwd"]):
-        raise AssertionError(f"train_parity: the kernel path launched {launched}")
+        raise AssertionError(f"{cfg.name} train parity: the kernel path launched {launched}")
     with plain_path():
         loss_p, grads_p = loss_and_grads(model, params, batch)
-    rel = {path: ((g - grads_p[path]).float().norm() / grads_p[path].float().norm()).item() for path, g in grads_k.items()}
+    rel = grad_gaps(grads_k, grads_p)
     worst = max(rel, key=rel.get)
-    return {"layers": layers, "dtype": str(dtype).replace("torch.", ""), "loss_kernel": loss_k, "loss_plain": loss_p,
-            "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p), "grad_rel_diff_max": rel[worst],
-            "grad_rel_diff_worst_leaf": worst, "grad_rel_diff": rel,
-            "finite": all(bool(torch.isfinite(g).all()) for g in grads_k.values())}
+    out = {"layers": cfg.num_layers, "dtype": str(cfg.dtype).replace("torch.", ""), "loss_kernel": loss_k,
+           "loss_plain": loss_p, "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p), "grad_rel_diff_max": rel[worst],
+           "grad_rel_diff_worst_leaf": worst, "grad_rel_diff": rel,
+           "finite": all(bool(torch.isfinite(g).all()) for g in grads_k.values())}
+    if control is not None:
+        name, ctx = control
+        with ctx(model):
+            loss_c, grads_c = loss_and_grads(model, params, batch)
+        rel_c = grad_gaps(grads_c, grads_p)
+        worst_c = max(rel_c, key=rel_c.get)
+        out["control"] = {"path": name, "loss_rel_diff": abs(loss_c - loss_p) / abs(loss_p),
+                          "grad_rel_diff_max": rel_c[worst_c], "grad_rel_diff_worst_leaf": worst_c,
+                          "grad_rel_diff": rel_c}
+    return out
+
+
+def hold_train_parity(phase: str, cases, extra: dict) -> None:
+    """Each case (key, cfg, seq, control) through ``parity_gaps``, within
+    TRAIN_PARITY_TOL for its dtype; a case with a control whose gradients miss
+    that holds each leaf at twice the control's gap on the same leaf plus
+    HYBRID_GRAD_SLACK, capped at HYBRID_GRAD_CAP."""
+    result = {"phase": phase, **extra, "tol": TRAIN_PARITY_TOL}
+    for key, cfg, seq, control in cases:
+        g = parity_gaps(cfg, seq, control)
+        release()
+        result[key] = g
+        tol = TRAIN_PARITY_TOL["bf16" if cfg.dtype == torch.bfloat16 else "f32"]
+        rel = g["grad_rel_diff"]
+        limit = dict.fromkeys(rel, tol["grad_rel"])
+        if control is not None and g["grad_rel_diff_max"] > tol["grad_rel"]:
+            rel_c = g["control"]["grad_rel_diff"]
+            limit = {k: min(2 * rel_c[k] + HYBRID_GRAD_SLACK, HYBRID_GRAD_CAP) for k in rel}
+            g["grad_tol_against_control"] = limit
+        missed = {k: (rel[k], limit[k]) for k in rel if not rel[k] <= limit[k]}
+        if not (g["finite"] and g["loss_rel_diff"] <= tol["loss_rel"] and not missed):
+            emit(result)
+            raise AssertionError(f"{phase} {key}: loss {g['loss_rel_diff']} (tol {tol['loss_rel']}), "
+                                 f"gradients (gap, limit) {missed}")
+    emit(result)
 
 
 def phase_train_parity() -> None:
-    """bf16 at 8 layers and f32 at 2 layers, full width; within TRAIN_PARITY_TOL."""
-    result = {"phase": "train_parity", "model": "gpt-a", "reduced": TRAIN_REDUCED, "tol": TRAIN_PARITY_TOL}
-    for key, layers, dtype in (("bf16", TRAIN_LAYERS, torch.bfloat16), ("f32", 2, torch.float32)):
-        g = parity_gaps(layers, dtype)
-        release()
-        result[key] = g
-        tol = TRAIN_PARITY_TOL[key]
-        if not (g["finite"] and g["loss_rel_diff"] <= tol["loss_rel"] and g["grad_rel_diff_max"] <= tol["grad_rel"]):
-            raise AssertionError(f"train_parity {key}: loss {g['loss_rel_diff']} (tol {tol['loss_rel']}), "
-                                 f"gradient {g['grad_rel_diff_max']} at {g['grad_rel_diff_worst_leaf']} (tol {tol['grad_rel']})")
-    emit(result)
+    """GPT-A, bf16 at 8 layers and f32 at 2 layers, full width."""
+    hold_train_parity("train_parity", [("bf16", train_config(TRAIN_LAYERS, torch.bfloat16), TRAIN_SEQ, None),
+                                       ("f32", train_config(2, torch.float32), TRAIN_SEQ, None)],
+                      {"model": "gpt-a", "reduced": TRAIN_REDUCED})
+
+
+def phase_train_hubert_parity() -> None:
+    """HuBERT-XLarge at full width and depth, f32 and bf16, on its audio batch."""
+    cfg = get_config("hubert_xlarge")
+    hold_train_parity("train_hubert_parity",
+                      [(key, dataclasses.replace(cfg, dtype=dt), HUBERT_TRAIN_SEQ, None)
+                       for key, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))], {"model": cfg.name})
+
+
+def phase_train_hybrid_parity() -> None:
+    """Zamba2-2.7B at full width and depth: f32, and bf16 beside the control
+    (the plain path with the SSD in chunks of 64)."""
+    cfg = get_config("zamba2_2p7b")
+    hold_train_parity("train_hybrid_parity",
+                      [("f32", dataclasses.replace(cfg, dtype=torch.float32), HYBRID_TRAIN_SEQ, None),
+                       ("bf16", dataclasses.replace(cfg, dtype=torch.bfloat16), HYBRID_TRAIN_SEQ,
+                        (HYBRID_CONTROL, lambda m: ssd_chunk(m, 64)))],
+                      {"model": cfg.name, "control_path": "plain path, the Mamba2 scan in chunks of 64 (the config's: 128)"})
 
 
 # ---------------------------------------------------------------------------
@@ -1902,6 +2143,14 @@ def main() -> int:
     counts["train"] = phase_train()
     release()
     phase_train_parity()
+    release()
+    counts["train-hubert"] = train_hubert()
+    release()
+    phase_train_hubert_parity()
+    release()
+    counts["train-hybrid"] = train_hybrid()
+    release()
+    phase_train_hybrid_parity()
     release()
     counts["qwen2-moe-a2.7b"] = serve_moe_model("qwen2_moe_a2p7b", "serve_moe")
     release()

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""How ``repro_torch`` trains GPT-A on the card: which learning rates the
-8-layer cut of ``chip_smoke.py``'s train phase tolerates, whether the kernel
-path and the plain path part over several steps, and where a step's time goes.
+"""How ``repro_torch`` trains a model on the card: which learning rates the
+train phases of ``chip_smoke.py`` tolerate, whether the kernel path and the
+plain path part over several steps, and where a step's time goes.
 
-    python3 experiments/torch_train.py [--layers 8] [--skip-sweep] [--skip-profile]
+    python3 experiments/torch_train.py [--arch gpt_a] [--layers N] [--seq T] [--skip-sweep] [--skip-profile]
 
-Needs one NVIDIA Hopper card and ``nvcc``.  GPT-A at full width (d_model
-4096, d_ff 16384, vocabulary 50304) with ``--layers`` of its 24 layers,
-random weights from seed 0, bf16 activations, f32 parameters and moments,
-``remat="full"``, batches of 4 x 512 tokens from ``make_batches(seed 0)``.
-Prints JSON lines:
+Needs one NVIDIA Hopper card and ``nvcc``.  ``--arch`` at full width (GPT-A:
+d_model 4096, d_ff 16384, vocabulary 50304, 8 of its 24 layers unless
+``--layers`` says otherwise; any other architecture at its full depth, e.g.
+``hubert_xlarge`` with ``--seq 1024`` or ``zamba2_2p7b``), random weights
+from seed 0, bf16 activations, f32 parameters and moments, the config's
+``remat`` ("full"), batches of 4 x ``--seq`` (512) from ``make_batches(seed
+0)``: tokens, or HuBERT's frame embeddings and labels.  Prints JSON lines:
 
 - ``sweep``: 8 steps through ``launch.train.train`` at each learning rate;
   "stable" when every later loss stays below step 0's;
@@ -17,8 +19,8 @@ Prints JSON lines:
   and once on the plain path (masked plain sdpa and plain RMSNorm through
   autograd), and the loss of the first batch after them;
 - ``sensitivity``: one update at lr 1e-5 (no decay) on the first batch: that
-  batch's loss before and after, after undoing the update of one group of
-  leaves at a time, and each leaf's update over its own size (rms);
+  batch's loss before and after, after undoing the update of one top-level
+  group of leaves at a time, and each leaf's update over its own size (rms);
 - ``profile``: one traced train step, then its loss-and-gradient part and its
   AdamW part apart: the host's wall time, the card's busy time, the idle
   share, the launches, the kernels that took most of the device time, and
@@ -47,7 +49,13 @@ from repro_torch.convert import flatten  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, make_batches  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models.transformer import build_model  # noqa: E402
-from repro_torch.optim.optimizer import OptimizerConfig, adamw_update, init_opt_state, make_train_step  # noqa: E402
+from repro_torch.optim.optimizer import (  # noqa: E402
+    OptimizerConfig,
+    adamw_update,
+    gradients,
+    init_opt_state,
+    make_train_step,
+)
 
 SWEEP = (3e-3, 1e-3, 1e-4, 1e-5, 3e-6, 1e-6)
 STEPS, BATCH, SEQ = 8, 4, 512
@@ -67,7 +75,9 @@ def release() -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--layers", type=int, default=8, help="depth of GPT-A to train (full width)")
+    ap.add_argument("--arch", default="gpt_a")
+    ap.add_argument("--layers", type=int, default=None, help="depth to train at full width (GPT-A: 8; else the config's)")
+    ap.add_argument("--seq", type=int, default=SEQ)
     ap.add_argument("--skip-sweep", action="store_true")
     ap.add_argument("--skip-profile", action="store_true")
     args = ap.parse_args(argv)
@@ -79,10 +89,13 @@ def main(argv=None) -> int:
                          check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     emit({"gpu": smi, "torch": torch.__version__})
 
-    cfg = dataclasses.replace(get_config("gpt_a"), num_layers=args.layers)
+    cfg = get_config(args.arch)
+    layers = args.layers or (8 if cfg.name == "gpt-a" else cfg.num_layers)
+    cfg = dataclasses.replace(cfg, num_layers=layers)
+    seq = args.seq
     model = build_model(cfg)
     batches = [{k: torch.from_numpy(v).to("cuda") for k, v in b.items()}
-               for b in make_batches(cfg, DataConfig(seed=0, batch_size=BATCH, seq_len=SEQ), num_steps=3)]
+               for b in make_batches(cfg, DataConfig(seed=0, batch_size=BATCH, seq_len=seq), num_steps=3)]
 
     def fresh():
         gen = torch.Generator(device="cuda")
@@ -91,10 +104,12 @@ def main(argv=None) -> int:
 
     if not args.skip_sweep:
         for lr in SWEEP:
-            hist = train(cfg, steps=STEPS, batch=BATCH, seq=SEQ, lr=lr, seed=0, log_every=STEPS, device="cuda")["history"]
+            hist = train(cfg, steps=STEPS, batch=BATCH, seq=seq, lr=lr, seed=0, log_every=STEPS, device="cuda")["history"]
             losses = [h["loss"] for h in hist]
-            emit({"phase": "sweep", "layers": args.layers, "lr": lr, "stable": max(losses[1:]) < losses[0],
-                  "losses": losses, "grad_norms": [h["grad_norm"] for h in hist]})
+            emit({"phase": "sweep", "arch": cfg.name, "layers": layers, "seq": seq, "lr": lr,
+                  "stable": max(losses[1:]) < losses[0], "losses": losses,
+                  "grad_norms": [h["grad_norm"] for h in hist],
+                  "step_ms": [h["seconds"] * 1e3 for h in hist]})
             release()
         ocfg = OptimizerConfig(peak_lr=3e-3, warmup_steps=min(20, 3 // 5 + 1), total_steps=3)
         for name, ctx in (("kernel", contextlib.nullcontext), ("plain", plain_path)):
@@ -125,8 +140,8 @@ def main(argv=None) -> int:
         undone = {}
         with torch.no_grad():
             after = float(model.loss(params, batches[0])[0])
-            for group in ("embed", "lm_head", "final_norm", "layers/"):
-                keys = [k for k in flat if k.startswith(group)]
+            for group in params:
+                keys = [k for k in flat if k.split("/")[0] == group]
                 new = {k: flat[k].detach().clone() for k in keys}
                 for k in keys:
                     flat[k].copy_(old[k])
@@ -147,12 +162,12 @@ def main(argv=None) -> int:
         step = make_train_step(model.loss, ocfg)
         for b in batches[:2]:  # warm-up
             params, st, _ = step(params, st, b)
-        emit({"phase": "profile", "part": "step", "layers": args.layers, **traced(lambda: step(params, st, batches[2]), top=12, pick=PICK)})
+        emit({"phase": "profile", "part": "step", "arch": cfg.name, "layers": layers, **traced(lambda: step(params, st, batches[2]), top=12, pick=PICK)})
         leaves = list(flatten(params).values())
 
         def loss_and_grad():
             loss, _ = model.loss(params, batches[2])
-            return torch.autograd.grad(loss, leaves)
+            return gradients(loss, leaves)
 
         emit({"phase": "profile", "part": "loss_and_grad", **traced(loss_and_grad, top=12, pick=PICK)})
         grads = dict(zip(flatten(params), loss_and_grad()))

@@ -6,12 +6,20 @@ on one device.
       --steps 200 --batch 8 --seq 128
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch gpt-a \\
       --smoke --steps 4 --batch 8 --seq 32 --log-every 1
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch hubert-xlarge \\
+      --smoke --steps 6 --batch 4 --seq 32 --ckpt-dir local/ck --ckpt-every 2
 
 Runs on the card; ``--device cpu`` runs the plain PyTorch path on the CPU.
+With ``--ckpt-dir`` the train state ``{"params", "opt"}`` is checkpointed in
+the reference's format (``repro_torch.ckpt``) every ``--ckpt-every`` steps and
+at the end.  As in the reference, a periodic checkpoint is named by the loop
+index of the step it follows: ``step_00000004.npz`` holds the state after 5
+updates (its ``opt/.step`` reads 5); the final one is ``step_<steps>``.  There
+is no resume flag (the reference has none): to continue, ``load_pytree`` the
+state and run ``make_train_step`` on the batches from ``opt/.step`` on.
 Not ported yet: the reference's cross-pod pipeline (``--pipeline``,
 ``--n-micro``, ``--boundary``, ``--production-mesh``), which comes with the
-many-device slice, and its checkpoints (``--ckpt-dir``, ``--ckpt-every``),
-which come with the checkpoint slice.
+many-device slice.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from repro_torch.ckpt.checkpoint import AsyncCheckpointer
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.pipeline import DataConfig, make_batches
 from repro_torch.device import resolve_device
@@ -29,22 +38,35 @@ from repro_torch.models.transformer import build_model
 from repro_torch.optim.optimizer import OptimizerConfig, init_opt_state, make_train_step
 
 
+def optimizer_config(lr: float, steps: int) -> OptimizerConfig:
+    """The launcher's schedule for a run of ``steps`` steps, as the reference's."""
+    return OptimizerConfig(peak_lr=lr, warmup_steps=min(20, steps // 5 + 1), total_steps=steps)
+
+
 def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, lr: float = 3e-3, seed: int = 0,
-          log_every: int = 10, device=None, params: Optional[Params] = None) -> Dict:
+          log_every: int = 10, device=None, params: Optional[Params] = None, ckpt_dir: Optional[str] = None,
+          ckpt_every: int = 50) -> Dict:
     """Trains ``cfg`` for ``steps`` steps of ``batch`` x ``seq`` tokens from
     ``make_batches(seed)``, from ``params`` (updated in place) or from random
     parameters made from ``seed`` on ``device``.  Prints the reference's line
-    every ``log_every`` steps and at the last.  Returns {"params", "opt_state",
-    "history": [{"step", "loss", "grad_norm", "lr", "seconds"}, ...]}, where
-    ``seconds`` is each step's wall time, ending in a synchronisation."""
+    every ``log_every`` steps and at the last.  With ``ckpt_dir``, saves
+    ``{"params", "opt"}`` after every step whose loop index is a nonzero
+    multiple of ``ckpt_every`` (metadata ``{"step", "loss"}``) and after the
+    last as ``step_<steps>`` (``{"step"}``), as the reference's launcher.
+    Returns {"params", "opt_state", "history": [{"step", "loss", "grad_norm",
+    "lr", "started", "seconds"}, ...], "checkpoint"}, where ``seconds`` is each
+    step's wall time from ``started`` (``time.perf_counter()``), ending in a
+    synchronisation, and ``checkpoint`` is None or {"path": the latest,
+    "saves": the checkpointer's ``timings``}."""
     device = resolve_device(device)
     model = build_model(cfg)
     if params is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         params = model.init(gen)
-    opt_cfg = OptimizerConfig(peak_lr=lr, warmup_steps=min(20, steps // 5 + 1), total_steps=steps)
+    opt_cfg = optimizer_config(lr, steps)
     opt_state = init_opt_state(params)
+    ckpt = AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
     step_fn = make_train_step(model.loss, opt_cfg)
     data = make_batches(cfg, DataConfig(seed=seed, batch_size=batch, seq_len=seq), num_steps=steps)
 
@@ -64,12 +86,20 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, lr: float = 3e-
         now = time.perf_counter()
         tokens_done += batch * seq
         history.append({"step": step, "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
-                        "lr": float(metrics["lr"]), "seconds": now - t_step})
+                        "lr": float(metrics["lr"]), "started": t_step, "seconds": now - t_step})
         if step % log_every == 0 or step == steps - 1:
             h = history[-1]
             print(f"step {step:5d} loss {h['loss']:.4f} gnorm {h['grad_norm']:.3f} lr {h['lr']:.2e} "
                   f"tok/s {tokens_done / max(now - t0, 1e-9):,.0f}", flush=True)
-    return {"params": params, "opt_state": opt_state, "history": history}
+        if ckpt and step and step % ckpt_every == 0:
+            ckpt.save(step, {"params": params, "opt": opt_state}, {"step": step, "loss": history[-1]["loss"]})
+    checkpoint = None
+    if ckpt:
+        ckpt.save(steps, {"params": params, "opt": opt_state}, {"step": steps})
+        ckpt.close()
+        checkpoint = {"path": ckpt.latest_path(), "saves": ckpt.timings}
+        print(f"[train] checkpoint at {checkpoint['path']}", flush=True)
+    return {"params": params, "opt_state": opt_state, "history": history, "checkpoint": checkpoint}
 
 
 def main(argv=None):
@@ -80,6 +110,8 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--smoke", action="store_true", help="reduced config")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: the CUDA device; 'cpu' must be asked for")
@@ -90,7 +122,7 @@ def main(argv=None):
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"[train] arch={cfg.name} device={where} params={cfg.param_count() / 1e6:.1f}M")
     return train(cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr, seed=args.seed,
-                 log_every=args.log_every, device=device)
+                 log_every=args.log_every, device=device, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
 
 
 if __name__ == "__main__":

@@ -102,6 +102,14 @@ def adamw_update(cfg: OptimizerConfig, grads: Params, params: Params, state: Opt
     return params, OptState(step, state.mu, state.nu), {"grad_norm": gnorm, "lr": lr}
 
 
+def gradients(loss: torch.Tensor, leaves: List[torch.Tensor]) -> List[torch.Tensor]:
+    """d loss / d leaf for each leaf.  A leaf the loss does not read (``embed``
+    under a batch of ``embeds``) gets a zero gradient, as ``jax.grad`` gives
+    it: its moments stay 0 and only the weight decay moves it."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+
+
 def make_train_step(loss_fn: Callable[[Params, Dict], Any], opt_cfg: OptimizerConfig, *,
                     loss_has_metrics: bool = True, accum_steps: int = 1):
     """train_step(params, opt_state, batch) -> (params, opt_state, metrics).
@@ -116,7 +124,7 @@ def make_train_step(loss_fn: Callable[[Params, Dict], Any], opt_cfg: OptimizerCo
 
     def value_and_grad(params, leaves, batch):
         loss, metrics = scalar_loss(params, batch)
-        return loss.detach(), metrics, torch.autograd.grad(loss, leaves)
+        return loss.detach(), metrics, gradients(loss, leaves)
 
     def train_step(params: Params, opt_state: OptState, batch: Dict[str, torch.Tensor]):
         flat = flatten(params)

@@ -1,6 +1,8 @@
-"""The port's train launcher against the reference's jitted train step: 15
-steps of gpt_a smoke from one converted init on the same batches, the loss of
-every step compared; and the command line on the CPU."""
+"""The port's train launcher against the reference's jitted train step (no
+mesh): 15 steps of gpt_a, hubert_xlarge (a batch of frame ``embeds``),
+qwen2_vl_7b (a VLM batch of ``embeds`` and M-RoPE positions) and zamba2_2p7b
+smoke from one converted init on the same batches, the loss of every step
+compared; the leaf such a batch never reads; and the command line on the CPU."""
 import dataclasses
 
 import jax
@@ -16,18 +18,27 @@ from repro.models.transformer import build_model as ref_build_model
 from repro.optim import optimizer as ref_opt
 from repro_torch import configs, convert
 from repro_torch.launch import train as train_mod
+from repro_torch.optim import optimizer as port_opt
 from repro_torch.models.transformer import build_model
 from torch_helpers import reference_params
 
 STEPS, BATCH, SEQ, LR = 15, 8, 32, 3e-3
 # f32: the same arithmetic in another order of summation; the two runs part by
-# at most 5e-7 of the loss over 15 steps, held at 1e-5.  bf16: activations
-# round at other places in the two frameworks (2e-4 seen), held at 1e-3.
+# at most 6.3e-7 of the loss over 15 steps (zamba2), held at 1e-5.  bf16:
+# activations round at other places in the two frameworks (7.0e-4 seen on
+# zamba2, whose Mamba2 layers carry a rounding along the sequence; 1.9e-4 on
+# gpt_a), held at 1e-3.  Every family's last loss falls below its first at
+# lr 3e-3 over the 15 steps (hubert's frame labels barely: 4.228 -> 4.193).
 LOSS_RTOL = {"float32": 1e-5, "bfloat16": 1e-3}
+# gpt_a keeps its ids of before the families were added
+FAMILIES = [pytest.param("gpt_a", dt, id=dt) for dt in ("float32", "bfloat16")] + \
+    [pytest.param(arch, dt, id=f"{arch}-{dt}") for arch in ("hubert_xlarge", "qwen2_vl_7b", "zamba2_2p7b")
+     for dt in ("float32", "bfloat16")]
 _T = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
-def _reference_losses(ref_cfg, ref_params):
+def _reference_run(ref_cfg, ref_params):
+    """(losses, final params, final optimizer state) of the reference's jitted step."""
     ocfg = ref_opt.OptimizerConfig(peak_lr=LR, warmup_steps=min(20, STEPS // 5 + 1), total_steps=STEPS)
     step = jax.jit(ref_opt.make_train_step(ref_build_model(ref_cfg).loss, ocfg))
     st = ref_opt.init_opt_state(ref_params)
@@ -35,18 +46,23 @@ def _reference_losses(ref_cfg, ref_params):
     for b in ref_make_batches(ref_cfg, RefDataConfig(seed=0, batch_size=BATCH, seq_len=SEQ), num_steps=STEPS):
         ref_params, st, m = step(ref_params, st, {k: jnp.asarray(v) for k, v in b.items()})
         losses.append(float(m["loss"]))
-    return losses
+    return losses, ref_params, st
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_fifteen_steps_match_the_reference(dtype, capsys):
+def _both_runs(arch, dtype):
     jdt, tdt = _T[dtype]
-    ref_cfg = dataclasses.replace(ref_configs.get_smoke_config("gpt_a"), dtype=jdt)
-    cfg = dataclasses.replace(configs.get_smoke_config("gpt_a"), dtype=tdt)
+    ref_cfg = dataclasses.replace(ref_configs.get_smoke_config(arch), dtype=jdt)
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype=tdt)
     ref_params, tree = reference_params(ref_cfg, seed=0)
-    want = _reference_losses(ref_cfg, ref_params)
+    want = _reference_run(ref_cfg, ref_params)
     out = train_mod.train(cfg, steps=STEPS, batch=BATCH, seq=SEQ, lr=LR, seed=0, log_every=5, device="cpu",
                           params=convert.from_reference(tree, cfg))
+    return want, out
+
+
+@pytest.mark.parametrize("arch, dtype", FAMILIES)
+def test_fifteen_steps_match_the_reference(arch, dtype, capsys):
+    (want, _, _), out = _both_runs(arch, dtype)
     got = [h["loss"] for h in out["history"]]
     np.testing.assert_allclose(got, want, rtol=LOSS_RTOL[dtype])
     assert got[-1] < got[0]
@@ -56,6 +72,47 @@ def test_fifteen_steps_match_the_reference(dtype, capsys):
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("step")]
     assert len(lines) == 4  # steps 0, 5, 10 and the last
     assert all(w in lines[0] for w in ("loss", "gnorm", "lr", "tok/s"))
+
+
+@pytest.mark.parametrize("arch", ["hubert_xlarge", "qwen2_vl_7b"])
+def test_the_leaf_an_embeds_batch_never_reads_is_only_decayed(arch):
+    """``embed`` under batches of ``embeds``: a zero gradient, as ``jax.grad``
+    gives it, so its moments stay 0 and weight decay alone moves it, to the
+    reference's values."""
+    (_, ref_params, ref_st), out = _both_runs(arch, "float32")
+    embed, init = out["params"]["embed"].detach(), reference_params(
+        ref_configs.get_smoke_config(arch), seed=0)[1]["embed"]
+    assert not out["opt_state"].mu["embed"].any() and not out["opt_state"].nu["embed"].any()
+    assert not np.asarray(ref_st.mu["embed"]).any()
+    assert not np.allclose(embed.numpy(), init, rtol=0, atol=0)  # the decay moved it
+    np.testing.assert_allclose(embed.numpy(), np.asarray(ref_params["embed"]), rtol=1e-6, atol=0)
+
+
+def test_accumulation_takes_a_leaf_the_loss_never_reads():
+    """``accum_steps=2`` on hubert smoke in f32: each microbatch's gradient of
+    ``embed`` is zero, and one step matches the reference's accumulated step."""
+    ref_cfg = dataclasses.replace(ref_configs.get_smoke_config("hubert_xlarge"), dtype=jnp.float32)
+    cfg = dataclasses.replace(configs.get_smoke_config("hubert_xlarge"), dtype=torch.float32)
+    ref_params, tree = reference_params(ref_cfg, seed=0)
+    batch = next(ref_make_batches(ref_cfg, RefDataConfig(seed=0, batch_size=BATCH, seq_len=SEQ)))
+    ocfg = ref_opt.OptimizerConfig(peak_lr=LR, warmup_steps=1, total_steps=4)
+    ref_step = jax.jit(ref_opt.make_train_step(ref_build_model(ref_cfg).loss, ocfg, accum_steps=2))
+    ref_p, ref_st, ref_m = ref_step(ref_params, ref_opt.init_opt_state(ref_params),
+                                    {k: jnp.asarray(v) for k, v in batch.items()})
+    params = convert.from_reference(tree, cfg)
+    step = port_opt.make_train_step(build_model(cfg).loss, train_mod.optimizer_config(LR, 4), accum_steps=2)
+    params, st, m = step(params, port_opt.init_opt_state(params), {k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(m["loss"]), float(ref_m["loss"]), rtol=LOSS_RTOL["float32"])
+    np.testing.assert_allclose(float(m["grad_norm"]), float(ref_m["grad_norm"]), rtol=1e-5)
+    assert not st.mu["embed"].any() and int(st.step) == 1
+    np.testing.assert_allclose(params["embed"].detach().numpy(), np.asarray(ref_p["embed"]), rtol=1e-6, atol=0)
+    # the first moment is the clipped, accumulated gradient over ten: every leaf
+    # within the gradients' tolerance, relative in norm (the parameters after one
+    # Adam step are not compared: sign(g) flips for a g near 0)
+    ref_mu = convert.flatten(ref_st.mu)
+    for path, t in convert.flatten(st.mu).items():
+        want = np.asarray(ref_mu[path])
+        assert np.linalg.norm(t.numpy() - want) <= 1e-4 * np.linalg.norm(want), path
 
 
 def test_train_cli_runs_on_the_cpu(capsys):
