@@ -5,7 +5,7 @@
 
 Needs one NVIDIA Hopper card and ``nvcc``; takes no arguments.  It builds the
 port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (the four forward
-kernels and the backward kernels of RMSNorm and attention), holds each of them
+kernels and the backward kernels of RMSNorm, attention and WKV-6), holds each of them
 against its plain PyTorch version on the card, serves two models at full
 width with random weights from a seed through ``ServingEngine.generate`` and
 ``SplitwiseCluster.serve`` (GPT-A, 24 layers x 4096 x 16384, vocabulary 50304:
@@ -15,7 +15,9 @@ width with 8 of its 24 layers for 8 steps through
 ``repro_torch.launch.train.train`` (RMSNorm and attention forward and backward
 kernels), trains HuBERT-XLarge (48 x 1280) and Zamba2-2.7B (54 layers) at full
 width and depth the same way, checkpointing HuBERT's train state and holding
-its restore and a run resumed from it against the live run, and then serves
+its restore and a run resumed from it against the live run, trains RWKV-6 7B
+at full width with 8 of its 32 layers (RMSNorm and WKV-6 forward and
+backward kernels), and then serves
 the MoE family at full width and depth with its weights made directly in bf16
 (Qwen1.5-MoE-A2.7B, 24 layers x 2048, 60 experts top-4, vocabulary 151936:
 RMSNorm, flash and decode attention kernels; then
@@ -149,15 +151,16 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 512
 TRAIN_LR = 3e-6
 
 
-def train_owed(norms: int, attns: int) -> dict:
+def train_owed(norms: int, attns: int, wkvs: int = 0) -> dict:
     """Kernel launches a train step owes with remat="full", counted from the
-    code: ``norms`` and ``attns`` are the RMSNorms and attentions of one forward
-    inside the rematerialised blocks, each of which runs twice (the loss, then
-    the recomputation in the backward); the final norm, outside them, once;
-    the backward launches once for each of those.  The decode kernel and
-    WKV-6 are not on the path."""
+    code: ``norms``, ``attns`` and ``wkvs`` are the RMSNorms, attentions and
+    WKV-6 recurrences of one forward inside the rematerialised blocks, each of
+    which runs twice (the loss, then the recomputation in the backward); the
+    final norm, outside them, once; the backward launches once for each of
+    those.  The decode kernel is not on the path."""
     return {"rmsnorm": 2 * norms + 1, "rmsnorm_bwd": norms + 1, "flash_attention": 2 * attns,
-            "flash_attention_bwd": attns, "decode_attention": 0, "wkv6": 0, "sdpa_masked_calls": 0}
+            "flash_attention_bwd": attns, "decode_attention": 0, "wkv6": 2 * wkvs, "wkv6_bwd": wkvs,
+            "sdpa_masked_calls": 0}
 
 
 # GPT-A: two norms and one attention a block
@@ -197,6 +200,24 @@ HYBRID_TRAIN_LR = 1e-5
 # readings are reported beside the result.
 HYBRID_GRAD_SLACK = TRAIN_PARITY_TOL["bf16"]["grad_rel"]
 HYBRID_GRAD_CAP = 0.4
+
+# RWKV-6 7B trained at full width (32 x 4096, d_ff 14336, vocabulary 65536, 64
+# WKV heads of 64) with 8 of its 32 layers, 8 steps of 4 x 512, f32 parameters
+# and moments, bf16 activations, remat="full": a block owes two norms and one
+# WKV-6 recurrence, each forward twice (33 / 17 norms, 16 WKV-6 forward and 8
+# backward launches a step).  Its f32 comparison at 2 layers is held at
+# TRAIN_PARITY_TOL; its bf16 one at 8 layers as Zamba2's, leaf by leaf against
+# the control of its serving parity (the plain path with the WKV in chunks of
+# 64 against the config's 128) where GPT-A's 5e-2 misses.
+RWKV_TRAIN_LAYERS = 8
+RWKV_TRAIN_REDUCED = {"num_layers": "32 -> 8", "why": "7,534,153,728 parameters at 32 layers: 120.5 GB of f32 "
+                      "parameters, gradients and moments; 2,286,191,616 at 8: 36.6 GB"}
+RWKV_TRAIN_OWED = train_owed(2 * RWKV_TRAIN_LAYERS, 0, wkvs=RWKV_TRAIN_LAYERS)
+# the largest of experiments/torch_train.py --arch rwkv6_7b's sweep (3e-3 ... 1e-6)
+# whose 8 losses all stay below step 0's: 3e-3 and 1e-3 jump (24.5 and 16.5 from
+# 11.91), 1e-4 falls to 9.26 (NVIDIA H100 80GB HBM3, 700 W)
+RWKV_TRAIN_LR = 1e-4
+RWKV_CONTROL = "plain_chunk64"
 
 # The checkpoint on the card: HuBERT's train phase saves {"params", "opt"}
 # (f32 parameters and two f32 moments, 12 B x 945,008,640 = 11.34 GB a save)
@@ -711,6 +732,71 @@ def check_wkv6(ck: Checker, gen) -> None:
             ck.check("wkv6.state", f"{case} {dtype}", S, S_s, WKV_TOL)
 
 
+def check_wkv6_bwd(ck: Checker, gen) -> None:
+    """K4's backward (``wkv6_bwd_cuda``, from a zero state) against
+    ``wkv6_bwd_plain`` on the same inputs and dy: the reference's sweep, ragged
+    T around the tiles of 16 steps and the chunks of 64, RWKV-6 7B's training
+    shape (4 x 512, 64 heads of 64), strided views; then strong decay against
+    autograd through the recurrence (``wkv6_sequential``), where the chunked
+    plain form overflows; two runs bit for bit; and ``WKV6Fn`` through
+    ``ops.wkv6``, as the model calls it.  dr, dk, dv in the inputs' type under
+    "wkv6_bwd", dlogw and du (f32 whatever the inputs) under "wkv6_bwd.f32"."""
+    shapes = [(2, 128, 2, 64), (2, 96, 4, 32), (2, 128, 1, 64),
+              (2, 1, 2, 64), (2, 31, 2, 64), (2, 63, 2, 64), (2, 64, 2, 64), (2, 65, 2, 64), (2, 129, 2, 64),
+              (1, 300, 3, 64), (3, 100, 2, 32), (4, 512, 64, 64)]
+
+    def hold(case, got, want):
+        for name, g, w in zip(("dr", "dk", "dv", "dlogw", "du"), got, want):
+            key = "wkv6_bwd" if name in ("dr", "dk", "dv") else "wkv6_bwd.f32"
+            ck.check(key, f"{case} {name}", g, w, WKV_TOL)
+
+    for dtype in WKV_TOL:
+        for B, T, H, D in shapes:
+            r, k, v, logw, u, _ = wkv_inputs(gen, B, T, H, D, dtype, False)
+            dy = randn(gen, (B, T, H, D), dtype)
+            hold(f"{(B, T, H, D)} {dtype}", wkv_mod.wkv6_bwd_cuda(r, k, v, logw, u, dy),
+                 wkv_mod.wkv6_bwd_plain(r, k, v, logw, u, dy, chunk=64))
+        # views: heads-first storage read through strides, logw a slice in time, dy heads-first
+        B, T, H, D = 2, 70, 3, 64
+        r, k, v, _, u, _ = wkv_inputs(gen, B, T, H, D, dtype, False)
+        r = r.transpose(1, 2).contiguous().transpose(1, 2)
+        logw = -torch.exp(randn(gen, (B, T + 9, H, D), torch.float32) * 0.5 - 2.0)[:, 9:]
+        dy = randn(gen, (B, H, T, D), dtype).transpose(1, 2)
+        hold(f"strided views {dtype}", wkv_mod.wkv6_bwd_cuda(r, k, v, logw, u, dy),
+             wkv_mod.wkv6_bwd_plain(r, k, v, logw, u, dy))
+        # strong decay, about -7 a step: exp(-L) of the chunked plain form overflows
+        for B, T, H, D in ((2, 129, 2, 64), (1, 300, 3, 64)):
+            r, k, v, _, u, S0 = wkv_inputs(gen, B, T, H, D, dtype, False)
+            logw = -torch.exp(randn(gen, (B, T, H, D), torch.float32) * 0.5 + 2.0)
+            dy = randn(gen, (B, T, H, D), dtype)
+            want = autograd_plain(lambda a, b, c, w, uu: wkv6_sequential(a, b, c, w, uu, S0)[0], (r, k, v, logw, u), dy)
+            hold(f"{(B, T, H, D)} strong decay {dtype}", wkv_mod.wkv6_bwd_cuda(r, k, v, logw, u, dy), want)
+        # no atomics: two runs give the same bits; then the Function, as the model calls it
+        r, k, v, logw, u, _ = wkv_inputs(gen, 4, 512, 64, 64, dtype, False)
+        dy = randn(gen, r.shape, dtype)
+        a, b = wkv_mod.wkv6_bwd_cuda(r, k, v, logw, u, dy), wkv_mod.wkv6_bwd_cuda(r, k, v, logw, u, dy)
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"wkv6_bwd {dtype}: two runs on the same inputs differ")
+        leaves = [t.clone().requires_grad_(True) for t in (r, k, v, logw, u)]
+        with torch.enable_grad():
+            y = kops.wkv6(*leaves)
+            got = torch.autograd.grad(y, leaves, dy)
+        ck.check("wkv6", f"WKV6Fn forward {dtype}", y.detach(), kops.wkv6(r, k, v, logw, u), WKV_TOL)
+        hold(f"WKV6Fn {dtype}", got, a)
+
+
+def wkv6_bwd_flops(B: int, T: int, H: int, D: int) -> int:
+    """The f32 operations the gradients need, whatever kernel computes them:
+    a state element a step, 5 to carry S and read drI off it (a dot
+    product's FMA, then the update's multiply and FMA), 5 to carry dS and read
+    dkI off it, and 2 for dv's dot product with dS (12); a row a step, 20 (v.dy
+    2; the bonus terms of dr and dk 3 each; r drI and k dkI 1 each; dlogw's
+    running sum 2; du's product and sum 3; dv's r.u.k 3 and its add 2).  K4's
+    backward does more (its pass C carries dS a second time: 15 a state
+    element), which the bound does not count."""
+    return B * T * H * (12 * D * D + 20 * D)
+
+
 def wkv6_chunk_flops(B: int, T: int, H: int) -> int:
     """The tensor-core operations of csrc/wkv6.cu's wkv6_chunk_kernel, counted
     from its code: per chunk of 64 steps, m16n8k16 products for the scores
@@ -984,6 +1070,7 @@ def measure_backward(gen) -> dict:
                                       ("zamba_", 4, 512, 32, 80, True)):
         out["flash_attention_bwd"].update({label + key: val for key, val in
                                            flash_bwd_row(gen, B, T, H, D, causal, iters=3).items()})
+    out["wkv6_bwd"] = wkv6_bwd_row(gen, TRAIN_BATCH, TRAIN_SEQ, 64, 64)
     return out
 
 
@@ -1071,6 +1158,44 @@ def flash_bwd_row(gen, B: int, T: int, H: int, D: int, causal: bool, iters: int 
     return row
 
 
+def wkv6_bwd_row(gen, B: int, T: int, H: int, D: int) -> dict:
+    """K4's backward at r, k, v, dy (B, T, H, D) bf16: its launch whole and its
+    kernels apart (the profiler's device time a launch), the f32 launch, the
+    plain backward on the config's chunks of 128, and the card's bound.  No
+    single PyTorch call computes these gradients: no library time."""
+    sets = []
+    for _ in range(2):
+        r, k, v, logw, u, _ = wkv_inputs(gen, B, T, H, D, torch.bfloat16, False)
+        dy = randn(gen, (B, T, H, D), torch.bfloat16)
+        sets.append((r, k, v, logw, u, dy))
+    r, k, v, logw, u, _ = wkv_inputs(gen, B, T, H, D, torch.float32, False)
+    sets32 = [(r, k, v, logw, u, randn(gen, (B, T, H, D), torch.float32))]
+    n = B * T * H * D
+    # r, k, v, dy read and dr, dk, dv written in bf16, logw read and dlogw written in f32; u read, du written
+    nbytes = 7 * n * 2 + 2 * n * 4 + 2 * H * D * 4
+    flops = wkv6_bwd_flops(B, T, H, D)
+    split = kernel_times_ms(wkv_mod.wkv6_bwd_cuda, sets, iters=10)
+    row = {
+        "shape": f"r,k,v,dy ({B},{T},{H},{D}) bf16, logw f32, from a zero state",
+        "kernels": "wkv6_bwd_kernel<T,D,false> (A: dr, r drI, du partials), wkv6_bwd_kernel<T,D,true> "
+                   "(B: dk, dlogw), wkv6_bwd_dv_kernel<T,D> (C: dv), wkv6_du_kernel",
+        "ms": time_ms(wkv_mod.wkv6_bwd_cuda, sets),
+        "f32_ms": time_ms(wkv_mod.wkv6_bwd_cuda, sets32),
+        "plain_ms": time_ms(lambda *a: wkv_mod.wkv6_bwd_plain(*a, chunk=128), sets),
+        "library_ms": None, "library": "none: no single PyTorch call computes this recurrence's gradients",
+        "bytes": nbytes, "flops": flops,
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations",
+        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "operations_ms": flops / F32_FLOPS * 1e3,
+        "pass_a_ms": sum(t for name, t in split.items() if "wkv6_bwd_kernel" in name and "false" in name),
+        "pass_b_ms": sum(t for name, t in split.items() if "wkv6_bwd_kernel" in name and "true" in name),
+        "pass_c_ms": sum(t for name, t in split.items() if "wkv6_bwd_dv_kernel" in name),
+        "du_kernel_ms": sum(t for name, t in split.items() if "wkv6_du_kernel" in name),
+    }
+    del sets, sets32
+    return row
+
+
 KERNELS = [
     # name, wrapper module, CUDA source, the TPU kernel it replaces
     ("rmsnorm", rms_mod, "src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:35"),
@@ -1081,8 +1206,12 @@ KERNELS = [
     ("rmsnorm_bwd", rms_mod, "src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:35"),
     ("flash_attention_bwd", fa_mod, "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
      "src/repro/kernels/flash_attention.py:104"),
+    # the backward of K4: the TPU kernel has none, XLA derives it for the reference
+    ("wkv6_bwd", wkv_mod, "src/repro_torch/kernels/csrc/wkv6.cu", "src/repro/kernels/wkv6.py:85"),
 ]
-TOLS = {"wkv6": WKV_TOL, "rmsnorm_bwd": BWD_TOL, "flash_attention_bwd": BWD_TOL}
+# K4's backward: like K4, the kernel runs the sequential recurrence and the plain
+# version the chunked form, which rescales by exp(+-cumulative log decay)
+TOLS = {"wkv6": WKV_TOL, "rmsnorm_bwd": BWD_TOL, "flash_attention_bwd": BWD_TOL, "wkv6_bwd": WKV_TOL}
 
 
 def phase_kernels() -> list:
@@ -1095,6 +1224,7 @@ def phase_kernels() -> list:
     check_wkv6(ck, gen)
     check_rmsnorm_bwd(ck, gen)
     check_flash_bwd(ck, gen)
+    check_wkv6_bwd(ck, gen)
     timed = measure_kernels(gen)
     rows = []
     for name, _, source, replaces in KERNELS:
@@ -1113,6 +1243,8 @@ def phase_kernels() -> list:
             rows[-1]["max_abs_err_lse_f32"] = ck.max_err[("flash_attention.lse", "float32")]
         if name == "rmsnorm_bwd":
             rows[-1]["max_abs_err_dscale_f32"] = ck.max_err[("rmsnorm_bwd.dscale", "float32")]  # f32 for both dtypes
+        if name == "wkv6_bwd":  # f32 for both dtypes
+            rows[-1]["max_abs_err_dlogw_du_f32"] = ck.max_err[("wkv6_bwd.f32", "float32")]
     emit({"phase": "kernels", "tolerance": "atol = rtol = tol against the plain version on the same inputs",
           "timing": "device time between CUDA events, calls queued behind a spin kernel, warm-up, median of 7 rounds, inputs cold in L2", "kernels": rows})
     return rows
@@ -1130,6 +1262,7 @@ def reset_counters() -> None:
     fa_mod.bwd_launches = 0
     dec_mod.launches = 0
     wkv_mod.launches = 0
+    wkv_mod.bwd_launches = 0
     attention.sdpa_masked_calls = 0
 
 
@@ -1137,7 +1270,7 @@ def read_counters() -> dict:
     return {"rmsnorm": rms_mod.launches, "flash_attention": fa_mod.launches,
             "decode_attention": dec_mod.launches, "wkv6": wkv_mod.launches,
             "rmsnorm_bwd": rms_mod.bwd_launches, "flash_attention_bwd": fa_mod.bwd_launches,
-            "sdpa_masked_calls": attention.sdpa_masked_calls}
+            "wkv6_bwd": wkv_mod.bwd_launches, "sdpa_masked_calls": attention.sdpa_masked_calls}
 
 
 def make_requests(rng, cfg, lengths, first_id: int):
@@ -1235,7 +1368,7 @@ def phase_serve(phase: str, cfg, model, params) -> dict:
     else:
         want = {"flash_attention": A * (prefills - masked_prefills), "decode_attention": A * steps,
                 "rmsnorm": (2 * L + 1) * forwards, "sdpa_masked_calls": A * masked_prefills, "wkv6": 0}
-    want.update(rmsnorm_bwd=0, flash_attention_bwd=0)  # serving computes no gradients
+    want.update(rmsnorm_bwd=0, flash_attention_bwd=0, wkv6_bwd=0)  # serving computes no gradients
     if counters != want:
         raise AssertionError(f"{cfg.name}: launch counters {counters}, expected {want} ({prefills} prefills, {steps} steps)")
     for mono, split in ((runs[0], runs[3]), (runs[2], runs[4])):
@@ -1634,7 +1767,7 @@ def counters_owed(L: int, forwards: int, flash: int = 0, decode: int = 0, masked
     two norms a block and the final one each, ``flash``, ``decode`` and
     ``masked`` attention calls in all, no backward, no WKV-6."""
     return {"rmsnorm": (2 * L + 1) * forwards, "flash_attention": flash, "decode_attention": decode,
-            "sdpa_masked_calls": masked, "wkv6": 0, "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
+            "sdpa_masked_calls": masked, "wkv6": 0, "rmsnorm_bwd": 0, "flash_attention_bwd": 0, "wkv6_bwd": 0}
 
 
 @torch.no_grad()
@@ -1833,9 +1966,10 @@ def serve_hybrid() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def train_config(layers: int, dtype: torch.dtype):
-    """GPT-A at full width with ``layers`` of its 24; the config's remat="full"."""
-    return dataclasses.replace(get_config("gpt_a"), num_layers=layers, dtype=dtype)
+def train_config(layers: int, dtype: torch.dtype, arch: str = "gpt_a"):
+    """``arch`` (GPT-A unless named) at full width with ``layers`` of its
+    layers; the config's remat="full"."""
+    return dataclasses.replace(get_config(arch), num_layers=layers, dtype=dtype)
 
 
 def run_train(phase: str, cfg, *, seq: int, lr: float, owed: dict, log_every: int, extra: dict,
@@ -2009,7 +2143,7 @@ def grad_gaps(grads: dict, ref: dict) -> dict:
 
 def parity_gaps(cfg, seq: int, control=None) -> dict:
     """The kernel path against the plain path (masked plain sdpa, plain
-    RMSNorm, both through autograd) on the same weights (seed 0) and batch
+    RMSNorm, the plain chunked WKV-6, all through autograd) on the same weights (seed 0) and batch
     (``make_batches(seed 0)``, TRAIN_BATCH x ``seq``); with ``control`` (name,
     a context of the model), that path against the plain path too."""
     model = build_model(cfg)
@@ -2021,7 +2155,7 @@ def parity_gaps(cfg, seq: int, control=None) -> dict:
     reset_counters()
     loss_k, grads_k = loss_and_grads(model, params, batch)
     launched = read_counters()
-    if not (launched["rmsnorm_bwd"] and launched["flash_attention_bwd"]):
+    if not (launched["rmsnorm_bwd"] and launched["wkv6_bwd" if cfg.rwkv is not None else "flash_attention_bwd"]):
         raise AssertionError(f"{cfg.name} train parity: the kernel path launched {launched}")
     with plain_path():
         loss_p, grads_p = loss_and_grads(model, params, batch)
@@ -2094,6 +2228,26 @@ def phase_train_hybrid_parity() -> None:
                       {"model": cfg.name, "control_path": "plain path, the Mamba2 scan in chunks of 64 (the config's: 128)"})
 
 
+def train_rwkv() -> dict:
+    """RWKV-6 7B at full width with RWKV_TRAIN_LAYERS layers (``run_train``):
+    K1 and K4 forward and backward."""
+    return run_train("train_rwkv", train_config(RWKV_TRAIN_LAYERS, torch.bfloat16, "rwkv6_7b"), seq=TRAIN_SEQ,
+                     lr=RWKV_TRAIN_LR, owed=RWKV_TRAIN_OWED, log_every=1,
+                     extra={"reduced": RWKV_TRAIN_REDUCED, "lr_note": "the sweep's largest stable lr: "
+                            "experiments/torch_train.py --arch rwkv6_7b"})["counters"]
+
+
+def phase_train_rwkv_parity() -> None:
+    """RWKV-6 7B at full width: f32 at 2 layers, and bf16 at RWKV_TRAIN_LAYERS
+    beside the control (the plain path with the WKV in chunks of 64)."""
+    hold_train_parity("train_rwkv_parity",
+                      [("f32", train_config(2, torch.float32, "rwkv6_7b"), TRAIN_SEQ, None),
+                       ("bf16", train_config(RWKV_TRAIN_LAYERS, torch.bfloat16, "rwkv6_7b"), TRAIN_SEQ,
+                        (RWKV_CONTROL, lambda m: plain_path(wkv_chunk=64)))],
+                      {"model": "rwkv6-7b", "reduced": RWKV_TRAIN_REDUCED,
+                       "control_path": "plain path, the WKV in chunks of 64 (the config's: 128)"})
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -2151,6 +2305,10 @@ def main() -> int:
     counts["train-hybrid"] = train_hybrid()
     release()
     phase_train_hybrid_parity()
+    release()
+    counts["train-rwkv"] = train_rwkv()
+    release()
+    phase_train_rwkv_parity()
     release()
     counts["qwen2-moe-a2.7b"] = serve_moe_model("qwen2_moe_a2p7b", "serve_moe")
     release()

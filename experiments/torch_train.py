@@ -3,12 +3,15 @@
 train phases of ``chip_smoke.py`` tolerate, whether the kernel path and the
 plain path part over several steps, and where a step's time goes.
 
-    python3 experiments/torch_train.py [--arch gpt_a] [--layers N] [--seq T] [--skip-sweep] [--skip-profile]
+    python3 experiments/torch_train.py [--arch gpt_a --layers 8] [--seq T] [--skip-sweep] [--skip-profile]
 
-Needs one NVIDIA Hopper card and ``nvcc``.  ``--arch`` at full width (GPT-A:
-d_model 4096, d_ff 16384, vocabulary 50304, 8 of its 24 layers unless
-``--layers`` says otherwise; any other architecture at its full depth, e.g.
-``hubert_xlarge`` with ``--seq 1024`` or ``zamba2_2p7b``), random weights
+Needs one NVIDIA Hopper card and ``nvcc``.  ``--arch`` at full width and at
+the config's depth, or ``--layers``, which the script requires where the
+train state at full depth (18 B a parameter: f32 parameters, gradients and
+moments, and the bf16 computing copy) exceeds the card's memory: GPT-A
+(d_model 4096, d_ff 16384, vocabulary 50304) and ``rwkv6_7b`` train with
+``--layers 8``; e.g. ``hubert_xlarge`` with ``--seq 1024`` or
+``zamba2_2p7b`` at full depth.  Random weights
 from seed 0, bf16 activations, f32 parameters and moments, the config's
 ``remat`` ("full"), batches of 4 x ``--seq`` (512) from ``make_batches(seed
 0)``: tokens, or HuBERT's frame embeddings and labels.  Prints JSON lines:
@@ -16,8 +19,8 @@ from seed 0, bf16 activations, f32 parameters and moments, the config's
 - ``sweep``: 8 steps through ``launch.train.train`` at each learning rate;
   "stable" when every later loss stays below step 0's;
 - ``paths``: 3 steps at the launcher's default lr 3e-3, once on the kernel path
-  and once on the plain path (masked plain sdpa and plain RMSNorm through
-  autograd), and the loss of the first batch after them;
+  and once on the plain path (masked plain sdpa, plain RMSNorm and the plain
+  chunked WKV-6 through autograd), and the loss of the first batch after them;
 - ``sensitivity``: one update at lr 1e-5 (no decay) on the first batch: that
   batch's loss before and after, after undoing the update of one top-level
   group of leaves at a time, and each leaf's update over its own size (rms);
@@ -59,7 +62,8 @@ from repro_torch.optim.optimizer import (  # noqa: E402
 
 SWEEP = (3e-3, 1e-3, 1e-4, 1e-5, 3e-6, 1e-6)
 STEPS, BATCH, SEQ = 8, 4, 512
-PICK = ("rmsnorm_bwd", "flash_bwd")  # the backward kernels' time a step, wherever they rank
+PICK = ("rmsnorm_bwd", "flash_bwd", "wkv6_bwd", "wkv6_du")  # the backward kernels' time a step, wherever they rank
+TRAIN_BYTES_PER_PARAM = 18  # f32 parameters, gradients and two moments, and the bf16 computing copy
 
 
 def emit(obj) -> None:
@@ -76,7 +80,8 @@ def release() -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gpt_a")
-    ap.add_argument("--layers", type=int, default=None, help="depth to train at full width (GPT-A: 8; else the config's)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth to train at full width (default the config's; required where that does not fit)")
     ap.add_argument("--seq", type=int, default=SEQ)
     ap.add_argument("--skip-sweep", action="store_true")
     ap.add_argument("--skip-profile", action="store_true")
@@ -90,7 +95,14 @@ def main(argv=None) -> int:
     emit({"gpu": smi, "torch": torch.__version__})
 
     cfg = get_config(args.arch)
-    layers = args.layers or (8 if cfg.name == "gpt-a" else cfg.num_layers)
+    if args.layers is None:
+        need = TRAIN_BYTES_PER_PARAM * cfg.param_count()
+        have = torch.cuda.get_device_properties(0).total_memory
+        if need > have:
+            print(f"{cfg.name} at its {cfg.num_layers} layers needs {need / 1e9:.1f} GB of train state, more than "
+                  f"the card's {have / 1e9:.1f} GB: give --layers", file=sys.stderr)
+            return 2
+    layers = args.layers or cfg.num_layers
     cfg = dataclasses.replace(cfg, num_layers=layers)
     seq = args.seq
     model = build_model(cfg)

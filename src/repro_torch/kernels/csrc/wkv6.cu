@@ -41,13 +41,16 @@ namespace {
 constexpr int kQ = 4;    // threads a value column
 constexpr int kTT = 16;  // time steps a tile
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kQ * D)
-wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
-            const float* __restrict__ logw, const float* __restrict__ u, float* state,
-            T* __restrict__ y, int T_len, int H,
-            int64_t r_sb, int64_t r_st, int64_t r_sh, int64_t k_sb, int64_t k_st, int64_t k_sh,
-            int64_t v_sb, int64_t v_st, int64_t v_sh, int64_t w_sb, int64_t w_st, int64_t w_sh) {
+// The body of wkv6_kernel and of the backward's third pass,
+// wkv6_bwd_dv_kernel.  REV runs the recurrence from the last step to the
+// first: step p of the loop is time T - 1 - p.
+template <typename T, int D, bool REV>
+__device__ __forceinline__ void
+wkv6_sequential(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                const float* __restrict__ logw, const float* __restrict__ u, float* state,
+                T* __restrict__ y, int T_len, int H,
+                int64_t r_sb, int64_t r_st, int64_t r_sh, int64_t k_sb, int64_t k_st, int64_t k_sh,
+                int64_t v_sb, int64_t v_st, int64_t v_sh, int64_t w_sb, int64_t w_st, int64_t w_sh) {
   constexpr int NT = kQ * D;
   constexpr int R = D / kQ;     // state rows a thread holds
   constexpr int NW = D / 32;    // warps across one row of D: partial sums of the bonus
@@ -83,8 +86,9 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
   auto fetch = [&](int t0) {
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
-      const int64_t t = t0 + q + j * kQ;
-      const bool in = t < T_len;
+      const int64_t p = t0 + q + j * kQ;
+      const bool in = p < T_len;
+      const int64_t t = REV ? T_len - 1 - p : p;
       pr[j] = in ? to_f32(rb[t * r_st]) : 0.0f;
       pk[j] = in ? to_f32(kb[t * k_st]) : 0.0f;
       pv[j] = in ? to_f32(vb[t * v_st]) : 0.0f;
@@ -140,7 +144,8 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
       float yv = v_s[s][d] * bonus;
 #pragma unroll
       for (int qq = 0; qq < kQ; ++qq) yv += part_s[qq][s][d];
-      yb[(int64_t)(t0 + s) * y_st + d] = from_f32<T>(yv);
+      const int64_t t = REV ? T_len - 1 - (t0 + s) : t0 + s;
+      yb[t * y_st + d] = from_f32<T>(yv);
     }
     __syncthreads();  // the next tile overwrites the shared arrays
   }
@@ -150,6 +155,29 @@ wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restric
     for (int i = 0; i < R; ++i) st[(q * R + i) * D + e] = S[i];
   }
 }
+
+// the parameters of wkv6_sequential, which its two kernels pass on
+#define WKV6_SEQ_PARAMS                                                                                    \
+  const T *__restrict__ r, const T *__restrict__ k, const T *__restrict__ v, const float *__restrict__ logw, \
+      const float *__restrict__ u, float *state, T *__restrict__ y, int T_len, int H, int64_t r_sb,          \
+      int64_t r_st, int64_t r_sh, int64_t k_sb, int64_t k_st, int64_t k_sh, int64_t v_sb, int64_t v_st,       \
+      int64_t v_sh, int64_t w_sb, int64_t w_st, int64_t w_sh
+#define WKV6_SEQ_ARGS \
+  r, k, v, logw, u, state, y, T_len, H, r_sb, r_st, r_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, w_sb, w_st, w_sh
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kQ * D) wkv6_kernel(WKV6_SEQ_PARAMS) {
+  wkv6_sequential<T, D, false>(WKV6_SEQ_ARGS);
+}
+
+// The backward's pass C (wkv6_bwd_launch): the same recurrence backward in
+// time, under a name of its own so that a profile counts it with the backward.
+template <typename T, int D>
+__global__ void __launch_bounds__(kQ * D) wkv6_bwd_dv_kernel(WKV6_SEQ_PARAMS) {
+  wkv6_sequential<T, D, true>(WKV6_SEQ_ARGS);
+}
+#undef WKV6_SEQ_PARAMS
+#undef WKV6_SEQ_ARGS
 
 // ---------------------------------------------------------------------------
 // bf16, head size 64, T >= t_min: chunks of 64 steps on the tensor cores
@@ -590,6 +618,244 @@ wkv6_chunk_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __re
   }
 }
 
+// ---------------------------------------------------------------------------
+// The backward, from a zero initial state and with no final state
+// ---------------------------------------------------------------------------
+//
+// What XLA derives for the reference's _wkv_chunked when it trains; the TPU
+// kernel has no backward.  With drI_t = S_{t-1} dy_t and dkI_t = dS_t v_t the
+// parts of dr and dk that come through the state (dS_t the gradient of the
+// state after step t, dS = 0 after the last step):
+//
+//   dr_t = drI_t + u k_t (v_t.dy_t)       S_t     = diag(w_t) S_{t-1} + k_t^T v_t
+//   dk_t = dkI_t + u r_t (v_t.dy_t)       dS_{t-1} = diag(w_t) dS_t + r_t^T dy_t
+//   dv_t = dS_t^T k_t + (r_t.u.k_t) dy_t
+//   du   = sum over b and t of r_t k_t (v_t.dy_t)
+//   dlogw_s = sum_{t>s} r_t drI_t - sum_{t>=s} k_t dkI_t
+//
+// The last line needs no state and no exp: y reads logw only through the
+// decay between two steps, and each pair's term adds to r_t drI_t and to
+// k_s dkI_s alike.  Three passes over the recurrence, each one block a
+// (batch, head), f32 throughout, no atomics (a run is bit-reproducible):
+//   A  wkv6_bwd_kernel<T, D, false>, forward in time: S by rows; writes dr and
+//      r_t drI_t (f32 scratch), and du's partial of the (b, h);
+//   B  wkv6_bwd_kernel<T, D, true>, backward in time: dS by rows; writes dk
+//      and dlogw, reading A's scratch;
+//   C  wkv6_bwd_dv_kernel<T, D>, wkv6_kernel's body backward in time:
+//      dv_t = sum_i k_t[i] dS_t[i][.] + (k.u.r) dy_t
+//      is the forward recurrence run backward in time with k for r, r for k
+//      and dy for v (a pair's decay leaves out both its ends, so it reads the
+//      same either way), the column layout its reduction over i needs;
+// then wkv6_du_kernel sums du's partials over the batch in order.  A and B are
+// one kernel: B is A run backward in time with (x, y, kk, z) = (v, dy, r, k)
+// for A's (dy, v, k, r),
+//
+//   part_t = M x_t          M <- diag(w_t) M + kk_t^T y_t
+//   out_t  = part_t + u kk_t (x_t.y_t)
+//
+// with M = S in A, dS in B.  Bound by f32 operations, 5 a state element a
+// step in each of the three passes (a dot product's FMA, then a multiply and
+// an FMA for the update): 15, where the gradients need 12, since C carries dS
+// a second time instead of reading it off B.  The layout is wkv6_kernel's
+// transposed: thread (q, i) holds columns [q R, q R + R) of row i of M in
+// registers, so x_t and y_t are one shared-memory address for a whole warp (a
+// broadcast) and kk_t, w_t one address a lane; the kQ partial sums of part_t
+// meet in shared memory once a tile.  B's running sum for dlogw goes along time, so after each tile
+// one thread a row walks the tile's steps in order.
+template <typename T, int D, bool REV>
+__global__ void __launch_bounds__(kQ * D)
+wkv6_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y, const T* __restrict__ kk,
+                const T* __restrict__ z, const float* __restrict__ logw, const float* __restrict__ u,
+                T* __restrict__ out, float* __restrict__ scratch, float* __restrict__ dlogw,
+                float* __restrict__ du_part, int T_len, int H,
+                int64_t x_sb, int64_t x_st, int64_t x_sh, int64_t y_sb, int64_t y_st, int64_t y_sh,
+                int64_t k_sb, int64_t k_st, int64_t k_sh, int64_t z_sb, int64_t z_st, int64_t z_sh,
+                int64_t w_sb, int64_t w_st, int64_t w_sh) {
+  constexpr int R = D / kQ;
+  constexpr int NW = D / 32;
+  constexpr int PER = kTT / kQ;
+  __shared__ __align__(16) float x_s[kTT][D];
+  __shared__ __align__(16) float y_s[kTT][D];
+  __shared__ float k_s[kTT][D];
+  __shared__ float z_s[kTT][D];
+  __shared__ float w_s[kTT][D];
+  __shared__ float a_s[kTT][D];  // B: A's r_t drI_t of the tile
+  __shared__ float part_s[kQ][kTT][D];
+  __shared__ float xy_s[kTT][NW];
+
+  const int tid = threadIdx.x;
+  const int q = tid / D;  // which R columns of M; one q a warp
+  const int i = tid % D;  // row of M, and the element this thread loads
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const T* xb = x + b * x_sb + h * x_sh + i;
+  const T* yb = y + b * y_sb + h * y_sh + i;
+  const T* kb = kk + b * k_sb + h * k_sh + i;
+  const T* zb = z + b * z_sb + h * z_sh + i;
+  const float* wb = logw + b * w_sb + h * w_sh + i;
+  const int64_t o_st = (int64_t)H * D;  // out and dlogw are (B, T, H, D) contiguous
+  const int64_t o_base = ((int64_t)b * T_len * H + h) * D;
+  float* sc = scratch + (int64_t)blockIdx.x * T_len * D;  // (B H, T, D)
+  const float ui = u[h * D + i];
+
+  float M[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) M[j] = 0.0f;
+  float du_acc = 0.0f;    // A: this thread's steps of sum_t kk z (x.y)
+  // B, the threads of q = 0: sum_{t'>t} r drI - sum_{t'>=t} k dkI, one running
+  // sum, which stays the size of dlogw; the two sums apart grow along T and
+  // their difference loses their rounding (4x the error at 4 x 512 tokens)
+  float run = 0.0f;
+
+  // thread (q, i) loads element i of loop steps q, q + kQ, ...; past T all zeros
+  float px[PER], py[PER], pk[PER], pz[PER], pw[PER], pa[PER];
+  auto fetch = [&](int p0) {
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int64_t p = p0 + q + j * kQ;
+      const bool in = p < T_len;
+      const int64_t t = REV ? T_len - 1 - p : p;
+      px[j] = in ? to_f32(xb[t * x_st]) : 0.0f;
+      py[j] = in ? to_f32(yb[t * y_st]) : 0.0f;
+      pk[j] = in ? to_f32(kb[t * k_st]) : 0.0f;
+      pz[j] = in ? to_f32(zb[t * z_st]) : 0.0f;
+      pw[j] = in ? wb[t * w_st] : 0.0f;
+      pa[j] = REV && in ? sc[t * D + i] : 0.0f;
+    }
+  };
+  fetch(0);
+
+  for (int p0 = 0; p0 < T_len; p0 += kTT) {
+    const int n = min(kTT, T_len - p0);
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int s = q + j * kQ;
+      x_s[s][i] = px[j];
+      y_s[s][i] = py[j];
+      k_s[s][i] = pk[j];
+      z_s[s][i] = pz[j];
+      w_s[s][i] = expf(pw[j]);
+      a_s[s][i] = pa[j];
+      const float p = warp_sum(px[j] * py[j]);  // a warp is 32 rows of one step
+      if ((tid & 31) == 0) xy_s[s][i / 32] = p;
+    }
+    __syncthreads();
+    if (p0 + kTT < T_len) fetch(p0 + kTT);  // in flight while this tile's steps run
+
+    for (int s = 0; s < n; ++s) {
+      const float kv = k_s[s][i], wv = w_s[s][i];
+      const float4* x4 = reinterpret_cast<const float4*>(&x_s[s][q * R]);
+      const float4* y4 = reinterpret_cast<const float4*>(&y_s[s][q * R]);
+      float acc = 0.0f;
+#pragma unroll
+      for (int j = 0; j < R / 4; ++j) {
+        const float4 xx = x4[j], yy = y4[j];
+        // part reads M before this step's update
+        acc = fmaf(M[4 * j + 0], xx.x, acc);
+        acc = fmaf(M[4 * j + 1], xx.y, acc);
+        acc = fmaf(M[4 * j + 2], xx.z, acc);
+        acc = fmaf(M[4 * j + 3], xx.w, acc);
+        M[4 * j + 0] = fmaf(M[4 * j + 0], wv, kv * yy.x);
+        M[4 * j + 1] = fmaf(M[4 * j + 1], wv, kv * yy.y);
+        M[4 * j + 2] = fmaf(M[4 * j + 2], wv, kv * yy.z);
+        M[4 * j + 3] = fmaf(M[4 * j + 3], wv, kv * yy.w);
+      }
+      part_s[q][s][i] = acc;
+    }
+    __syncthreads();
+
+    // thread (q, i) finishes row i of steps q, q + kQ, ... of the tile
+    for (int s = q; s < n; s += kQ) {
+      float xy = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NW; ++j) xy += xy_s[s][j];
+      float part = 0.0f;
+#pragma unroll
+      for (int qq = 0; qq < kQ; ++qq) part += part_s[qq][s][i];
+      const int64_t t = REV ? T_len - 1 - (p0 + s) : p0 + s;
+      out[o_base + t * o_st + i] = from_f32<T>(part + ui * k_s[s][i] * xy);
+      if (REV) {
+        part_s[0][s][i] = z_s[s][i] * part;  // k_t dkI_t, for the walk below
+      } else {
+        sc[t * D + i] = z_s[s][i] * part;    // r_t drI_t
+        du_acc = fmaf(k_s[s][i] * z_s[s][i], xy, du_acc);
+      }
+    }
+    if (REV) {
+      __syncthreads();
+      if (q == 0) {
+        for (int s = 0; s < n; ++s) {
+          run -= part_s[0][s][i];
+          const int64_t t = T_len - 1 - (p0 + s);
+          dlogw[o_base + t * o_st + i] = run;
+          run += a_s[s][i];
+        }
+      }
+    }
+    __syncthreads();  // the next tile overwrites the shared arrays
+  }
+
+  if (!REV) {
+    part_s[q][0][i] = du_acc;
+    __syncthreads();
+    if (q == 0) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int qq = 0; qq < kQ; ++qq) sum += part_s[qq][0][i];
+      du_part[(int64_t)blockIdx.x * D + i] = sum;
+    }
+  }
+}
+
+// du[h][i] = sum over b of du_part[b][h][i], b in order
+__global__ void wkv6_du_kernel(const float* __restrict__ du_part, float* __restrict__ du, int B, int HD) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= HD) return;
+  float sum = 0.0f;
+  for (int b = 0; b < B; ++b) sum += du_part[(int64_t)b * HD + idx];
+  du[idx] = sum;
+}
+
+template <typename T, int D>
+int launch_bwd(const void* r, const void* k, const void* v, const void* logw, const void* u, const void* dy,
+               void* dr, void* dk, void* dv, void* dlogw, void* du, void* scratch, void* du_part, int B,
+               int T_len, int H, const int64_t* s, cudaStream_t stream) {
+  // s: the (b, t, h) strides of r, k, v, logw, dy
+  const int64_t *sr = s, *sk = s + 3, *sv = s + 6, *sw = s + 9, *sg = s + 12;
+  const unsigned grid = (unsigned)(B * H);
+  wkv6_bwd_kernel<T, D, false><<<grid, kQ * D, 0, stream>>>(
+      (const T*)dy, (const T*)v, (const T*)k, (const T*)r, (const float*)logw, (const float*)u, (T*)dr,
+      (float*)scratch, nullptr, (float*)du_part, T_len, H, sg[0], sg[1], sg[2], sv[0], sv[1], sv[2], sk[0], sk[1],
+      sk[2], sr[0], sr[1], sr[2], sw[0], sw[1], sw[2]);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  wkv6_bwd_kernel<T, D, true><<<grid, kQ * D, 0, stream>>>(
+      (const T*)v, (const T*)dy, (const T*)r, (const T*)k, (const float*)logw, (const float*)u, (T*)dk,
+      (float*)scratch, (float*)dlogw, nullptr, T_len, H, sv[0], sv[1], sv[2], sg[0], sg[1], sg[2], sr[0], sr[1],
+      sr[2], sk[0], sk[1], sk[2], sw[0], sw[1], sw[2]);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  wkv6_bwd_dv_kernel<T, D><<<grid, kQ * D, 0, stream>>>(
+      (const T*)k, (const T*)r, (const T*)dy, (const float*)logw, (const float*)u, nullptr, (T*)dv, T_len, H,
+      sk[0], sk[1], sk[2], sr[0], sr[1], sr[2], sg[0], sg[1], sg[2], sw[0], sw[1], sw[2]);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int HD = H * D;
+  wkv6_du_kernel<<<(HD + 255) / 256, 256, 0, stream>>>((const float*)du_part, (float*)du, B, HD);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_d(const void* r, const void* k, const void* v, const void* logw, const void* u, const void* dy,
+                 void* dr, void* dk, void* dv, void* dlogw, void* du, void* scratch, void* du_part, int B,
+                 int T_len, int H, int D, const int64_t* s, cudaStream_t stream) {
+  if (D == 32)
+    return launch_bwd<T, 32>(r, k, v, logw, u, dy, dr, dk, dv, dlogw, du, scratch, du_part, B, T_len, H, s, stream);
+  if (D == 64)
+    return launch_bwd<T, 64>(r, k, v, logw, u, dy, dr, dk, dv, dlogw, du, scratch, du_part, B, T_len, H, s, stream);
+  return -2;
+}
+
 template <typename T, int D>
 int launch(const void* r, const void* k, const void* v, const void* logw, const void* u, void* state,
            void* y, int B, int T_len, int H, const int64_t* s, cudaStream_t stream) {
@@ -641,5 +907,30 @@ extern "C" int wkv6_launch(const void* r, const void* k, const void* v, const vo
     return launch_chunk(r, k, v, logw, u, state, y, B, T_len, H, s, st);
   if (dtype == DT_F32) return launch_d<float>(r, k, v, logw, u, state, y, B, T_len, H, D, s, st);
   if (dtype == DT_BF16) return launch_d<__nv_bfloat16>(r, k, v, logw, u, state, y, B, T_len, H, D, s, st);
+  return -1;
+}
+
+// The backward of wkv6_launch from a zero state with no final state: r, k, v,
+// dy (B, T, H, D) in `dtype` and logw (B, T, H, D) f32, each with a unit stride
+// along D and the element strides given for its b, t and h axes; u (H, D) f32
+// contiguous.  Writes dr, dk, dv (B, T, H, D) contiguous in `dtype`, dlogw
+// (B, T, H, D) and du (H, D) contiguous f32; scratch (B H, T, D) and du_part
+// (B, H, D) are f32 workspace.  Four launches on `stream`: the passes A, B and
+// C above and wkv6_du_kernel.  Returns cudaGetLastError() of the first launch
+// that failed, -1 for a bad dtype, -2 for a head size it is not instantiated for.
+extern "C" int wkv6_bwd_launch(const void* r, const void* k, const void* v, const void* logw, const void* u,
+                               const void* dy, void* dr, void* dk, void* dv, void* dlogw, void* du, void* scratch,
+                               void* du_part, int B, int T_len, int H, int D, int dtype, int64_t r_sb,
+                               int64_t r_st, int64_t r_sh, int64_t k_sb, int64_t k_st, int64_t k_sh, int64_t v_sb,
+                               int64_t v_st, int64_t v_sh, int64_t w_sb, int64_t w_st, int64_t w_sh,
+                               int64_t g_sb, int64_t g_st, int64_t g_sh, void* stream) {
+  if (B == 0 || T_len == 0 || H == 0) return 0;
+  const int64_t s[15] = {r_sb, r_st, r_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, w_sb, w_st, w_sh, g_sb, g_st, g_sh};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == DT_F32)
+    return launch_bwd_d<float>(r, k, v, logw, u, dy, dr, dk, dv, dlogw, du, scratch, du_part, B, T_len, H, D, s, st);
+  if (dtype == DT_BF16)
+    return launch_bwd_d<__nv_bfloat16>(r, k, v, logw, u, dy, dr, dk, dv, dlogw, du, scratch, du_part, B, T_len, H,
+                                       D, s, st);
   return -1;
 }

@@ -6,12 +6,14 @@ no fall-back of any kind on the card: the kernels read the model's layouts
 through strides and mask their own ragged edges, so T, S and N need divide
 nothing.
 
-Where gradients are enabled and an input requires grad, ``flash_attention``
-and ``rmsnorm`` go through their autograd Functions (``FlashAttentionFn``,
-``RMSNormFn``) on either device: on the card the Function's forward and
-backward launch kernels, on the CPU they call the plain forward and the plain
-backward, so the CPU tests run the backward arithmetic the card runs.  Decode
-attention and WKV-6 have no backward: their wrappers refuse such inputs.
+Where gradients are enabled and an input requires grad, ``flash_attention``,
+``rmsnorm`` and ``wkv6`` go through their autograd Functions
+(``FlashAttentionFn``, ``RMSNormFn``, ``WKV6Fn``) on either device: on the
+card the Function's forward and backward launch kernels, on the CPU they call
+the plain forward and the plain backward, so the CPU tests run the backward
+arithmetic the card runs.  WKV-6 is differentiated from a zero state only, as
+the reference's loss runs it.  Decode attention has no backward: its wrapper
+refuses such inputs.
 """
 from __future__ import annotations
 
@@ -83,7 +85,11 @@ def wkv6(
     ``chunk`` is the plain version's chunk length.  On the card any T is taken:
     bf16 at head size 64 with T >= ``wkv6.CHUNKED_T_MIN`` runs the chunked form
     on the tensor cores (chunks of 64), everything else (f32, a decode step)
-    the exact sequential recurrence."""
+    the exact sequential recurrence.  Differentiated, it takes no ``state``."""
+    if _differentiated(r, k, v, logw, u):
+        if state is not None:
+            raise ValueError("wkv6: a differentiated call starts from a zero state and takes no state")
+        return _wkv.WKV6Fn.apply(r, k, v, logw, u, chunk)
     if r.device.type == "cpu":
         y, S = _wkv.wkv6_plain(r, k, v, logw, u, state, chunk=chunk)
         if state is not None:

@@ -1,5 +1,6 @@
-"""RWKV-6 WKV recurrence: the CUDA kernel's wrapper, its plain version and its
-launch count.
+"""RWKV-6 WKV recurrence: the CUDA kernels' wrappers (forward and backward),
+their plain versions, their launch counts and ``WKV6Fn``, the autograd
+Function that joins them.
 
     S_t = diag(w_t) S_{t-1} + k_tᵀ v_t          (S: D_key x D_value, f32)
     y_t = r_t (S_{t-1} + diag(u) k_tᵀ v_t)      w_t = exp(logw_t)
@@ -21,6 +22,18 @@ Two hand-written kernels in ``csrc/wkv6.cu``, chosen in its C entry point:
   T = 1) and rows that do not start on 16 bytes.  The exact sequential
   recurrence on the CUDA cores: at a prefill's length bound by its f32
   operations (5 a state element a step), at T = 1 by the state's bytes.
+
+The backward (``wkv6_bwd_cuda``, from a zero initial state and with no final
+state, as the reference's loss runs ``_wkv_chunked``) is the port's
+counterpart of what XLA derives for the reference when it trains: three
+sequential passes over the recurrence in ``csrc/wkv6.cu``, f32 throughout,
+bound by their f32 operations (15 a state element a step, where the gradients
+need 12: the third pass carries dS a second time), and a fixed-order
+sum of ``du`` over the batch.  With ``drI_t = S_{t-1} dy_t`` and ``dkI_t =
+dS_t v_t`` the parts of dr and dk that come through the state, the gradient
+of the log decay needs no state:
+
+    dlogw_s = sum_{t>s} r_t * drI_t - sum_{t>=s} k_t * dkI_t
 """
 from __future__ import annotations
 
@@ -36,7 +49,8 @@ HEAD_DIMS = (32, 64)  # the head sizes the kernels are instantiated for
 # the shortest T that the chunked kernel takes (bf16, head size 64): below it
 # the sequential kernel is faster on an H100 (experiments/torch_kernel_ab.py)
 CHUNKED_T_MIN = 32
-launches = 0  # one more for every kernel launch; reset by whoever wants to count a run
+launches = 0  # one more for every forward kernel launch; reset by whoever wants to count a run
+bwd_launches = 0  # one more for every backward launch (its kernels count once)
 
 
 def wkv6_plain(
@@ -84,6 +98,28 @@ def wkv6_plain(
     return y.reshape(B, nc * c, H, D)[:, :T].to(r.dtype), S
 
 
+def _require_inputs(name: str, r, k, v, logw, u, *more) -> Tuple[int, int, int, int]:
+    """The checks the forward and the backward share: r, k, v (B, T, H, D) of
+    one type, f32 or bf16, and logw alike in f32, each with a unit stride along
+    D; u (H, D) f32 contiguous; D in HEAD_DIMS; all of them and ``more`` on
+    the current CUDA device.  Returns (B, T, H, D)."""
+    require_cuda(name, r, k, v, logw, u, *more)
+    require(r.dtype in DTYPE_CODES and k.dtype == r.dtype and v.dtype == r.dtype,
+            f"{name}: r, k, v of one type, f32 or bf16, got {r.dtype}, {k.dtype}, {v.dtype}")
+    require(logw.dtype == torch.float32 and u.dtype == torch.float32,
+            f"{name}: logw and u must be f32, got {logw.dtype}, {u.dtype}")
+    require(r.dim() == 4 and k.shape == r.shape and v.shape == r.shape and logw.shape == r.shape,
+            f"{name}: r, k, v, logw must be (B, T, H, D) alike, got {[tuple(t.shape) for t in (r, k, v, logw)]}")
+    B, T, H, D = r.shape
+    require(B >= 1 and T >= 1 and H >= 1, f"{name}: empty input")
+    require(D in HEAD_DIMS, f"{name}: head size {D} not in {HEAD_DIMS}")
+    require(B * H < 2**31, f"{name}: too many (batch, head) rows for one grid")
+    for what, t in (("r", r), ("k", k), ("v", v), ("logw", logw)):
+        require(t.stride(-1) == 1, f"{name}: {what} needs a unit stride along its last axis, got strides {t.stride()}")
+    require(tuple(u.shape) == (H, D) and u.is_contiguous(), f"{name}: u must be ({H}, {D}) contiguous, got {tuple(u.shape)}")
+    return B, T, H, D
+
+
 def wkv6_cuda(
     r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor, u: torch.Tensor,
     state: Optional[torch.Tensor] = None,
@@ -94,22 +130,9 @@ def wkv6_cuda(
     (None: S0 = 0 and no final state).  Returns y (B, T, H, D) in r's dtype.
     Any T >= 1; D in HEAD_DIMS.  Launches one of the two kernels."""
     global launches
-    tensors = (r, k, v, logw, u) + (() if state is None else (state,))
-    require_no_grad("wkv6", *tensors)
-    require_cuda("wkv6", *tensors)
-    require(r.dtype in DTYPE_CODES and k.dtype == r.dtype and v.dtype == r.dtype,
-            f"wkv6: r, k, v of one type, f32 or bf16, got {r.dtype}, {k.dtype}, {v.dtype}")
-    require(logw.dtype == torch.float32 and u.dtype == torch.float32,
-            f"wkv6: logw and u must be f32, got {logw.dtype}, {u.dtype}")
-    require(r.dim() == 4 and k.shape == r.shape and v.shape == r.shape and logw.shape == r.shape,
-            f"wkv6: r, k, v, logw must be (B, T, H, D) alike, got {[tuple(t.shape) for t in (r, k, v, logw)]}")
-    B, T, H, D = r.shape
-    require(B >= 1 and T >= 1 and H >= 1, "wkv6: empty input")
-    require(D in HEAD_DIMS, f"wkv6: head size {D} not in {HEAD_DIMS}")
-    require(B * H < 2**31, "wkv6: too many (batch, head) rows for one grid")
-    for what, t in (("r", r), ("k", k), ("v", v), ("logw", logw)):
-        require(t.stride(-1) == 1, f"wkv6: {what} needs a unit stride along its last axis, got strides {t.stride()}")
-    require(tuple(u.shape) == (H, D) and u.is_contiguous(), f"wkv6: u must be ({H}, {D}) contiguous, got {tuple(u.shape)}")
+    more = () if state is None else (state,)
+    require_no_grad("wkv6", r, k, v, logw, u, *more)
+    B, T, H, D = _require_inputs("wkv6", r, k, v, logw, u, *more)
     if state is not None:
         require(state.dtype == torch.float32 and tuple(state.shape) == (B, H, D, D) and state.is_contiguous(),
                 f"wkv6: state must be ({B}, {H}, {D}, {D}) f32 contiguous, got {tuple(state.shape)} {state.dtype}")
@@ -127,3 +150,131 @@ def wkv6_cuda(
     build.check(code, "wkv6")
     launches += 1
     return y
+
+
+def wkv6_bwd_plain(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor, u: torch.Tensor,
+    dy: torch.Tensor, *, chunk: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients of ``wkv6_plain(r, k, v, logw, u)`` (S0 = 0, the final
+    state not differentiated) against dy, written out on the same chunks, f32
+    inside: (dr, dk, dv) in r's dtype, dlogw (B, T, H, D) f32, du (H, D) f32.
+    Per chunk, with the forward's rescaled r_sc, k_sc and kw, its scores, the
+    states S_prev before each chunk and dS_next, the gradient of the state
+    after it:
+
+        dr = (dscores k_sc + dy S_prevᵀ) exp(lcum) + u k (v.dy)
+        dk = dscoresᵀ r_sc exp(-lcum_inc) + v dS_nextᵀ exp(ltot - lcum_inc) + u r (v.dy)
+        dv = scoresᵀ dy + (r.u.k) dy + kw dS_next
+        dS_prev = r_scᵀ dy + diag(exp(ltot)) dS_next
+
+    and dlogw from the identity of the module's docstring, on the parts of dr
+    and dk without the bonus."""
+    B, T, H, D = r.shape
+    c = min(chunk, T)
+    nc = -(-T // c)
+    pad = nc * c - T
+
+    def chunks(a):
+        return F.pad(a.float(), (0, 0, 0, 0, 0, pad)).reshape(B, nc, c, H, D)
+
+    rc, kc, vc, lw, gc = chunks(r), chunks(k), chunks(v), chunks(logw), chunks(dy)
+    lcum_inc = lw.cumsum(2)
+    lcum = lcum_inc - lw
+    ltot = lcum_inc[:, :, -1]
+    e_r, e_k = torch.exp(lcum), torch.exp(-lcum_inc)
+    e_w = torch.exp(ltot[:, :, None] - lcum_inc)
+    r_sc, k_sc, kw = rc * e_r, kc * e_k, kc * e_w
+    mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device), diagonal=-1)
+    scores = torch.einsum("bkthd,bkshd->bkhts", r_sc, k_sc) * mask
+    bonus = torch.einsum("bkthd,hd,bkthd->bkth", rc, u.float(), kc)
+    vdy = (vc * gc).sum(-1)  # (B, nc, c, H)
+
+    S_chunk = torch.einsum("bkshd,bkshe->bkhde", kw, vc)
+    S = torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
+    S_prevs = []
+    for i in range(nc):
+        S_prevs.append(S)
+        S = S * torch.exp(ltot[:, i])[..., None] + S_chunk[:, i]
+    dS = torch.zeros_like(S)
+    dS_nexts = [None] * nc
+    for i in reversed(range(nc)):  # the state's gradient carried back from chunk to chunk
+        dS_nexts[i] = dS
+        dS = dS * torch.exp(ltot[:, i])[..., None] + torch.einsum("bthd,bthe->bhde", r_sc[:, i], gc[:, i])
+    S_prev, dS_next = torch.stack(S_prevs, dim=1), torch.stack(dS_nexts, dim=1)
+
+    dscores = torch.einsum("bkthe,bkshe->bkhts", gc, vc) * mask
+    drI = (torch.einsum("bkhts,bkshd->bkthd", dscores, k_sc) + torch.einsum("bkthe,bkhde->bkthd", gc, S_prev)) * e_r
+    dkI = torch.einsum("bkhts,bkthd->bkshd", dscores, r_sc) * e_k \
+        + torch.einsum("bkshe,bkhde->bkshd", vc, dS_next) * e_w
+    uf = u.float()
+    dr = drI + uf * kc * vdy[..., None]
+    dk = dkI + uf * rc * vdy[..., None]
+    dv = torch.einsum("bkhts,bkthe->bkshe", scores, gc) + bonus[..., None] * gc \
+        + torch.einsum("bkshd,bkhde->bkshe", kw, dS_next)
+    du = (rc * kc * vdy[..., None]).sum(dim=(0, 1, 2))
+
+    def whole(a):
+        return a.reshape(B, nc * c, H, D)[:, :T]
+
+    # dlogw_s = sum_{t>s} r_t drI_t - sum_{t>=s} k_t dkI_t = sum_{t>=s} (r_{t+1} drI_{t+1} - k_t dkI_t):
+    # one sum from the end of the sequence, which stays the size of dlogw
+    rdr = F.pad(whole(rc * drI)[:, 1:], (0, 0, 0, 0, 0, 1))
+    dlogw = (rdr - whole(kc * dkI)).flip(1).cumsum(1).flip(1)
+    return whole(dr).to(r.dtype), whole(dk).to(r.dtype), whole(dv).to(r.dtype), dlogw, du
+
+
+def wkv6_bwd_cuda(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor, u: torch.Tensor, dy: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients of ``wkv6_cuda(r, k, v, logw, u, None)`` against dy:
+    (dr, dk, dv) (B, T, H, D) in r's dtype, dlogw (B, T, H, D) f32, du (H, D)
+    f32.  r, k, v, dy of one type, f32 or bf16, logw f32, each read through its
+    strides (unit stride along D); u (H, D) f32 contiguous.  Any T >= 1; D in
+    HEAD_DIMS.  Launches the backward's kernels; bit-reproducible (no atomics)."""
+    global bwd_launches
+    require_no_grad("wkv6_bwd", r, k, v, logw, u, dy)
+    require(dy.dtype == r.dtype and dy.shape == r.shape and dy.stride(-1) == 1,
+            f"wkv6_bwd: dy must be like r with a unit stride along D, got {tuple(dy.shape)} {dy.dtype} {dy.stride()}")
+    B, T, H, D = _require_inputs("wkv6_bwd", r, k, v, logw, u, dy)
+    dr, dk, dv = (torch.empty((B, T, H, D), dtype=r.dtype, device=r.device) for _ in range(3))
+    dlogw = torch.empty((B, T, H, D), dtype=torch.float32, device=r.device)
+    du = torch.empty((H, D), dtype=torch.float32, device=r.device)
+    # the first pass's r_t * drI_t, read back by the second; du's partials a (batch, head)
+    scratch = torch.empty((B * H, T, D), dtype=torch.float32, device=r.device)
+    du_part = torch.empty((B, H, D), dtype=torch.float32, device=r.device)
+    strides = [s for t in (r, k, v, logw, dy) for s in t.stride()[:3]]
+    code = build.load().wkv6_bwd_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(), dy.data_ptr(),
+        dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlogw.data_ptr(), du.data_ptr(), scratch.data_ptr(),
+        du_part.data_ptr(), B, T, H, D, DTYPE_CODES[r.dtype], *strides,
+        torch.cuda.current_stream(r.device).cuda_stream,
+    )
+    build.check(code, "wkv6_bwd")
+    bwd_launches += 1
+    return dr, dk, dv, dlogw, du
+
+
+class WKV6Fn(torch.autograd.Function):
+    """y = wkv6(r, k, v, logw, u) from a zero state, with no final state, and a
+    hand-written backward: on the card both directions launch kernels
+    (``wkv6_cuda``, ``wkv6_bwd_cuda``), on the CPU both use the plain versions
+    on chunks of ``chunk``.  Saves the five inputs."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, chunk: int):
+        ctx.chunk = chunk
+        ctx.save_for_backward(r, k, v, logw, u)
+        if r.device.type == "cpu":
+            return wkv6_plain(r, k, v, logw, u, None, chunk=chunk)[0]
+        return wkv6_cuda(r, k, v, logw, u, None)
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        r, k, v, logw, u = ctx.saved_tensors
+        if r.device.type == "cpu":
+            dr, dk, dv, dlogw, du = wkv6_bwd_plain(r, k, v, logw, u, dy, chunk=ctx.chunk)
+        else:
+            # autograd may hand over an expanded dy; the kernels read rows of D
+            dr, dk, dv, dlogw, du = wkv6_bwd_cuda(r, k, v, logw, u, dy if dy.stride(-1) == 1 else dy.contiguous())
+        return dr, dk, dv, dlogw.to(logw.dtype), du.to(u.dtype), None

@@ -6,12 +6,14 @@ Per head (dim D), with per-channel decay w_t in (0, 1):
     out_t = r_t · (S_{t-1} + diag(u) k_tᵀ v_t)
 
 The recurrence goes through ``kernels.ops.wkv6`` for every T, prefill and
-decode alike: the WKV kernel on the card, its plain chunked version on the CPU.
+decode alike: the WKV kernel on the card, its plain chunked version on the CPU;
+differentiated (the loss), through ``WKV6Fn`` and the WKV-6 backward.
 The reference's one-token einsum branch is the same recurrence over a single
 step, and the kernel takes any T, so the prefill is not padded to a chunk.
 
 Parameters are layer-stacked (leading ``L`` axis) with the reference's keys;
-the state, where given, is updated in place.
+the state, where given, is updated in place.  The loss differentiates the
+block with no state: then it starts from zeros and writes nothing.
 """
 from __future__ import annotations
 
@@ -77,7 +79,10 @@ def rwkv6_apply(
 
     state: {"wkv": (B,H,D,D) f32, "shift_t": (B,d), "shift_c": (B,d)}, read
     and then overwritten in place with the state after x; None starts from
-    zeros.  Returns (out, the state after x)."""
+    zeros.  Returns (out, the state after x); differentiated with no state (the
+    loss, as the reference's), (out, None): nothing is made or written in
+    place, which a rematerialised block must not do.  A call under grad that
+    differentiates nothing (x and params need no grad) still gets the state."""
     B, T, d = x.shape
     hd = cfg.rwkv.head_dim
     H = d // hd
@@ -100,20 +105,23 @@ def rwkv6_apply(
     w_dd = dense(params["w_lora_b"], lora).float()
     logw = (-torch.exp(params["w0"] + w_dd)).reshape(B, T, H, hd)  # f32, <= 0
 
-    if state is None:
+    loss_path = state is None and kops._differentiated(x, *params.values())
+    if state is None and not loss_path:
         state = {"wkv": torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device),
                  "shift_t": torch.zeros((B, d), dtype=x.dtype, device=x.device),
                  "shift_c": torch.zeros((B, d), dtype=x.dtype, device=x.device)}
-    y = kops.wkv6(r, k, v, logw, params["u"], state["wkv"], chunk=cfg.rwkv.chunk)
-    state["shift_t"].copy_(xn[:, -1])
+    y = kops.wkv6(r, k, v, logw, params["u"], None if loss_path else state["wkv"], chunk=cfg.rwkv.chunk)
+    if not loss_path:
+        state["shift_t"].copy_(xn[:, -1])
 
     y = y.reshape(B, T, d).to(x.dtype) * g.to(x.dtype)
     x = x + dense(params["wo"], y)
 
     # ---- channel mix ----
     xn2 = rmsnorm(params["ln_scale"], x)  # the reference shares the scale
-    xk2 = _token_shift(xn2, params["mu_ck"], state["shift_c"])
-    state["shift_c"].copy_(xn2[:, -1])
+    xk2 = _token_shift(xn2, params["mu_ck"], None if loss_path else state["shift_c"])
+    if not loss_path:
+        state["shift_c"].copy_(xn2[:, -1])
     h = torch.square(torch.relu(dense(params["ck"], xk2)))
     cm = dense(params["cv"], h) * torch.sigmoid(dense(params["cr"], xk2))
     return x + cm, state

@@ -3,7 +3,7 @@ the dense decoder, the MoE with GQA or MLA attention, the VLM over precomputed
 embeddings and M-RoPE positions, and the bidirectional audio encoder) as
 ``Model``, with ``init``, ``cast_params``, ``loss``, ``prefill``,
 ``decode_step`` and ``cache_shape``; the RWKV-6 stack (``_build_rwkv``) as
-``RWKVModel``, which serves only (its training needs a WKV-6 backward); the
+``RWKVModel``, with the same methods (its loss through the WKV-6 backward); the
 pure Mamba2 stack (``_build_ssm``) as ``SSMModel`` and the Zamba2 hybrid
 (``_build_hybrid``: groups of Mamba2 layers, each followed by one *shared*
 transformer block) as ``HybridModel``, both with the same methods;
@@ -319,7 +319,7 @@ class Model:
 
 class RWKVModel:
     """The RWKV-6 stack (``repro/models/transformer.py::_build_rwkv``): the same
-    serving methods as ``Model``, over a recurrent state instead of a KV ring."""
+    methods as ``Model``, over a recurrent state instead of a KV ring."""
 
     # f32 in the computing copy: RMSNorm takes an f32 scale, and the reference
     # adds w0 to an f32 term and casts u to f32.  The mu_* are cast: the
@@ -352,14 +352,26 @@ class RWKVModel:
         its dtype is shared, not copied."""
         return _cast_tree(params, self.cfg.dtype, self.KEEP_F32)
 
-    def loss(self, params: Params, batch: Dict[str, torch.Tensor]):
-        raise NotImplementedError(f"{self.cfg.name}: training RWKV-6 needs a WKV-6 backward, which is not ported yet")
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch {"tokens" (B,T) int32}: the next-token cross entropy, the last
+        position masked.  Returns (ce, {"ce"}), as the reference."""
+        tokens = batch["tokens"]
+        x, _ = self._backbone(params, _embed_tokens(params, self.cfg, tokens), None)
+        targets, mask = _next_token_targets(tokens)
+        ce = _lm_loss_chunked(x, _head_weight(params, self.cfg), targets, mask)
+        return ce, {"ce": ce}
 
     def _backbone(self, params: Params, x, cache):
+        """Loop over the blocks. cache None or the layer-stacked state, updated
+        in place; each block under ``cfg.remat`` when differentiated.  Returns
+        (normed x, cache)."""
         L = self.cfg.num_layers
+        block = lambda lp, h, lc: rwkv_lib.rwkv6_apply(lp, self.cfg, h, lc)[0]  # noqa: E731
+        if torch.is_grad_enabled() and cache is None:
+            block = _remat(block, self.cfg.remat)
         caches = [None] * L if cache is None else _unstack(cache, L)
         for lp, lc in zip(_unstack(params["layers"], L), caches):
-            x, _ = rwkv_lib.rwkv6_apply(lp, self.cfg, x, lc)
+            x = block(lp, x, lc)
         return rmsnorm(params["final_norm"], x), cache
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor], cache) -> Tuple[torch.Tensor, Any]:

@@ -1,8 +1,9 @@
 """The kernels' wrappers refuse to be differentiated.
 
-The four CUDA kernels compute forward only and write their outputs through raw
-pointers, so a loss on the card would get no gradient through them and nothing
-would say so.  Each wrapper therefore raises ``ValueError`` when gradients are
+The CUDA kernels' raw wrappers (the four forward kernels and WKV-6's
+backward) write their outputs through raw pointers, so a loss on the card
+would get no gradient through them and nothing would say so.  Each wrapper
+therefore raises ``ValueError`` when gradients are
 enabled and an input requires grad, before it looks at the device, so the
 check shows here on the CPU.  Under ``torch.no_grad()`` the same call reaches
 the device check and raises for the CPU tensor, as before.  Serving runs under
@@ -17,7 +18,7 @@ from repro_torch.convert import flatten
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.rmsnorm import rmsnorm_rows
-from repro_torch.kernels.wkv6 import wkv6_cuda
+from repro_torch.kernels.wkv6 import wkv6_bwd_cuda, wkv6_cuda
 from repro_torch.models.transformer import build_model
 from repro_torch.serving.engine import Request, ServingEngine
 
@@ -46,7 +47,13 @@ def _wkv6():
     return wkv6_cuda, (r, r, r, r, u, state), {}
 
 
-WRAPPERS = {"rmsnorm": _rmsnorm, "flash_attention": _flash, "decode_attention": _decode, "wkv6": _wkv6}
+def _wkv6_bwd():
+    r = torch.zeros(1, 4, 2, 32)
+    return wkv6_bwd_cuda, (r, r, r.clone().requires_grad_(True), r, torch.zeros(2, 32), r), {}
+
+
+WRAPPERS = {"rmsnorm": _rmsnorm, "flash_attention": _flash, "decode_attention": _decode, "wkv6": _wkv6,
+            "wkv6_bwd": _wkv6_bwd}
 
 
 @pytest.mark.parametrize("name", WRAPPERS)

@@ -140,7 +140,8 @@ def test_build_refuses_where_there_is_no_nvcc(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         build.find_nvcc()
     assert {"rmsnorm_launch", "rmsnorm_bwd_grid", "rmsnorm_bwd_launch", "flash_attention_launch",
-            "flash_attention_bwd_launch", "decode_attention_launch", "wkv6_launch"} == set(build.SIGNATURES)
+            "flash_attention_bwd_launch", "decode_attention_launch", "wkv6_launch",
+            "wkv6_bwd_launch"} == set(build.SIGNATURES)
 
 
 def test_serve_cli_refuses_the_encoder():
