@@ -76,6 +76,7 @@ from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv_mod  # noqa: E402
+from repro_torch.kernels._check import rows_aligned  # noqa: E402
 from repro_torch.launch.train import optimizer_config, train  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
@@ -157,10 +158,11 @@ def train_owed(norms: int, attns: int, wkvs: int = 0) -> dict:
     WKV-6 recurrences of one forward inside the rematerialised blocks, each of
     which runs twice (the loss, then the recomputation in the backward); the
     final norm, outside them, once; the backward launches once for each of
-    those.  The decode kernel is not on the path."""
+    those, and K4's backward takes its chunked route every time (bf16 at head
+    size 64, T of at least its threshold).  The decode kernel is not on the path."""
     return {"rmsnorm": 2 * norms + 1, "rmsnorm_bwd": norms + 1, "flash_attention": 2 * attns,
             "flash_attention_bwd": attns, "decode_attention": 0, "wkv6": 2 * wkvs, "wkv6_bwd": wkvs,
-            "sdpa_masked_calls": 0}
+            "wkv6_bwd_chunk": wkvs, "sdpa_masked_calls": 0}
 
 
 # GPT-A: two norms and one attention a block
@@ -205,7 +207,7 @@ HYBRID_GRAD_CAP = 0.4
 # WKV heads of 64) with 8 of its 32 layers, 8 steps of 4 x 512, f32 parameters
 # and moments, bf16 activations, remat="full": a block owes two norms and one
 # WKV-6 recurrence, each forward twice (33 / 17 norms, 16 WKV-6 forward and 8
-# backward launches a step).  Its f32 comparison at 2 layers is held at
+# backward launches a step, all 8 on K4 bwd's chunked route).  Its f32 comparison at 2 layers is held at
 # TRAIN_PARITY_TOL; its bf16 one at 8 layers as Zamba2's, leaf by leaf against
 # the control of its serving parity (the plain path with the WKV in chunks of
 # 64 against the config's 128) where GPT-A's 5e-2 misses.
@@ -732,57 +734,106 @@ def check_wkv6(ck: Checker, gen) -> None:
             ck.check("wkv6.state", f"{case} {dtype}", S, S_s, WKV_TOL)
 
 
+@contextlib.contextmanager
+def bwd_route(chunked: bool):
+    """K4's backward forced onto one route through its threshold: the chunked
+    route wherever it takes the input (bf16, head size 64, rows aligned), or
+    the sequential passes everywhere."""
+    t_min = wkv_mod.CHUNKED_BWD_T_MIN
+    wkv_mod.CHUNKED_BWD_T_MIN = 1 if chunked else 1 << 30
+    try:
+        yield
+    finally:
+        wkv_mod.CHUNKED_BWD_T_MIN = t_min
+
+
+BWD_ROUTES = (("chunked", True), ("sequential", False))
+
+
 def check_wkv6_bwd(ck: Checker, gen) -> None:
     """K4's backward (``wkv6_bwd_cuda``, from a zero state) against
-    ``wkv6_bwd_plain`` on the same inputs and dy: the reference's sweep, ragged
-    T around the tiles of 16 steps and the chunks of 64, RWKV-6 7B's training
-    shape (4 x 512, 64 heads of 64), strided views; then strong decay against
-    autograd through the recurrence (``wkv6_sequential``), where the chunked
-    plain form overflows; two runs bit for bit; and ``WKV6Fn`` through
-    ``ops.wkv6``, as the model calls it.  dr, dk, dv in the inputs' type under
-    "wkv6_bwd", dlogw and du (f32 whatever the inputs) under "wkv6_bwd.f32"."""
+    ``wkv6_bwd_plain`` on the same inputs and dy, each case on both routes
+    (forced through the threshold; f32 and head size 32 have only the
+    sequential one): the reference's sweep, ragged T around the chunks of 64
+    and the threshold, RWKV-6 7B's training shape (4 x 512, 64 heads of 64),
+    strided views; then strong decay against autograd through the recurrence
+    (``wkv6_sequential``), where the chunked plain form overflows; two runs bit
+    for bit; the threshold's own choice on both sides of it; and ``WKV6Fn``
+    through ``ops.wkv6``, as the model calls it.  dr, dk, dv in the inputs'
+    type under "wkv6_bwd", dlogw and du (f32 whatever the inputs) under
+    "wkv6_bwd.f32"."""
+    t_min = wkv_mod.CHUNKED_BWD_T_MIN
     shapes = [(2, 128, 2, 64), (2, 96, 4, 32), (2, 128, 1, 64),
               (2, 1, 2, 64), (2, 31, 2, 64), (2, 63, 2, 64), (2, 64, 2, 64), (2, 65, 2, 64), (2, 129, 2, 64),
-              (1, 300, 3, 64), (3, 100, 2, 32), (4, 512, 64, 64)]
+              (2, max(t_min - 1, 1), 2, 64), (2, t_min, 2, 64), (1, 300, 3, 64), (3, 100, 2, 32), (4, 512, 64, 64)]
 
     def hold(case, got, want):
         for name, g, w in zip(("dr", "dk", "dv", "dlogw", "du"), got, want):
             key = "wkv6_bwd" if name in ("dr", "dk", "dv") else "wkv6_bwd.f32"
             ck.check(key, f"{case} {name}", g, w, WKV_TOL)
 
+    def routed(case, chunked, *args):
+        """wkv6_bwd_cuda(*args) on the forced route, which must be the one it took."""
+        before = wkv_mod.bwd_chunk_launches
+        r = args[0]
+        with bwd_route(chunked):
+            got = wkv_mod.wkv6_bwd_cuda(*args)
+            takes = wkv_mod.bwd_chunked(r.dtype, r.shape[1], r.shape[3],
+                                        all(rows_aligned(t) for t in args[:4] + args[5:]))
+        if (wkv_mod.bwd_chunk_launches - before) != int(takes):
+            raise AssertionError(f"wkv6_bwd {case}: forced {'chunked' if chunked else 'sequential'}, took the other route")
+        return got
+
     for dtype in WKV_TOL:
+        routes = BWD_ROUTES if dtype == torch.bfloat16 else BWD_ROUTES[1:]
         for B, T, H, D in shapes:
             r, k, v, logw, u, _ = wkv_inputs(gen, B, T, H, D, dtype, False)
             dy = randn(gen, (B, T, H, D), dtype)
-            hold(f"{(B, T, H, D)} {dtype}", wkv_mod.wkv6_bwd_cuda(r, k, v, logw, u, dy),
-                 wkv_mod.wkv6_bwd_plain(r, k, v, logw, u, dy, chunk=64))
+            want = wkv_mod.wkv6_bwd_plain(r, k, v, logw, u, dy, chunk=64)
+            for label, chunked in (routes if D == 64 else BWD_ROUTES[1:]):
+                case = f"{(B, T, H, D)} {dtype} {label}"
+                hold(case, routed(case, chunked, r, k, v, logw, u, dy), want)
         # views: heads-first storage read through strides, logw a slice in time, dy heads-first
         B, T, H, D = 2, 70, 3, 64
         r, k, v, _, u, _ = wkv_inputs(gen, B, T, H, D, dtype, False)
         r = r.transpose(1, 2).contiguous().transpose(1, 2)
         logw = -torch.exp(randn(gen, (B, T + 9, H, D), torch.float32) * 0.5 - 2.0)[:, 9:]
         dy = randn(gen, (B, H, T, D), dtype).transpose(1, 2)
-        hold(f"strided views {dtype}", wkv_mod.wkv6_bwd_cuda(r, k, v, logw, u, dy),
-             wkv_mod.wkv6_bwd_plain(r, k, v, logw, u, dy))
+        want = wkv_mod.wkv6_bwd_plain(r, k, v, logw, u, dy)
+        for label, chunked in routes:
+            case = f"strided views {dtype} {label}"
+            hold(case, routed(case, chunked, r, k, v, logw, u, dy), want)
         # strong decay, about -7 a step: exp(-L) of the chunked plain form overflows
         for B, T, H, D in ((2, 129, 2, 64), (1, 300, 3, 64)):
             r, k, v, _, u, S0 = wkv_inputs(gen, B, T, H, D, dtype, False)
             logw = -torch.exp(randn(gen, (B, T, H, D), torch.float32) * 0.5 + 2.0)
             dy = randn(gen, (B, T, H, D), dtype)
             want = autograd_plain(lambda a, b, c, w, uu: wkv6_sequential(a, b, c, w, uu, S0)[0], (r, k, v, logw, u), dy)
-            hold(f"{(B, T, H, D)} strong decay {dtype}", wkv_mod.wkv6_bwd_cuda(r, k, v, logw, u, dy), want)
-        # no atomics: two runs give the same bits; then the Function, as the model calls it
+            for label, chunked in routes:
+                case = f"{(B, T, H, D)} strong decay {dtype} {label}"
+                hold(case, routed(case, chunked, r, k, v, logw, u, dy), want)
+        # no atomics: two runs give the same bits, on each route
         r, k, v, logw, u, _ = wkv_inputs(gen, 4, 512, 64, 64, dtype, False)
         dy = randn(gen, r.shape, dtype)
-        a, b = wkv_mod.wkv6_bwd_cuda(r, k, v, logw, u, dy), wkv_mod.wkv6_bwd_cuda(r, k, v, logw, u, dy)
-        if not all(torch.equal(x, y) for x, y in zip(a, b)):
-            raise AssertionError(f"wkv6_bwd {dtype}: two runs on the same inputs differ")
+        for label, chunked in routes:
+            a, b = routed(label, chunked, r, k, v, logw, u, dy), routed(label, chunked, r, k, v, logw, u, dy)
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"wkv6_bwd {dtype} {label}: two runs on the same inputs differ")
+        # the threshold's own choice: T below it the sequential passes, from it on the chunked route
+        for T in (max(t_min - 1, 1), t_min):
+            rr, kk, vv, ww, uu, _ = wkv_inputs(gen, 2, T, 2, 64, dtype, False)
+            before = wkv_mod.bwd_chunk_launches
+            wkv_mod.wkv6_bwd_cuda(rr, kk, vv, ww, uu, randn(gen, rr.shape, dtype))
+            chunked = wkv_mod.bwd_chunk_launches - before
+            if chunked != int(dtype == torch.bfloat16 and T >= t_min):
+                raise AssertionError(f"wkv6_bwd {dtype} T={T}: threshold {t_min}, chunked launches {chunked}")
+        # then the Function, as the model calls it (the training shape: the chunked route in bf16)
         leaves = [t.clone().requires_grad_(True) for t in (r, k, v, logw, u)]
         with torch.enable_grad():
             y = kops.wkv6(*leaves)
             got = torch.autograd.grad(y, leaves, dy)
         ck.check("wkv6", f"WKV6Fn forward {dtype}", y.detach(), kops.wkv6(r, k, v, logw, u), WKV_TOL)
-        hold(f"WKV6Fn {dtype}", got, a)
+        hold(f"WKV6Fn {dtype}", got, wkv_mod.wkv6_bwd_cuda(r, k, v, logw, u, dy))
 
 
 def wkv6_bwd_flops(B: int, T: int, H: int, D: int) -> int:
@@ -805,6 +856,20 @@ def wkv6_chunk_flops(B: int, T: int, H: int) -> int:
     state update (4 x 4 x 8 x 2); 2 x 16 x 8 x 16 operations each."""
     per_chunk = sum(24 * w + 16 * (w + 1) for w in range(4)) + 384 + 256
     return B * H * -(-T // 64) * per_chunk * 2 * 16 * 8 * 16
+
+
+def wkv6_bwd_chunk_flops(B: int, T: int, H: int) -> int:
+    """The tensor-core operations of csrc/wkv6.cu's chunked backward, counted
+    from its code as the mma.sync it issues (split products as the products
+    they issue; an m16n8k8 as half an m16n8k16, 2 x 16 x 8 x 16 operations).
+    wkv6_bwd_chunk_kernel, per chunk, warp w: (1) dy S_prev^T 96, dA 8 a
+    sub-chunk up to its own, dA k' 48 each earlier one; (2) v dS^T 96, dA^T 8
+    and dA^T r' 48 each later sub-chunk; (3a) 96 m16n8k8 and 12; (5) kw dS 96,
+    the diagonal k-step 16, A^T 24 and A^T dy 16 each later sub-chunk; (6) 96:
+    756 - 40 w.  wkv6_bwd_state_kernel: 384 each chunk but the last."""
+    nc = -(-T // 64)
+    per_chunk = sum(756 - 40 * w for w in range(4))
+    return B * H * (nc * per_chunk + (nc - 1) * 384) * 2 * 16 * 8 * 16
 
 
 def time_ms(fn, arg_sets, iters: int = 20, reps: int = 7) -> float:
@@ -1159,10 +1224,13 @@ def flash_bwd_row(gen, B: int, T: int, H: int, D: int, causal: bool, iters: int 
 
 
 def wkv6_bwd_row(gen, B: int, T: int, H: int, D: int) -> dict:
-    """K4's backward at r, k, v, dy (B, T, H, D) bf16: its launch whole and its
-    kernels apart (the profiler's device time a launch), the f32 launch, the
-    plain backward on the config's chunks of 128, and the card's bound.  No
-    single PyTorch call computes these gradients: no library time."""
+    """K4's backward at r, k, v, dy (B, T, H, D) bf16, the chunked route
+    training takes: its launch whole and its kernels apart (the profiler's
+    device time a launch); the sequential passes forced through the
+    threshold in the same run, whole and pass by pass; the f32 launch (the
+    sequential passes); the plain backward on the config's chunks of 128; and
+    the card's bounds.  No single PyTorch call computes these gradients: no
+    library time."""
     sets = []
     for _ in range(2):
         r, k, v, logw, u, _ = wkv_inputs(gen, B, T, H, D, torch.bfloat16, False)
@@ -1173,25 +1241,42 @@ def wkv6_bwd_row(gen, B: int, T: int, H: int, D: int) -> dict:
     n = B * T * H * D
     # r, k, v, dy read and dr, dk, dv written in bf16, logw read and dlogw written in f32; u read, du written
     nbytes = 7 * n * 2 + 2 * n * 4 + 2 * H * D * 4
-    flops = wkv6_bwd_flops(B, T, H, D)
+    ws_bytes = 2 * B * H * -(-T // 64) * D * D * 4  # the S_prev workspace, written once and read once
+    flops = wkv6_bwd_chunk_flops(B, T, H)
+    seq_flops = wkv6_bwd_flops(B, T, H, D)
+    if not wkv_mod.bwd_chunked(torch.bfloat16, T, D, True):
+        raise AssertionError(f"wkv6_bwd_row: ({B}, {T}, {H}, {D}) bf16 does not take the chunked route")
     split = kernel_times_ms(wkv_mod.wkv6_bwd_cuda, sets, iters=10)
+    with bwd_route(False):
+        seq_split = kernel_times_ms(wkv_mod.wkv6_bwd_cuda, sets, iters=10)
     row = {
         "shape": f"r,k,v,dy ({B},{T},{H},{D}) bf16, logw f32, from a zero state",
-        "kernels": "wkv6_bwd_kernel<T,D,false> (A: dr, r drI, du partials), wkv6_bwd_kernel<T,D,true> "
-                   "(B: dk, dlogw), wkv6_bwd_dv_kernel<T,D> (C: dv), wkv6_du_kernel",
+        "kernels": "chunked route (bf16, D 64, T >= CHUNKED_BWD_T_MIN): wkv6_bwd_state_kernel, wkv6_bwd_chunk_kernel, "
+                   "wkv6_du_kernel; sequential passes (f32, D 32, shorter T): wkv6_bwd_kernel<T,D,false> (A), "
+                   "wkv6_bwd_kernel<T,D,true> (B), wkv6_bwd_dv_kernel<T,D> (C), wkv6_du_kernel",
+        "chunked_bwd_t_min": wkv_mod.CHUNKED_BWD_T_MIN,
         "ms": time_ms(wkv_mod.wkv6_bwd_cuda, sets),
         "f32_ms": time_ms(wkv_mod.wkv6_bwd_cuda, sets32),
         "plain_ms": time_ms(lambda *a: wkv_mod.wkv6_bwd_plain(*a, chunk=128), sets),
         "library_ms": None, "library": "none: no single PyTorch call computes this recurrence's gradients",
         "bytes": nbytes, "flops": flops,
-        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3,
-        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations",
-        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "operations_ms": flops / F32_FLOPS * 1e3,
-        "pass_a_ms": sum(t for name, t in split.items() if "wkv6_bwd_kernel" in name and "false" in name),
-        "pass_b_ms": sum(t for name, t in split.items() if "wkv6_bwd_kernel" in name and "true" in name),
-        "pass_c_ms": sum(t for name, t in split.items() if "wkv6_bwd_dv_kernel" in name),
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
+        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "operations_ms": flops / BF16_FLOPS * 1e3,
+        # the restated bound of the chunked route: its workspace's bytes beside the inputs' and outputs'
+        "workspace_bytes": ws_bytes,
+        "bound_with_workspace_ms": max((nbytes + ws_bytes) / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+        "state_kernel_ms": sum(t for name, t in split.items() if "wkv6_bwd_state_kernel" in name),
+        "chunk_kernel_ms": sum(t for name, t in split.items() if "wkv6_bwd_chunk_kernel" in name),
         "du_kernel_ms": sum(t for name, t in split.items() if "wkv6_du_kernel" in name),
+        # the sequential passes, forced in the same run, and their bound (f32 operations)
+        "sequential_bound_ms": seq_flops / F32_FLOPS * 1e3, "sequential_flops": seq_flops,
+        "pass_a_ms": sum(t for name, t in seq_split.items() if "wkv6_bwd_kernel" in name and "false" in name),
+        "pass_b_ms": sum(t for name, t in seq_split.items() if "wkv6_bwd_kernel" in name and "true" in name),
+        "pass_c_ms": sum(t for name, t in seq_split.items() if "wkv6_bwd_dv_kernel" in name),
     }
+    with bwd_route(False):
+        row["sequential_ms"] = time_ms(wkv_mod.wkv6_bwd_cuda, sets)
     del sets, sets32
     return row
 
@@ -1209,8 +1294,9 @@ KERNELS = [
     # the backward of K4: the TPU kernel has none, XLA derives it for the reference
     ("wkv6_bwd", wkv_mod, "src/repro_torch/kernels/csrc/wkv6.cu", "src/repro/kernels/wkv6.py:85"),
 ]
-# K4's backward: like K4, the kernel runs the sequential recurrence and the plain
-# version the chunked form, which rescales by exp(+-cumulative log decay)
+# K4's backward: like K4, the kernels (the sequential passes, or the chunked route
+# with its operands in bf16 parts) and the plain version (the chunked form, which
+# rescales by exp(+-cumulative log decay)) sum in other orders
 TOLS = {"wkv6": WKV_TOL, "rmsnorm_bwd": BWD_TOL, "flash_attention_bwd": BWD_TOL, "wkv6_bwd": WKV_TOL}
 
 
@@ -1263,6 +1349,7 @@ def reset_counters() -> None:
     dec_mod.launches = 0
     wkv_mod.launches = 0
     wkv_mod.bwd_launches = 0
+    wkv_mod.bwd_chunk_launches = 0
     attention.sdpa_masked_calls = 0
 
 
@@ -1270,7 +1357,8 @@ def read_counters() -> dict:
     return {"rmsnorm": rms_mod.launches, "flash_attention": fa_mod.launches,
             "decode_attention": dec_mod.launches, "wkv6": wkv_mod.launches,
             "rmsnorm_bwd": rms_mod.bwd_launches, "flash_attention_bwd": fa_mod.bwd_launches,
-            "wkv6_bwd": wkv_mod.bwd_launches, "sdpa_masked_calls": attention.sdpa_masked_calls}
+            "wkv6_bwd": wkv_mod.bwd_launches, "wkv6_bwd_chunk": wkv_mod.bwd_chunk_launches,
+            "sdpa_masked_calls": attention.sdpa_masked_calls}
 
 
 def make_requests(rng, cfg, lengths, first_id: int):
@@ -1368,7 +1456,7 @@ def phase_serve(phase: str, cfg, model, params) -> dict:
     else:
         want = {"flash_attention": A * (prefills - masked_prefills), "decode_attention": A * steps,
                 "rmsnorm": (2 * L + 1) * forwards, "sdpa_masked_calls": A * masked_prefills, "wkv6": 0}
-    want.update(rmsnorm_bwd=0, flash_attention_bwd=0, wkv6_bwd=0)  # serving computes no gradients
+    want.update(rmsnorm_bwd=0, flash_attention_bwd=0, wkv6_bwd=0, wkv6_bwd_chunk=0)  # serving computes no gradients
     if counters != want:
         raise AssertionError(f"{cfg.name}: launch counters {counters}, expected {want} ({prefills} prefills, {steps} steps)")
     for mono, split in ((runs[0], runs[3]), (runs[2], runs[4])):
@@ -1767,7 +1855,8 @@ def counters_owed(L: int, forwards: int, flash: int = 0, decode: int = 0, masked
     two norms a block and the final one each, ``flash``, ``decode`` and
     ``masked`` attention calls in all, no backward, no WKV-6."""
     return {"rmsnorm": (2 * L + 1) * forwards, "flash_attention": flash, "decode_attention": decode,
-            "sdpa_masked_calls": masked, "wkv6": 0, "rmsnorm_bwd": 0, "flash_attention_bwd": 0, "wkv6_bwd": 0}
+            "sdpa_masked_calls": masked, "wkv6": 0, "rmsnorm_bwd": 0, "flash_attention_bwd": 0, "wkv6_bwd": 0,
+            "wkv6_bwd_chunk": 0}
 
 
 @torch.no_grad()
@@ -2325,6 +2414,8 @@ def main() -> int:
     for row in rows:
         row["launches_by_path"] = {m: c[row["name"]] for m, c in counts.items() if c[row["name"]]}
         row["launches"] = sum(row["launches_by_path"].values())
+        if row["name"] == "wkv6_bwd":  # of those, on the chunked route
+            row["launches_chunked"] = sum(c["wkv6_bwd_chunk"] for c in counts.values())
         if row["launches"] < 1:
             raise AssertionError(f"{row['name']}: no served or trained path launched it")
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})

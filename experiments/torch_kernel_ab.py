@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""K1 (RMSNorm, forward and backward), K2's backward and K4 (WKV-6) kernels of
-a checkout, timed on the card.
+"""K1 (RMSNorm, forward and backward), K2's backward and K4 (WKV-6, forward and
+backward) kernels of a checkout, timed on the card.
 
     python3 experiments/torch_kernel_ab.py [--src DIR] [--label NAME] [--skip-sweep]
 
@@ -25,9 +25,16 @@ device time (CUDA events around queued calls, median of 7 rounds, as
   checkout's ``flash_bwd`` kernels;
 * K4 at RWKV-6 7B's prefill, r, k, v (4, 512, 64, 64) bf16 with a state, and
   its decode step, (4, 1, 64, 64);
-* where the checkout has ``wkv6.CHUNKED_T_MIN`` and ``--skip-sweep`` is not
-  given: both K4 kernels at (4, T, 64, 64) bf16 for T from 1 to 128, each
-  forced by setting that threshold, which is how the threshold is chosen.
+* K4's backward (``wkv6_bwd_cuda``) at RWKV-6 7B's training shape, r, k, v,
+  dy (4, 512, 64, 64) bf16: the whole call and each of its kernels' device
+  time a launch (``torch.profiler``); where the checkout has
+  ``wkv6.CHUNKED_BWD_T_MIN``, also its sequential passes forced by that
+  threshold, in the same process;
+* unless ``--skip-sweep`` is given: where the checkout has
+  ``wkv6.CHUNKED_T_MIN``, both K4 kernels at (4, T, 64, 64) bf16 for T from 1
+  to 128, and where it has ``wkv6.CHUNKED_BWD_T_MIN``, both backward routes at
+  (4, T, 64, 64) bf16 for T from 1 to 256, each forced by setting its
+  threshold, which is how the thresholds are chosen.
 
 Prints one JSON line per group and, first, the card's name and power limit.
 """
@@ -129,7 +136,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
     ap.add_argument("--label", default="this checkout")
-    ap.add_argument("--skip-sweep", action="store_true", help="leave out the sweep of K4's two kernels over T")
+    ap.add_argument("--skip-sweep", action="store_true", help="leave out the sweeps of K4's routes over T")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
@@ -157,6 +164,20 @@ def main() -> int:
     def wkv(r, k, v, w, u, S):
         return kops.wkv6(r, k, v, w, u, S)
 
+    def wkv_bwd_set(B, T, H=64, D=64):
+        r, k, v, logw, u, _ = wkv_set(B, T, H, D)
+        return r, k, v, logw, u, randn((B, T, H, D), torch.bfloat16)
+
+    bwd_t_min = getattr(wkv_mod, "CHUNKED_BWD_T_MIN", None)
+
+    def on_bwd_route(t_min, fn, *a):
+        """fn(*a) with the backward's threshold set to ``t_min`` for the call."""
+        wkv_mod.CHUNKED_BWD_T_MIN = t_min
+        try:
+            return fn(*a)
+        finally:
+            wkv_mod.CHUNKED_BWD_T_MIN = bwd_t_min
+
     with torch.no_grad():
         out = {"label": args.label, "src": args.src}
         for key, N, nsets in (("rmsnorm_ms", 2048, 6), ("rmsnorm_decode_ms", 4, 8)):
@@ -172,6 +193,13 @@ def main() -> int:
         out["flash_bwd_ptxas"] = ptxas_lines(build.build_log, "flash_bwd")
         out["wkv6_ms"] = time_ms(wkv, [wkv_set(4, 512) for _ in range(2)])
         out["wkv6_decode_ms"] = time_ms(wkv, [wkv_set(4, 1) for _ in range(8)])
+        sets = [wkv_bwd_set(4, 512) for _ in range(2)]
+        out["wkv6_bwd_ms"] = time_ms(wkv_mod.wkv6_bwd_cuda, sets)
+        out["wkv6_bwd_split_ms"] = kernel_times_ms(wkv_mod.wkv6_bwd_cuda, sets, iters=10)
+        if bwd_t_min is not None:  # the sequential passes of the same checkout, forced
+            out["wkv6_bwd_sequential_ms"] = on_bwd_route(1 << 30, time_ms, wkv_mod.wkv6_bwd_cuda, sets)
+        out["wkv6_bwd_ptxas"] = ptxas_lines(build.build_log, "wkv6_bwd")
+        del sets
         print(json.dumps(out), flush=True)
 
         t_min = getattr(wkv_mod, "CHUNKED_T_MIN", None)
@@ -186,6 +214,14 @@ def main() -> int:
                 sweep.append(row)
             wkv_mod.CHUNKED_T_MIN = t_min
             print(json.dumps({"label": args.label, "chunked_t_min": t_min, "wkv6_sweep": sweep}), flush=True)
+        if bwd_t_min is not None and not args.skip_sweep:
+            sweep = []
+            for T in (1, 2, 4, 8, 16, 24, 32, 48, 64, 96, 128, 192, 256):
+                sets = [wkv_bwd_set(4, T) for _ in range(4)]
+                sweep.append({"T": T, "sequential_ms": on_bwd_route(1 << 30, time_ms, wkv_mod.wkv6_bwd_cuda, sets),
+                              "chunked_ms": on_bwd_route(1, time_ms, wkv_mod.wkv6_bwd_cuda, sets)})
+            print(json.dumps({"label": args.label, "chunked_bwd_t_min": bwd_t_min, "wkv6_bwd_sweep": sweep}),
+                  flush=True)
     return 0
 
 

@@ -39,7 +39,7 @@ SIGNATURES = {
     "flash_attention_bwd_launch": [_P] * 10 + [_I] * 6 + [_F, _I, _I] + [_L] * 15 + [_P],
     "decode_attention_launch": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _I] + [_L] * 8 + [_P],
     "wkv6_launch": [_P] * 7 + [_I] * 7 + [_L] * 12 + [_P],
-    "wkv6_bwd_launch": [_P] * 13 + [_I] * 5 + [_L] * 15 + [_P],
+    "wkv6_bwd_launch": [_P] * 14 + [_I] * 7 + [_L] * 15 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

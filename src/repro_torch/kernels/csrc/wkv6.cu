@@ -816,6 +816,982 @@ __global__ void wkv6_du_kernel(const float* __restrict__ du_part, float* __restr
   du[idx] = sum;
 }
 
+// ---------------------------------------------------------------------------
+// The backward, bf16 at head size 64, T >= t_min: chunks of 64 steps on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// Replaces the same function as the passes above, what XLA derives for the
+// reference's _wkv_chunked (there is no TPU kernel), for the bf16 inputs of
+// training at head size 64.  What bounds it on an H100: the bytes, r, k, v,
+// dy and logw read and dr, dk, dv and dlogw written once, 0.055 ms at 4 x 512
+// tokens of 64 heads, and the S_prev workspace written and read once (another
+// 0.020 ms); its tensor-core operations, counted from the code, take 0.026 ms.
+// Per chunk of 64 steps, with L the inclusive cumulative log2 decay (in place
+// of logw), Lx the exclusive one, Lt the chunk's total, dA_ij = dy_i . v_j,
+// S_prev the state before the chunk and dS the gradient of the state after it:
+//
+//   drI_i = sum_{j<i} dA_ij (k_j 2^(Lx_i - L_j)) + 2^(Lx_i) (S_prev dy_i)
+//   dkI_j = sum_{i>j} dA_ij (r_i 2^(Lx_i - L_j)) + 2^(Lt - L_j) (dS v_j)
+//   dv_j  = sum_{i>=j} A_ij dy_i + (k_j 2^(Lt - L_j)) dS
+//   dS   <- 2^(Lt) dS + (r 2^(Lx))^T dy,  dlogw as the passes above have it.
+//
+// Two launches and the du sum, where the passes above walk the recurrence
+// three times step by step on the CUDA cores:
+//   * wkv6_bwd_state_kernel: one block a (batch, head) walks the chunks
+//     forward with wkv6_chunk_kernel's step (4) alone and writes S before each
+//     chunk to an f32 workspace (B H, nc, 64, 64), 16 KB a chunk.
+//   * wkv6_bwd_chunk_kernel: one block a (batch, head), four warps, walks the
+//     chunks backward with dS in shared memory (f32) and computes every
+//     gradient of a chunk in one pass.  Warp w owns rows [b, B) = [16w, 16w +
+//     16) of the chunk for drI, dkI, dv and dlogw, and rows 16w.. of dS.  The
+//     decay factors through the sub-chunk boundaries, so that no exponent is
+//     > 0: drI = 2^(Lx_i - Lx_b) (2^(Lx_b) dy S_prev^T + dA k'), k' = k_j
+//     2^(Lx_b - L_j) for j < b; dkI = 2^(Lx_B - L_j) (2^(Lt - Lx_B) v dS^T +
+//     dA^T r'), r' = r_i 2^(Lx_i - Lx_B) for i >= B; A^T against the later
+//     sub-chunks = (k_j 2^(Lx_B - L_j)) . r'_i.  The 16 x 16 block on the
+//     diagonal as the forward's (2a) and (2b): its rows 8.. against its
+//     columns ..7 on the tensor cores through the boundary b + 8, its two 8 x 8
+//     blocks in f32 on the CUDA cores, exp2(Lx_i - L_j) straight from the
+//     difference, for drI, dkI and A at once.  dlogw = sum_{t>s} r drI -
+//     sum_{t>=s} k dkI: suffix sums over the warp's rows by shuffles, the later
+//     warps' sums and one running sum of the later chunks, all of differences.
+//   * Every product is mma.sync (m16n8k16, m16n8k8 for the 8-row blocks) with
+//     f32 sums.  An operand that is not a bf16 input is split into bf16 parts,
+//     each the rounding of what the parts before leave: dlogw is f32 and held
+//     at f32's 2e-4, so the operands on its path (S_prev, dS, dA, the decayed r
+//     and k, the state walk's k) take three parts, about 24 bits
+//     (tests/test_torch_wkv6_bwd_chunk.py: two parts leave dlogw at 1.8 times
+//     that at T = 512), and dv's (A^T, k 2^(Lt - L) against dS) two, as the
+//     forward's y.
+//   * The loops over k-steps, sub-chunks and the rows of the diagonal block
+//     stay loops (only the loops over an accumulator's tiles are unrolled):
+//     unrolled, a chunk's body is some 20,000 instructions, which the
+//     instruction cache cannot hold: on an H100 the kernel then ran at 0.69 ms.
+//   * No atomics: du's partials go to du_part, summed in order by wkv6_du_kernel.
+// The inputs of a chunk come in by cp.async in one stage (the shared memory
+// holds two blocks an SM); the chunk before is loaded while dlogw is summed.
+// On an H100 it runs at 0.32 ms at 4 x 512 x 64 heads, 0.28 of it the gradient
+// walk: the SM issues about two-thirds of an instruction a cycle a scheduler,
+// and eight warps of 128 registers (the columns split between warp pairs)
+// were slower, 0.33 ms, for the work they repeat (PERF.md).
+
+constexpr int LDF = CK + 8;  // f32 a row of L, S_prev and dS here: float2 fragment loads without conflicts
+
+struct StateLayout {
+  static constexpr int BF = CK * LDB;
+  static constexpr int LF = CK * LDL;
+  // k, v in two stages (bf16); logw in two stages (f32)
+  static constexpr int BYTES = 2 * 2 * BF * 2 + 2 * LF * 4;
+};
+
+struct BwdLayout {
+  static constexpr int BF = CK * LDB;
+  static constexpr int FF = CK * LDF;
+  // r, k, v, dy (bf16); L, S_prev, dS (f32)
+  static constexpr int BYTES = 4 * BF * 2 + 3 * FF * 4;
+};
+
+// (a, b) as three bf16 pairs, each the rounding of what the pairs before leave
+__device__ inline void split3_bf16(float a, float b, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 fh = __bfloat1622float2(h);
+  const float ra = a - fh.x, rb = b - fh.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(ra, rb);
+  const float2 fm = __bfloat1622float2(m);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = pack_bf16(ra - fm.x, rb - fm.y);
+}
+
+// L in place in a [64][ld] f32 tile of logw: the inclusive cumulative sum of
+// logw * log2(e) down each column, as wkv6_chunk_kernel's.  128 threads: thread
+// (d, half) takes its column's 32 rows into registers and sums them there,
+// then the second half adds the first half's total.  Each partial sum only
+// falls, so L_i <= L_j for i >= j holds exactly.  Every thread of the block
+// calls it; it ends on a barrier.
+__device__ inline void cumsum_log2_tile(float* L, int ld, int tid) {
+  const int d = tid & (CK - 1);
+  const int r0 = (tid >> 6) * (CK / 2);
+  float col[CK / 2];
+#pragma unroll
+  for (int i = 0; i < CK / 2; ++i) col[i] = L[(r0 + i) * ld + d];
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < CK / 2; ++i) {
+    acc = fmaf(col[i], kLog2e, acc);
+    col[i] = acc;
+  }
+  if (r0 == 0) {
+#pragma unroll
+    for (int i = 0; i < CK / 2; ++i) L[i * ld + d] = col[i];
+  }
+  __syncthreads();  // the first half's total is read below
+  if (r0 > 0) {
+    const float base = L[(CK / 2 - 1) * ld + d];
+#pragma unroll
+    for (int i = 0; i < CK / 2; ++i) L[(r0 + i) * ld + d] = col[i] + base;
+  }
+  __syncthreads();
+}
+
+struct Frag3A {  // an A fragment in three parts
+  uint32_t h[4], m[4], l[4];
+};
+struct Frag3B {  // a B fragment in three parts
+  uint32_t h[2], m[2], l[2];
+};
+
+// c += a b: a in three parts, b a bf16 input; the small parts first
+__device__ inline void mma_a3(float* c, const Frag3A& a, uint32_t b0, uint32_t b1) {
+  mma_bf16(c, a.l, b0, b1);
+  mma_bf16(c, a.m, b0, b1);
+  mma_bf16(c, a.h, b0, b1);
+}
+
+// c += a b: a a bf16 input, b in three parts
+__device__ inline void mma_b3(float* c, const uint32_t* a, const Frag3B& b) {
+  mma_bf16(c, a, b.l[0], b.l[1]);
+  mma_bf16(c, a, b.m[0], b.m[1]);
+  mma_bf16(c, a, b.h[0], b.h[1]);
+}
+
+// c += a b, both in three parts: the six products whose parts' orders sum to less than three
+__device__ inline void mma_a3b3(float* c, const Frag3A& a, const Frag3B& b) {
+  mma_bf16(c, a.l, b.h[0], b.h[1]);
+  mma_bf16(c, a.h, b.l[0], b.l[1]);
+  mma_bf16(c, a.m, b.m[0], b.m[1]);
+  mma_bf16(c, a.m, b.h[0], b.h[1]);
+  mma_bf16(c, a.h, b.m[0], b.m[1]);
+  mma_bf16(c, a.h, b.h[0], b.h[1]);
+}
+
+// c += a b, both in two parts (hi hi + lo hi + hi lo), as the forward's products
+__device__ inline void mma_a2b2(float* c, const uint32_t* ah, const uint32_t* al, const uint32_t* bh,
+                                const uint32_t* bl) {
+  mma_bf16(c, al, bh[0], bh[1]);
+  mma_bf16(c, ah, bl[0], bl[1]);
+  mma_bf16(c, ah, bh[0], bh[1]);
+}
+
+// c (16 x 8, f32) += a (16 x 8, bf16, row-major: rows g, g + 8, columns 2t, 2t + 1) * b (8 x 8, bf16,
+// column-major: rows 2t, 2t + 1, column g): half an m16n8k16 product, for the blocks of 8 rows
+__device__ inline void mma_bf16_k8(float* c, uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// c += a b on m16n8k8, a (two registers) and b (one) in three parts each, as mma_a3b3
+__device__ inline void mma_k8_a3b3(float* c, const uint32_t (&ah)[2], const uint32_t (&am)[2],
+                                   const uint32_t (&al)[2], uint32_t bh, uint32_t bm, uint32_t bl) {
+  mma_bf16_k8(c, al[0], al[1], bh);
+  mma_bf16_k8(c, ah[0], ah[1], bl);
+  mma_bf16_k8(c, am[0], am[1], bm);
+  mma_bf16_k8(c, am[0], am[1], bh);
+  mma_bf16_k8(c, ah[0], ah[1], bm);
+  mma_bf16_k8(c, ah[0], ah[1], bh);
+}
+
+// an A fragment in three parts from two adjacent m16n8 accumulator tiles (k = their 16 columns)
+__device__ inline Frag3A frag3_from_acc(const float (&c0)[4], const float (&c1)[4]) {
+  Frag3A a;
+  split3_bf16(c0[0], c0[1], a.h[0], a.m[0], a.l[0]);
+  split3_bf16(c0[2], c0[3], a.h[1], a.m[1], a.l[1]);
+  split3_bf16(c1[0], c1[1], a.h[2], a.m[2], a.l[2]);
+  split3_bf16(c1[2], c1[3], a.h[3], a.m[3], a.l[3]);
+  return a;
+}
+
+// The chunked backward's state walk: S before each chunk c into ws[c] ([d][e],
+// f32), from S0 = 0.  wkv6_chunk_kernel's loads and step (4), with k 2^(Lt - L)
+// in three parts against V; the state after the last chunk is not written.
+template <int D>  // D == CK
+__global__ void __launch_bounds__(CK_NT, 2)
+wkv6_bwd_state_kernel(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+                      const float* __restrict__ logw, float* __restrict__ ws, int T_len, int H, int64_t k_sb,
+                      int64_t k_st, int64_t k_sh, int64_t v_sb, int64_t v_st, int64_t v_sh, int64_t w_sb,
+                      int64_t w_st, int64_t w_sh) {
+  static_assert(D == CK, "the chunked backward is written for head size 64");
+  using SL = StateLayout;
+  extern __shared__ uint4 smem_state[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_state);  // [2][CK][LDB]
+  __nv_bfloat16* sV = sK + 2 * SL::BF;
+  float* sW = reinterpret_cast<float*>(sV + 2 * SL::BF);  // [2][CK][LDL]: logw, then L in log2 units
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
+  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
+  const float* wb = logw + b * w_sb + h * w_sh;
+  const int nchunks = (T_len + CK - 1) / CK;
+  float* wsb = ws + (int64_t)blockIdx.x * nchunks * CK * CK;
+  const int d0 = warp * 16 + g;
+
+  float sacc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sacc[n][e] = 0.0f;
+
+  auto load_chunk = [&](int c, int stage) {
+    const int t0 = c * CK;
+    const int valid = T_len - t0;
+#pragma unroll
+    for (int i = 0; i < CK * CK / 8 / CK_NT; ++i) {
+      const int idx = tid + i * CK_NT;
+      const int row = idx >> 3;
+      const int col = (idx & 7) * 8;
+      const bool ok = row < valid;
+      const int64_t tt = t0 + (ok ? row : 0);
+      const int off = stage * SL::BF + row * LDB + col;
+      cp_async16(smem_addr(sK + off), kb + tt * k_st + col, ok);
+      cp_async16(smem_addr(sV + off), vb + tt * v_st + col, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < CK * CK / 4 / CK_NT; ++i) {
+      const int idx = tid + i * CK_NT;
+      const int row = idx >> 4;
+      const int col = (idx & 15) * 4;
+      const bool ok = row < valid;
+      cp_async16(smem_addr(sW + stage * SL::LF + row * LDL + col), wb + (t0 + (ok ? row : 0)) * w_st + col, ok);
+    }
+  };
+  auto store_state = [&](int c) {
+    float* sp = wsb + (int64_t)c * CK * CK;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<float2*>(sp + (d0 + 8 * hf) * CK + 8 * n + 2 * t) =
+            make_float2(sacc[n][2 * hf], sacc[n][2 * hf + 1]);
+  };
+
+  // the updates run for chunks 0 .. nchunks - 2: the last chunk's S_prev is the last one needed
+  if (nchunks > 1) load_chunk(0, 0);
+  cp_async_commit();
+  for (int c = 0; c + 1 < nchunks; ++c) {
+    store_state(c);
+    const int stage = c & 1;
+    if (c + 2 < nchunks) load_chunk(c + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const __nv_bfloat16* cK = sK + stage * SL::BF;
+    const __nv_bfloat16* cV = sV + stage * SL::BF;
+    float* cL = sW + stage * SL::LF;
+    cumsum_log2_tile(cL, LDL, tid);
+    // S <- diag(2^Lt) S + (k 2^(Lt - L))^T V
+    const float lt[2] = {cL[(CK - 1) * LDL + d0], cL[(CK - 1) * LDL + d0 + 8]};
+    const float dec[2] = {exp2_nonpos(lt[0]), exp2_nonpos(lt[1])};
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[n][e] *= dec[e >> 1];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      Frag3A a;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int d = d0 + (q & 1) * 8;
+        const int j = ks * 16 + 2 * t + (q >> 1) * 8;
+        const float f0 = exp2_nonpos(lt[q & 1] - cL[j * LDL + d]);
+        const float f1 = exp2_nonpos(lt[q & 1] - cL[(j + 1) * LDL + d]);
+        split3_bf16(__bfloat162float(cK[j * LDB + d]) * f0, __bfloat162float(cK[(j + 1) * LDB + d]) * f1, a.h[q],
+                    a.m[q], a.l[q]);
+      }
+#pragma unroll
+      for (int n = 0; n < 8; n += 2) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, smem_addr(cV + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDB + n * 8 +
+                                        (lane >> 4) * 8));
+        mma_a3(sacc[n], a, vf[0], vf[1]);
+        mma_a3(sacc[n + 1], a, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();  // before this stage is loaded again
+  }
+  store_state(nchunks - 1);
+}
+
+// The chunked backward's gradient walk (see the note above): one block a
+// (batch, head), four warps, the chunks from the last to the first.
+template <int D>  // D == CK
+__global__ void __launch_bounds__(CK_NT, 2)
+wkv6_bwd_chunk_kernel(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dy,
+                      const float* __restrict__ logw, const float* __restrict__ u, const float* __restrict__ ws,
+                      __nv_bfloat16* __restrict__ dr, __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                      float* __restrict__ dlogw, float* __restrict__ du_part, int T_len, int H, int64_t r_sb,
+                      int64_t r_st, int64_t r_sh, int64_t k_sb, int64_t k_st, int64_t k_sh, int64_t v_sb,
+                      int64_t v_st, int64_t v_sh, int64_t w_sb, int64_t w_st, int64_t w_sh, int64_t g_sb,
+                      int64_t g_st, int64_t g_sh) {
+  static_assert(D == CK, "the chunked backward is written for head size 64");
+  using BL = BwdLayout;
+  extern __shared__ uint4 smem_bwd[];
+  __nv_bfloat16* sR = reinterpret_cast<__nv_bfloat16*>(smem_bwd);  // [CK][LDB] each
+  __nv_bfloat16* sK = sR + BL::BF;
+  __nv_bfloat16* sV = sK + BL::BF;
+  __nv_bfloat16* sG = sV + BL::BF;  // dy
+  float* sL = reinterpret_cast<float*>(sG + BL::BF);  // [CK][LDF]: logw, then L in log2 units
+  float* sS = sL + BL::FF;  // S_prev [d][e]
+  float* sD = sS + BL::FF;  // dS after the chunk [d][e]
+  __shared__ float sU[CK];
+  __shared__ float sDA[4][16][17];  // each warp's diagonal block of dA, [i][j]
+  __shared__ float sAT[4][16][17];  // each warp's diagonal block of A^T, [j][i]: A_ij below, the bonus on it
+  __shared__ float sPn[4][CK];      // r drI of each warp's first row
+  __shared__ float sTot[4][CK];     // each warp's sum of dlogw's differences
+  __shared__ float sCarry[CK];      // dlogw's running sum over the later chunks
+  __shared__ float sDu[4][CK];      // du of each warp's rows over the chunks so far
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const __nv_bfloat16* rb = r + b * r_sb + h * r_sh;
+  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
+  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
+  const __nv_bfloat16* gb = dy + b * g_sb + h * g_sh;
+  const float* wb = logw + b * w_sb + h * w_sh;
+  const int64_t o_st = (int64_t)H * CK;  // dr, dk, dv, dlogw are (B, T, H, D) contiguous
+  const int64_t o_base = ((int64_t)b * T_len * H + h) * CK;
+  const int nchunks = (T_len + CK - 1) / CK;
+  const float* wsb = ws + (int64_t)blockIdx.x * nchunks * CK * CK;
+  if (tid < CK) sU[tid] = u[h * CK + tid];
+
+  const int d0 = warp * 16 + g;  // the lane's rows of dS
+  const int bnd = warp * 16;     // the warp's rows of the chunk, [bnd, bnd + 16)
+  const int i0 = bnd + g;        // the lane's rows of the chunk: i0 and i0 + 8
+  const int i1 = i0 + 8;
+  const int Bnd = bnd + 16;
+  // dS lives in sD between chunks (f32, [d][e]), zero after the last chunk;
+  // dlogw's carry and du's sums in shared memory: no register is held across chunks
+  for (int i = tid; i < CK * LDF; i += CK_NT) sD[i] = 0.0f;
+  if (tid < CK) {
+    sCarry[tid] = 0.0f;
+#pragma unroll
+    for (int w2 = 0; w2 < 4; ++w2) sDu[w2][tid] = 0.0f;
+  }
+
+  // rows of a chunk past T read as r = k = v = dy = 0 and logw = 0
+  auto load_chunk = [&](int c) {
+    const int t0 = c * CK;
+    const int valid = T_len - t0;
+#pragma unroll
+    for (int i = 0; i < CK * CK / 8 / CK_NT; ++i) {
+      const int idx = tid + i * CK_NT;
+      const int row = idx >> 3;
+      const int col = (idx & 7) * 8;
+      const bool ok = row < valid;
+      const int64_t tt = t0 + (ok ? row : 0);
+      const int off = row * LDB + col;
+      cp_async16(smem_addr(sR + off), rb + tt * r_st + col, ok);
+      cp_async16(smem_addr(sK + off), kb + tt * k_st + col, ok);
+      cp_async16(smem_addr(sV + off), vb + tt * v_st + col, ok);
+      cp_async16(smem_addr(sG + off), gb + tt * g_st + col, ok);
+    }
+    const float* sp = wsb + (int64_t)c * CK * CK;
+#pragma unroll
+    for (int i = 0; i < CK * CK / 4 / CK_NT; ++i) {
+      const int idx = tid + i * CK_NT;
+      const int row = idx >> 4;
+      const int col = (idx & 15) * 4;
+      const bool ok = row < valid;
+      cp_async16(smem_addr(sL + row * LDF + col), wb + (t0 + (ok ? row : 0)) * w_st + col, ok);
+      cp_async16(smem_addr(sS + row * LDF + col), sp + row * CK + col, true);
+    }
+  };
+
+  auto L1 = [&](int i, int d) { return sL[i * LDF + d]; };
+  auto Lx1 = [&](int i, int d) { return i > 0 ? sL[(i - 1) * LDF + d] : 0.0f; };
+  auto L2 = [&](int i, int dc) { return *reinterpret_cast<const float2*>(sL + i * LDF + dc); };
+  auto Lx2 = [&](int i, int dc) { return i > 0 ? L2(i - 1, dc) : make_float2(0.0f, 0.0f); };
+  auto bfv = [&](const __nv_bfloat16* tile, int i, int d) { return __bfloat162float(tile[i * LDB + d]); };
+
+  load_chunk(nchunks - 1);
+  cp_async_commit();
+  for (int c = nchunks - 1; c >= 0; --c) {
+    const int t0 = c * CK;
+    cp_async_wait<0>();
+    __syncthreads();
+    if (c + 1 < nchunks && tid < CK)  // the chunk after: its differences and r drI of its first row
+      sCarry[tid] += sTot[0][tid] + sTot[1][tid] + sTot[2][tid] + sTot[3][tid] + sPn[0][tid];
+    cumsum_log2_tile(sL, LDF, tid);
+
+    // (1) drI of the warp's rows: the state's part, scaled by 2^(Lx_b) by column,
+    // plus dA of the earlier sub-chunks against k' = k 2^(Lx_b - L_j), then
+    // scaled by 2^(Lx_i - Lx_b); the diagonal block's dA into sDA.  The loops
+    // over k-steps and sub-chunks stay loops: unrolled, the body of a chunk
+    // outgrows the instruction cache (tens of thousands of instructions).
+    float drI[8][4];
+    {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) drI[n][e] = 0.0f;
+#pragma unroll 1
+      for (int ks = 0; ks < 4; ++ks) {
+        uint32_t ga[4];  // dy of the warp's rows, k = e
+        ldmatrix_x4(ga, smem_addr(sG + (bnd + (lane & 15)) * LDB + ks * 16 + (lane >> 4) * 8));
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float* sp = sS + (8 * n + g) * LDF + ks * 16 + 2 * t;
+          const float2 s0 = *reinterpret_cast<const float2*>(sp);
+          const float2 s1 = *reinterpret_cast<const float2*>(sp + 8);
+          Frag3B sb;
+          split3_bf16(s0.x, s0.y, sb.h[0], sb.m[0], sb.l[0]);
+          split3_bf16(s1.x, s1.y, sb.h[1], sb.m[1], sb.l[1]);
+          mma_b3(drI[n], ga, sb);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 lb = Lx2(bnd, 8 * n + 2 * t);
+        const float e0 = exp2_nonpos(lb.x), e1 = exp2_nonpos(lb.y);
+        drI[n][0] *= e0;
+        drI[n][1] *= e1;
+        drI[n][2] *= e0;
+        drI[n][3] *= e1;
+      }
+#pragma unroll 1
+      for (int J = 0; J <= warp; ++J) {
+        float da[2][4];  // dA = dy v^T: the warp's rows i against rows j of sub-chunk J
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) da[m][e] = 0.0f;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          uint32_t ga[4], vf[4];
+          ldmatrix_x4(ga, smem_addr(sG + (bnd + (lane & 15)) * LDB + ks * 16 + (lane >> 4) * 8));
+          ldmatrix_x4(vf, smem_addr(sV + (J * 16 + (lane & 7) + (lane >> 4) * 8) * LDB + ks * 16 +
+                                    ((lane >> 3) & 1) * 8));
+          mma_bf16(da[0], ga, vf[0], vf[1]);
+          mma_bf16(da[1], ga, vf[2], vf[3]);
+        }
+        if (J == warp) {  // the diagonal block, for (3)
+          float* e = &sDA[warp][0][0];
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            e[g * 17 + 8 * m + 2 * t] = da[m][0];
+            e[g * 17 + 8 * m + 2 * t + 1] = da[m][1];
+            e[(g + 8) * 17 + 8 * m + 2 * t] = da[m][2];
+            e[(g + 8) * 17 + 8 * m + 2 * t + 1] = da[m][3];
+          }
+          break;
+        }
+        const Frag3A a = frag3_from_acc(da[0], da[1]);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {  // B = k' (k = j, n = d), three parts
+          const int dcol = 8 * n + g;
+          const float lb = Lx1(bnd, dcol);
+          Frag3B kf;
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int j = J * 16 + 2 * t + q * 8;
+            split3_bf16(bfv(sK, j, dcol) * exp2_nonpos(lb - L1(j, dcol)),
+                        bfv(sK, j + 1, dcol) * exp2_nonpos(lb - L1(j + 1, dcol)), kf.h[q], kf.m[q], kf.l[q]);
+          }
+          mma_a3b3(drI[n], a, kf);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int dc = 8 * n + 2 * t;
+        const float2 lb = Lx2(bnd, dc), x0 = Lx2(i0, dc), x1 = L2(i1 - 1, dc);
+        drI[n][0] *= exp2_nonpos(x0.x - lb.x);
+        drI[n][1] *= exp2_nonpos(x0.y - lb.y);
+        drI[n][2] *= exp2_nonpos(x1.x - lb.x);
+        drI[n][3] *= exp2_nonpos(x1.y - lb.y);
+      }
+    }
+
+    // (2) dkI of the warp's rows: the state's part, scaled by 2^(Lt - Lx_B) by
+    // column, plus dA^T of the later sub-chunks against r' = r 2^(Lx_i - Lx_B),
+    // then scaled by 2^(Lx_B - L_j)
+    float dkI[8][4];
+    {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dkI[n][e] = 0.0f;
+#pragma unroll 1
+      for (int ks = 0; ks < 4; ++ks) {
+        uint32_t va[4];  // v of the warp's rows, k = e
+        ldmatrix_x4(va, smem_addr(sV + (bnd + (lane & 15)) * LDB + ks * 16 + (lane >> 4) * 8));
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float* sp = sD + (8 * n + g) * LDF + ks * 16 + 2 * t;
+          const float2 s0 = *reinterpret_cast<const float2*>(sp);
+          const float2 s1 = *reinterpret_cast<const float2*>(sp + 8);
+          Frag3B sb;
+          split3_bf16(s0.x, s0.y, sb.h[0], sb.m[0], sb.l[0]);
+          split3_bf16(s1.x, s1.y, sb.h[1], sb.m[1], sb.l[1]);
+          mma_b3(dkI[n], va, sb);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 lt = L2(CK - 1, 8 * n + 2 * t), lB = L2(Bnd - 1, 8 * n + 2 * t);
+        const float e0 = exp2_nonpos(lt.x - lB.x), e1 = exp2_nonpos(lt.y - lB.y);
+        dkI[n][0] *= e0;
+        dkI[n][1] *= e1;
+        dkI[n][2] *= e0;
+        dkI[n][3] *= e1;
+      }
+#pragma unroll 1
+      for (int I = warp + 1; I < 4; ++I) {
+        float da[2][4];  // dA^T: the warp's rows j against rows i of sub-chunk I
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) da[m][e] = 0.0f;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          uint32_t va[4], gf[4];
+          ldmatrix_x4(va, smem_addr(sV + (bnd + (lane & 15)) * LDB + ks * 16 + (lane >> 4) * 8));
+          ldmatrix_x4(gf, smem_addr(sG + (I * 16 + (lane & 7) + (lane >> 4) * 8) * LDB + ks * 16 +
+                                    ((lane >> 3) & 1) * 8));
+          mma_bf16(da[0], va, gf[0], gf[1]);
+          mma_bf16(da[1], va, gf[2], gf[3]);
+        }
+        const Frag3A a = frag3_from_acc(da[0], da[1]);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {  // B = r' (k = i, n = d), three parts
+          const int dcol = 8 * n + g;
+          const float lB = L1(Bnd - 1, dcol);
+          Frag3B rf;
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int i = I * 16 + 2 * t + q * 8;  // >= 16: Lx of row i is L of row i - 1
+            split3_bf16(bfv(sR, i, dcol) * exp2_nonpos(L1(i - 1, dcol) - lB),
+                        bfv(sR, i + 1, dcol) * exp2_nonpos(L1(i, dcol) - lB), rf.h[q], rf.m[q], rf.l[q]);
+          }
+          mma_a3b3(dkI[n], a, rf);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int dc = 8 * n + 2 * t;
+        const float2 lB = L2(Bnd - 1, dc), l0 = L2(i0, dc), l1 = L2(i1, dc);
+        dkI[n][0] *= exp2_nonpos(lB.x - l0.x);
+        dkI[n][1] *= exp2_nonpos(lB.y - l0.y);
+        dkI[n][2] *= exp2_nonpos(lB.x - l1.x);
+        dkI[n][3] *= exp2_nonpos(lB.y - l1.y);
+      }
+    }
+
+    // (3) The sub-chunk's 16 x 16 diagonal block, as wkv6_chunk_kernel's (2a) and
+    // (2b): (3a) its rows 8.. against its columns ..7 on the tensor cores
+    // through the boundary m = b + 8, (3b) its two 8 x 8 blocks on the diagonal
+    // in f32 on the CUDA cores.
+    {
+      const float* eA = &sDA[warp][0][0];
+      float* eT = &sAT[warp][0][0];
+      const int m8 = bnd + 8;
+      __syncwarp();
+      // (3a) drI of rows i1 += 2^(Lx_i - Lx_m) sum_{j in [b, m)} dA_ij k_j 2^(Lx_m - L_j);
+      // dkI of rows i0 += 2^(Lx_m - L_j) sum_{i in [m, m + 8)} dA_ij r_i 2^(Lx_i - Lx_m):
+      // m16n8k8 products, A's rows g (drI) or g + 8 (dkI) zero, three parts each
+      {
+        uint32_t rh[2] = {0u, 0u}, rm[2] = {0u, 0u}, rl3[2] = {0u, 0u};  // dA[8 + g][2t..]: rows i1, k = j
+        uint32_t ch[2] = {0u, 0u}, cm[2] = {0u, 0u}, cl[2] = {0u, 0u};   // dA[8 + 2t..][g]: rows i0, k = i
+        split3_bf16(eA[(8 + g) * 17 + 2 * t], eA[(8 + g) * 17 + 2 * t + 1], rh[1], rm[1], rl3[1]);
+        split3_bf16(eA[(8 + 2 * t) * 17 + g], eA[(9 + 2 * t) * 17 + g], ch[0], cm[0], cl[0]);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int dcol = 8 * n + g;
+          const float lm = L1(m8 - 1, dcol);  // Lx of row m
+          const int j = bnd + 2 * t, i = m8 + 2 * t;
+          uint32_t kh, km, kl, xh, xm, xl;
+          split3_bf16(bfv(sK, j, dcol) * exp2_nonpos(lm - L1(j, dcol)),
+                      bfv(sK, j + 1, dcol) * exp2_nonpos(lm - L1(j + 1, dcol)), kh, km, kl);
+          split3_bf16(bfv(sR, i, dcol) * exp2_nonpos(L1(i - 1, dcol) - lm),
+                      bfv(sR, i + 1, dcol) * exp2_nonpos(L1(i, dcol) - lm), xh, xm, xl);
+          float cr[4] = {0.0f, 0.0f, 0.0f, 0.0f}, ck[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_k8_a3b3(cr, rh, rm, rl3, kh, km, kl);
+          mma_k8_a3b3(ck, ch, cm, cl, xh, xm, xl);
+          const int dc = 8 * n + 2 * t;
+          const float2 lm2 = L2(m8 - 1, dc), x1 = L2(i1 - 1, dc), l0 = L2(i0, dc);
+          drI[n][2] += exp2_nonpos(x1.x - lm2.x) * cr[2];
+          drI[n][3] += exp2_nonpos(x1.y - lm2.y) * cr[3];
+          dkI[n][0] += exp2_nonpos(lm2.x - l0.x) * ck[0];
+          dkI[n][1] += exp2_nonpos(lm2.y - l0.y) * ck[1];
+        }
+        // A^T[j][i] for j in [b, m), i in [m, m + 8): (k_j 2^(Lx_m - L_j)) . (r_i 2^(Lx_i - Lx_m)),
+        // A's rows g + 8 zero, two parts each
+        float at[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          uint32_t ah[4] = {0u, 0u, 0u, 0u}, al[4] = {0u, 0u, 0u, 0u}, bh[2], bl[2];
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int dc = ks * 16 + 2 * t + q * 8;
+            const float2 lm2 = L2(m8 - 1, dc);
+            const float2 kk = bf2(sK + i0 * LDB + dc), lj = L2(i0, dc);
+            split_bf16(kk.x * exp2_nonpos(lm2.x - lj.x), kk.y * exp2_nonpos(lm2.y - lj.y), ah[2 * q], al[2 * q]);
+            const float2 rr = bf2(sR + (m8 + g) * LDB + dc), lx = L2(m8 + g - 1, dc);
+            split_bf16(rr.x * exp2_nonpos(lx.x - lm2.x), rr.y * exp2_nonpos(lx.y - lm2.y), bh[q], bl[q]);
+          }
+          mma_a2b2(at, ah, al, bh, bl);
+        }
+        eT[g * 17 + 8 + 2 * t] = at[0];
+        eT[g * 17 + 9 + 2 * t] = at[1];
+      }
+      // (3b) the two 8 x 8 blocks on the diagonal: the lane's rows rl = g and
+      // g + 8 against the rows x of their own block, its columns 8n + 2t and + 1.
+      // x < rl: drI_rl += dA[rl][x] k_x E and A[rl][x] += r_rl k_x E with E =
+      // exp2(Lx_rl - L_x); x > rl: dkI_rl += dA[x][rl] r_x E, E = exp2(Lx_x - L_rl).
+      // A (quad sums) and the bonus r u k on the diagonal into sAT.
+      float2 Lr[2][8], Lxr[2][8], rr[2][8];  // the lane's rows and columns
+      float bonus[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = bnd + 8 * half + g;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int dc = 8 * n + 2 * t;
+          Lr[half][n] = L2(row, dc);
+          Lxr[half][n] = Lx2(row, dc);
+          rr[half][n] = bf2(sR + row * LDB + dc);
+          const float2 kr = bf2(sK + row * LDB + dc);
+          bonus[half] += rr[half][n].x * sU[dc] * kr.x + rr[half][n].y * sU[dc + 1] * kr.y;
+        }
+      }
+#pragma unroll 1
+      for (int xb = 0; xb < 8; ++xb) {
+        // x < rl: a term of drI and A (cR, aR), x > rl: of dkI (cK); the other coefficients 0
+        bool sel[2];
+        float cR[2], cK[2], aR[2], apart[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int x = 8 * half + xb, rl = 8 * half + g;
+          sel[half] = x < rl;
+          cR[half] = x < rl ? eA[rl * 17 + x] : 0.0f;
+          cK[half] = x > rl ? eA[x * 17 + rl] : 0.0f;
+          aR[half] = x < rl ? 1.0f : 0.0f;
+        }
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int dc = 8 * n + 2 * t;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int xr = bnd + 8 * half + xb;
+            const float2 Lxx = L2(xr, dc), Lxxm = Lx2(xr, dc);
+            const float2 kx = bf2(sK + xr * LDB + dc), rx = bf2(sR + xr * LDB + dc);
+            const bool sl = sel[half];
+            // at x = rl the exponent is clamped to 0 and both coefficients are 0
+            const float ex = exp2_nonpos(fminf(sl ? Lxr[half][n].x - Lxx.x : Lxxm.x - Lr[half][n].x, 0.0f));
+            const float ey = exp2_nonpos(fminf(sl ? Lxr[half][n].y - Lxx.y : Lxxm.y - Lr[half][n].y, 0.0f));
+            const float kex = kx.x * ex, key = kx.y * ey;
+            drI[n][2 * half] = fmaf(kex, cR[half], drI[n][2 * half]);
+            drI[n][2 * half + 1] = fmaf(key, cR[half], drI[n][2 * half + 1]);
+            dkI[n][2 * half] = fmaf(rx.x * ex, cK[half], dkI[n][2 * half]);
+            dkI[n][2 * half + 1] = fmaf(rx.y * ey, cK[half], dkI[n][2 * half + 1]);
+            apart[half] = fmaf(fmaf(rr[half][n].x, kex, rr[half][n].y * key), aR[half], apart[half]);
+          }
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          apart[half] += __shfl_xor_sync(0xffffffffu, apart[half], 1);
+          apart[half] += __shfl_xor_sync(0xffffffffu, apart[half], 2);
+          // every lane of the quad holds the sum; where x >= rl it is 0, at an entry
+          // that (5) masks or that the bonus overwrites below
+          eT[(8 * half + xb) * 17 + 8 * half + g] = apart[half];
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        bonus[half] += __shfl_xor_sync(0xffffffffu, bonus[half], 1);
+        bonus[half] += __shfl_xor_sync(0xffffffffu, bonus[half], 2);
+        eT[(8 * half + g) * 17 + 8 * half + g] = bonus[half];
+      }
+      __syncwarp();
+    }
+
+    // (4) dr and dk out, du's terms, and dlogw's differences z_t = r_{t+1}
+    // drI_{t+1} - k_t dkI_t in place of dkI (row 15 of the warp after the barrier)
+    {
+      float vdy[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = bnd + 8 * half + g;
+        float s = 0.0f;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float2 vv = bf2(sV + row * LDB + 8 * n + 2 * t), gg = bf2(sG + row * LDB + 8 * n + 2 * t);
+          s += vv.x * gg.x + vv.y * gg.y;
+        }
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        vdy[half] = s;
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int dc = 8 * n + 2 * t;
+        const float ux = sU[dc], uy = sU[dc + 1];
+        float du2[2] = {0.0f, 0.0f};  // du of the lane's two rows, then of the warp's 16
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = bnd + 8 * half + g;
+          const float2 rr = bf2(sR + row * LDB + dc), kr = bf2(sK + row * LDB + dc);
+          const float w = vdy[half];
+          if (t0 + row < T_len) {
+            const int64_t o = o_base + (t0 + row) * o_st + dc;
+            *reinterpret_cast<__nv_bfloat162*>(dr + o) =
+                __floats2bfloat162_rn(drI[n][2 * half] + ux * kr.x * w, drI[n][2 * half + 1] + uy * kr.y * w);
+            *reinterpret_cast<__nv_bfloat162*>(dk + o) =
+                __floats2bfloat162_rn(dkI[n][2 * half] + ux * rr.x * w, dkI[n][2 * half + 1] + uy * rr.y * w);
+          }
+          du2[0] = fmaf(rr.x * kr.x, w, du2[0]);
+          du2[1] = fmaf(rr.y * kr.y, w, du2[1]);
+          drI[n][2 * half] *= rr.x;  // p = r drI
+          drI[n][2 * half + 1] *= rr.y;
+          dkI[n][2 * half] *= kr.x;  // q = k dkI
+          dkI[n][2 * half + 1] *= kr.y;
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          du2[e] += __shfl_xor_sync(0xffffffffu, du2[e], 4);
+          du2[e] += __shfl_xor_sync(0xffffffffu, du2[e], 8);
+          du2[e] += __shfl_xor_sync(0xffffffffu, du2[e], 16);
+        }
+        // the 8 lanes of a column hold the same sum: each writes it (one warp: no race)
+        sDu[warp][dc] += du2[0];
+        sDu[warp][dc + 1] += du2[1];
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          // p of row g + 1 from lane + 4; row 8 (for g = 7) from lane t; row g + 9 from lane + 4
+          const float p_lo = __shfl_down_sync(0xffffffffu, drI[n][e], 4);
+          const float p_hi = __shfl_down_sync(0xffffffffu, drI[n][2 + e], 4);
+          const float p_8 = __shfl_sync(0xffffffffu, drI[n][2 + e], t);
+          dkI[n][e] = (g < 7 ? p_lo : p_8) - dkI[n][e];
+          dkI[n][2 + e] = (g < 7 ? p_hi : 0.0f) - dkI[n][2 + e];
+        }
+      if (g == 0) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          sPn[warp][8 * n + 2 * t] = drI[n][0];
+          sPn[warp][8 * n + 2 * t + 1] = drI[n][1];
+        }
+      }
+    }
+    float (&z)[8][4] = dkI;
+
+    // (5) dv of the warp's rows: (k 2^(Lt - L)) dS, then A^T dy over the
+    // sub-chunks from the warp's own on (A^T of the later ones on the tensor
+    // cores, one sub-chunk at a time; the diagonal block from sAT); two parts each
+    {
+      float dva[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dva[n][e] = 0.0f;
+#pragma unroll 1
+      for (int ks = 0; ks < 4; ++ks) {
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int row = (q & 1) ? i1 : i0;
+          const int dc = ks * 16 + 2 * t + (q >> 1) * 8;
+          const float2 kk = bf2(sK + row * LDB + dc), l = L2(row, dc), lt = L2(CK - 1, dc);
+          split_bf16(kk.x * exp2_nonpos(lt.x - l.x), kk.y * exp2_nonpos(lt.y - l.y), ah[q], al[q]);
+        }
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {  // B = dS (k = d, n = e)
+          uint32_t bh[2], bl[2];
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int d = ks * 16 + 2 * t + q * 8;
+            split_bf16(sD[d * LDF + 8 * n + g], sD[(d + 1) * LDF + 8 * n + g], bh[q], bl[q]);
+          }
+          mma_a2b2(dva[n], ah, al, bh, bl);
+        }
+      }
+#pragma unroll 1
+      for (int I = warp; I < 4; ++I) {
+        uint32_t ah[4], al[4];
+        if (I == warp) {  // A^T[j][i] for i >= j, 0 above
+          const float* eT = &sAT[warp][0][0];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int j = g + (q & 1) * 8;
+            const int i = 2 * t + (q >> 1) * 8;
+            split_bf16(i >= j ? eT[j * 17 + i] : 0.0f, i + 1 >= j ? eT[j * 17 + i + 1] : 0.0f, ah[q], al[q]);
+          }
+        } else {  // (k 2^(Lx_B - L_j)) . (r 2^(Lx_i - Lx_B)), k = d; two n-tiles of 8 rows i
+          float at[2][4];
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) at[m][e] = 0.0f;
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) {
+            uint32_t kh[4], kl[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int row = (q & 1) ? i1 : i0;
+              const int dc = ks * 16 + 2 * t + (q >> 1) * 8;
+              const float2 kk = bf2(sK + row * LDB + dc), l = L2(row, dc), lB = L2(Bnd - 1, dc);
+              split_bf16(kk.x * exp2_nonpos(lB.x - l.x), kk.y * exp2_nonpos(lB.y - l.y), kh[q], kl[q]);
+            }
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+              const int i = I * 16 + 8 * m + g;
+              uint32_t bh[2], bl[2];
+#pragma unroll
+              for (int q = 0; q < 2; ++q) {
+                const int dc = ks * 16 + 2 * t + q * 8;
+                const float2 rr = bf2(sR + i * LDB + dc), lx = L2(i - 1, dc), lB = L2(Bnd - 1, dc);
+                split_bf16(rr.x * exp2_nonpos(lx.x - lB.x), rr.y * exp2_nonpos(lx.y - lB.y), bh[q], bl[q]);
+              }
+              mma_a2b2(at[m], kh, kl, bh, bl);
+            }
+          }
+          split_bf16(at[0][0], at[0][1], ah[0], al[0]);
+          split_bf16(at[0][2], at[0][3], ah[1], al[1]);
+          split_bf16(at[1][0], at[1][1], ah[2], al[2]);
+          split_bf16(at[1][2], at[1][3], ah[3], al[3]);
+        }
+#pragma unroll
+        for (int n = 0; n < 8; n += 2) {  // B = dy (k = i, n = e)
+          uint32_t gf[4];
+          ldmatrix_x4_trans(gf, smem_addr(sG + (I * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDB + n * 8 +
+                                          (lane >> 4) * 8));
+          mma_bf16(dva[n], al, gf[0], gf[1]);
+          mma_bf16(dva[n], ah, gf[0], gf[1]);
+          mma_bf16(dva[n + 1], al, gf[2], gf[3]);
+          mma_bf16(dva[n + 1], ah, gf[2], gf[3]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int dc = 8 * n + 2 * t;
+        if (t0 + i0 < T_len)
+          *reinterpret_cast<__nv_bfloat162*>(dv + o_base + (t0 + i0) * o_st + dc) =
+              __floats2bfloat162_rn(dva[n][0], dva[n][1]);
+        if (t0 + i1 < T_len)
+          *reinterpret_cast<__nv_bfloat162*>(dv + o_base + (t0 + i1) * o_st + dc) =
+              __floats2bfloat162_rn(dva[n][2], dva[n][3]);
+      }
+    }
+
+    // (6) dS <- diag(2^Lt) dS + (r 2^(Lx))^T dy, the left factor in three parts;
+    // back into sD once every warp has read it
+    float sacc[8][4];  // dS, rows d0 and d0 + 8
+    {
+      const float dec[2] = {exp2_nonpos(L1(CK - 1, d0)), exp2_nonpos(L1(CK - 1, d0 + 8))};
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const float2 s2 = *reinterpret_cast<const float2*>(sD + (d0 + 8 * hf) * LDF + 8 * n + 2 * t);
+          sacc[n][2 * hf] = s2.x * dec[hf];
+          sacc[n][2 * hf + 1] = s2.y * dec[hf];
+        }
+#pragma unroll 1
+      for (int ks = 0; ks < 4; ++ks) {
+        Frag3A a;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int d = d0 + (q & 1) * 8;
+          const int i = ks * 16 + 2 * t + (q >> 1) * 8;
+          split3_bf16(bfv(sR, i, d) * exp2_nonpos(Lx1(i, d)), bfv(sR, i + 1, d) * exp2_nonpos(L1(i, d)), a.h[q],
+                      a.m[q], a.l[q]);
+        }
+#pragma unroll
+        for (int n = 0; n < 8; n += 2) {
+          uint32_t gf[4];
+          ldmatrix_x4_trans(gf, smem_addr(sG + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDB + n * 8 +
+                                          (lane >> 4) * 8));
+          mma_a3(sacc[n], a, gf[0], gf[1]);
+          mma_a3(sacc[n + 1], a, gf[2], gf[3]);
+        }
+      }
+    }
+    __syncthreads();  // every read of this chunk's tiles and of sD is done; sPn is written
+    if (c > 0) load_chunk(c - 1);  // lands while dlogw is summed
+    cp_async_commit();
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<float2*>(sD + (d0 + 8 * hf) * LDF + 8 * n + 2 * t) =
+            make_float2(sacc[n][2 * hf], sacc[n][2 * hf + 1]);
+
+    // (7) dlogw: row 15 of the warp takes p of the next warp's first row (past the
+    // chunk the chunk before carries it); suffix sums over the warp's rows (rows
+    // g + 8 among themselves, then rows g beside them), the later warps' sums and
+    // the later chunks' running sum
+    {
+      const bool last = g == 7 && warp < 3;
+      const float* pn = &sPn[warp < 3 ? warp + 1 : 0][0];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        z[n][2] += last ? pn[8 * n + 2 * t] : 0.0f;
+        z[n][3] += last ? pn[8 * n + 2 * t + 1] : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float lo = z[n][e], hi = z[n][2 + e];
+#pragma unroll
+        for (int off = 1; off < 8; off *= 2) {
+          const float ylo = __shfl_down_sync(0xffffffffu, lo, 4 * off);
+          const float yhi = __shfl_down_sync(0xffffffffu, hi, 4 * off);
+          if (g + off < 8) {
+            lo += ylo;
+            hi += yhi;
+          }
+        }
+        z[n][e] = lo + __shfl_sync(0xffffffffu, hi, t);  // rows 8..15 of the warp, from row 8's lane
+        z[n][2 + e] = hi;
+      }
+    if (g == 0) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        sTot[warp][8 * n + 2 * t] = z[n][0];
+        sTot[warp][8 * n + 2 * t + 1] = z[n][1];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int dc = 8 * n + 2 * t;
+      float off[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        off[e] = sCarry[dc + e];
+#pragma unroll
+        for (int w2 = 1; w2 < 4; ++w2) off[e] += w2 > warp ? sTot[w2][dc + e] : 0.0f;
+      }
+      if (t0 + i0 < T_len)
+        *reinterpret_cast<float2*>(dlogw + o_base + (t0 + i0) * o_st + dc) =
+            make_float2(z[n][0] + off[0], z[n][1] + off[1]);
+      if (t0 + i1 < T_len)
+        *reinterpret_cast<float2*>(dlogw + o_base + (t0 + i1) * o_st + dc) =
+            make_float2(z[n][2] + off[0], z[n][3] + off[1]);
+    }
+  }
+
+  // du's partial of this (batch, head): the warps' sums in order
+  __syncthreads();
+  if (tid < CK) du_part[(int64_t)blockIdx.x * CK + tid] = sDu[0][tid] + sDu[1][tid] + sDu[2][tid] + sDu[3][tid];
+}
+
 template <typename T, int D>
 int launch_bwd(const void* r, const void* k, const void* v, const void* logw, const void* u, const void* dy,
                void* dr, void* dk, void* dv, void* dlogw, void* du, void* scratch, void* du_part, int B,
@@ -854,6 +1830,34 @@ int launch_bwd_d(const void* r, const void* k, const void* v, const void* logw, 
   if (D == 64)
     return launch_bwd<T, 64>(r, k, v, logw, u, dy, dr, dk, dv, dlogw, du, scratch, du_part, B, T_len, H, s, stream);
   return -2;
+}
+
+// the chunked backward: the state walk, the gradient walk, the du sum
+int launch_bwd_chunk(const void* r, const void* k, const void* v, const void* logw, const void* u, const void* dy,
+                     void* dr, void* dk, void* dv, void* dlogw, void* du, void* ws, void* du_part, int B, int T_len,
+                     int H, const int64_t* s, cudaStream_t stream) {
+  const int64_t *sr = s, *sk = s + 3, *sv = s + 6, *sw = s + 9, *sg = s + 12;
+  cudaError_t e = cudaFuncSetAttribute(wkv6_bwd_state_kernel<CK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       StateLayout::BYTES);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(wkv6_bwd_chunk_kernel<CK>, cudaFuncAttributeMaxDynamicSharedMemorySize, BwdLayout::BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned grid = (unsigned)(B * H);
+  wkv6_bwd_state_kernel<CK><<<grid, CK_NT, StateLayout::BYTES, stream>>>(
+      (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (const float*)logw, (float*)ws, T_len, H, sk[0], sk[1],
+      sk[2], sv[0], sv[1], sv[2], sw[0], sw[1], sw[2]);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  wkv6_bwd_chunk_kernel<CK><<<grid, CK_NT, BwdLayout::BYTES, stream>>>(
+      (const __nv_bfloat16*)r, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (const __nv_bfloat16*)dy,
+      (const float*)logw, (const float*)u, (const float*)ws, (__nv_bfloat16*)dr, (__nv_bfloat16*)dk,
+      (__nv_bfloat16*)dv, (float*)dlogw, (float*)du_part, T_len, H, sr[0], sr[1], sr[2], sk[0], sk[1], sk[2], sv[0],
+      sv[1], sv[2], sw[0], sw[1], sw[2], sg[0], sg[1], sg[2]);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int HD = H * CK;
+  wkv6_du_kernel<<<(HD + 255) / 256, 256, 0, stream>>>((const float*)du_part, (float*)du, B, HD);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
@@ -914,19 +1918,28 @@ extern "C" int wkv6_launch(const void* r, const void* k, const void* v, const vo
 // dy (B, T, H, D) in `dtype` and logw (B, T, H, D) f32, each with a unit stride
 // along D and the element strides given for its b, t and h axes; u (H, D) f32
 // contiguous.  Writes dr, dk, dv (B, T, H, D) contiguous in `dtype`, dlogw
-// (B, T, H, D) and du (H, D) contiguous f32; scratch (B H, T, D) and du_part
-// (B, H, D) are f32 workspace.  Four launches on `stream`: the passes A, B and
-// C above and wkv6_du_kernel.  Returns cudaGetLastError() of the first launch
-// that failed, -1 for a bad dtype, -2 for a head size it is not instantiated for.
+// (B, T, H, D) and du (H, D) contiguous f32.  bf16 at D = 64 with T >= t_min
+// and `aligned` (every row of r, k, v, dy and logw starts on 16 bytes) runs the
+// chunked backward: wkv6_bwd_state_kernel, wkv6_bwd_chunk_kernel and
+// wkv6_du_kernel, with ws (B H, ceil(T / 64), 64, 64) and du_part (B, H, D) f32
+// workspace.  Everything else runs the passes A, B and C and wkv6_du_kernel,
+// with scratch (B H, T, D) and du_part f32 workspace.  Returns
+// cudaGetLastError() of the first launch that failed, -1 for a bad dtype, -2
+// for a head size it is not instantiated for, -4 for a missing workspace.
 extern "C" int wkv6_bwd_launch(const void* r, const void* k, const void* v, const void* logw, const void* u,
                                const void* dy, void* dr, void* dk, void* dv, void* dlogw, void* du, void* scratch,
-                               void* du_part, int B, int T_len, int H, int D, int dtype, int64_t r_sb,
-                               int64_t r_st, int64_t r_sh, int64_t k_sb, int64_t k_st, int64_t k_sh, int64_t v_sb,
-                               int64_t v_st, int64_t v_sh, int64_t w_sb, int64_t w_st, int64_t w_sh,
-                               int64_t g_sb, int64_t g_st, int64_t g_sh, void* stream) {
+                               void* ws, void* du_part, int B, int T_len, int H, int D, int dtype, int aligned,
+                               int t_min, int64_t r_sb, int64_t r_st, int64_t r_sh, int64_t k_sb, int64_t k_st,
+                               int64_t k_sh, int64_t v_sb, int64_t v_st, int64_t v_sh, int64_t w_sb, int64_t w_st,
+                               int64_t w_sh, int64_t g_sb, int64_t g_st, int64_t g_sh, void* stream) {
   if (B == 0 || T_len == 0 || H == 0) return 0;
   const int64_t s[15] = {r_sb, r_st, r_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, w_sb, w_st, w_sh, g_sb, g_st, g_sh};
   cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == DT_BF16 && D == CK && aligned && T_len >= t_min) {
+    if (ws == nullptr) return -4;
+    return launch_bwd_chunk(r, k, v, logw, u, dy, dr, dk, dv, dlogw, du, ws, du_part, B, T_len, H, s, st);
+  }
+  if (scratch == nullptr) return -4;
   if (dtype == DT_F32)
     return launch_bwd_d<float>(r, k, v, logw, u, dy, dr, dk, dv, dlogw, du, scratch, du_part, B, T_len, H, D, s, st);
   if (dtype == DT_BF16)

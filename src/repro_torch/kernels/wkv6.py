@@ -25,13 +25,26 @@ Two hand-written kernels in ``csrc/wkv6.cu``, chosen in its C entry point:
 
 The backward (``wkv6_bwd_cuda``, from a zero initial state and with no final
 state, as the reference's loss runs ``_wkv_chunked``) is the port's
-counterpart of what XLA derives for the reference when it trains: three
-sequential passes over the recurrence in ``csrc/wkv6.cu``, f32 throughout,
-bound by their f32 operations (15 a state element a step, where the gradients
-need 12: the third pass carries dS a second time), and a fixed-order
-sum of ``du`` over the batch.  With ``drI_t = S_{t-1} dy_t`` and ``dkI_t =
-dS_t v_t`` the parts of dr and dk that come through the state, the gradient
-of the log decay needs no state:
+counterpart of what XLA derives for the reference when it trains.  Two routes
+in ``csrc/wkv6.cu``, chosen in its C entry point by dtype and shape alone:
+
+* bf16 at head size 64 and T >= CHUNKED_BWD_T_MIN, rows 16-byte aligned (the
+  training path): the chunked form on the tensor cores, two launches and the
+  du sum.  ``wkv6_bwd_state_kernel`` walks the chunks forward and writes the
+  state before each chunk to an f32 workspace; ``wkv6_bwd_chunk_kernel``
+  walks them backward with dS in f32 in shared memory and computes every
+  gradient of a chunk in one pass on ``mma.sync``, operands split into bf16
+  parts (three on dlogw's path, whose allowance is f32's), no exp of a
+  positive argument.
+* everything else (f32, head size 32, shorter T): three sequential passes over
+  the recurrence, f32 throughout, bound by their f32 operations (15 a state
+  element a step, where the gradients need 12: the third pass carries dS a
+  second time).
+
+Both end in a fixed-order sum of ``du`` over the batch (no atomics: a run is
+bit-reproducible).  With ``drI_t = S_{t-1} dy_t`` and ``dkI_t = dS_t v_t``
+the parts of dr and dk that come through the state, the gradient of the log
+decay needs no state:
 
     dlogw_s = sum_{t>s} r_t * drI_t - sum_{t>=s} k_t * dkI_t
 """
@@ -49,8 +62,12 @@ HEAD_DIMS = (32, 64)  # the head sizes the kernels are instantiated for
 # the shortest T that the chunked kernel takes (bf16, head size 64): below it
 # the sequential kernel is faster on an H100 (experiments/torch_kernel_ab.py)
 CHUNKED_T_MIN = 32
+# the shortest T that the chunked backward takes (bf16, head size 64): below
+# it the sequential passes are faster on an H100 (experiments/torch_kernel_ab.py)
+CHUNKED_BWD_T_MIN = 32
 launches = 0  # one more for every forward kernel launch; reset by whoever wants to count a run
 bwd_launches = 0  # one more for every backward launch (its kernels count once)
+bwd_chunk_launches = 0  # of those, the launches that took the chunked route
 
 
 def wkv6_plain(
@@ -231,8 +248,9 @@ def wkv6_bwd_cuda(
     (dr, dk, dv) (B, T, H, D) in r's dtype, dlogw (B, T, H, D) f32, du (H, D)
     f32.  r, k, v, dy of one type, f32 or bf16, logw f32, each read through its
     strides (unit stride along D); u (H, D) f32 contiguous.  Any T >= 1; D in
-    HEAD_DIMS.  Launches the backward's kernels; bit-reproducible (no atomics)."""
-    global bwd_launches
+    HEAD_DIMS.  Launches the backward's kernels, the chunked route where
+    ``bwd_chunked`` says so; bit-reproducible (no atomics)."""
+    global bwd_launches, bwd_chunk_launches
     require_no_grad("wkv6_bwd", r, k, v, logw, u, dy)
     require(dy.dtype == r.dtype and dy.shape == r.shape and dy.stride(-1) == 1,
             f"wkv6_bwd: dy must be like r with a unit stride along D, got {tuple(dy.shape)} {dy.dtype} {dy.stride()}")
@@ -240,19 +258,31 @@ def wkv6_bwd_cuda(
     dr, dk, dv = (torch.empty((B, T, H, D), dtype=r.dtype, device=r.device) for _ in range(3))
     dlogw = torch.empty((B, T, H, D), dtype=torch.float32, device=r.device)
     du = torch.empty((H, D), dtype=torch.float32, device=r.device)
-    # the first pass's r_t * drI_t, read back by the second; du's partials a (batch, head)
-    scratch = torch.empty((B * H, T, D), dtype=torch.float32, device=r.device)
-    du_part = torch.empty((B, H, D), dtype=torch.float32, device=r.device)
+    du_part = torch.empty((B, H, D), dtype=torch.float32, device=r.device)  # du's partials a (batch, head)
+    aligned = all(rows_aligned(t) for t in (r, k, v, dy, logw))
+    chunked = bwd_chunked(r.dtype, T, D, aligned)
+    # chunked: the state before each chunk of 64; else the first pass's r_t * drI_t, read back by the second
+    ws = torch.empty((B * H, -(-T // 64), D, D), dtype=torch.float32, device=r.device) if chunked else None
+    scratch = None if chunked else torch.empty((B * H, T, D), dtype=torch.float32, device=r.device)
     strides = [s for t in (r, k, v, logw, dy) for s in t.stride()[:3]]
     code = build.load().wkv6_bwd_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(), dy.data_ptr(),
-        dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlogw.data_ptr(), du.data_ptr(), scratch.data_ptr(),
-        du_part.data_ptr(), B, T, H, D, DTYPE_CODES[r.dtype], *strides,
+        dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlogw.data_ptr(), du.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), None if ws is None else ws.data_ptr(), du_part.data_ptr(),
+        B, T, H, D, DTYPE_CODES[r.dtype], int(aligned), CHUNKED_BWD_T_MIN, *strides,
         torch.cuda.current_stream(r.device).cuda_stream,
     )
     build.check(code, "wkv6_bwd")
     bwd_launches += 1
+    bwd_chunk_launches += int(chunked)
     return dr, dk, dv, dlogw, du
+
+
+def bwd_chunked(dtype: torch.dtype, T: int, D: int, aligned: bool) -> bool:
+    """Whether ``wkv6_bwd_cuda`` takes the chunked route, as its C entry point
+    decides: bf16 at head size 64, T >= CHUNKED_BWD_T_MIN, every row of r, k,
+    v, dy and logw starting on 16 bytes."""
+    return dtype == torch.bfloat16 and D == 64 and T >= CHUNKED_BWD_T_MIN and aligned
 
 
 class WKV6Fn(torch.autograd.Function):
