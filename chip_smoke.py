@@ -35,7 +35,12 @@ kernel, flash kernel non-causal at head size 80), and last Zamba2-2.7B at full
 width and depth (54 layers x 2560: 9 groups of 5 Mamba2 layers and the shared
 attention block, 32 heads of 80, vocabulary 32000; RMSNorm kernel for every
 norm and Mamba2's gated norm, flash kernel causal and decode kernel at head
-size 80 in the shared block).  For each path it checks by
+size 80 in the shared block).  Between the training and the MoE phases it
+trains through the cross-pod pipeline (``repro_torch.parallel.pipeline``),
+ranks as ``gloo`` processes that share the card: GPT-A at full width with 4
+of its 24 layers on meshes (pod, data, model) of (2, 2, 1) and (2, 1, 2), and
+Zamba2-2.7B at full width and depth on (2, 1, 1), each held against gradient
+accumulation over the same chunks.  For each path it checks by
 the kernels' launch counters that it really went through the kernels, and
 compares the kernel path's logits, or loss and gradients, with the plain
 path's.
@@ -63,12 +68,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch.ckpt.checkpoint import _walk, load_pytree  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.convert import flatten  # noqa: E402
+from repro_torch.convert import expected_shapes, flatten  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, make_batches  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
@@ -77,12 +83,19 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv_mod  # noqa: E402
 from repro_torch.kernels._check import rows_aligned  # noqa: E402
+from repro_torch.launch.mesh import TIMEOUT, make_mesh  # noqa: E402
 from repro_torch.launch.train import optimizer_config, train  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import ssm as ssm_lib  # noqa: E402
-from repro_torch.models.transformer import build_model  # noqa: E402
-from repro_torch.optim.optimizer import gradients, make_train_step  # noqa: E402
+from repro_torch.models.transformer import build_model, build_pipeline_parts  # noqa: E402
+from repro_torch.optim.optimizer import accumulated_value_and_grad, gradients, make_train_step  # noqa: E402
+from repro_torch.parallel.pipeline import (  # noqa: E402
+    make_pipeline_loss,
+    stack_length,
+    stage_layer_range,
+    stage_params,
+)
 from repro_torch.serving.engine import (  # noqa: E402
     Request,
     ServingEngine,
@@ -418,7 +431,9 @@ def check_rmsnorm(ck: Checker, gen) -> None:
               (4, 512, 7168), (4, 1, 7168), (4, 512, 6144), (4, 1, 6144), (4, 512, 3584), (4, 1, 3584),
               (4, 1024, 1280), (3, 1280),
               # Zamba2-2.7B: d_model 2560, and its gated norm's rows of d_inner 5120 (past the register kernel)
-              (4, 512, 2560), (4, 1, 2560), (4, 512, 5120), (4, 1, 5120)]
+              (4, 512, 2560), (4, 1, 2560), (4, 512, 5120), (4, 1, 5120),
+              # a pipelined microbatch's data shard: GPT-A's 1 or 2 rows of 512, Zamba2's 1
+              (1, 512, 4096), (2, 512, 4096), (1, 512, 2560), (1, 512, 5120)]
     for dtype in TOL:
         for shape in shapes:
             x = randn(gen, shape, dtype)
@@ -501,10 +516,12 @@ def check_rmsnorm_bwd(ck: Checker, gen) -> None:
     # at d 4096, Minitron-4B's 3072 (the last chunk of every thread empty), and
     # 2048 and 1024 (64 and 32 threads in bf16); then the rows HuBERT-XLarge
     # and Zamba2-2.7B train at: 4 x 1024 frames of 1280, 4 x 512 of 2560, and
-    # Zamba2's gated norm over 5120 (``rmsnorm_bwd_kernel``: past 4096)
+    # Zamba2's gated norm over 5120 (``rmsnorm_bwd_kernel``: past 4096); last
+    # the rows of a pipelined microbatch's data shard (GPT-A 512 or 1024,
+    # Zamba2 512)
     shapes = [(2048, 4096), (4, 4096), (4, 512, 4096), (1, 4096), (2049, 4096), (777, 100), (37, 4100),
               (33, 4097), (64, 8192), (5000, 1024), (2048, 3072), (777, 2048), (1000, 1024), (3, 1024),
-              (4096, 1280), (2048, 2560), (2048, 5120)]
+              (4096, 1280), (2048, 2560), (2048, 5120), (512, 4096), (1024, 4096), (512, 2560), (512, 5120)]
     for dtype in BWD_TOL:
         wave = rmsnorm_bwd_wave(4096, dtype)
         edges = [(wave - 1, 4096), (wave, 4096), (wave + 1, 4096)]
@@ -539,13 +556,15 @@ def check_flash_bwd(ck: Checker, gen) -> None:
     # (Minitron-4B's 24/8, the smoke's 4/2), ragged T = S (77, 300, 512), T != S
     # (full, both ways) and D 32, 64 and 128; then head size 80: HuBERT-XLarge's
     # encoder (4 x 1024 frames, 16 heads, non-causal), a ragged causal group of
-    # 3 and a T != S, and Zamba2-2.7B's shared block (4 x 512, 32 heads, causal)
+    # 3 and a T != S, and Zamba2-2.7B's shared block (4 x 512, 32 heads, causal);
+    # last a pipelined microbatch's data shard: GPT-A's 1 or 2 rows, Zamba2's 1
     cases = [(4, 512, 512, 32, 32, 128, True), (2, 77, 77, 4, 2, 64, True), (2, 77, 77, 4, 2, 64, False),
              (1, 300, 300, 24, 8, 128, True), (1, 300, 300, 24, 8, 128, False), (2, 512, 512, 4, 2, 64, True),
              (1, 512, 512, 8, 8, 128, False), (1, 70, 300, 4, 2, 128, False), (1, 300, 70, 6, 3, 64, False),
              (2, 128, 128, 6, 1, 32, True), (2, 17, 17, 8, 8, 128, True),
              (4, 1024, 1024, 16, 16, 80, False), (2, 200, 200, 6, 2, 80, True), (1, 150, 260, 4, 4, 80, False),
-             (4, 512, 512, 32, 32, 80, True)]
+             (4, 512, 512, 32, 32, 80, True),
+             (1, 512, 512, 32, 32, 128, True), (2, 512, 512, 32, 32, 128, True), (1, 512, 512, 32, 32, 80, True)]
     for dtype in BWD_TOL:
         for B, T, S, Hq, Hkv, D, causal in cases:
             q, do = randn(gen, (B, T, Hq, D), dtype), randn(gen, (B, T, Hq, D), dtype)
@@ -2338,6 +2357,280 @@ def phase_train_rwkv_parity() -> None:
 
 
 # ---------------------------------------------------------------------------
+# the cross-pod pipeline: ranks as processes that share the one card
+# ---------------------------------------------------------------------------
+
+# GPT-A at full width with PIPE_LAYERS of its 24 layers, on meshes of four
+# ranks: a rank holds 2 layers (201,326,592 parameters each) and embed and
+# lm_head (206,045,184 each), about 8.1e8 parameters, 13.0 GB of f32
+# parameters, gradients and two moments, and peaks at 18.87 GB with AdamW's
+# temporaries and the all-reduce buffer (NVIDIA H100 80GB HBM3): four ranks
+# fill 75.5 of the card's 85 GB.  At 8 layers a rank would hold 19.5 GB of
+# state.  Zamba2-2.7B at full depth on two ranks: nine groups padded to ten,
+# the last stage running one zero group that its zero gate switches off.
+# Before its stage, each rank makes the whole model from the seed and its
+# accumulated reference, then keeps its stage of both (GPT-A: 4.9 GB of
+# parameters and two gradient buffers as large for a moment, four ranks at
+# once; Zamba2: 8.2 GB and two as large, two ranks).
+PIPE_LAYERS = 4
+PIPE_REDUCED = {"num_layers": "24 -> 4", "why": "four ranks share the card, each holding its stage's layers and "
+                "a copy of embed and lm_head: 18.87 GB a rank at 4 layers, 19.5 GB of state alone at 8"}
+# (mesh shape, the boundaries held on step 0's call, the boundary trained):
+# each mesh trains once, since step 0 already holds the boundaries bit-equal
+PIPE_MESHES = (((2, 2, 1), ("direct",), "direct"), ((2, 1, 2), ("direct", "striped"), "striped"))
+PIPE_STEPS, PIPE_BATCH, PIPE_N_MICRO = 2, 8, 4
+HYBRID_PIPE_STEPS, HYBRID_PIPE_BATCH = 2, 4
+PIPE_AXES = ("pod", "data", "model")
+PIPE_DEADLINE_S = 600  # a whole spawned run; a rank that waits on another more than TIMEOUT fails
+# The pipelined step computes gradient accumulation over the same row chunks
+# (chunk m * DP + d is microbatch m's data shard d) through the same layer
+# code at the same shapes, with n_micro * DP a power of two, so that scaling
+# the loss first (the pipeline) or the f32 gradients after (accumulation)
+# rounds neither.  What differs is the order of the f32 sums: the loss adds
+# its n_micro * DP terms in another order (at most that many roundings of
+# 2**-24), and each gradient leaf its chunks' parts (autograd sums the
+# microbatches in reverse, then the data all-reduce).
+PIPE_TOL = {"loss_rel": 1e-6, "grad": 1e-5}  # grad: max|diff| <= 1e-5 max|g| a leaf
+PIPE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "local", "chip_smoke_pipeline")
+
+
+def pipeline_owed(norms: int, attns: int, last: bool, n_micro: int) -> dict:
+    """Launches a rank owes per step: ``train_owed`` for each of its
+    microbatches, with its stage's ``norms`` and ``attns``, and the final norm
+    only on the last stage."""
+    one = train_owed(norms, attns)
+    if not last:
+        one["rmsnorm"] -= 1
+        one["rmsnorm_bwd"] -= 1
+    return {k: n_micro * v for k, v in one.items()}
+
+
+def stage_state_bytes(cfg, num_stages: int) -> list:
+    """Bytes of f32 parameters, gradients and two moments (16 a parameter)
+    that each stage holds: its real rows of the stack and every other leaf."""
+    key, L = build_pipeline_parts(cfg).layer_key, stack_length(cfg)
+    shapes = expected_shapes(cfg)
+    out = []
+    for stage in range(num_stages):
+        lo, hi = stage_layer_range(L, num_stages, stage)
+        rows = max(0, min(hi, L) - min(lo, L))
+        n = sum(math.prod(v) // L * rows if p.split("/", 1)[0] == key else math.prod(v) for p, v in shapes.items())
+        out.append(16 * n)
+    return out
+
+
+def pipeline_rank(rank: int, world: int, cfg, meshes, steps: int, batch: int, seq: int, lr: float,
+                  store: str) -> None:
+    """One rank of the pipelined runs on the card, for each (mesh shape,
+    boundaries, trained boundary) of ``meshes`` in turn: joins the mesh, makes
+    the whole model from the seed and its reference, ``make_train_step``'s
+    accumulated loss and gradients over n_micro * DP chunks of the first batch
+    (``accumulated_value_and_grad``), keeps its stage of both, and holds one
+    pipelined call's loss and gradients on that batch against them for each
+    boundary (and the boundaries against each other, bit for bit); then
+    trains ``steps`` steps through ``launch.train.train`` with the trained
+    boundary from the same seed, counting the kernels' launches from zero.
+    Writes its results as JSON beside ``store``."""
+    began = time.time()
+    torch.set_num_threads(2)  # four ranks on the host's cores
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")  # four allocators on one card
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"rank {rank} finds no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    torch.empty(1 << 20, dtype=torch.uint8, pin_memory=True)  # the process's first pinned buffer, timed alone
+    first_pin = time.perf_counter() - t0
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+                            timeout=TIMEOUT)
+    results = []
+    try:
+        model = build_model(cfg)
+        key, L = build_pipeline_parts(cfg).layer_key, stack_length(cfg)
+        b0 = next(make_batches(cfg, DataConfig(seed=SEED, batch_size=batch, seq_len=seq)))
+        b0 = {k: torch.from_numpy(v).to("cuda") for k, v in b0.items()}
+        for shape, runs, trained in meshes:
+            if rank >= math.prod(shape):
+                raise ValueError(f"rank {rank} outside the mesh {shape}")
+            mesh = make_mesh(shape, PIPE_AXES)
+            lo, hi = stage_layer_range(L, shape[0], mesh.coords["pod"])
+            out = {"rank": rank, "coords": mesh.coords, "parity": {}, "train": {}, "began": began,
+                   "first_pin_seconds": first_pin, "joined": time.time(),
+                   "card_free_bytes_at_start": torch.cuda.mem_get_info()[0]}
+            t0 = time.perf_counter()
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(SEED)
+            whole = model.init(gen)
+            ref_loss, _, ref = accumulated_value_and_grad(model.loss, whole, b0,
+                                                          accum_steps=PIPE_N_MICRO * shape[1])
+            ref_loss = float(ref_loss)
+            ref = {p: (g[lo:hi].clone() if p.split("/", 1)[0] == key else g) for p, g in ref.items()}
+            params, first = stage_params(whole, cfg, mesh), None
+            del whole
+            release()
+            out["reference_seconds"] = time.perf_counter() - t0
+            for boundary in runs:
+                t0 = time.perf_counter()
+                loss_fn = make_pipeline_loss(cfg, mesh, n_micro=PIPE_N_MICRO, boundary=boundary)
+                loss, grads = loss_fn(params, b0)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                gaps = {p: float((g - ref[p]).abs().max()) / max(float(ref[p].abs().max()), 1e-30)
+                        for p, g in grads.items()}
+                worst = max(gaps, key=gaps.get)
+                out["parity"][boundary] = {"loss": float(loss), "ref_loss": ref_loss,
+                                           "loss_rel_diff": abs(float(loss) - ref_loss) / abs(ref_loss),
+                                           "grad_max_diff_over_max": gaps[worst], "worst_leaf": worst,
+                                           "finite": all(bool(torch.isfinite(g).all()) for g in grads.values()),
+                                           "bytes": loss_fn.transport.counts(),
+                                           "transport_seconds": loss_fn.transport.times(), "call_seconds": t1 - t0,
+                                           "seconds": time.perf_counter() - t0}
+                if first is None:
+                    first = (loss, grads)
+                else:
+                    out["parity"][boundary]["bit_equal_to_" + runs[0]] = bool(
+                        torch.equal(loss, first[0]) and all(torch.equal(g, first[1][p]) for p, g in grads.items()))
+                del grads
+            del params, first, ref
+            release()
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counters()
+            res = train(cfg, steps=steps, batch=batch, seq=seq, lr=lr, seed=SEED, log_every=steps,
+                        device="cuda", mesh=mesh, pipeline=True, n_micro=PIPE_N_MICRO, boundary=trained)
+            counters = read_counters()
+            hist = res["history"]
+            out["train"][trained] = {"counters": counters, "losses": [h["loss"] for h in hist],
+                                     "grad_norms": [h["grad_norm"] for h in hist],
+                                     "step_ms": [h["seconds"] * 1e3 for h in hist], "bytes": hist[-1]["bytes"],
+                                     "transport_seconds": hist[-1]["transport_seconds"],
+                                     "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                                     "seconds": time.perf_counter() - t0}
+            del res
+            release()
+            out["left"] = time.time()
+            results.append(out)
+        with open(f"{store}.rank{rank}.json", "w") as f:
+            json.dump(results, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(world: int, *args) -> list:
+    """``pipeline_rank`` on ``world`` processes (the spawn start method);
+    raises if a rank raises, dies or outlives PIPE_DEADLINE_S (every rank is
+    stopped), and returns each rank's results."""
+    os.makedirs(PIPE_DIR, exist_ok=True)
+    store = os.path.join(PIPE_DIR, f"store.{os.getpid()}.{time.monotonic_ns()}")
+    ctx = torch.multiprocessing.start_processes(pipeline_rank, args=(world, *args, store), nprocs=world, join=False,
+                                                start_method="spawn")
+    end = time.monotonic() + PIPE_DEADLINE_S
+    try:
+        while not ctx.join(timeout=max(0.05, end - time.monotonic())):
+            if time.monotonic() >= end:
+                raise TimeoutError(f"{world} pipeline ranks outlived {PIPE_DEADLINE_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(10)
+    out = []
+    for r in range(world):
+        with open(f"{store}.rank{r}.json") as f:
+            out.append(json.load(f))
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    return out
+
+
+def run_pipeline(phase: str, cfg, meshes, *, steps: int, batch: int, seq: int, lr: float, owed, extra: dict) -> dict:
+    """The ranks of ``pipeline_rank`` on the card over ``meshes`` ((mesh
+    shape, boundaries, trained boundary), all of one size) in one spawn;
+    raises unless every rank's parity is within PIPE_TOL, a second boundary
+    is bit-equal to the first with 1/TP of its ``pod`` bytes, the trained
+    run's losses are finite and its first is step 0's call's, and the
+    counters show exactly ``owed(last)`` a rank a step (``last``: whether the
+    rank's stage is the last).  Emits one line a mesh; returns the counters
+    summed over the ranks, by path."""
+    world = math.prod(meshes[0][0])
+    if any(math.prod(shape) != world for shape, _, _ in meshes):
+        raise ValueError(f"meshes of different sizes: {meshes}")
+    held = {"allocated": torch.cuda.memory_allocated(), "reserved": torch.cuda.memory_reserved(),
+            "card_free": torch.cuda.mem_get_info()[0]}
+    t0, spawned = time.perf_counter(), time.time()
+    ranks = spawn_ranks(world, cfg, meshes, steps, batch, seq, lr)
+    wall = time.perf_counter() - t0
+    counts = {}
+    for i, (shape, runs, trained) in enumerate(meshes):
+        mine = [r[i] for r in ranks]
+        acc = PIPE_N_MICRO * shape[1]
+        line = {"phase": phase, "model": cfg.name, **extra, "mesh": dict(zip(PIPE_AXES, shape)), "boundaries": runs,
+                "trained": trained, "layers": cfg.num_layers, "batch": batch, "seq": seq, "n_micro": PIPE_N_MICRO,
+                "steps": steps, "lr": lr,
+                "reference": f"make_train_step(model.loss, accum_steps={acc}) on the same parameters, in each rank",
+                "spawn_wall_seconds": wall, "spawned": spawned, "tol": PIPE_TOL, "param_count": cfg.param_count(),
+                "stage_state_bytes": stage_state_bytes(cfg, shape[0]), "parent_memory_at_spawn": held,
+                "note": "the ranks share one card", "ranks": mine}
+        failures = []
+        for r in mine:
+            last = r["coords"]["pod"] == shape[0] - 1
+            want = {k: steps * v for k, v in owed(last).items()}
+            for boundary in runs:
+                p = r["parity"][boundary]
+                if not (p["finite"] and p["loss_rel_diff"] <= PIPE_TOL["loss_rel"]
+                        and p["grad_max_diff_over_max"] <= PIPE_TOL["grad"]):
+                    failures.append((r["rank"], boundary, "parity", p))
+            for boundary in runs[1:]:
+                p, d = r["parity"][boundary], r["parity"][runs[0]]
+                if not p["bit_equal_to_" + runs[0]]:
+                    failures.append((r["rank"], boundary, "not bit-equal"))
+                if p["bytes"]["pod"]["send"] * shape[2] != d["bytes"]["pod"]["send"]:
+                    failures.append((r["rank"], boundary, "pod bytes", p["bytes"]["pod"], d["bytes"]["pod"]))
+            t = r["train"][trained]
+            if not all(np.isfinite(t["losses"])) or t["losses"][0] != r["parity"][trained]["loss"]:
+                failures.append((r["rank"], trained, "losses", t["losses"], r["parity"][trained]["loss"]))
+            if t["counters"] != want:
+                failures.append((r["rank"], trained, "counters", t["counters"], want))
+            path = f"{phase} {cfg.name} {'x'.join(map(str, shape))} {trained}"
+            total = counts.setdefault(path, dict.fromkeys(want, 0))
+            for k, v in t["counters"].items():
+                total[k] += v
+        emit(line)
+        if failures:
+            raise AssertionError(f"{phase} {shape}: {failures}")
+    return counts
+
+
+def phase_train_pipeline() -> dict:
+    """GPT-A at full width with PIPE_LAYERS layers, meshes (2, 2, 1) direct
+    and (2, 1, 2) held with both boundaries and trained striped: K1 and K2,
+    forward and backward."""
+    cfg = train_config(PIPE_LAYERS, torch.bfloat16)
+    per = PIPE_LAYERS // 2
+
+    def owed(last):
+        return pipeline_owed(2 * per, per, last, PIPE_N_MICRO)
+
+    return run_pipeline("train_pipeline", cfg, PIPE_MESHES, steps=PIPE_STEPS, batch=PIPE_BATCH, seq=TRAIN_SEQ,
+                        lr=TRAIN_LR, owed=owed, extra={"reduced": PIPE_REDUCED})
+
+
+def phase_train_pipeline_hybrid() -> dict:
+    """Zamba2-2.7B at full width and depth on (2, 1, 1): nine groups padded
+    to ten, five a stage, the padded one switched off by its zero gate and run
+    all the same (K1 at 2560 and 5120, K2 at head size 80)."""
+    cfg = dataclasses.replace(get_config("zamba2_2p7b"), dtype=torch.bfloat16)
+    m = cfg.attn_period - 1
+
+    def owed(last):
+        return pipeline_owed(5 * (2 * m + 2), 5, last, PIPE_N_MICRO)
+
+    return run_pipeline("train_pipeline_hybrid", cfg, (((2, 1, 1), ("striped",), "striped"),),
+                        steps=HYBRID_PIPE_STEPS, batch=HYBRID_PIPE_BATCH, seq=HYBRID_TRAIN_SEQ, lr=HYBRID_TRAIN_LR,
+                        owed=owed, extra={"padded_groups": 1})
+
+
+# ---------------------------------------------------------------------------
 
 
 def serve_model(arch: str, phase: str) -> dict:
@@ -2398,6 +2691,10 @@ def main() -> int:
     counts["train-rwkv"] = train_rwkv()
     release()
     phase_train_rwkv_parity()
+    release()
+    counts.update(phase_train_pipeline())
+    release()
+    counts.update(phase_train_pipeline_hybrid())
     release()
     counts["qwen2-moe-a2.7b"] = serve_moe_model("qwen2_moe_a2p7b", "serve_moe")
     release()

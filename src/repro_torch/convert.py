@@ -124,6 +124,13 @@ def flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
     return flat
 
 
+def tree_map(fn, tree: Any) -> Any:
+    """``fn`` of every leaf of a nested dict, in a nested dict of the same keys."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
     for path, leaf in flat.items():

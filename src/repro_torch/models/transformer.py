@@ -7,7 +7,10 @@ embeddings and M-RoPE positions, and the bidirectional audio encoder) as
 pure Mamba2 stack (``_build_ssm``) as ``SSMModel`` and the Zamba2 hybrid
 (``_build_hybrid``: groups of Mamba2 layers, each followed by one *shared*
 transformer block) as ``HybridModel``, both with the same methods;
-``build_model`` dispatches as the reference's does.
+``build_model`` dispatches as the reference's does; ``build_pipeline_parts``
+gives the per-layer view that the cross-pod pipeline
+(``repro_torch/parallel/pipeline.py``) runs, from the same layer functions as
+the backbones.
 
 Parameters are layer-stacked (leading ``L`` axis; the hybrid's Mamba2 layers
 ``(G, M)``) as in the reference; the reference's ``lax.scan`` over the stack is
@@ -20,6 +23,7 @@ hybrid).  A cache is a flat dict of tensors: the hybrid's nested tree reads
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -115,6 +119,30 @@ def _block_apply(params: Params, cfg: ModelConfig, x, positions, cache, gate=Non
     return x + (f if g is None else f * g), new_cache, aux
 
 
+def _rwkv_layer(lp: Params, cfg: ModelConfig, x, cache=None):
+    """One RWKV-6 block (time mix and channel mix, each with its residual);
+    the state ``cache``, where given, is updated in place."""
+    return rwkv_lib.rwkv6_apply(lp, cfg, x, cache)[0]
+
+
+def _mamba_layer(lp: Params, cfg: ModelConfig, x, cache=None):
+    """One pre-normed Mamba2 layer with its residual."""
+    y, _ = ssm_lib.mamba2_apply(lp["mamba"], cfg, rmsnorm(lp["ln"], x), cache)
+    return x + y
+
+
+def _hybrid_group(gp: Params, shared: Params, cfg: ModelConfig, x, positions, cache=None):
+    """One Zamba2 group: its ``attn_period - 1`` Mamba2 layers, then the shared
+    block with the group's ``gate`` (a gate of 0 makes the block the identity).
+    ``cache`` None or (the group's Mamba2 states, its attention ring).
+    Returns (x, aux) as ``_block_apply``."""
+    M = cfg.attn_period - 1
+    mcaches = [None] * M if cache is None else _unstack(cache[0], M)
+    for lp, lc in zip(_unstack(gp["mamba"], M), mcaches):
+        x = _mamba_layer(lp, cfg, x, lc)
+    return _block_apply(shared, cfg, x, positions, None if cache is None else cache[1], gate=gp["gate"])[::2]
+
+
 def _embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.long()].to(cfg.dtype)  # gather, then cast
 
@@ -162,13 +190,24 @@ def _inputs_to_embeds(params: Params, cfg: ModelConfig, batch: Dict[str, torch.T
         x = batch["embeds"].to(cfg.dtype)
     else:
         x = _embed_tokens(params, cfg, batch["tokens"])
+    return x, _batch_positions(cfg, batch, x.shape[:2], x.device), _batch_route(batch)
+
+
+def _batch_positions(cfg: ModelConfig, batch: Dict[str, torch.Tensor], shape, device) -> torch.Tensor:
+    """The batch's ``positions``, else the default 0..T-1 over ``shape``
+    (B, T), broadcast to (3, B, T) under M-RoPE."""
     positions = batch.get("positions")
     if positions is None:
-        positions = _default_positions(x.shape[:2], x.device)
+        positions = _default_positions(shape, device)
         if cfg.mrope_sections is not None:
             positions = positions[None].expand(3, *positions.shape)
+    return positions
+
+
+def _batch_route(batch: Dict[str, torch.Tensor]):
+    """The context a batch's layers run in (``_inputs_to_embeds``)."""
     pinned = "embeds" in batch and "positions" in batch
-    return x, positions, attn.force_impl("torch") if pinned else contextlib.nullcontext()
+    return attn.force_impl("torch") if pinned else contextlib.nullcontext()
 
 
 def _lm_loss_chunked(x: torch.Tensor, w_head: torch.Tensor, labels: torch.Tensor,
@@ -203,6 +242,14 @@ def _next_token_targets(tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     mask = torch.ones(targets.shape, dtype=torch.float32, device=tokens.device)
     mask[:, -1] = 0.0
     return targets, mask
+
+
+def _loss_targets(batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(targets, mask) of a batch's loss, as the reference's: its ``labels``
+    with its ``mask`` (None: every position counts), else the next tokens."""
+    if "labels" in batch:
+        return batch["labels"], batch.get("mask")
+    return _next_token_targets(batch["tokens"])
 
 
 class Model:
@@ -275,11 +322,7 @@ class Model:
         x, positions, route = _inputs_to_embeds(params, cfg, batch)
         with route:
             x, _, aux = self._backbone(params, x, positions, None)
-        if cfg.causal and "labels" not in batch:
-            targets, mask = _next_token_targets(batch["tokens"])
-        else:
-            targets, mask = batch["labels"], batch.get("mask")
-        ce = _lm_loss_chunked(x, _head_weight(params, cfg), targets, mask)
+        ce = _lm_loss_chunked(x, _head_weight(params, cfg), *_loss_targets(batch))
         return ce + aux, {"ce": ce, "aux": aux}
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor], cache) -> Tuple[torch.Tensor, Any]:
@@ -366,7 +409,7 @@ class RWKVModel:
         in place; each block under ``cfg.remat`` when differentiated.  Returns
         (normed x, cache)."""
         L = self.cfg.num_layers
-        block = lambda lp, h, lc: rwkv_lib.rwkv6_apply(lp, self.cfg, h, lc)[0]  # noqa: E731
+        block = lambda lp, h, lc: _rwkv_layer(lp, self.cfg, h, lc)  # noqa: E731
         if torch.is_grad_enabled() and cache is None:
             block = _remat(block, self.cfg.remat)
         caches = [None] * L if cache is None else _unstack(cache, L)
@@ -436,9 +479,8 @@ class SSMModel:
         return _cast_tree(params, self.cfg.dtype, self.KEEP_F32)
 
     def _mamba(self, lp: Params, x, lc):
-        """One pre-normed Mamba2 layer with its residual."""
-        y, _ = ssm_lib.mamba2_apply(lp["mamba"], self.cfg, rmsnorm(lp["ln"], x), lc)
-        return x + y
+        """One pre-normed Mamba2 layer with its residual (``_mamba_layer``)."""
+        return _mamba_layer(lp, self.cfg, x, lc)
 
     def _backbone(self, params: Params, x, positions, cache):
         """Loop over the layers (positions are not read). cache None or the
@@ -516,14 +558,11 @@ class HybridModel(SSMModel):
         """Loop over the groups: the group's Mamba2 layers, then the shared
         block with the group's gate and attention cache.  Differentiated, each
         group runs under ``cfg.remat``.  Returns (normed x, cache)."""
-        cfg, G, M = self.cfg, self.groups, self.m_per
+        cfg, G = self.cfg, self.groups
         shared = params["shared_attn"]
 
         def group(gp, h, gc):
-            mcaches = [None] * M if gc is None else _unstack(gc[0], M)
-            for lp, lc in zip(_unstack(gp["mamba"], M), mcaches):
-                h = self._mamba(lp, h, lc)
-            return _block_apply(shared, cfg, h, positions, None if gc is None else gc[1], gate=gp["gate"])[0]
+            return _hybrid_group(gp, shared, cfg, h, positions, gc)[0]
 
         if torch.is_grad_enabled() and cache is None:
             group = _remat(group, cfg.remat)
@@ -543,6 +582,59 @@ class HybridModel(SSMModel):
         out = {f"mamba/{k}": ((G, M) + s, d) for k, (s, d) in ssm_lib.mamba2_state_shape(self.cfg, batch).items()}
         out.update({f"attn/{k}": ((G,) + s, d) for k, (s, d) in attn.gqa_cache_shape(self.cfg, batch, max_len).items()})
         return out
+
+
+@dataclasses.dataclass
+class PipelineParts:
+    """Uniform per-layer view of a model for the cross-pod pipeline
+    (``repro_torch/parallel/pipeline.py``), as the reference's: ``layer`` is
+    the same function for every slice of the stacked layer parameters, so
+    every stage runs the same code on its own slice.  A batch's layers run
+    under ``_batch_route(batch)``, as ``Model.loss`` runs them."""
+
+    layer_key: str  # the params key holding the (L, ...) stacked layer params
+    embed: Callable[[Params, Dict], Tuple[torch.Tensor, torch.Tensor]]  # (params, batch) -> (x, positions)
+    layer: Callable[..., Tuple[torch.Tensor, Optional[torch.Tensor]]]
+    # (layer_params, full_params, x, positions) -> (x, aux): aux the MoE's
+    # load-balance loss, None for a layer that has none (the reference's 0.0)
+    final_loss: Callable[..., torch.Tensor]  # (full_params, x, targets, mask) -> scalar CE
+
+
+def build_pipeline_parts(cfg: ModelConfig) -> PipelineParts:
+    """``repro/models/transformer.py::build_pipeline_parts``: the embedding,
+    one layer of the stack (an RWKV-6 block; a Zamba2 group of Mamba2 layers
+    and the gated shared block; a Mamba2 layer; a transformer block) and the
+    final norm with the chunked cross entropy, each through the function the
+    model's own backbone runs."""
+
+    def embed(params, batch):
+        return _inputs_to_embeds(params, cfg, batch)[:2]
+
+    def final_loss(params, x, targets, mask):
+        return _lm_loss_chunked(rmsnorm(params["final_norm"], x), _head_weight(params, cfg), targets, mask)
+
+    if cfg.rwkv is not None:
+        def layer(lp, params, x, positions):
+            return _rwkv_layer(lp, cfg, x), None
+
+        return PipelineParts("layers", embed, layer, final_loss)
+
+    if cfg.family == "hybrid":
+        def layer(gp, params, x, positions):
+            return _hybrid_group(gp, params["shared_attn"], cfg, x, positions)
+
+        return PipelineParts("groups", embed, layer, final_loss)
+
+    if cfg.family == "ssm":
+        def layer(lp, params, x, positions):
+            return _mamba_layer(lp, cfg, x), None
+
+        return PipelineParts("layers", embed, layer, final_loss)
+
+    def layer(lp, params, x, positions):
+        return _block_apply(lp, cfg, x, positions, None)[::2]
+
+    return PipelineParts("layers", embed, layer, final_loss)
 
 
 def build_model(cfg: ModelConfig):

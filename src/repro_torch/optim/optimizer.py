@@ -17,7 +17,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.convert import flatten
+from repro_torch.convert import flatten, tree_map
 
 Params = Any
 
@@ -45,16 +45,10 @@ def _leaves(tree: Params) -> List[torch.Tensor]:
     return list(flatten(tree).values())
 
 
-def _map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Params) -> Params:
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def init_opt_state(params: Params) -> OptState:
     any_leaf = _leaves(params)[0]
     zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
-    return OptState(torch.zeros((), dtype=torch.int32, device=any_leaf.device), _map(zeros, params), _map(zeros, params))
+    return OptState(torch.zeros((), dtype=torch.int32, device=any_leaf.device), tree_map(zeros, params), tree_map(zeros, params))
 
 
 def lr_at(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
@@ -77,11 +71,14 @@ def _decay_mask(path: str, leaf: torch.Tensor) -> bool:
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptimizerConfig, grads: Params, params: Params, state: OptState
+def adamw_update(cfg: OptimizerConfig, grads: Params, params: Params, state: OptState,
+                 norm: Callable[[Params], torch.Tensor] = global_norm
                  ) -> Tuple[Params, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step.  ``params`` and the moments are updated in place and
-    returned; ``grads`` (same structure) may be overwritten."""
-    gnorm = global_norm(grads)
+    returned; ``grads`` (same structure) may be overwritten.  ``norm`` gives
+    the norm the clip sees: the pipeline's is that of the whole model's
+    gradient over every stage."""
+    gnorm = norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = lr_at(cfg, step)
@@ -94,7 +91,7 @@ def adamw_update(cfg: OptimizerConfig, grads: Params, params: Params, state: Opt
         g32 = g.float() * scale
         mu.mul_(cfg.b1).add_((1 - cfg.b1) * g32)
         nu.mul_(cfg.b2).add_((1 - cfg.b2) * g32.square_())
-        upd = (mu / b1c).div_(torch.sqrt(nu / b2c).add_(cfg.eps))
+        upd = (mu / b1c).div_((nu / b2c).sqrt_().add_(cfg.eps))
         if _decay_mask(path, p):
             upd.add_(cfg.weight_decay * p.float())
         p.copy_(p.float() - lr * upd)
@@ -110,43 +107,64 @@ def gradients(loss: torch.Tensor, leaves: List[torch.Tensor]) -> List[torch.Tens
     return [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
 
 
+def accumulated_value_and_grad(loss_fn: Callable[[Params, Dict], Any], params: Params,
+                               batch: Dict[str, torch.Tensor], *, loss_has_metrics: bool = True,
+                               accum_steps: int = 1) -> Tuple[torch.Tensor, Dict, Dict[str, torch.Tensor]]:
+    """(loss, metrics, grads) of ``loss_fn`` at ``params`` (their leaves are
+    made to require grad): grads a flat dict in ``flatten(params)``'s order.
+    accum_steps > 1 splits the batch on dim 0 into ``accum_steps`` chunks in
+    order and sums each chunk's gradients, divided by ``accum_steps``, into f32
+    sums (the loss likewise; metrics then empty)."""
+    flat = flatten(params)
+    for t in flat.values():
+        t.requires_grad_(True)
+    leaves = list(flat.values())
+
+    def value_and_grad(b):
+        out = loss_fn(params, b)
+        loss, metrics = out if loss_has_metrics else (out, {})
+        return loss.detach(), metrics, gradients(loss, leaves)
+
+    if accum_steps == 1:
+        loss, metrics, grads = value_and_grad(batch)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+    else:
+        micro = {k: v.reshape((accum_steps, v.shape[0] // accum_steps) + tuple(v.shape[1:])) for k, v in batch.items()}
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+        loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        for i in range(accum_steps):
+            l, _, g = value_and_grad({k: v[i] for k, v in micro.items()})
+            for a, gi in zip(acc, g):
+                a.add_(gi.float() / accum_steps)
+            loss = loss + l / accum_steps
+            del g
+        grads, metrics = acc, {}
+    return loss, metrics, dict(zip(flat.keys(), grads))
+
+
 def make_train_step(loss_fn: Callable[[Params, Dict], Any], opt_cfg: OptimizerConfig, *,
                     loss_has_metrics: bool = True, accum_steps: int = 1):
     """train_step(params, opt_state, batch) -> (params, opt_state, metrics).
 
     ``params`` are updated in place (their leaves are made to require grad).
     accum_steps > 1 splits the batch on dim 0 and sums each microbatch's
-    gradients, divided by ``accum_steps``, into f32 sums."""
+    gradients, divided by ``accum_steps``, into f32 sums.
 
-    def scalar_loss(params, batch):
-        out = loss_fn(params, batch)
-        return out if loss_has_metrics else (out, {})
-
-    def value_and_grad(params, leaves, batch):
-        loss, metrics = scalar_loss(params, batch)
-        return loss.detach(), metrics, gradients(loss, leaves)
+    A ``PipelineLoss`` (``repro_torch/parallel/pipeline.py``) gives this
+    rank's loss and its gradients, already summed over the ranks, in place of
+    autograd of a scalar loss; the clip then sees its ``grad_norm``, the norm
+    of the whole model's gradient, and each rank updates its own layers and
+    its copy of the leaves outside the stack."""
+    pipelined = hasattr(loss_fn, "grad_norm")
 
     def train_step(params: Params, opt_state: OptState, batch: Dict[str, torch.Tensor]):
-        flat = flatten(params)
-        for t in flat.values():
-            t.requires_grad_(True)
-        leaves = list(flat.values())
-        if accum_steps == 1:
-            loss, metrics, grads = value_and_grad(params, leaves, batch)
-            metrics = {k: v.detach() for k, v in metrics.items()}
-        else:
-            micro = {k: v.reshape((accum_steps, v.shape[0] // accum_steps) + tuple(v.shape[1:])) for k, v in batch.items()}
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
-            loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-            for i in range(accum_steps):
-                l, _, g = value_and_grad(params, leaves, {k: v[i] for k, v in micro.items()})
-                for a, gi in zip(acc, g):
-                    a.add_(gi.float() / accum_steps)
-                loss = loss + l / accum_steps
-                del g
-            grads, metrics = acc, {}
-        grad_tree = dict(zip(flat.keys(), grads))
-        params, opt_state, om = adamw_update(opt_cfg, grad_tree, params, opt_state)
+        if pipelined:
+            loss, grads = loss_fn(params, batch)
+            params, opt_state, om = adamw_update(opt_cfg, grads, params, opt_state, norm=loss_fn.grad_norm)
+            return params, opt_state, {**om, "loss": loss}
+        loss, metrics, grads = accumulated_value_and_grad(loss_fn, params, batch, loss_has_metrics=loss_has_metrics,
+                                                          accum_steps=accum_steps)
+        params, opt_state, om = adamw_update(opt_cfg, grads, params, opt_state)
         return params, opt_state, {**metrics, **om, "loss": loss}
 
     return train_step

@@ -51,7 +51,8 @@ def test_package_has_every_serving_module():
             "configs/qwen2_moe_a2p7b.py", "configs/deepseek_v2_lite_16b.py", "configs/deepseek_coder_33b.py",
             "configs/granite_34b.py", "configs/nemotron_4_15b.py", "configs/qwen2_vl_7b.py",
             "configs/hubert_xlarge.py", "models/ssm.py", "configs/zamba2_2p7b.py", "ckpt/__init__.py",
-            "ckpt/checkpoint.py"}
+            "ckpt/checkpoint.py", "launch/mesh.py", "parallel/__init__.py", "parallel/pipeline.py",
+            "parallel/sharding.py", "parallel/transport.py"}
     assert want <= have
     csrc = {p.name for p in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").iterdir()}
     assert {"rmsnorm.cu", "flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu", "wkv6.cu"} <= csrc
@@ -66,7 +67,7 @@ class Block:
 sys.meta_path.insert(0, Block())
 import repro_torch.serving.engine, repro_torch.launch.serve, repro_torch.convert, repro_torch.kernels.ref
 import repro_torch.models.rwkv, repro_torch.models.ssm, repro_torch.launch.train, repro_torch.optim.optimizer, repro_torch.data.pipeline
-import repro_torch.ckpt.checkpoint
+import repro_torch.ckpt.checkpoint, repro_torch.launch.mesh, repro_torch.parallel.pipeline, repro_torch.parallel.sharding
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro") for m in sys.modules)
 print("imported")
 """
