@@ -6,7 +6,10 @@
 Needs one NVIDIA Hopper card and ``nvcc``; takes no arguments.  It builds the
 port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (the four forward
 kernels and the backward kernels of RMSNorm, attention and WKV-6), holds each of them
-against its plain PyTorch version on the card, serves two models at full
+against its plain PyTorch version on the card, runs the port's copy of the
+paper's simulator on the host (fig 9's grid, fig 13's BubbleTea scenario and
+a traced run, whose times are the paper's A100 testbed model, not the
+card's), serves two models at full
 width with random weights from a seed through ``ServingEngine.generate`` and
 ``SplitwiseCluster.serve`` (GPT-A, 24 layers x 4096 x 16384, vocabulary 50304:
 RMSNorm, flash and decode attention kernels; then RWKV-6 7B, 32 layers x 4096 x
@@ -72,9 +75,11 @@ import torch.distributed as dist
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
+from repro_torch import obs  # noqa: E402
 from repro_torch.ckpt.checkpoint import _walk, load_pytree  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import expected_shapes, flatten  # noqa: E402
+from repro_torch.core import bubbletea, simulator  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, make_batches  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
@@ -1353,6 +1358,88 @@ def phase_kernels() -> list:
     emit({"phase": "kernels", "tolerance": "atol = rtol = tol against the plain version on the same inputs",
           "timing": "device time between CUDA events, calls queued behind a spin kernel, warm-up, median of 7 rounds, inputs cold in L2", "kernels": rows})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase simulate: the port's copy of Atlas's and BubbleTea's simulator, on the
+# host; every time in it is the paper's A100 testbed model, not this card's
+# ---------------------------------------------------------------------------
+
+# benchmarks/paper_figs.py's model dimensions (the paper's §3 GPT-A and GPT-B)
+SIM_GPT_A = dict(hidden=4096, seq_len=4096, micro_batch=1, layers_per_stage=1, layer_params=412e6)
+SIM_GPT_B = dict(hidden=8192, seq_len=6144, micro_batch=1, layers_per_stage=1, layer_params=1.2e9)
+SIM_NOTE = "simulated: the paper's A100 testbed model, not this card"
+
+
+def sim_testbed(model: dict, M: int):
+    """The paper's §6.1 testbed: 12 GPUs as 3 DP x 4 PP over 3 DCs."""
+    return simulator.testbed_spec(**model, num_stages=4, microbatches=M, stage_dc=[0, 0, 1, 2])
+
+
+def fig9_speedups() -> dict:
+    """Fig 9: each single-TCP baseline's iteration time over Atlas's (multi-TCP,
+    3 pipelines), every schedule held by the invariant checker."""
+    out = {}
+    for name, model in (("gpt_a", SIM_GPT_A), ("gpt_b", SIM_GPT_B)):
+        for M in (4, 16):
+            spec = sim_testbed(model, M)
+            for lat in (10, 20, 30, 40):
+                atlas = simulator.simulate(spec, simulator.GeoTopology(lat, True), policy="atlas", n_pipelines=3,
+                                           validate=True).iteration_ms
+                for policy in ("gpipe", "megatron", "varuna"):
+                    base = simulator.simulate(spec, simulator.GeoTopology(lat, False), policy=policy,
+                                              validate=True).iteration_ms
+                    out[f"{policy}_over_atlas_{name}_M{M}@{lat}ms"] = base / atlas
+    return out
+
+
+def fig13_bubbletea() -> dict:
+    """Fig 13: Atlas's bubbles on the testbed (GPT-B, M 16, 40 ms), then
+    BubbleTea's controller placing prefills from a seeded arrival stream."""
+    res = simulator.simulate(sim_testbed(SIM_GPT_B, 16), simulator.GeoTopology(40.0, True), policy="atlas",
+                             n_pipelines=3, validate=True)
+    lm = bubbletea.PrefillLatencyModel(bubbletea.InferenceModelSpec("llama3-8b", 8e9))
+    ctrl = bubbletea.BubbleTeaController([list(res.bubbles[g]) for g in sorted(res.bubbles)], lm)
+    mix = bubbletea.PromptMix(lengths=(128, 256, 512, 1024, 2048), weights=(0.3, 0.25, 0.2, 0.15, 0.1))
+    requests = bubbletea.ArrivalProcess(rate_per_s=1000.0, horizon_ms=res.iteration_ms, seed=SEED).generate(mix)
+    for req in requests:
+        ctrl.submit(req)
+    busy = sum(iv.end - iv.start for ivs in res.busy.values() for iv in ivs)
+    total = res.iteration_ms * len(res.busy)
+    return {"utilization_atlas": res.utilization,
+            "utilization_with_bubbletea": bubbletea.utilization_with_prefills(busy, total, ctrl),
+            "requests": len(requests), "placements": len(ctrl.placements), "rejected": len(ctrl.rejected)}
+
+
+def traced_simulation() -> dict:
+    """One traced run; the second witness re-derives its accounting from the spans."""
+    tracer = obs.RecordingTracer()
+    simulator.simulate(sim_testbed(SIM_GPT_A, 16), simulator.GeoTopology(40.0, True), policy="atlas",
+                       n_pipelines=3, validate=True, tracer=tracer, trace_label="smoke")
+    return {"windows_verified": obs.verify_trace(tracer), "events": tracer.n_events}
+
+
+def phase_simulate() -> None:
+    """Fig 9's grid, fig 13's scenario and a traced run through the port's
+    copy of ``core/`` and ``obs/``.  An ``InvariantViolation`` or a
+    ``TraceMismatch`` raises from inside; a non-finite value, a baseline
+    faster than Atlas or a BubbleTea that placed nothing raises here."""
+    t0 = time.perf_counter()
+    speedups = fig9_speedups()
+    fig13 = fig13_bubbletea()
+    traced = traced_simulation()
+    values = list(speedups.values()) + [fig13["utilization_atlas"], fig13["utilization_with_bubbletea"]]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"simulate: non-finite values {values}")
+    if min(speedups.values()) <= 1.0:
+        raise AssertionError(f"simulate: a baseline beat Atlas {speedups}")
+    if fig13["placements"] < 1 or not fig13["utilization_with_bubbletea"] > fig13["utilization_atlas"]:
+        raise AssertionError(f"simulate: BubbleTea filled no bubble {fig13}")
+    if traced["windows_verified"] < 1:
+        raise AssertionError(f"simulate: the trace verified nothing {traced}")
+    emit({"phase": "simulate", "note": SIM_NOTE, "fig9_speedup": speedups,
+          "fig9_speedup_min": min(speedups.values()), "fig9_speedup_max": max(speedups.values()),
+          "fig13": fig13, "trace": traced, "seconds": time.perf_counter() - t0})
 
 
 # ---------------------------------------------------------------------------
@@ -2671,6 +2758,7 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     release()
+    phase_simulate()
 
     counts = {"gpt-a": serve_model("gpt_a", "serve")}
     release()  # GPT-A's weights go before RWKV-6 7B's 30 GB of f32 parameters are made

@@ -15,7 +15,9 @@ each layer-stacked leaf drawn one layer at a time), which is what lets the
 ``--layers`` cuts the depth: Granite-34B-Code's 88 layers are 94.50 GB, 60 of
 them 64.81 GB (for Zamba2 it must stay a whole number of its groups of 6).  The audio encoder (HuBERT-XLarge) does not decode: it is
 refused here; its entry points are ``Model.loss`` and ``Model.prefill``
-without a cache.
+without a cache.  The last line is the reference's analytic TTFT of the
+paper's A100 testbed (``core/bubbletea.py``'s ``PrefillLatencyModel``), not
+a measurement of the device the run used.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.bubbletea import InferenceModelSpec, PrefillLatencyModel
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import build_model
 from repro_torch.serving.engine import Request, ServingEngine, SplitwiseCluster
@@ -90,6 +93,11 @@ def main(argv=None):
         print(f"  TBT  ms: p50={np.percentile(tbts,50):.1f} p99={np.percentile(tbts,99):.1f}")
     if args.splitwise:
         print(f"  KV bytes moved: {cluster.kv_bytes_moved/1e6:.2f} MB")
+    # the reference's analytic TTFT model (paper Fig 14) of the paper's A100
+    # testbed: a simulated number, not a measurement of this device
+    lm = PrefillLatencyModel(InferenceModelSpec("llama3-8b", 8e9))
+    print(f"  [model] A100 TTFT(512, PP=1)={lm.ttft_ms(512,1):.0f}ms "
+          f"(8192, PP=8)={lm.ttft_ms(8192,8):.0f}ms")
     return done
 
 

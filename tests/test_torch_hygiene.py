@@ -52,7 +52,11 @@ def test_package_has_every_serving_module():
             "configs/granite_34b.py", "configs/nemotron_4_15b.py", "configs/qwen2_vl_7b.py",
             "configs/hubert_xlarge.py", "models/ssm.py", "configs/zamba2_2p7b.py", "ckpt/__init__.py",
             "ckpt/checkpoint.py", "launch/mesh.py", "parallel/__init__.py", "parallel/pipeline.py",
-            "parallel/sharding.py", "parallel/transport.py"}
+            "parallel/sharding.py", "parallel/transport.py", "units.py", "obs/__init__.py", "obs/__main__.py",
+            "obs/tracer.py", "obs/schema.py", "obs/metrics.py", "obs/crosscheck.py", "obs/export.py", "obs/emit.py",
+            "core/__init__.py", "core/wan.py", "core/topology.py", "core/simulator.py", "core/temporal.py",
+            "core/fastforward.py", "core/validate.py", "core/dc_selection.py", "core/bubbletea.py",
+            "core/failures.py", "core/control.py", "core/fleet.py", "core/reference.py"}
     assert want <= have
     csrc = {p.name for p in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").iterdir()}
     assert {"rmsnorm.cu", "flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu", "wkv6.cu"} <= csrc
@@ -68,6 +72,7 @@ sys.meta_path.insert(0, Block())
 import repro_torch.serving.engine, repro_torch.launch.serve, repro_torch.convert, repro_torch.kernels.ref
 import repro_torch.models.rwkv, repro_torch.models.ssm, repro_torch.launch.train, repro_torch.optim.optimizer, repro_torch.data.pipeline
 import repro_torch.ckpt.checkpoint, repro_torch.launch.mesh, repro_torch.parallel.pipeline, repro_torch.parallel.sharding
+import repro_torch.core, repro_torch.core.reference, repro_torch.obs, repro_torch.obs.__main__, repro_torch.units
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro") for m in sys.modules)
 print("imported")
 """
@@ -130,6 +135,20 @@ def test_serve_cli_runs_on_the_cpu(extra, capsys):
     assert len(done) == 3 and all(len(r.generated) == 3 for r in done)
     assert "device=cpu" in out and "TTFT ms" in out
     assert ("KV bytes moved" in out) == ("--splitwise" in extra)
+
+
+def test_serve_cli_prints_the_references_analytic_ttft_line(capsys):
+    """The reference's launcher ends with the analytic TTFT of the paper's A100
+    testbed; the port's prints the same line from its own copy of the model."""
+    from repro.core.bubbletea import InferenceModelSpec, PrefillLatencyModel
+    from repro_torch.launch import serve
+
+    serve.main(["--device", "cpu", "--requests", "2", "--max-new", "2", "--batch", "2", "--prompt-len", "8",
+                "--max-len", "16"])
+    lm = PrefillLatencyModel(InferenceModelSpec("llama3-8b", 8e9))
+    want = f"  [model] A100 TTFT(512, PP=1)={lm.ttft_ms(512,1):.0f}ms (8192, PP=8)={lm.ttft_ms(8192,8):.0f}ms"
+    assert capsys.readouterr().out.splitlines()[-1] == want
+    assert serve.PrefillLatencyModel.__module__ == "repro_torch.core.bubbletea"
 
 
 def test_build_refuses_where_there_is_no_nvcc(monkeypatch):
