@@ -46,7 +46,11 @@ Zamba2-2.7B at full width and depth on (2, 1, 1), each held against gradient
 accumulation over the same chunks.  For each path it checks by
 the kernels' launch counters that it really went through the kernels, and
 compares the kernel path's logits, or loss and gradients, with the plain
-path's.
+path's.  Seven of its steps are also held against the port's dry-run
+(``repro_torch.launch.dryrun``), predicted on ``meta`` from the config alone
+in a background process: argument bytes, launches and transport bytes
+exactly, the peak within max(3 %, 256 MiB); phase ``dryrun`` adds three
+full-size combinations of the dry-run's launcher, run on the host.
 
 Every phase prints one JSON line (the train phase also the launcher's step
 lines), with its peak device memory.  Any failure raises, so the exit code is not 0 and the last line is
@@ -57,6 +61,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import itertools
 import json
@@ -82,25 +87,34 @@ from repro_torch.convert import expected_shapes, flatten  # noqa: E402
 from repro_torch.core import bubbletea, simulator  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, make_batches  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import cost as kcost  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv_mod  # noqa: E402
 from repro_torch.kernels._check import rows_aligned  # noqa: E402
-from repro_torch.launch.mesh import TIMEOUT, make_mesh  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import TIMEOUT, Mesh, make_mesh  # noqa: E402
 from repro_torch.launch.train import optimizer_config, train  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import ssm as ssm_lib  # noqa: E402
 from repro_torch.models.transformer import build_model, build_pipeline_parts  # noqa: E402
-from repro_torch.optim.optimizer import accumulated_value_and_grad, gradients, make_train_step  # noqa: E402
+from repro_torch.optim.optimizer import (  # noqa: E402
+    accumulated_value_and_grad,
+    gradients,
+    init_opt_state,
+    make_train_step,
+)
 from repro_torch.parallel.pipeline import (  # noqa: E402
+    PipelineLoss,
     make_pipeline_loss,
     stack_length,
     stage_layer_range,
     stage_params,
 )
+from repro_torch.parallel.transport import MetaTransport  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
     Request,
     ServingEngine,
@@ -111,10 +125,9 @@ from repro_torch.serving.engine import (  # noqa: E402
     zeros_cache,
 )
 
-# Published peaks of one H100 SXM at its full power limit (NVIDIA's data sheet)
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12
-F32_FLOPS = 67e12
+# Published peaks of one H100 SXM at its full power limit (NVIDIA's data sheet):
+# the one definition the kernels' cost formulas and the dry-run read
+HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = kcost.HBM_BYTES_PER_S, kcost.BF16_FLOPS, kcost.F32_FLOPS
 
 # Kernel and plain version both keep f32 inside and start from the same inputs,
 # so they differ by the order of their sums and by a few ulp of expf/rsqrtf
@@ -554,6 +567,29 @@ def check_rmsnorm_bwd(ck: Checker, gen) -> None:
             gx, gs = torch.autograd.grad(kops.rmsnorm(xg, scg), (xg, scg), dy)
         ck.check("rmsnorm_bwd", "RMSNormFn dx", gx, a[0], BWD_TOL)
         ck.check("rmsnorm_bwd.dscale", f"RMSNormFn dscale {dtype}", gs, a[1], BWD_TOL)
+    check_rmsnorm_bwd_grid()
+
+
+def check_rmsnorm_bwd_grid() -> None:
+    """The dry-run's grid of the backward (``bwd_grid_at``: csrc's arithmetic
+    on ``BWD_BLOCKS_PER_SM``) is the card's (``bwd_grid``) at this card's SMs,
+    for every kernel and block size the backward takes, at rows below, at and
+    past a wave."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases, wrong, per_sm = 0, [], {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (512, 1024, 2048, 2560, 4096, 5120):
+            for vec in (0, 1):
+                for n in (1, 4, 511, 512, 2048, 2049, 4096, 10**6):
+                    card, meta = rms_mod.bwd_grid(n, d, dtype, vec), rms_mod.bwd_grid_at(n, d, dtype, vec, sms)
+                    cases += 1
+                    if card != meta:
+                        wrong.append({"n": n, "d": d, "dtype": str(dtype), "vec": vec, "card": card, "meta": meta})
+                key = f"{dtype}, {rms_mod.bwd_threads(d, dtype, vec)}"
+                per_sm[key] = -(-rms_mod.bwd_grid(sms * 64, d, dtype, vec)[0] // sms)  # a wave's blocks an SM
+    emit({"check": "rmsnorm_bwd_grid", "sms": sms, "cases": cases, "card_blocks_per_sm": per_sm, "wrong": wrong})
+    if wrong:
+        raise AssertionError(f"rmsnorm_bwd: the dry-run's grid is not the card's: {wrong[:8]}")
 
 
 def check_flash_bwd(ck: Checker, gen) -> None:
@@ -860,42 +896,6 @@ def check_wkv6_bwd(ck: Checker, gen) -> None:
         hold(f"WKV6Fn {dtype}", got, wkv_mod.wkv6_bwd_cuda(r, k, v, logw, u, dy))
 
 
-def wkv6_bwd_flops(B: int, T: int, H: int, D: int) -> int:
-    """The f32 operations the gradients need, whatever kernel computes them:
-    a state element a step, 5 to carry S and read drI off it (a dot
-    product's FMA, then the update's multiply and FMA), 5 to carry dS and read
-    dkI off it, and 2 for dv's dot product with dS (12); a row a step, 20 (v.dy
-    2; the bonus terms of dr and dk 3 each; r drI and k dkI 1 each; dlogw's
-    running sum 2; du's product and sum 3; dv's r.u.k 3 and its add 2).  K4's
-    backward does more (its pass C carries dS a second time: 15 a state
-    element), which the bound does not count."""
-    return B * T * H * (12 * D * D + 20 * D)
-
-
-def wkv6_chunk_flops(B: int, T: int, H: int) -> int:
-    """The tensor-core operations of csrc/wkv6.cu's wkv6_chunk_kernel, counted
-    from its code: per chunk of 64 steps, m16n8k16 products for the scores
-    against earlier sub-chunks (warp w: 2w column tiles x 4 x 3), A V (warp w:
-    w + 1 blocks x 8 tiles x 2), (r exp(Lx)) S_prev (4 x 4 x 8 x 3) and the
-    state update (4 x 4 x 8 x 2); 2 x 16 x 8 x 16 operations each."""
-    per_chunk = sum(24 * w + 16 * (w + 1) for w in range(4)) + 384 + 256
-    return B * H * -(-T // 64) * per_chunk * 2 * 16 * 8 * 16
-
-
-def wkv6_bwd_chunk_flops(B: int, T: int, H: int) -> int:
-    """The tensor-core operations of csrc/wkv6.cu's chunked backward, counted
-    from its code as the mma.sync it issues (split products as the products
-    they issue; an m16n8k8 as half an m16n8k16, 2 x 16 x 8 x 16 operations).
-    wkv6_bwd_chunk_kernel, per chunk, warp w: (1) dy S_prev^T 96, dA 8 a
-    sub-chunk up to its own, dA k' 48 each earlier one; (2) v dS^T 96, dA^T 8
-    and dA^T r' 48 each later sub-chunk; (3a) 96 m16n8k8 and 12; (5) kw dS 96,
-    the diagonal k-step 16, A^T 24 and A^T dy 16 each later sub-chunk; (6) 96:
-    756 - 40 w.  wkv6_bwd_state_kernel: 384 each chunk but the last."""
-    nc = -(-T // 64)
-    per_chunk = sum(756 - 40 * w for w in range(4))
-    return B * H * (nc * per_chunk + (nc - 1) * 384) * 2 * 16 * 8 * 16
-
-
 def time_ms(fn, arg_sets, iters: int = 20, reps: int = 7) -> float:
     """Device time of one call: median over ``reps`` rounds of the mean of
     ``iters`` calls between two CUDA events, after a warm-up.  Each round first
@@ -949,16 +949,12 @@ def measure_kernels(gen) -> dict:
     # ("moe_") the MoE family's prefill rows, d_model 2048
     for label, N, d, nsets in (("", 4 * 512, 4096, 6), ("decode_", 4, 4096, 8), ("moe_", 4 * 512, 2048, 6)):
         sets = [(randn(gen, (N, d), dt), randn(gen, (d,), torch.float32)) for _ in range(nsets)]
-        nbytes = 2 * N * d * 2 + d * 4
-        flops = 4 * N * d
         row = {
             "shape": f"x ({N},{d}) bf16",
             "ms": time_ms(lambda x, s: kops.rmsnorm(x, s), sets),
             "plain_ms": time_ms(lambda x, s: rms_mod.rmsnorm_plain(x, s), sets),
             "library_ms": time_ms(lambda x, s: F.rms_norm(x, (d,), s.to(x.dtype), 1e-6), sets),
-            "bytes": nbytes, "flops": flops,
-            "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations",
+            **kcost.bound(rms_mod.fwd_cost(N, d, dt)),
         }
         if label:
             out["rmsnorm"].update({label + key: val for key, val in row.items()})
@@ -971,8 +967,6 @@ def measure_kernels(gen) -> dict:
     D = 128
     for label, B, T, H in (("", 4, 512, 32), ("long_", 1, 4096, 32), ("moe_", 4, 512, 16)):
         sets = [tuple(randn(gen, (B, T, H, D), dt) for _ in range(3)) for _ in range(2)]
-        nbytes = 4 * B * T * H * D * 2
-        flops = 4 * B * H * D * (T * (T + 1) // 2)
         row = {
             "shape": f"q,k,v ({B},{T},{H},{D}) bf16 causal",
             "ms": time_ms(lambda q, k, v: kops.flash_attention(q, k, v, causal=True), sets, iters=5),
@@ -981,10 +975,7 @@ def measure_kernels(gen) -> dict:
                 lambda q, k, v: F.scaled_dot_product_attention(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True).transpose(1, 2),
                 sets, iters=5),
-            "bytes": nbytes, "flops": flops,
-            "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
-            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "operations_ms": flops / BF16_FLOPS * 1e3,
+            **kcost.bound(fa_mod.fwd_cost(B, T, T, H, H, D, True, dt)),
         }
         if label:
             out["flash_attention"].update({label + key: val for key, val in row.items()})
@@ -1006,9 +997,6 @@ def measure_kernels(gen) -> dict:
         sets = [(randn(gen, (B, 1, H, D), dt), randn(gen, (B, S, H, D), dt), randn(gen, (B, S, H, D), dt), q_pos,
                  kv_pos) for _ in range(nsets)]
         valid = int(((kv_pos >= 0) & (kv_pos <= q_pos)).sum().item())
-        # what this run's data needs: K and V of the valid slots only, every position, q and o
-        nbytes = 2 * valid * H * D * 2 + B * S * 4 + B * 4 + 2 * B * H * D * 2
-        flops = 4 * valid * H * D
         mask = ((kv_pos >= 0) & (kv_pos <= q_pos))[:, None, None, :]
         row = {
             "shape": f"q ({B},1,{H},{D}), k,v ({B},{S},{H},{D}) bf16, {filled} of {S} slots valid",
@@ -1018,10 +1006,8 @@ def measure_kernels(gen) -> dict:
                 lambda q, k, v, qp, kp: F.scaled_dot_product_attention(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask).transpose(1, 2),
                 sets),
-            "bytes": nbytes, "flops": flops,
-            "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
-            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "operations_ms": flops / BF16_FLOPS * 1e3,
+            # what this run's data needs: K and V of the valid slots only, every position, q and o
+            **kcost.bound(dec_mod.cost_of(B, S, H, H, D, valid, dt)),
         }
         if label:
             out["decode_attention"].update({label + key: val for key, val in row.items()})
@@ -1036,23 +1022,16 @@ def measure_kernels(gen) -> dict:
     for label, T, nsets in (("", 512, 2), ("decode_", 1, 8)):
         B = 4
         sets = [wkv_inputs(gen, B, T, H, D, dt, True) for _ in range(nsets)]
-        n = B * T * H * D
         # r, k, v and y in bf16, logw f32, u, and the state read once and written once
-        nbytes = 4 * n * 2 + n * 4 + H * D * 4 + 2 * B * H * D * D * 4
-        # the sequential form: a state element a step r.S (2), S*w + k*v (3); a step r.u.k (3 D), + v_e * bonus (2 D)
-        seq_flops = B * T * H * (5 * D * D + 5 * D)
-        chunked = T >= wkv_mod.CHUNKED_T_MIN
-        flops, rate = (wkv6_chunk_flops(B, T, H), BF16_FLOPS) if chunked else (seq_flops, F32_FLOPS)
+        seq_flops = wkv_mod.sequential_flops(B, T, H, D)
+        chunked = wkv_mod.fwd_chunked(dt, T, D, True)
         row = {
             "shape": f"r,k,v ({B},{T},{H},{D}) bf16, state ({B},{H},{D},{D}) f32",
             "kernel": "wkv6_chunk_kernel (tensor cores)" if chunked else "wkv6_kernel (sequential, CUDA cores)",
             "ms": time_ms(lambda r, k, v, w, u, S: kops.wkv6(r, k, v, w, u, S), sets),
             "plain_ms": time_ms(lambda r, k, v, w, u, S: wkv_mod.wkv6_plain(r, k, v, w, u, S, chunk=128), sets),
             "library_ms": None,
-            "bytes": nbytes, "flops": flops,
-            "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / rate) * 1e3,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / rate else "operations",
-            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "operations_ms": flops / rate * 1e3,
+            **kcost.bound(wkv_mod.fwd_cost(B, T, H, D, dt, True)),
             "sequential_flops": seq_flops, "sequential_operations_ms": seq_flops / F32_FLOPS * 1e3,
         }
         if label:
@@ -1065,13 +1044,12 @@ def measure_kernels(gen) -> dict:
     return out
 
 
-def timed_row(shape: str, kernel, plain, library, sets, nbytes: int, flops: int, rate: float, iters: int = 20) -> dict:
+def timed_row(shape: str, kernel, plain, library, sets, cost, iters: int = 20) -> dict:
     """One row of times (kernel, plain version, library call) at ``sets``
-    beside the card's bound for ``nbytes`` and ``flops`` at ``rate``."""
+    beside the card's bound for ``cost``, the kernel module's (bytes,
+    operations, rate) of one call."""
     return {"shape": shape, "ms": time_ms(kernel, sets, iters), "plain_ms": time_ms(plain, sets, iters),
-            "library_ms": time_ms(library, sets, iters), "bytes": nbytes, "flops": flops,
-            "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / rate) * 1e3,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / rate else "operations"}
+            "library_ms": time_ms(library, sets, iters), **kcost.bound(cost)}
 
 
 def measure_stack(gen, out: dict) -> None:
@@ -1094,8 +1072,7 @@ def measure_stack(gen, out: dict) -> None:
         sets = [(randn(gen, (N, d), dt), randn(gen, (d,), torch.float32)) for _ in range(6)]
         add("rmsnorm", label, timed_row(
             f"x ({N},{d}) bf16", lambda x, s: kops.rmsnorm(x, s), lambda x, s: rms_mod.rmsnorm_plain(x, s),
-            lambda x, s: F.rms_norm(x, (x.shape[-1],), s.to(x.dtype), 1e-6), sets, 2 * N * d * 2 + d * 4, 4 * N * d,
-            F32_FLOPS))
+            lambda x, s: F.rms_norm(x, (x.shape[-1],), s.to(x.dtype), 1e-6), sets, rms_mod.fwd_cost(N, d, dt)))
 
     for label, B, T, Hq, Hkv, D, causal in (("coder_", 4, 512, 56, 8, 128, True), ("granite_", 4, 512, 48, 1, 128, True),
                                             ("nemotron_", 4, 512, 48, 8, 128, True), ("vl_", 4, 512, 28, 4, 128, True),
@@ -1109,8 +1086,7 @@ def measure_stack(gen, out: dict) -> None:
             lambda q, k, v: fa_mod.flash_attention_plain(q, k, v, causal=causal),
             lambda q, k, v: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                                            is_causal=causal, enable_gqa=True).transpose(1, 2),
-            sets, (2 * B * T * Hq * D + 2 * B * T * Hkv * D) * 2,  # q read, o written, k and v read
-            4 * B * Hq * D * (T * (T + 1) // 2 if causal else T * T), BF16_FLOPS, iters=5))
+            sets, fa_mod.fwd_cost(B, T, T, Hq, Hkv, D, causal, dt), iters=5))
 
     B, S, filled = 4, MAX_LEN, 520
     ar = torch.arange(S, device="cuda", dtype=torch.int32)[None].expand(B, S)
@@ -1131,7 +1107,7 @@ def measure_stack(gen, out: dict) -> None:
             lambda q, k, v: dec_mod.decode_attention_plain(q, k, v, q_pos, kv_pos),
             lambda q, k, v: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                                            attn_mask=mask, enable_gqa=True).transpose(1, 2),
-            sets, 2 * valid * Hkv * D * 2 + B * S * 4 + B * 4 + 2 * B * Hq * D * 2, 4 * valid * Hq * D, BF16_FLOPS),
+            sets, dec_mod.cost_of(B, S, Hq, Hkv, D, valid, dt)),
             # split_plan sizes its one wave by B x Hkv alone; a group past 8 takes ceil(G / 8) blocks a kv head
             "plan_slices": nsplit, "plan_tiles_per_slice": per,
             "partial_blocks": nsplit * B * Hkv * (-(-G // 8) if G > 4 else 1),
@@ -1176,8 +1152,6 @@ def rmsnorm_bwd_row(gen, N: int, d: int) -> dict:
         xg, wg = x.clone().requires_grad_(True), sc.to(dt).requires_grad_(True)
         with torch.enable_grad():
             lib_sets.append((F.rms_norm(xg, (d,), wg, 1e-6), xg, wg, dy))
-    nbytes = 3 * N * d * 2 + 2 * d * 4  # x, dy read, dx written; scale read, dscale written
-    flops = 10 * N * d  # sums of x^2 and g x, g, dx, dscale's term: about ten a element
     grid = rmsnorm_bwd_plan(N, d, dt)
     split = kernel_times_ms(lambda x, s, g: rms_mod.rmsnorm_bwd_rows(x, s, g), sets)
     row = {
@@ -1186,9 +1160,7 @@ def rmsnorm_bwd_row(gen, N: int, d: int) -> dict:
         "plain_ms": time_ms(lambda x, s, g: rms_mod.rmsnorm_bwd_plain(x, s, g), sets),
         "library_ms": time_ms(lambda y, xg, wg, g: torch.autograd.grad(y, (xg, wg), g, retain_graph=True), lib_sets),
         "library": "F.rms_norm backward, bf16 weight",
-        "bytes": nbytes, "flops": flops,
-        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3,
-        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations",
+        **kcost.bound(rms_mod.bwd_cost(N, d, dt)),
         # the two kernels apart (the profiler's device time a launch) and the
         # partials the first writes and the second reads back
         "rows_kernel": grid["kernel"], "grid_blocks": grid["blocks"], "grid_threads": grid["threads"],
@@ -1216,8 +1188,6 @@ def flash_bwd_row(gen, B: int, T: int, H: int, D: int, causal: bool, iters: int 
         leaves = [t.transpose(1, 2).clone().requires_grad_(True) for t in (q, k, v)]
         with torch.enable_grad():
             lib_sets.append((F.scaled_dot_product_attention(*leaves, is_causal=causal), *leaves, do.transpose(1, 2)))
-    nbytes = 8 * B * T * H * D * 2 + 2 * B * H * T * 4  # q, k, v, o, dO read, dq, dk, dv written; lse, D
-    flops = 5 * 2 * B * H * D * (T * (T + 1) // 2 if causal else T * T)  # five products
 
     def kernel(q, k, v, o, lse, do):
         return fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal)
@@ -1234,10 +1204,7 @@ def flash_bwd_row(gen, B: int, T: int, H: int, D: int, causal: bool, iters: int 
         "library_ms": time_ms(lambda y, a, b, c, g: torch.autograd.grad(y, (a, b, c), g, retain_graph=True),
                               lib_sets, iters=iters),
         "library": "F.scaled_dot_product_attention backward",
-        "bytes": nbytes, "flops": flops,
-        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
-        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
-        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "operations_ms": flops / BF16_FLOPS * 1e3,
+        **kcost.bound(fa_mod.bwd_cost(B, T, T, H, H, D, causal, dt)),
         # the three kernels apart: the profiler's device time a launch
         "rowsum_kernel_ms": sum(t for name, t in split.items() if "rowsum" in name),
         "dkdv_kernel_ms": sum(t for name, t in split.items() if "dkdv" in name),
@@ -1262,12 +1229,10 @@ def wkv6_bwd_row(gen, B: int, T: int, H: int, D: int) -> dict:
         sets.append((r, k, v, logw, u, dy))
     r, k, v, logw, u, _ = wkv_inputs(gen, B, T, H, D, torch.float32, False)
     sets32 = [(r, k, v, logw, u, randn(gen, (B, T, H, D), torch.float32))]
-    n = B * T * H * D
     # r, k, v, dy read and dr, dk, dv written in bf16, logw read and dlogw written in f32; u read, du written
-    nbytes = 7 * n * 2 + 2 * n * 4 + 2 * H * D * 4
+    nbytes, flops, _ = wkv_mod.bwd_cost(B, T, H, D, torch.bfloat16)
     ws_bytes = 2 * B * H * -(-T // 64) * D * D * 4  # the S_prev workspace, written once and read once
-    flops = wkv6_bwd_chunk_flops(B, T, H)
-    seq_flops = wkv6_bwd_flops(B, T, H, D)
+    seq_flops = wkv_mod.bwd_flops(B, T, H, D)
     if not wkv_mod.bwd_chunked(torch.bfloat16, T, D, True):
         raise AssertionError(f"wkv6_bwd_row: ({B}, {T}, {H}, {D}) bf16 does not take the chunked route")
     split = kernel_times_ms(wkv_mod.wkv6_bwd_cuda, sets, iters=10)
@@ -1283,10 +1248,7 @@ def wkv6_bwd_row(gen, B: int, T: int, H: int, D: int) -> dict:
         "f32_ms": time_ms(wkv_mod.wkv6_bwd_cuda, sets32),
         "plain_ms": time_ms(lambda *a: wkv_mod.wkv6_bwd_plain(*a, chunk=128), sets),
         "library_ms": None, "library": "none: no single PyTorch call computes this recurrence's gradients",
-        "bytes": nbytes, "flops": flops,
-        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
-        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
-        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "operations_ms": flops / BF16_FLOPS * 1e3,
+        **kcost.bound(wkv_mod.bwd_cost(B, T, H, D, torch.bfloat16)),
         # the restated bound of the chunked route: its workspace's bytes beside the inputs' and outputs'
         "workspace_bytes": ws_bytes,
         "bound_with_workspace_ms": max((nbytes + ws_bytes) / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
@@ -2444,6 +2406,281 @@ def phase_train_rwkv_parity() -> None:
 
 
 # ---------------------------------------------------------------------------
+# the dry-run held against the card: what repro_torch.launch.dryrun predicts on
+# meta for a step this script runs at full width, from the config alone, beside
+# what the card did in that step
+# ---------------------------------------------------------------------------
+
+# The predicted peak may part from the caching allocator's by max(3 % of the
+# measured, 256 MiB): the allocator hands out whole blocks (a free block that
+# would leave less than 1 MiB is not split), and aten's CUDA kernels that take
+# scratch (reductions, sorts) allocate what no meta kernel shows.  cuBLAS's
+# workspaces go through the allocator too and are no tensor of the program:
+# they are cleared before the step, so that the step makes them anew, and the
+# prediction adds what the step's kind makes: one workspace of
+# CUBLAS_WORKSPACE_BYTES for the forward's thread, a second once a backward
+# runs on autograd's thread.  The bytes that clearing them after the step
+# gives back must equal that.  Argument bytes, launches and transport bytes
+# are exact.
+DRYRUN_PEAK_TOL = {"rel": 0.03, "abs": 256 * 2**20}
+CUBLAS_WORKSPACE_BYTES = 32 * 2**20  # PyTorch's cuBLAS workspace a (handle, stream) on a Hopper card
+# full-size combinations whose dry-run (the launcher, ``python -m
+# repro_torch.launch.dryrun``) runs on the card's host and is timed
+DRYRUN_COMBOS = (("deepseek_coder_33b", "train_4k", "multi"), ("qwen2_moe_a2p7b", "prefill_32k", "single"),
+                 ("zamba2_2p7b", "long_500k", "multi"))
+DRYRUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "local", "chip_smoke_dryrun")
+DRYRUN_LINES: list = []  # every comparison made in this process, for phase dryrun's summary
+BACKGROUND: list = []  # the processes this script started and has not yet waited for
+KERNEL_KEYS = tuple(name for name, *_ in KERNELS)
+_PREDICTED: dict = {}
+
+
+def dryrun_steps() -> dict:
+    """name -> a builder of (call, arguments, transport or None) on ``meta``:
+    the dry-run's program of each step this script holds against the card,
+    made from the config as the card's is made (``dryrun.meta_params`` for
+    ``model.init``), nothing taken from a card tensor."""
+    meta = torch.device("meta")
+
+    def serve(kind):
+        cfg = get_config("gpt_a")
+        model = build_model(cfg)
+        params = dryrun.meta_params(model, dtype=cfg.dtype)  # the served copy: cast_params of the f32 init
+        cache = zeros_cache(model, 4, MAX_LEN, meta)
+        if kind == "prefill":
+            args = (params, {"tokens": torch.empty((4, 512), dtype=torch.int32, device=meta)}, cache)
+            return (lambda: model.prefill(*args)), args, None
+        args = (params, cache, torch.empty((4,), dtype=torch.int32, device=meta),
+                torch.empty((4,), dtype=torch.int32, device=meta))
+        return (lambda: model.decode_step(*args)), args, None
+
+    def train_step(layers, arch, lr):
+        cfg = train_config(layers, torch.bfloat16, arch)
+        model = build_model(cfg)
+        params = dryrun.meta_params(model)
+        args = (params, init_opt_state(params), dryrun.train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ))
+        step = make_train_step(model.loss, optimizer_config(lr, TRAIN_STEPS))
+        return (lambda: step(*args)), args, None
+
+    def pipelined(cfg, shape, boundary, batch):
+        mesh = Mesh(shape, PIPE_AXES, 0)
+        args = (stage_params(dryrun.meta_params(build_model(cfg)), cfg, mesh), dryrun.train_batch(cfg, batch, TRAIN_SEQ))
+        loss_fn = PipelineLoss(cfg, mesh, PIPE_N_MICRO, boundary, transport=MetaTransport(mesh))
+        return (lambda: loss_fn(*args)), args, loss_fn.transport
+
+    steps = {"serve_prefill": lambda: serve("prefill"), "serve_decode": lambda: serve("decode"),
+             "train_gpt_a": lambda: train_step(TRAIN_LAYERS, "gpt_a", TRAIN_LR),
+             "train_rwkv": lambda: train_step(RWKV_TRAIN_LAYERS, "rwkv6_7b", RWKV_TRAIN_LR)}
+    for boundary in ("direct", "striped"):
+        steps[f"pipe_gpt_a_2x1x2_{boundary}"] = functools.partial(
+            pipelined, train_config(PIPE_LAYERS, torch.bfloat16), (2, 1, 2), boundary, PIPE_BATCH)
+    steps["pipe_zamba_2x1x1_striped"] = functools.partial(
+        pipelined, dataclasses.replace(get_config("zamba2_2p7b"), dtype=torch.bfloat16), (2, 1, 1), "striped",
+        HYBRID_PIPE_BATCH)
+    return steps
+
+
+def write_predictions(path: str) -> None:
+    """Each of ``dryrun_steps`` counted on ``meta`` (``dryrun.count``, and its
+    transport's bytes), as one JSON file at ``path``."""
+    out = {}
+    for name, build_step in dryrun_steps().items():
+        call, args, transport = build_step()
+        with torch.no_grad() if name.startswith("serve") else contextlib.nullcontext():
+            out[name] = dryrun.count(call, args)
+        out[name]["transport"] = transport.counts() if transport is not None else None
+        del call, args
+    with open(path + ".tmp", "w") as f:
+        json.dump(out, f)
+    os.replace(path + ".tmp", path)
+
+
+def background_dryruns() -> None:
+    """The dry-run's work that needs no card, in one process: the
+    predictions (``write_predictions``), then the launcher for each of
+    DRYRUN_COMBOS, all written under DRYRUN_DIR."""
+    write_predictions(os.path.join(DRYRUN_DIR, "predictions.json"))
+    for arch, shape, mesh in DRYRUN_COMBOS:
+        dryrun.main(["--arch", arch, "--shape", shape, "--mesh", mesh, "--out", DRYRUN_DIR, "--force"])
+
+
+def start_dryruns() -> tuple:
+    """``background_dryruns`` in a process of the lowest priority, started
+    before the card's phases so that it runs beside the build and the kernel
+    checks, on host cores they leave idle: (the process, its start)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    os.makedirs(DRYRUN_DIR)
+    env = {**os.environ, "PYTHONPATH": os.path.join(root, "src"), "OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.Popen([sys.executable, "-c", "import chip_smoke; chip_smoke.background_dryruns()"], cwd=root,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            preexec_fn=lambda: os.nice(19))
+    BACKGROUND.append(proc)
+    return proc, time.perf_counter()
+
+
+def predictions(started) -> dict:
+    """``write_predictions``' entries, once the background process has ended
+    (raises unless it ended with 0); ``_wall_s``: its seconds from its start."""
+    if not _PREDICTED:
+        proc, t0 = started
+        log, _ = proc.communicate(timeout=900)
+        BACKGROUND.remove(proc)
+        if proc.returncode != 0:
+            raise AssertionError(f"the background dry-runs: exit {proc.returncode}: {log[-3000:]}")
+        with open(os.path.join(DRYRUN_DIR, "predictions.json")) as f:
+            _PREDICTED.update(json.load(f))
+        _PREDICTED["_wall_s"] = time.perf_counter() - t0
+    return _PREDICTED
+
+
+def hold_dryrun(name: str, label: str, pred: dict, call, args, *, backward: bool, transport=None, owed=None):
+    """The card's step ``call`` on ``args`` (a tree of its tensors) held
+    against ``pred``, its dry-run (``write_predictions``' entry): run from
+    cleared cuBLAS workspaces and counters, its peak from
+    ``reset_peak_memory_stats`` and its device time between CUDA events.
+    Exact: argument bytes, each kernel's launches (and ``owed``, where given),
+    ``transport``'s bytes by axis and op, and the cuBLAS workspaces the step
+    made (one, two where it runs a ``backward``); the peak within
+    DRYRUN_PEAK_TOL of the dry-run's plus those workspaces.
+    Returns (the comparison's line, the step's output)."""
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    reset_counters()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = call()
+    end.record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counters = read_counters()
+    device_ms = start.elapsed_time(end)
+    kept = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
+    ws = kept - torch.cuda.memory_allocated()  # the workspaces the step made
+    ws_predicted = CUBLAS_WORKSPACE_BYTES * (2 if backward else 1)
+    held = dryrun.argument_bytes(args, rounded=True)
+    measured = peak - (base - held)  # the step's peak: its arguments and what it made, nothing else on the card
+    predicted = pred["peak_bytes"] + ws_predicted
+    launched = {k: counters[k] for k in KERNEL_KEYS if counters[k]}
+    compute_ms, memory_ms = pred["flops"] / BF16_FLOPS * 1e3, pred["bytes_accessed"] / HBM_BYTES_PER_S * 1e3
+    line = {"check": name, "prediction": label,
+            "argument_bytes": {"card": dryrun.argument_bytes(args), "meta": pred["argument_bytes"]},
+            "launches": {"card": launched, "meta": pred["launches"]},
+            "cublas_workspace": {"card": ws, "predicted": ws_predicted},
+            "peak_bytes": {"card": measured, "meta": pred["peak_bytes"], "predicted": predicted, "diff": measured - predicted,
+                           "rel_diff": (measured - predicted) / measured,
+                           "allowed": max(DRYRUN_PEAK_TOL["rel"] * measured, DRYRUN_PEAK_TOL["abs"]),
+                           "card_other_bytes": base - held, "card_max_allocated": peak},
+            "roofline": {"device_ms": device_ms, "flops": pred["flops"], "bytes_accessed": pred["bytes_accessed"],
+                         "compute_ms": compute_ms, "memory_ms": memory_ms,
+                         "device_over_bound": device_ms / max(compute_ms, memory_ms),
+                         "kernel_flops": pred["kernel_flops"], "kernel_bytes": pred["kernel_bytes"]},
+            "meta_host_s": pred["host_s"], "meta_aten_ops": pred["aten_ops"]}
+    failures = []
+    if line["argument_bytes"]["card"] != line["argument_bytes"]["meta"]:
+        failures.append("argument bytes")
+    if ws != ws_predicted:
+        failures.append("cublas workspace")
+    if launched != pred["launches"] or (owed is not None and launched != {k: v for k, v in owed.items()
+                                                                        if k in KERNEL_KEYS and v}):
+        failures.append("launches")
+    if transport is not None or pred["transport"] is not None:
+        line["transport"] = {"card": transport.counts() if transport else None, "meta": pred["transport"]}
+        if line["transport"]["card"] != line["transport"]["meta"]:
+            failures.append("transport bytes")
+    if not abs(measured - predicted) <= line["peak_bytes"]["allowed"]:
+        failures.append("peak bytes")
+    line["failures"] = failures
+    DRYRUN_LINES.append(line)
+    return line, out
+
+
+def check_dryrun_lines(lines) -> None:
+    bad = [(x["check"], x["failures"]) for x in lines if x["failures"]]
+    if bad:
+        raise AssertionError(f"dry-run against the card: {bad}; lines {json.dumps(lines)}")
+
+
+def dryrun_serving(cfg, model, params, started) -> None:
+    """GPT-A served: one 4 x 512 prefill into an empty ring of MAX_LEN and one
+    decode step on it (K1, K2, K3), each held against its dry-run."""
+    pred = predictions(started)
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(4, 512)).astype(np.int32)).to("cuda")
+    cache = zeros_cache(model, 4, MAX_LEN, "cuda")
+    with torch.no_grad():
+        args = (params, {"tokens": tokens}, cache)
+        lines = [hold_dryrun(f"{cfg.name} prefill 4 x 512, ring {MAX_LEN}", "serve_prefill", pred["serve_prefill"],
+                             lambda: model.prefill(*args), args, backward=False)[0]]
+        args = (params, cache, tokens[:, -1].contiguous(), torch.full((4,), 512, dtype=torch.int32, device="cuda"))
+        lines.append(hold_dryrun(f"{cfg.name} decode step, ring {MAX_LEN}", "serve_decode", pred["serve_decode"],
+                                 lambda: model.decode_step(*args), args, backward=False)[0])
+    emit({"phase": "dryrun_serve", "model": cfg.name, "tol": DRYRUN_PEAK_TOL, "checks": lines})
+    check_dryrun_lines(lines)
+
+
+def dryrun_train(cfg, label: str, pred: dict, owed: dict, lr: float) -> dict:
+    """One train step of ``cfg`` as ``launch.train.train`` takes it (f32
+    parameters and moments from the seed, TRAIN_BATCH x TRAIN_SEQ of
+    ``make_batches(seed 0)``, ``make_train_step(model.loss)``), held against
+    its dry-run; ``owed`` the launches a step owes."""
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = model.init(gen)
+    batch = next(make_batches(cfg, DataConfig(seed=SEED, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ)))
+    args = (params, init_opt_state(params), {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()})
+    step = make_train_step(model.loss, optimizer_config(lr, TRAIN_STEPS))
+    line, out = hold_dryrun(f"{cfg.name} train step, {cfg.num_layers} layers, {TRAIN_BATCH} x {TRAIN_SEQ}", label,
+                            pred, lambda: step(*args), args, backward=True, owed=owed)
+    del out, args, params
+    return line
+
+
+def phase_dryrun_train(started) -> None:
+    """GPT-A (8 layers: K1, K2 and their backward) and RWKV-6 7B (8 layers:
+    K1, K4 and their backward) train steps held against their dry-runs."""
+    pred = predictions(started)
+    lines = [dryrun_train(train_config(TRAIN_LAYERS, torch.bfloat16), "train_gpt_a", pred["train_gpt_a"],
+                          TRAIN_LAUNCHES_PER_STEP, TRAIN_LR)]
+    release()
+    lines.append(dryrun_train(train_config(RWKV_TRAIN_LAYERS, torch.bfloat16, "rwkv6_7b"), "train_rwkv",
+                              pred["train_rwkv"], RWKV_TRAIN_OWED, RWKV_TRAIN_LR))
+    release()
+    emit({"phase": "dryrun_train", "tol": DRYRUN_PEAK_TOL, "checks": lines})
+    check_dryrun_lines(lines)
+
+
+def phase_dryrun(started: list) -> None:
+    """Every comparison of this run (the pipelined ranks' from their
+    processes) in one line, and the full-size combinations' dry-runs that
+    ``background_dryruns`` ran: each must end "ok", with its host seconds
+    (the launcher's own ``host_s``).  A dry-run on ``meta`` needs no card."""
+    predictions(started)
+    combos = []
+    for arch, shape, mesh in DRYRUN_COMBOS:
+        with open(os.path.join(DRYRUN_DIR, f"{arch}_{shape}_{mesh}_striped.json")) as f:
+            r = json.load(f)
+        if r["status"] != "ok":
+            raise AssertionError(f"dryrun {arch} {shape} {mesh}: {r}")
+        combos.append({"arch": arch, "shape": shape, "mesh": mesh, "host_s": r["host_s"],
+                       "peak_bytes": r["memory"]["peak_bytes"], "argument_bytes": r["memory"]["argument_bytes"],
+                       "plan_bytes_per_device": r["plan_bytes_per_device"], "roofline": r["roofline"]})
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    emit({"phase": "dryrun", "checks": len(DRYRUN_LINES), "background_wall_s": _PREDICTED.get("_wall_s"),
+          "summary": [{"check": x["check"], "peak_rel_diff": x["peak_bytes"]["rel_diff"],
+                       "device_over_bound": x["roofline"]["device_over_bound"], "failures": x["failures"]}
+                      for x in DRYRUN_LINES],
+          "run_one": combos, "note": "run_one's seconds are the host's; its roofline is computed, not measured"})
+    if len(DRYRUN_LINES) != 7:
+        raise AssertionError(f"dry-run: {len(DRYRUN_LINES)} comparisons made, 7 owed")
+    check_dryrun_lines(DRYRUN_LINES)
+
+
+# ---------------------------------------------------------------------------
 # the cross-pod pipeline: ranks as processes that share the one card
 # ---------------------------------------------------------------------------
 
@@ -2507,14 +2744,16 @@ def stage_state_bytes(cfg, num_stages: int) -> list:
 
 
 def pipeline_rank(rank: int, world: int, cfg, meshes, steps: int, batch: int, seq: int, lr: float,
-                  store: str) -> None:
+                  predicted: dict, store: str) -> None:
     """One rank of the pipelined runs on the card, for each (mesh shape,
     boundaries, trained boundary) of ``meshes`` in turn: joins the mesh, makes
     the whole model from the seed and its reference, ``make_train_step``'s
     accumulated loss and gradients over n_micro * DP chunks of the first batch
     (``accumulated_value_and_grad``), keeps its stage of both, and holds one
     pipelined call's loss and gradients on that batch against them for each
-    boundary (and the boundaries against each other, bit for bit); then
+    boundary (and the boundaries against each other, bit for bit), rank 0's
+    held calls against their dry-runs where ``predicted`` ("<mesh>_<boundary>"
+    -> ``write_predictions``' entry) has them (``hold_dryrun``); then
     trains ``steps`` steps through ``launch.train.train`` with the trained
     boundary from the same seed, counting the kernels' launches from zero.
     Writes its results as JSON beside ``store``."""
@@ -2560,7 +2799,14 @@ def pipeline_rank(rank: int, world: int, cfg, meshes, steps: int, batch: int, se
             for boundary in runs:
                 t0 = time.perf_counter()
                 loss_fn = make_pipeline_loss(cfg, mesh, n_micro=PIPE_N_MICRO, boundary=boundary)
-                loss, grads = loss_fn(params, b0)
+                check, held = f"{'x'.join(map(str, shape))}_{boundary}", None
+                if rank == 0 and check in predicted:  # this rank's held call against its dry-run
+                    held, (loss, grads) = hold_dryrun(f"{cfg.name} pipelined call, rank 0 of {check}", check,
+                                                      predicted[check], lambda: loss_fn(params, b0), (params, b0),
+                                                      backward=True, transport=loss_fn.transport)
+                else:
+                    loss, grads = loss_fn(params, b0)
+                transport = loss_fn.transport
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
                 gaps = {p: float((g - ref[p]).abs().max()) / max(float(ref[p].abs().max()), 1e-30)
@@ -2570,9 +2816,9 @@ def pipeline_rank(rank: int, world: int, cfg, meshes, steps: int, batch: int, se
                                            "loss_rel_diff": abs(float(loss) - ref_loss) / abs(ref_loss),
                                            "grad_max_diff_over_max": gaps[worst], "worst_leaf": worst,
                                            "finite": all(bool(torch.isfinite(g).all()) for g in grads.values()),
-                                           "bytes": loss_fn.transport.counts(),
-                                           "transport_seconds": loss_fn.transport.times(), "call_seconds": t1 - t0,
-                                           "seconds": time.perf_counter() - t0}
+                                           "bytes": transport.counts(),
+                                           "transport_seconds": transport.times(), "call_seconds": t1 - t0,
+                                           "seconds": time.perf_counter() - t0, "dryrun": held}
                 if first is None:
                     first = (loss, grads)
                 else:
@@ -2630,7 +2876,8 @@ def spawn_ranks(world: int, *args) -> list:
     return out
 
 
-def run_pipeline(phase: str, cfg, meshes, *, steps: int, batch: int, seq: int, lr: float, owed, extra: dict) -> dict:
+def run_pipeline(phase: str, cfg, meshes, *, steps: int, batch: int, seq: int, lr: float, owed, extra: dict,
+                 predicted: dict) -> dict:
     """The ranks of ``pipeline_rank`` on the card over ``meshes`` ((mesh
     shape, boundaries, trained boundary), all of one size) in one spawn;
     raises unless every rank's parity is within PIPE_TOL, a second boundary
@@ -2645,7 +2892,7 @@ def run_pipeline(phase: str, cfg, meshes, *, steps: int, batch: int, seq: int, l
     held = {"allocated": torch.cuda.memory_allocated(), "reserved": torch.cuda.memory_reserved(),
             "card_free": torch.cuda.mem_get_info()[0]}
     t0, spawned = time.perf_counter(), time.time()
-    ranks = spawn_ranks(world, cfg, meshes, steps, batch, seq, lr)
+    ranks = spawn_ranks(world, cfg, meshes, steps, batch, seq, lr, predicted)
     wall = time.perf_counter() - t0
     counts = {}
     for i, (shape, runs, trained) in enumerate(meshes):
@@ -2667,6 +2914,12 @@ def run_pipeline(phase: str, cfg, meshes, *, steps: int, batch: int, seq: int, l
                 if not (p["finite"] and p["loss_rel_diff"] <= PIPE_TOL["loss_rel"]
                         and p["grad_max_diff_over_max"] <= PIPE_TOL["grad"]):
                     failures.append((r["rank"], boundary, "parity", p))
+            checked = [r["parity"][b]["dryrun"] for b in runs if r["parity"][b].get("dryrun")]
+            owed_checks = [b for b in runs if f"{'x'.join(map(str, shape))}_{b}" in predicted] if r["rank"] == 0 else []
+            if len(checked) != len(owed_checks):
+                failures.append((r["rank"], "dryrun", f"{len(checked)} held calls checked, {len(owed_checks)} owed"))
+            DRYRUN_LINES.extend(checked)
+            failures += [(r["rank"], x["check"], "dryrun", x["failures"]) for x in checked if x["failures"]]
             for boundary in runs[1:]:
                 p, d = r["parity"][boundary], r["parity"][runs[0]]
                 if not p["bit_equal_to_" + runs[0]]:
@@ -2688,7 +2941,12 @@ def run_pipeline(phase: str, cfg, meshes, *, steps: int, batch: int, seq: int, l
     return counts
 
 
-def phase_train_pipeline() -> dict:
+def pipe_predictions(started, prefix: str) -> dict:
+    """``write_predictions``' pipelined entries under ``prefix``, by "<mesh>_<boundary>"."""
+    return {k[len(prefix):]: v for k, v in predictions(started).items() if k.startswith(prefix)}
+
+
+def phase_train_pipeline(started) -> dict:
     """GPT-A at full width with PIPE_LAYERS layers, meshes (2, 2, 1) direct
     and (2, 1, 2) held with both boundaries and trained striped: K1 and K2,
     forward and backward."""
@@ -2699,10 +2957,11 @@ def phase_train_pipeline() -> dict:
         return pipeline_owed(2 * per, per, last, PIPE_N_MICRO)
 
     return run_pipeline("train_pipeline", cfg, PIPE_MESHES, steps=PIPE_STEPS, batch=PIPE_BATCH, seq=TRAIN_SEQ,
-                        lr=TRAIN_LR, owed=owed, extra={"reduced": PIPE_REDUCED})
+                        lr=TRAIN_LR, owed=owed, extra={"reduced": PIPE_REDUCED},
+                        predicted=pipe_predictions(started, "pipe_gpt_a_"))
 
 
-def phase_train_pipeline_hybrid() -> dict:
+def phase_train_pipeline_hybrid(started) -> dict:
     """Zamba2-2.7B at full width and depth on (2, 1, 1): nine groups padded
     to ten, five a stage, the padded one switched off by its zero gate and run
     all the same (K1 at 2560 and 5120, K2 at head size 80)."""
@@ -2714,16 +2973,18 @@ def phase_train_pipeline_hybrid() -> dict:
 
     return run_pipeline("train_pipeline_hybrid", cfg, (((2, 1, 1), ("striped",), "striped"),),
                         steps=HYBRID_PIPE_STEPS, batch=HYBRID_PIPE_BATCH, seq=HYBRID_TRAIN_SEQ, lr=HYBRID_TRAIN_LR,
-                        owed=owed, extra={"padded_groups": 1})
+                        owed=owed, extra={"padded_groups": 1}, predicted=pipe_predictions(started, "pipe_zamba_"))
 
 
 # ---------------------------------------------------------------------------
 
 
-def serve_model(arch: str, phase: str) -> dict:
+def serve_model(arch: str, phase: str, started=None) -> dict:
     """Builds ``arch`` at full width from the seed, serves it and holds the
     kernel path against the plain path; returns the serving path's counters.
-    Everything it made is released when it returns."""
+    Everything it made is released when it returns.  With ``started``
+    (``start_dryruns``), its prefill and decode step are held against their
+    dry-runs too (``dryrun_serving``: GPT-A's)."""
     cfg = get_config(arch)
     model = build_model(cfg)
     gen = torch.Generator(device="cuda")
@@ -2734,6 +2995,8 @@ def serve_model(arch: str, phase: str) -> dict:
     params = model.cast_params(params32)
     del params32  # the f32 parameters are dropped once cast
     served = phase_serve(phase, cfg, model, params)
+    if started is not None:  # GPT-A's served steps against their dry-runs
+        dryrun_serving(cfg, model, served["engine"].params, started)
     if f32 is None:
         phase_serve_parity(phase + "_parity", cfg, model, served["engine"].params, served["prompts"])
     else:
@@ -2755,12 +3018,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     smi = phase_env()
+    started = start_dryruns()  # on the host, beside the card's phases
     phase_build()
     rows = phase_kernels()
     release()
     phase_simulate()
 
-    counts = {"gpt-a": serve_model("gpt_a", "serve")}
+    counts = {"gpt-a": serve_model("gpt_a", "serve", started)}
     release()  # GPT-A's weights go before RWKV-6 7B's 30 GB of f32 parameters are made
     counts["rwkv6-7b"] = serve_model("rwkv6_7b", "serve_rwkv")
     release()
@@ -2780,9 +3044,11 @@ def main() -> int:
     release()
     phase_train_rwkv_parity()
     release()
-    counts.update(phase_train_pipeline())
+    phase_dryrun_train(started)
     release()
-    counts.update(phase_train_pipeline_hybrid())
+    counts.update(phase_train_pipeline(started))
+    release()
+    counts.update(phase_train_pipeline_hybrid(started))
     release()
     counts["qwen2-moe-a2.7b"] = serve_moe_model("qwen2_moe_a2p7b", "serve_moe")
     release()
@@ -2795,6 +3061,7 @@ def main() -> int:
     release()
     counts.update(serve_hybrid())
     release()
+    phase_dryrun(started)
 
     for row in rows:
         row["launches_by_path"] = {m: c[row["name"]] for m, c in counts.items() if c[row["name"]]}
@@ -2812,4 +3079,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        for proc in BACKGROUND:  # a failed run leaves no process behind
+            proc.kill()
+            proc.wait()

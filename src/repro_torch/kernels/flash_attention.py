@@ -21,6 +21,10 @@ Hopper's warpgroup products (``wgmma``, tiles moved by TMA through a
 four-stage ring, P and dS rounded to bf16 before their products, as the
 forward rounds P); f32 on the CUDA cores, which keeps it within 1e-4 of the
 plain backward.  Both take head sizes 32, 64, 80 and 128.
+
+``fwd_cost`` and ``bwd_cost`` give each direction's bytes and operations; on
+``meta`` tensors ``flash_attention_meta`` and ``flash_attention_bwd_meta``
+allocate what the card's wrappers allocate and record the launch (``cost.py``).
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels._check import (
     DTYPE_CODES, FLASH_HEAD_DIMS, require, require_cuda, require_no_grad, require_rows_aligned,
     rows_aligned,
@@ -39,6 +43,34 @@ launches = 0  # one more for every forward kernel launch; reset by whoever wants
 bwd_launches = 0  # one more for every backward launch (its three kernels count once)
 
 Out = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+
+
+def causal_pairs(T: int, S: int) -> int:
+    """The (query, key) pairs a causal call computes: query t sees keys 0..t,
+    as the kernels skip every tile above the diagonal."""
+    if S >= T:
+        return T * (T + 1) // 2
+    return S * (S + 1) // 2 + (T - S) * S
+
+
+def fwd_cost(B: int, T: int, S: int, Hq: int, Hkv: int, D: int, causal: bool, dtype: torch.dtype,
+             lse: bool = False) -> cost.Cost:
+    """q read and o written (B, T, Hq, D), k and v read (B, S, Hkv, D), and with
+    ``lse`` the (B, Hq, T) f32 log-sum-exp written; two products of 2 D
+    operations a pair, each pair the kernel does not skip."""
+    pairs = causal_pairs(T, S) if causal else T * S
+    nbytes = (2 * B * T * Hq * D + 2 * B * S * Hkv * D) * dtype.itemsize + (B * Hq * T * 4 if lse else 0)
+    return nbytes, 4 * B * Hq * D * pairs, cost.rate(dtype)
+
+
+def bwd_cost(B: int, T: int, S: int, Hq: int, Hkv: int, D: int, causal: bool, dtype: torch.dtype) -> cost.Cost:
+    """q, o and dO read and dq written (B, T, Hq, D), k and v read and dk and
+    dv written (B, S, Hkv, D), the LSE read and the row sums D written (B, Hq,
+    T, f32); five products of 2 D operations a pair (S and dP, dV, dS to dQ and
+    dK), each pair the kernels do not skip."""
+    pairs = causal_pairs(T, S) if causal else T * S
+    nbytes = (4 * B * T * Hq * D + 4 * B * S * Hkv * D) * dtype.itemsize + 2 * B * Hq * T * 4
+    return nbytes, 5 * 2 * B * Hq * D * pairs, cost.rate(dtype)
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, scale: float) -> torch.Tensor:
@@ -100,17 +132,10 @@ def flash_attention_bwd_plain(
     return dq.reshape(B, T, Hq, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, scale: Optional[float] = None,
-    return_lse: bool = False,
-) -> Out:
-    """q (B, T, Hq, D), k and v (B, S, Hkv, D) on the card, read through their
-    strides (so a transposed or sliced view costs no copy) -> (B, T, Hq, D)
-    contiguous, and with ``return_lse`` the (B, Hq, T) f32 log-sum-exp of the
-    scaled scores.  T and S need divide nothing.  Launches the kernel."""
-    global launches
-    require_no_grad("flash_attention", q, k, v)
-    require_cuda("flash_attention", q, k, v)
+def _fwd_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, return_lse: bool) -> Tuple:
+    """The forward's checks of its shapes, types and strides and its outputs,
+    which the card's wrapper and the meta wrapper share: (B, T, S, Hq, Hkv,
+    D, o, lse or None)."""
     require(q.dtype in DTYPE_CODES and k.dtype == q.dtype and v.dtype == q.dtype,
             f"flash_attention: q, k, v of one type, f32 or bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
     require(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape, "flash_attention: q (B,T,Hq,D), k and v (B,S,Hkv,D)")
@@ -123,9 +148,24 @@ def flash_attention_cuda(
     require(Hq <= 65535 and B <= 65535, "flash_attention: too many heads or batch rows for one grid")
     for what, t in (("q", q), ("k", k), ("v", v)):
         require_rows_aligned("flash_attention", what, t)
-    scale = scale if scale is not None else D**-0.5
     o = torch.empty((B, T, Hq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device) if return_lse else None
+    return B, T, S, Hq, Hkv, D, o, lse
+
+
+def flash_attention_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, scale: Optional[float] = None,
+    return_lse: bool = False,
+) -> Out:
+    """q (B, T, Hq, D), k and v (B, S, Hkv, D) on the card, read through their
+    strides (so a transposed or sliced view costs no copy) -> (B, T, Hq, D)
+    contiguous, and with ``return_lse`` the (B, Hq, T) f32 log-sum-exp of the
+    scaled scores.  T and S need divide nothing.  Launches the kernel."""
+    global launches
+    require_no_grad("flash_attention", q, k, v)
+    require_cuda("flash_attention", q, k, v)
+    B, T, S, Hq, Hkv, D, o, lse = _fwd_call(q, k, v, return_lse)
+    scale = scale if scale is not None else D**-0.5
     lib = build.load()
     code = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 0 if lse is None else lse.data_ptr(),
@@ -138,18 +178,23 @@ def flash_attention_cuda(
     return o if lse is None else (o, lse)
 
 
-def flash_attention_bwd_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-    *, causal: bool, scale: Optional[float] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward on the card: q, o and dO (B, T, Hq, D), k and v (B, S, Hkv,
-    D), all read through their strides, lse (B, Hq, T) f32 contiguous as the
-    forward wrote it -> (dq, dk, dv) contiguous in the shapes and dtype of q,
-    k, v.  D is one of ``FLASH_HEAD_DIMS`` (32, 64, 80, 128); T and S need
-    divide nothing.  Launches the three backward kernels."""
-    global bwd_launches
-    require_no_grad("flash_attention_bwd", q, k, v, o, do)
-    require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
+def flash_attention_meta(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, scale: Optional[float] = None,
+    return_lse: bool = False,
+) -> Out:
+    """``flash_attention_cuda`` on ``meta``: its checks and its outputs (o, and
+    the LSE), one launch recorded."""
+    require_no_grad("flash_attention", q, k, v)
+    B, T, S, Hq, Hkv, D, o, lse = _fwd_call(q, k, v, return_lse)
+    cost.record("flash_attention", fwd_cost(B, T, S, Hq, Hkv, D, causal, q.dtype, lse=return_lse))
+    return o if lse is None else (o, lse)
+
+
+def _bwd_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+              do: torch.Tensor) -> Tuple:
+    """The backward's checks of its shapes, types and strides, its outputs and
+    its scratch, which the card's wrapper and the meta wrapper share: (B, T,
+    S, Hq, Hkv, D, dq, dk, dv, rowsum), ``rowsum`` the (B, Hq, T) f32 row sums."""
     require(q.dtype in DTYPE_CODES and all(t.dtype == q.dtype for t in (k, v, o, do)),
             f"flash_attention_bwd: q, k, v, o, dO of one type, f32 or bf16, got {[t.dtype for t in (q, k, v, o, do)]}")
     require(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape and o.shape == q.shape and do.shape == q.shape,
@@ -165,11 +210,27 @@ def flash_attention_bwd_cuda(
             f"flash_attention_bwd: lse must be ({B}, {Hq}, {T}) f32 contiguous, got {tuple(lse.shape)} {lse.dtype}")
     for what, t in (("q", q), ("k", k), ("v", v), ("o", o), ("dO", do)):
         require_rows_aligned("flash_attention_bwd", what, t)
-    scale = scale if scale is not None else D**-0.5
     dq = torch.empty((B, T, Hq, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, S, Hkv, D), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, S, Hkv, D), dtype=q.dtype, device=q.device)
     rowsum = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device)
+    return B, T, S, Hq, Hkv, D, dq, dk, dv, rowsum
+
+
+def flash_attention_bwd_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+    *, causal: bool, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward on the card: q, o and dO (B, T, Hq, D), k and v (B, S, Hkv,
+    D), all read through their strides, lse (B, Hq, T) f32 contiguous as the
+    forward wrote it -> (dq, dk, dv) contiguous in the shapes and dtype of q,
+    k, v.  D is one of ``FLASH_HEAD_DIMS`` (32, 64, 80, 128); T and S need
+    divide nothing.  Launches the three backward kernels."""
+    global bwd_launches
+    require_no_grad("flash_attention_bwd", q, k, v, o, do)
+    require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
+    B, T, S, Hq, Hkv, D, dq, dk, dv, rowsum = _bwd_call(q, k, v, o, lse, do)
+    scale = scale if scale is not None else D**-0.5
     lib = build.load()
     code = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -183,16 +244,31 @@ def flash_attention_bwd_cuda(
     return dq, dk, dv
 
 
+def flash_attention_bwd_meta(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+    *, causal: bool, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``flash_attention_bwd_cuda`` on ``meta``: its checks, its outputs and the
+    row sums, one launch recorded."""
+    require_no_grad("flash_attention_bwd", q, k, v, o, do)
+    B, T, S, Hq, Hkv, D, dq, dk, dv, rowsum = _bwd_call(q, k, v, o, lse, do)
+    cost.record("flash_attention_bwd", bwd_cost(B, T, S, Hq, Hkv, D, causal, q.dtype))
+    del rowsum
+    return dq, dk, dv
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """o = attention(q, k, v) with a hand-written backward: on the card the
     forward launches the forward kernel with its LSE output and the backward
-    the three backward kernels; on the CPU both use the plain versions.  Saves
-    q, k, v, o and the LSE."""
+    the three backward kernels; on the CPU both use the plain versions; on
+    ``meta`` both take the card's path to its meta wrappers.  Saves q, k, v, o
+    and the LSE."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: Optional[float]):
         scale = scale if scale is not None else q.shape[-1] ** -0.5
-        fwd = flash_attention_plain if q.device.type == "cpu" else flash_attention_cuda
+        fwd = flash_attention_plain if q.device.type == "cpu" else (
+            flash_attention_meta if cost.on_meta(q) else flash_attention_cuda)
         o, lse = fwd(q, k, v, causal=causal, scale=scale, return_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, scale
@@ -209,5 +285,6 @@ class FlashAttentionFn(torch.autograd.Function):
             # expanded or otherwise strided gradient, which is copied then only
             if do.stride(-1) != 1 or not rows_aligned(do):
                 do = do.contiguous()
-            grads = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=ctx.causal, scale=ctx.scale)
+            bwd = flash_attention_bwd_meta if cost.on_meta(do) else flash_attention_bwd_cuda
+            grads = bwd(q, k, v, o, lse, do, causal=ctx.causal, scale=ctx.scale)
         return (*grads, None, None)

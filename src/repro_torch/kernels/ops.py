@@ -14,6 +14,12 @@ the plain forward and the plain backward, so the CPU tests run the backward
 arithmetic the card runs.  WKV-6 is differentiated from a zero state only, as
 the reference's loss runs it.  Decode attention has no backward: its wrapper
 refuses such inputs.
+
+A ``meta`` tensor (the dry-run, ``repro_torch.launch.dryrun``) takes the card's
+path to the kernels' meta wrappers, which allocate what the card's wrappers
+allocate, compute nothing and record the launch (``kernels/cost.py``).  No
+plain version runs on ``meta``.  Any other device goes to the card's wrappers,
+which raise unless it is the current CUDA device.
 """
 from __future__ import annotations
 
@@ -43,6 +49,8 @@ def flash_attention(
         return _fa.FlashAttentionFn.apply(q, k, v, causal, scale)
     if q.device.type == "cpu":
         return _fa.flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    if q.device.type == "meta":
+        return _fa.flash_attention_meta(q, k, v, causal=causal, scale=scale)
     return _fa.flash_attention_cuda(q, k, v, causal=causal, scale=scale)
 
 
@@ -58,6 +66,8 @@ def decode_attention(
 ) -> torch.Tensor:
     if q.device.type == "cpu":
         return _dec.decode_attention_plain(q, k, v, q_pos, kv_pos, window=window, scale=scale)
+    if q.device.type == "meta":
+        return _dec.decode_attention_meta(q, k, v, q_pos, kv_pos, window=window, scale=scale)
     return _dec.decode_attention_cuda(q, k, v, q_pos, kv_pos, window=window, scale=scale)
 
 
@@ -67,6 +77,8 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch
         return _rms.RMSNormFn.apply(x, scale, eps)
     if x.device.type == "cpu":
         return _rms.rmsnorm_plain(x, scale, eps)
+    if x.device.type == "meta":
+        return _rms.rmsnorm_rows_meta(x.reshape(-1, x.shape[-1]), scale, eps).reshape(x.shape)
     return _rms.rmsnorm_rows(x.reshape(-1, x.shape[-1]), scale, eps).reshape(x.shape)
 
 
@@ -95,4 +107,6 @@ def wkv6(
         if state is not None:
             state.copy_(S)
         return y
+    if r.device.type == "meta":
+        return _wkv.wkv6_meta(r, k, v, logw, u, state)
     return _wkv.wkv6_cuda(r, k, v, logw, u, state)

@@ -47,6 +47,11 @@ the parts of dr and dk that come through the state, the gradient of the log
 decay needs no state:
 
     dlogw_s = sum_{t>s} r_t * drI_t - sum_{t>=s} k_t * dkI_t
+
+``fwd_cost`` and ``bwd_cost`` give each direction's bytes and operations on the
+route its C entry point takes; on ``meta`` tensors ``wkv6_meta`` and
+``wkv6_bwd_meta`` allocate what the card's wrappers allocate (the backward's
+``S_prev`` workspace on the chunked route) and record the launch (``cost.py``).
 """
 from __future__ import annotations
 
@@ -55,7 +60,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 from repro_torch.kernels._check import DTYPE_CODES, require, require_cuda, require_no_grad, rows_aligned
 
 HEAD_DIMS = (32, 64)  # the head sizes the kernels are instantiated for
@@ -68,6 +73,78 @@ CHUNKED_BWD_T_MIN = 32
 launches = 0  # one more for every forward kernel launch; reset by whoever wants to count a run
 bwd_launches = 0  # one more for every backward launch (its kernels count once)
 bwd_chunk_launches = 0  # of those, the launches that took the chunked route
+
+
+def chunk_flops(B: int, T: int, H: int) -> int:
+    """The tensor-core operations of csrc/wkv6.cu's wkv6_chunk_kernel, counted
+    from its code: per chunk of 64 steps, m16n8k16 products for the scores
+    against earlier sub-chunks (warp w: 2w column tiles x 4 x 3), A V (warp w:
+    w + 1 blocks x 8 tiles x 2), (r exp(Lx)) S_prev (4 x 4 x 8 x 3) and the
+    state update (4 x 4 x 8 x 2); 2 x 16 x 8 x 16 operations each."""
+    per_chunk = sum(24 * w + 16 * (w + 1) for w in range(4)) + 384 + 256
+    return B * H * -(-T // 64) * per_chunk * 2 * 16 * 8 * 16
+
+
+def sequential_flops(B: int, T: int, H: int, D: int) -> int:
+    """The sequential form's f32 operations: a state element a step r.S (2),
+    S*w + k*v (3); a step r.u.k (3 D), + v_e * bonus (2 D)."""
+    return B * T * H * (5 * D * D + 5 * D)
+
+
+def bwd_flops(B: int, T: int, H: int, D: int) -> int:
+    """The f32 operations the gradients need, whatever kernel computes them:
+    a state element a step, 5 to carry S and read drI off it (a dot
+    product's FMA, then the update's multiply and FMA), 5 to carry dS and read
+    dkI off it, and 2 for dv's dot product with dS (12); a row a step, 20 (v.dy
+    2; the bonus terms of dr and dk 3 each; r drI and k dkI 1 each; dlogw's
+    running sum 2; du's product and sum 3; dv's r.u.k 3 and its add 2).  K4's
+    backward does more (its pass C carries dS a second time: 15 a state
+    element), which the bound does not count."""
+    return B * T * H * (12 * D * D + 20 * D)
+
+
+def bwd_chunk_flops(B: int, T: int, H: int) -> int:
+    """The tensor-core operations of csrc/wkv6.cu's chunked backward, counted
+    from its code as the mma.sync it issues (split products as the products
+    they issue; an m16n8k8 as half an m16n8k16, 2 x 16 x 8 x 16 operations).
+    wkv6_bwd_chunk_kernel, per chunk, warp w: (1) dy S_prev^T 96, dA 8 a
+    sub-chunk up to its own, dA k' 48 each earlier one; (2) v dS^T 96, dA^T 8
+    and dA^T r' 48 each later sub-chunk; (3a) 96 m16n8k8 and 12; (5) kw dS 96,
+    the diagonal k-step 16, A^T 24 and A^T dy 16 each later sub-chunk; (6) 96:
+    756 - 40 w.  wkv6_bwd_state_kernel: 384 each chunk but the last."""
+    nc = -(-T // 64)
+    per_chunk = sum(756 - 40 * w for w in range(4))
+    return B * H * (nc * per_chunk + (nc - 1) * 384) * 2 * 16 * 8 * 16
+
+
+def fwd_chunked(dtype: torch.dtype, T: int, D: int, aligned: bool) -> bool:
+    """Whether ``wkv6_cuda`` takes the chunked kernel, as its C entry point
+    decides: bf16 at head size 64, T >= CHUNKED_T_MIN, rows on 16 bytes."""
+    return dtype == torch.bfloat16 and D == 64 and T >= CHUNKED_T_MIN and aligned
+
+
+def fwd_cost(B: int, T: int, H: int, D: int, dtype: torch.dtype, state: bool, aligned: bool = True) -> cost.Cost:
+    """r, k, v read and y written in ``dtype``, logw read in f32, u read, and
+    with ``state`` the (B, H, D, D) f32 state read once and written once; the
+    chunked kernel's tensor-core operations at the bf16 rate, or the
+    sequential form's at the f32 rate, as the route the call takes."""
+    n = B * T * H * D
+    nbytes = 4 * n * dtype.itemsize + n * 4 + H * D * 4 + (2 * B * H * D * D * 4 if state else 0)
+    if fwd_chunked(dtype, T, D, aligned):
+        return nbytes, chunk_flops(B, T, H), cost.BF16_FLOPS
+    return nbytes, sequential_flops(B, T, H, D), cost.F32_FLOPS
+
+
+def bwd_cost(B: int, T: int, H: int, D: int, dtype: torch.dtype, aligned: bool = True) -> cost.Cost:
+    """r, k, v, dy read and dr, dk, dv written in ``dtype``, logw read and dlogw
+    written in f32, u read and du written; the chunked route's tensor-core
+    operations at the bf16 rate, or the gradients' f32 operations at the f32
+    rate, as the route the call takes (``bwd_chunked``)."""
+    n = B * T * H * D
+    nbytes = 7 * n * dtype.itemsize + 2 * n * 4 + 2 * H * D * 4
+    if bwd_chunked(dtype, T, D, aligned):
+        return nbytes, bwd_chunk_flops(B, T, H), cost.BF16_FLOPS
+    return nbytes, bwd_flops(B, T, H, D), cost.F32_FLOPS
 
 
 def wkv6_plain(
@@ -115,12 +192,11 @@ def wkv6_plain(
     return y.reshape(B, nc * c, H, D)[:, :T].to(r.dtype), S
 
 
-def _require_inputs(name: str, r, k, v, logw, u, *more) -> Tuple[int, int, int, int]:
-    """The checks the forward and the backward share: r, k, v (B, T, H, D) of
-    one type, f32 or bf16, and logw alike in f32, each with a unit stride along
-    D; u (H, D) f32 contiguous; D in HEAD_DIMS; all of them and ``more`` on
-    the current CUDA device.  Returns (B, T, H, D)."""
-    require_cuda(name, r, k, v, logw, u, *more)
+def _require_inputs(name: str, r, k, v, logw, u) -> Tuple[int, int, int, int]:
+    """The checks the forward and the backward share, on the card and on
+    ``meta``: r, k, v (B, T, H, D) of one type, f32 or bf16, and logw alike in
+    f32, each with a unit stride along D; u (H, D) f32 contiguous; D in
+    HEAD_DIMS.  Returns (B, T, H, D)."""
     require(r.dtype in DTYPE_CODES and k.dtype == r.dtype and v.dtype == r.dtype,
             f"{name}: r, k, v of one type, f32 or bf16, got {r.dtype}, {k.dtype}, {v.dtype}")
     require(logw.dtype == torch.float32 and u.dtype == torch.float32,
@@ -137,6 +213,20 @@ def _require_inputs(name: str, r, k, v, logw, u, *more) -> Tuple[int, int, int, 
     return B, T, H, D
 
 
+def _fwd_call(r, k, v, logw, u, state) -> Tuple:
+    """The forward's checks and its output, which the card's wrapper and the
+    meta wrapper share: (B, T, H, D, y, aligned), ``aligned`` whether the
+    rows let the chunked kernel take the call."""
+    B, T, H, D = _require_inputs("wkv6", r, k, v, logw, u)
+    if state is not None:
+        require(state.dtype == torch.float32 and tuple(state.shape) == (B, H, D, D) and state.is_contiguous(),
+                f"wkv6: state must be ({B}, {H}, {D}, {D}) f32 contiguous, got {tuple(state.shape)} {state.dtype}")
+    y = torch.empty((B, T, H, D), dtype=r.dtype, device=r.device)
+    # the chunked kernel copies 16-byte pieces; a decode step (T = 1) never takes it
+    aligned = T >= CHUNKED_T_MIN and all(rows_aligned(t) for t in (r, k, v, logw))
+    return B, T, H, D, y, aligned
+
+
 def wkv6_cuda(
     r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor, u: torch.Tensor,
     state: Optional[torch.Tensor] = None,
@@ -149,14 +239,9 @@ def wkv6_cuda(
     global launches
     more = () if state is None else (state,)
     require_no_grad("wkv6", r, k, v, logw, u, *more)
-    B, T, H, D = _require_inputs("wkv6", r, k, v, logw, u, *more)
-    if state is not None:
-        require(state.dtype == torch.float32 and tuple(state.shape) == (B, H, D, D) and state.is_contiguous(),
-                f"wkv6: state must be ({B}, {H}, {D}, {D}) f32 contiguous, got {tuple(state.shape)} {state.dtype}")
-    y = torch.empty((B, T, H, D), dtype=r.dtype, device=r.device)
+    require_cuda("wkv6", r, k, v, logw, u, *more)
+    B, T, H, D, y, aligned = _fwd_call(r, k, v, logw, u, state)
     strides = [s for t in (r, k, v, logw) for s in t.stride()[:3]]
-    # the chunked kernel copies 16-byte pieces; a decode step (T = 1) never takes it
-    aligned = T >= CHUNKED_T_MIN and all(rows_aligned(t) for t in (r, k, v, logw))
     lib = build.load()
     code = lib.wkv6_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
@@ -241,6 +326,27 @@ def wkv6_bwd_plain(
     return whole(dr).to(r.dtype), whole(dk).to(r.dtype), whole(dv).to(r.dtype), dlogw, du
 
 
+def _bwd_call(r, k, v, logw, u, dy) -> Tuple:
+    """The backward's checks, its outputs and its scratch, which the card's
+    wrapper and the meta wrapper share: (B, T, H, D, (dr, dk, dv, dlogw, du),
+    du_part, ws, scratch, aligned, chunked).  ``du_part`` holds du's partials a
+    (batch, head); the chunked route (``bwd_chunked``) takes ``ws``, the state
+    before each chunk of 64, the sequential passes ``scratch``, the first
+    pass's r_t * drI_t, read back by the second."""
+    require(dy.dtype == r.dtype and dy.shape == r.shape and dy.stride(-1) == 1,
+            f"wkv6_bwd: dy must be like r with a unit stride along D, got {tuple(dy.shape)} {dy.dtype} {dy.stride()}")
+    B, T, H, D = _require_inputs("wkv6_bwd", r, k, v, logw, u)
+    grads = tuple(torch.empty((B, T, H, D), dtype=r.dtype, device=r.device) for _ in range(3)) + (
+        torch.empty((B, T, H, D), dtype=torch.float32, device=r.device),
+        torch.empty((H, D), dtype=torch.float32, device=r.device))
+    du_part = torch.empty((B, H, D), dtype=torch.float32, device=r.device)
+    aligned = all(rows_aligned(t) for t in (r, k, v, dy, logw))
+    chunked = bwd_chunked(r.dtype, T, D, aligned)
+    ws = torch.empty((B * H, -(-T // 64), D, D), dtype=torch.float32, device=r.device) if chunked else None
+    scratch = None if chunked else torch.empty((B * H, T, D), dtype=torch.float32, device=r.device)
+    return B, T, H, D, grads, du_part, ws, scratch, aligned, chunked
+
+
 def wkv6_bwd_cuda(
     r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor, u: torch.Tensor, dy: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -252,18 +358,9 @@ def wkv6_bwd_cuda(
     ``bwd_chunked`` says so; bit-reproducible (no atomics)."""
     global bwd_launches, bwd_chunk_launches
     require_no_grad("wkv6_bwd", r, k, v, logw, u, dy)
-    require(dy.dtype == r.dtype and dy.shape == r.shape and dy.stride(-1) == 1,
-            f"wkv6_bwd: dy must be like r with a unit stride along D, got {tuple(dy.shape)} {dy.dtype} {dy.stride()}")
-    B, T, H, D = _require_inputs("wkv6_bwd", r, k, v, logw, u, dy)
-    dr, dk, dv = (torch.empty((B, T, H, D), dtype=r.dtype, device=r.device) for _ in range(3))
-    dlogw = torch.empty((B, T, H, D), dtype=torch.float32, device=r.device)
-    du = torch.empty((H, D), dtype=torch.float32, device=r.device)
-    du_part = torch.empty((B, H, D), dtype=torch.float32, device=r.device)  # du's partials a (batch, head)
-    aligned = all(rows_aligned(t) for t in (r, k, v, dy, logw))
-    chunked = bwd_chunked(r.dtype, T, D, aligned)
-    # chunked: the state before each chunk of 64; else the first pass's r_t * drI_t, read back by the second
-    ws = torch.empty((B * H, -(-T // 64), D, D), dtype=torch.float32, device=r.device) if chunked else None
-    scratch = None if chunked else torch.empty((B * H, T, D), dtype=torch.float32, device=r.device)
+    require_cuda("wkv6_bwd", r, k, v, logw, u, dy)
+    B, T, H, D, grads, du_part, ws, scratch, aligned, chunked = _bwd_call(r, k, v, logw, u, dy)
+    dr, dk, dv, dlogw, du = grads
     strides = [s for t in (r, k, v, logw, dy) for s in t.stride()[:3]]
     code = build.load().wkv6_bwd_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(), dy.data_ptr(),
@@ -278,6 +375,28 @@ def wkv6_bwd_cuda(
     return dr, dk, dv, dlogw, du
 
 
+def wkv6_meta(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor, u: torch.Tensor,
+              state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``wkv6_cuda`` on ``meta``: its checks and y (the state is written in
+    place), one launch recorded."""
+    require_no_grad("wkv6", r, k, v, logw, u, *(() if state is None else (state,)))
+    B, T, H, D, y, aligned = _fwd_call(r, k, v, logw, u, state)
+    cost.record("wkv6", fwd_cost(B, T, H, D, r.dtype, state is not None, aligned))
+    return y
+
+
+def wkv6_bwd_meta(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor, u: torch.Tensor,
+                  dy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``wkv6_bwd_cuda`` on ``meta``: its checks, the gradients, du's partials
+    and the route's workspace (the chunked route's S_prev, else the sequential
+    passes' scratch), one launch recorded."""
+    require_no_grad("wkv6_bwd", r, k, v, logw, u, dy)
+    B, T, H, D, grads, du_part, ws, scratch, aligned, _ = _bwd_call(r, k, v, logw, u, dy)
+    cost.record("wkv6_bwd", bwd_cost(B, T, H, D, r.dtype, aligned))
+    del du_part, ws, scratch
+    return grads
+
+
 def bwd_chunked(dtype: torch.dtype, T: int, D: int, aligned: bool) -> bool:
     """Whether ``wkv6_bwd_cuda`` takes the chunked route, as its C entry point
     decides: bf16 at head size 64, T >= CHUNKED_BWD_T_MIN, every row of r, k,
@@ -289,7 +408,8 @@ class WKV6Fn(torch.autograd.Function):
     """y = wkv6(r, k, v, logw, u) from a zero state, with no final state, and a
     hand-written backward: on the card both directions launch kernels
     (``wkv6_cuda``, ``wkv6_bwd_cuda``), on the CPU both use the plain versions
-    on chunks of ``chunk``.  Saves the five inputs."""
+    on chunks of ``chunk``, on ``meta`` both take the card's path to its meta
+    wrappers.  Saves the five inputs."""
 
     @staticmethod
     def forward(ctx, r, k, v, logw, u, chunk: int):
@@ -297,7 +417,7 @@ class WKV6Fn(torch.autograd.Function):
         ctx.save_for_backward(r, k, v, logw, u)
         if r.device.type == "cpu":
             return wkv6_plain(r, k, v, logw, u, None, chunk=chunk)[0]
-        return wkv6_cuda(r, k, v, logw, u, None)
+        return (wkv6_meta if cost.on_meta(r) else wkv6_cuda)(r, k, v, logw, u, None)
 
     @staticmethod
     def backward(ctx, dy: torch.Tensor):
@@ -306,5 +426,6 @@ class WKV6Fn(torch.autograd.Function):
             dr, dk, dv, dlogw, du = wkv6_bwd_plain(r, k, v, logw, u, dy, chunk=ctx.chunk)
         else:
             # autograd may hand over an expanded dy; the kernels read rows of D
-            dr, dk, dv, dlogw, du = wkv6_bwd_cuda(r, k, v, logw, u, dy if dy.stride(-1) == 1 else dy.contiguous())
+            bwd = wkv6_bwd_meta if cost.on_meta(r) else wkv6_bwd_cuda
+            dr, dk, dv, dlogw, du = bwd(r, k, v, logw, u, dy if dy.stride(-1) == 1 else dy.contiguous())
         return dr, dk, dv, dlogw.to(logw.dtype), du.to(u.dtype), None

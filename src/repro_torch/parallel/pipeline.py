@@ -132,9 +132,11 @@ class PipelineLoss:
     ``grads`` a flat dict in ``flatten(params)``'s order, summed over the
     ranks as the module docstring says.  ``grad_norm(grads)`` is the global
     norm of the whole (unpadded) model's gradient; ``transport.bytes`` counts
-    what this rank has sent."""
+    what this rank has sent.  ``transport`` is a ``Transport`` over ``mesh``
+    by default; the dry-run gives a ``MetaTransport``."""
 
-    def __init__(self, cfg: ModelConfig, mesh, n_micro: int = 4, boundary: str = "striped"):
+    def __init__(self, cfg: ModelConfig, mesh, n_micro: int = 4, boundary: str = "striped",
+                 transport: Optional[Transport] = None):
         if boundary not in BOUNDARIES:
             raise ValueError(f"boundary {boundary!r}: one of {BOUNDARIES}")
         if cfg.tie_embeddings:
@@ -145,7 +147,7 @@ class PipelineLoss:
         self.S, self.DP, self.TP = (mesh.shape[a] for a in ("pod", "data", "model"))
         if boundary == "striped" and cfg.d_model % self.TP:
             raise ValueError(f"striped boundary: d_model {cfg.d_model} is not split by the model axis {self.TP}")
-        self.transport = Transport(mesh)
+        self.transport = Transport(mesh) if transport is None else transport
 
     # ---- the stage boundary ----------------------------------------------
 

@@ -17,6 +17,11 @@ move raw bytes, so any dtype travels bit for bit.  Nothing falls back: a
 failed or timed-out call raises (the timeout is the process group's), and a
 call on a group that does not hold this rank raises, where ``gloo`` would only
 warn and leave the tensor as it was.
+
+``MetaTransport`` is the dry-run's: the same calls on ``meta`` tensors over a
+``Mesh`` without process groups, counted by the same ``_count`` (the bytes of
+the tensor handed over), moving nothing.  What it returns is what the real
+transport allocates on the device: a received tensor, a gathered one.
 """
 from __future__ import annotations
 
@@ -123,6 +128,37 @@ class Transport:
         out = torch.cat(parts, dim).to(t.device)
         self._count(axis, "all_gather", host, t0)
         return out
+
+
+class MetaTransport(Transport):
+    """The transport's counts without its wire: every call on ``meta`` tensors
+    over a mesh of this rank alone (``Mesh(shape, names, rank)``, no process
+    group), adding to ``bytes[axis][op]`` what ``Transport`` adds, pinning no
+    host memory and calling nothing of ``torch.distributed``.  An axis of size
+    1 is the identity, as the real transport's."""
+
+    def send(self, t: torch.Tensor, axis: str, step: int) -> None:
+        self._neighbour(axis, step)
+        self._count(axis, "send", t, time.perf_counter())
+
+    def recv(self, shape: Sequence[int], dtype: torch.dtype, device, axis: str, step: int) -> torch.Tensor:
+        self._neighbour(axis, step)
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
+
+    def all_reduce(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        if self.mesh.shape[axis] == 1:
+            return t
+        self._count(axis, "all_reduce", t, time.perf_counter())
+        return t
+
+    def all_gather(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        n = self.mesh.shape[axis]
+        if n == 1:
+            return t
+        self._count(axis, "all_gather", t, time.perf_counter())
+        shape = list(t.shape)
+        shape[dim] *= n
+        return torch.empty(shape, dtype=t.dtype, device=t.device)
 
 
 def _as_bytes(t: torch.Tensor) -> torch.Tensor:
