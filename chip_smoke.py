@@ -43,7 +43,14 @@ trains through the cross-pod pipeline (``repro_torch.parallel.pipeline``),
 ranks as ``gloo`` processes that share the card: GPT-A at full width with 4
 of its 24 layers on meshes (pod, data, model) of (2, 2, 1) and (2, 1, 2), and
 Zamba2-2.7B at full width and depth on (2, 1, 1), each held against gradient
-accumulation over the same chunks.  For each path it checks by
+accumulation over the same chunks; the GPT-A (2, 1, 2) run saves its whole
+state at the end (rank 0 gathers the stages' rows), and the file, cut back
+into stages, must hash as every rank's own state.  Then it trains GPT-A with
+4 layers data-parallel on two ranks sharing the card (step 0 held against
+accumulation, the replicas bit-equal after), and runs the five examples of
+``repro_torch.examples`` through their mains (``whatif``,
+``bubbletea_serve``, ``quickstart``, ``train_100m``, ``geo_train`` on eight
+ranks), each's launches counted.  For each path it checks by
 the kernels' launch counters that it really went through the kernels, and
 compares the kernel path's logits, or loss and gradients, with the plain
 path's.  Seven of its steps are also held against the port's dry-run
@@ -63,6 +70,8 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import hashlib
+import io
 import itertools
 import json
 import math
@@ -73,6 +82,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -84,8 +94,10 @@ from repro_torch import obs  # noqa: E402
 from repro_torch.ckpt.checkpoint import _walk, load_pytree  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import expected_shapes, flatten  # noqa: E402
+from repro_torch.convert import tree_map as convert_tree_map  # noqa: E402
 from repro_torch.core import bubbletea, simulator  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, make_batches  # noqa: E402
+from repro_torch.examples import bubbletea_serve, geo_train, quickstart, train_100m, whatif  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import cost as kcost  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
@@ -102,11 +114,13 @@ from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import ssm as ssm_lib  # noqa: E402
 from repro_torch.models.transformer import build_model, build_pipeline_parts  # noqa: E402
 from repro_torch.optim.optimizer import (  # noqa: E402
+    OptState,
     accumulated_value_and_grad,
     gradients,
     init_opt_state,
     make_train_step,
 )
+from repro_torch.parallel.data_parallel import DataParallelLoss  # noqa: E402
 from repro_torch.parallel.pipeline import (  # noqa: E402
     PipelineLoss,
     make_pipeline_loss,
@@ -183,16 +197,18 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 512
 TRAIN_LR = 3e-6
 
 
-def train_owed(norms: int, attns: int, wkvs: int = 0) -> dict:
+def train_owed(norms: int, attns: int, wkvs: int = 0, remat: bool = True) -> dict:
     """Kernel launches a train step owes with remat="full", counted from the
     code: ``norms``, ``attns`` and ``wkvs`` are the RMSNorms, attentions and
     WKV-6 recurrences of one forward inside the rematerialised blocks, each of
-    which runs twice (the loss, then the recomputation in the backward); the
-    final norm, outside them, once; the backward launches once for each of
-    those, and K4's backward takes its chunked route every time (bf16 at head
-    size 64, T of at least its threshold).  The decode kernel is not on the path."""
-    return {"rmsnorm": 2 * norms + 1, "rmsnorm_bwd": norms + 1, "flash_attention": 2 * attns,
-            "flash_attention_bwd": attns, "decode_attention": 0, "wkv6": 2 * wkvs, "wkv6_bwd": wkvs,
+    which runs twice (the loss, then the recomputation in the backward; once
+    with ``remat`` False, the configs' remat="none"); the final norm, outside
+    them, once; the backward launches once for each of those, and K4's
+    backward takes its chunked route every time (bf16 at head size 64, T of at
+    least its threshold).  The decode kernel is not on the path."""
+    k = 2 if remat else 1
+    return {"rmsnorm": k * norms + 1, "rmsnorm_bwd": norms + 1, "flash_attention": k * attns,
+            "flash_attention_bwd": attns, "decode_attention": 0, "wkv6": k * wkvs, "wkv6_bwd": wkvs,
             "wkv6_bwd_chunk": wkvs, "sdpa_masked_calls": 0}
 
 
@@ -2716,13 +2732,17 @@ PIPE_DEADLINE_S = 600  # a whole spawned run; a rank that waits on another more 
 # microbatches in reverse, then the data all-reduce).
 PIPE_TOL = {"loss_rel": 1e-6, "grad": 1e-5}  # grad: max|diff| <= 1e-5 max|g| a leaf
 PIPE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "local", "chip_smoke_pipeline")
+# the pipelined run that saves its state at the end (slice 7c): rank 0 gathers
+# the stages' rows over pod on the host and writes the whole, unpadded state,
+# 12 B x 1,217,433,600 parameters = 14.6 GB, into PIPE_DIR (removed with it)
+PIPE_CKPT_MESH = (2, 1, 2)
 
 
-def pipeline_owed(norms: int, attns: int, last: bool, n_micro: int) -> dict:
+def pipeline_owed(norms: int, attns: int, last: bool, n_micro: int, remat: bool = True) -> dict:
     """Launches a rank owes per step: ``train_owed`` for each of its
     microbatches, with its stage's ``norms`` and ``attns``, and the final norm
     only on the last stage."""
-    one = train_owed(norms, attns)
+    one = train_owed(norms, attns, remat=remat)
     if not last:
         one["rmsnorm"] -= 1
         one["rmsnorm_bwd"] -= 1
@@ -2743,8 +2763,22 @@ def stage_state_bytes(cfg, num_stages: int) -> list:
     return out
 
 
+def join_as_rank(rank: int, world: int, store: str) -> None:
+    """A spawned rank's start: two host threads (several ranks share the
+    host's cores), expandable segments (several allocators share the card),
+    full f32 products, the card, and the ``gloo`` group at ``store``."""
+    torch.set_num_threads(2)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"rank {rank} finds no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world, timeout=TIMEOUT)
+
+
 def pipeline_rank(rank: int, world: int, cfg, meshes, steps: int, batch: int, seq: int, lr: float,
-                  predicted: dict, store: str) -> None:
+                  predicted: dict, ckpt_mesh, store: str) -> None:
     """One rank of the pipelined runs on the card, for each (mesh shape,
     boundaries, trained boundary) of ``meshes`` in turn: joins the mesh, makes
     the whole model from the seed and its reference, ``make_train_step``'s
@@ -2755,21 +2789,15 @@ def pipeline_rank(rank: int, world: int, cfg, meshes, steps: int, batch: int, se
     held calls against their dry-runs where ``predicted`` ("<mesh>_<boundary>"
     -> ``write_predictions``' entry) has them (``hold_dryrun``); then
     trains ``steps`` steps through ``launch.train.train`` with the trained
-    boundary from the same seed, counting the kernels' launches from zero.
-    Writes its results as JSON beside ``store``."""
+    boundary from the same seed, counting the kernels' launches from zero; on
+    the mesh ``ckpt_mesh`` the run saves its state at the end under PIPE_DIR
+    (slice 7c) and ``pipeline_checkpoint`` hashes it.  Writes its results as
+    JSON beside ``store``."""
     began = time.time()
-    torch.set_num_threads(2)  # four ranks on the host's cores
-    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")  # four allocators on one card
-    if not torch.cuda.is_available():
-        raise RuntimeError(f"rank {rank} finds no CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.cuda.set_device(0)
+    join_as_rank(rank, world, store)
     t0 = time.perf_counter()
     torch.empty(1 << 20, dtype=torch.uint8, pin_memory=True)  # the process's first pinned buffer, timed alone
     first_pin = time.perf_counter() - t0
-    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world,
-                            timeout=TIMEOUT)
     results = []
     try:
         model = build_model(cfg)
@@ -2830,8 +2858,10 @@ def pipeline_rank(rank: int, world: int, cfg, meshes, steps: int, batch: int, se
             t0 = time.perf_counter()
             torch.cuda.reset_peak_memory_stats()
             reset_counters()
+            ckpt_dir = os.path.join(PIPE_DIR, "ckpt") if tuple(shape) == ckpt_mesh else None
             res = train(cfg, steps=steps, batch=batch, seq=seq, lr=lr, seed=SEED, log_every=steps,
-                        device="cuda", mesh=mesh, pipeline=True, n_micro=PIPE_N_MICRO, boundary=trained)
+                        device="cuda", mesh=mesh, pipeline=True, n_micro=PIPE_N_MICRO, boundary=trained,
+                        ckpt_dir=ckpt_dir)
             counters = read_counters()
             hist = res["history"]
             out["train"][trained] = {"counters": counters, "losses": [h["loss"] for h in hist],
@@ -2840,6 +2870,8 @@ def pipeline_rank(rank: int, world: int, cfg, meshes, steps: int, batch: int, se
                                      "transport_seconds": hist[-1]["transport_seconds"],
                                      "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                                      "seconds": time.perf_counter() - t0}
+            if ckpt_dir:
+                out["checkpoint"] = pipeline_checkpoint(res, cfg, mesh)
             del res
             release()
             out["left"] = time.time()
@@ -2850,13 +2882,14 @@ def pipeline_rank(rank: int, world: int, cfg, meshes, steps: int, batch: int, se
         dist.destroy_process_group()
 
 
-def spawn_ranks(world: int, *args) -> list:
-    """``pipeline_rank`` on ``world`` processes (the spawn start method);
-    raises if a rank raises, dies or outlives PIPE_DEADLINE_S (every rank is
-    stopped), and returns each rank's results."""
+def spawn_ranks(fn, world: int, *args) -> list:
+    """``fn(rank, world, *args, store)`` (``pipeline_rank``, ``dp_rank``) on
+    ``world`` processes (the spawn start method); raises if a rank raises,
+    dies or outlives PIPE_DEADLINE_S (every rank is stopped), and returns each
+    rank's results (the JSON each wrote beside ``store``)."""
     os.makedirs(PIPE_DIR, exist_ok=True)
     store = os.path.join(PIPE_DIR, f"store.{os.getpid()}.{time.monotonic_ns()}")
-    ctx = torch.multiprocessing.start_processes(pipeline_rank, args=(world, *args, store), nprocs=world, join=False,
+    ctx = torch.multiprocessing.start_processes(fn, args=(world, *args, store), nprocs=world, join=False,
                                                 start_method="spawn")
     end = time.monotonic() + PIPE_DEADLINE_S
     try:
@@ -2877,22 +2910,23 @@ def spawn_ranks(world: int, *args) -> list:
 
 
 def run_pipeline(phase: str, cfg, meshes, *, steps: int, batch: int, seq: int, lr: float, owed, extra: dict,
-                 predicted: dict) -> dict:
+                 predicted: dict, ckpt_mesh=None) -> dict:
     """The ranks of ``pipeline_rank`` on the card over ``meshes`` ((mesh
     shape, boundaries, trained boundary), all of one size) in one spawn;
     raises unless every rank's parity is within PIPE_TOL, a second boundary
     is bit-equal to the first with 1/TP of its ``pod`` bytes, the trained
     run's losses are finite and its first is step 0's call's, and the
     counters show exactly ``owed(last)`` a rank a step (``last``: whether the
-    rank's stage is the last).  Emits one line a mesh; returns the counters
-    summed over the ranks, by path."""
+    rank's stage is the last), and on ``ckpt_mesh`` the saved file, cut into
+    stages, has every rank's own state bit for bit (``hold_checkpoint``).
+    Emits one line a mesh; returns the counters summed over the ranks, by path."""
     world = math.prod(meshes[0][0])
     if any(math.prod(shape) != world for shape, _, _ in meshes):
         raise ValueError(f"meshes of different sizes: {meshes}")
     held = {"allocated": torch.cuda.memory_allocated(), "reserved": torch.cuda.memory_reserved(),
             "card_free": torch.cuda.mem_get_info()[0]}
     t0, spawned = time.perf_counter(), time.time()
-    ranks = spawn_ranks(world, cfg, meshes, steps, batch, seq, lr, predicted)
+    ranks = spawn_ranks(pipeline_rank, world, cfg, meshes, steps, batch, seq, lr, predicted, ckpt_mesh)
     wall = time.perf_counter() - t0
     counts = {}
     for i, (shape, runs, trained) in enumerate(meshes):
@@ -2935,6 +2969,8 @@ def run_pipeline(phase: str, cfg, meshes, *, steps: int, batch: int, seq: int, l
             total = counts.setdefault(path, dict.fromkeys(want, 0))
             for k, v in t["counters"].items():
                 total[k] += v
+        if tuple(shape) == ckpt_mesh:
+            line["checkpoint"] = hold_checkpoint(mine, steps, failures)
         emit(line)
         if failures:
             raise AssertionError(f"{phase} {shape}: {failures}")
@@ -2949,7 +2985,8 @@ def pipe_predictions(started, prefix: str) -> dict:
 def phase_train_pipeline(started) -> dict:
     """GPT-A at full width with PIPE_LAYERS layers, meshes (2, 2, 1) direct
     and (2, 1, 2) held with both boundaries and trained striped: K1 and K2,
-    forward and backward."""
+    forward and backward.  The (2, 1, 2) run saves its state at the end
+    (slice 7c), held against every rank's own."""
     cfg = train_config(PIPE_LAYERS, torch.bfloat16)
     per = PIPE_LAYERS // 2
 
@@ -2958,7 +2995,7 @@ def phase_train_pipeline(started) -> dict:
 
     return run_pipeline("train_pipeline", cfg, PIPE_MESHES, steps=PIPE_STEPS, batch=PIPE_BATCH, seq=TRAIN_SEQ,
                         lr=TRAIN_LR, owed=owed, extra={"reduced": PIPE_REDUCED},
-                        predicted=pipe_predictions(started, "pipe_gpt_a_"))
+                        predicted=pipe_predictions(started, "pipe_gpt_a_"), ckpt_mesh=PIPE_CKPT_MESH)
 
 
 def phase_train_pipeline_hybrid(started) -> dict:
@@ -2974,6 +3011,287 @@ def phase_train_pipeline_hybrid(started) -> dict:
     return run_pipeline("train_pipeline_hybrid", cfg, (((2, 1, 1), ("striped",), "striped"),),
                         steps=HYBRID_PIPE_STEPS, batch=HYBRID_PIPE_BATCH, seq=HYBRID_TRAIN_SEQ, lr=HYBRID_TRAIN_LR,
                         owed=owed, extra={"padded_groups": 1}, predicted=pipe_predictions(started, "pipe_zamba_"))
+
+
+def leaf_digests(tree) -> dict:
+    """The SHA-256 of each leaf's bytes by its checkpoint key (``_walk``), each
+    leaf copied to the host on its own and hashed in four threads."""
+    def one(item):
+        t = item[1].detach().contiguous().reshape(-1)
+        return hashlib.sha256(t.view(torch.uint8).cpu().numpy()).hexdigest()
+
+    items = list(_walk(tree))
+    with ThreadPoolExecutor(4) as pool:
+        return dict(zip((k for k, _ in items), pool.map(one, items)))
+
+
+def pipeline_checkpoint(res: dict, cfg, mesh) -> dict:
+    """This rank's view of the pipelined run's checkpoint (slice 7c): the
+    SHA-256 of each leaf of its own state (``leaf_digests``), and on rank 0
+    the file's, loaded with ``load_pytree`` into the whole model's tree on the
+    host, cut into each stage with ``stage_params`` and hashed the same way;
+    with the save's gather, snapshot and write seconds and the load's."""
+    ck = res["checkpoint"]
+    t0 = time.perf_counter()
+    out = {"gather_s": ck["gather_s"], "own": leaf_digests({"params": res["params"], "opt": res["opt_state"]})}
+    out["own_digest_s"] = time.perf_counter() - t0
+    if mesh.rank:
+        return out
+    shapes = convert_tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype), dryrun.meta_params(build_model(cfg)))
+    like = {"params": shapes, "opt": OptState(torch.empty((), dtype=torch.int32), shapes, shapes)}
+    t0 = time.perf_counter()
+    whole = load_pytree(ck["path"], like)
+    out["load_s"] = time.perf_counter() - t0
+    out["files"] = sorted(os.listdir(os.path.dirname(ck["path"])))
+    out["file_bytes"] = os.path.getsize(ck["path"])
+    out["saves"] = [{"bytes": s["bytes"], "snapshot_s": s["snapshot_s"], "write_s": s["write_ended"] - s["write_started"]}
+                    for s in ck["saves"]]
+    out["by_stage"] = {}
+    t0 = time.perf_counter()
+    for stage in range(mesh.shape["pod"]):
+        m = Mesh(tuple(mesh.shape.values()), mesh.axis_names, mesh.rank_at(pod=stage))
+        opt = whole["opt"]
+        cut = {"params": stage_params(whole["params"], cfg, m),
+               "opt": OptState(opt.step, stage_params(opt.mu, cfg, m), stage_params(opt.nu, cfg, m))}
+        out["by_stage"][stage] = leaf_digests(cut)
+        del cut
+    out["file_digest_s"] = time.perf_counter() - t0
+    return out
+
+
+def hold_checkpoint(ranks: list, steps: int, failures: list) -> dict:
+    """Adds to ``failures`` unless rank 0 wrote exactly ``step_<steps>.npz``
+    and every rank's own leaves hash as its stage's cut of that file; returns
+    the figures of the line, the digests dropped."""
+    zero = next(r for r in ranks if r["rank"] == 0)["checkpoint"]
+    written = [f for f in zero["files"] if f.endswith(".npz")]
+    if written != [f"step_{steps:08d}.npz"]:
+        failures.append((0, "checkpoint files", zero["files"]))
+    for r in ranks:
+        own, want = r["checkpoint"].pop("own"), zero["by_stage"][str(r["coords"]["pod"])]
+        if own != want:
+            failures.append((r["rank"], "checkpoint", sorted(k for k in want if own.get(k) != want[k])[:8]))
+        r["checkpoint"]["leaves_held"] = len(own)
+    leaves = {k: len(v) for k, v in zero.pop("by_stage").items()}
+    return {"file": written, "file_bytes": zero["file_bytes"], "saves": zero["saves"], "load_s": zero["load_s"],
+            "file_digest_s": zero["file_digest_s"], "leaves_by_stage": leaves,
+            "gather_s": {r["rank"]: r["checkpoint"]["gather_s"] for r in ranks},
+            "own_digest_s": {r["rank"]: r["checkpoint"]["own_digest_s"] for r in ranks},
+            "held": "the file, loaded and cut into stages (stage_params), hashes as every rank's own state (SHA-256 a leaf)"}
+
+
+# ---------------------------------------------------------------------------
+# phase train_dp: data parallelism on the plain step (slice 7d), ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# GPT-A at full width with 4 of its 24 layers on a (data, model) = (2, 1) mesh:
+# two gloo ranks that share the card, each the whole model's f32 state
+DP_MESH = ((2, 1), ("data", "model"))
+DP_LAYERS, DP_STEPS, DP_BATCH = 4, 2, 8
+DP_REDUCED = {"num_layers": "24 -> 4", "why": "two ranks share the card, each holding the whole model's f32 "
+              "parameters, gradients and moments: 19.5 GB a rank at 4 layers, 83.9 GB at 24"}
+
+
+def dp_rank(rank: int, world: int, cfg, store: str) -> None:
+    """One rank of the data-parallel runs on the card: joins the (2, 1) mesh,
+    makes the whole model from the seed, holds one ``DataParallelLoss`` call
+    on the first batch (this rank's half of its rows) against
+    ``accumulated_value_and_grad`` over the same batch in 2 chunks (in each
+    rank), then trains DP_STEPS steps through ``launch.train.train`` on the
+    mesh, counting the kernels' launches from zero, and hashes its final
+    parameters and moments.  Writes its results as JSON beside ``store``."""
+    join_as_rank(rank, world, store)
+    try:
+        mesh = make_mesh(*DP_MESH)
+        model = build_model(cfg)
+        b0 = next(make_batches(cfg, DataConfig(seed=SEED, batch_size=DP_BATCH, seq_len=TRAIN_SEQ)))
+        b0 = {k: torch.from_numpy(v).to("cuda") for k, v in b0.items()}
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        whole = model.init(gen)
+        ref_loss, _, ref = accumulated_value_and_grad(model.loss, whole, b0, accum_steps=DP_MESH[0][0])
+        loss_fn = DataParallelLoss(model.loss, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = loss_fn(whole, b0)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        gaps = {p: float((g - ref[p]).abs().max()) / max(float(ref[p].abs().max()), 1e-30) for p, g in grads.items()}
+        worst = max(gaps, key=gaps.get)
+        out = {"rank": rank, "coords": mesh.coords, "parity": {
+            "loss": float(loss), "ref_loss": float(ref_loss),
+            "loss_rel_diff": abs(float(loss) - float(ref_loss)) / abs(float(ref_loss)),
+            "grad_max_diff_over_max": gaps[worst], "worst_leaf": worst,
+            "bit_equal": bool(torch.equal(loss, ref_loss) and all(torch.equal(g, ref[p]) for p, g in grads.items())),
+            "finite": all(bool(torch.isfinite(g).all()) for g in grads.values()),
+            "call_seconds": call_s, "bytes": loss_fn.transport.counts(), "transport_seconds": loss_fn.transport.times()}}
+        del whole, grads, ref, loss_fn
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        t0 = time.perf_counter()
+        res = train(cfg, steps=DP_STEPS, batch=DP_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR, seed=SEED, log_every=DP_STEPS,
+                    device="cuda", mesh=mesh)
+        hist = res["history"]
+        out["train"] = {"counters": read_counters(), "losses": [h["loss"] for h in hist],
+                        "grad_norms": [h["grad_norm"] for h in hist], "step_ms": [h["seconds"] * 1e3 for h in hist],
+                        "bytes": [h["bytes"] for h in hist], "transport_seconds": [h["transport_seconds"] for h in hist],
+                        "peak_memory_bytes": torch.cuda.max_memory_allocated(), "seconds": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        out["digests"] = leaf_digests({"params": res["params"], "opt": res["opt_state"]})
+        out["digest_s"] = time.perf_counter() - t0
+        with open(f"{store}.rank{rank}.json", "w") as f:
+            json.dump([out], f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train_dp() -> dict:
+    """GPT-A at full width with DP_LAYERS layers on DP_MESH (``dp_rank``):
+    raises unless each rank's DP call is within PIPE_TOL of accumulation over
+    the same chunks, the trained run's first loss is that call's, its losses
+    are finite, the counters show exactly ``train_owed`` a rank a step, and
+    the two replicas' parameters and moments are bit-equal after the steps.
+    Prints the ``data`` all-reduce's bytes and seconds a step; returns the
+    counters summed over the ranks."""
+    cfg = train_config(DP_LAYERS, torch.bfloat16)
+    world = math.prod(DP_MESH[0])
+    t0 = time.perf_counter()
+    ranks = [r[0] for r in spawn_ranks(dp_rank, world, cfg)]
+    wall = time.perf_counter() - t0
+    owed = train_owed(2 * DP_LAYERS, DP_LAYERS)
+    want = {k: DP_STEPS * v for k, v in owed.items()}
+    failures, total, first = [], dict.fromkeys(want, 0), ranks[0]["digests"]
+    for r in ranks:
+        p, t = r["parity"], r["train"]
+        if not (p["finite"] and p["loss_rel_diff"] <= PIPE_TOL["loss_rel"] and p["grad_max_diff_over_max"] <= PIPE_TOL["grad"]):
+            failures.append((r["rank"], "parity", p))
+        if not all(np.isfinite(t["losses"])) or t["losses"][0] != p["loss"]:
+            failures.append((r["rank"], "losses", t["losses"], p["loss"]))
+        if t["counters"] != want:
+            failures.append((r["rank"], "counters", t["counters"], want))
+        for k, v in t["counters"].items():
+            total[k] += v
+        if r["digests"] != first:
+            failures.append((r["rank"], "replicas differ", sorted(k for k, v in r["digests"].items()
+                                                                 if first.get(k) != v)[:8]))
+        steps = [h["data"]["all_reduce"] for h in t.pop("bytes")]
+        secs = [h["data"]["all_reduce"] for h in t.pop("transport_seconds")]
+        t["data_all_reduce_bytes_per_step"] = [b - a for a, b in zip([0] + steps, steps)]
+        t["data_all_reduce_seconds_per_step"] = [b - a for a, b in zip([0.0] + secs, secs)]
+        r["leaves_hashed"] = len(r.pop("digests"))
+    emit({"phase": "train_dp", "model": cfg.name, "reduced": DP_REDUCED, "mesh": dict(zip(DP_MESH[1], DP_MESH[0])),
+          "layers": cfg.num_layers, "batch": DP_BATCH, "seq": TRAIN_SEQ, "steps": DP_STEPS, "lr": TRAIN_LR,
+          "reference": f"make_train_step(model.loss, accum_steps={DP_MESH[0][0]}) on the same parameters, in each rank",
+          "tol": PIPE_TOL, "replicas_bit_equal": not any(f[1] == "replicas differ" for f in failures),
+          "spawn_wall_seconds": wall, "counters_per_step": owed, "note": "the ranks share one card", "ranks": ranks})
+    if failures:
+        raise AssertionError(f"train_dp: {failures}")
+    return {f"train_dp {cfg.name} 2x1": total}
+
+
+# ---------------------------------------------------------------------------
+# phase examples: the five examples through their mains on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "local", "chip_smoke_train_100m")
+
+
+def example_owed() -> dict:
+    """The launches each example owes, counted from the code (the smoke
+    GPT-A: 2 layers, head size 64, remat "none"; ``CFG_100M``: 12 layers,
+    remat "none"): a train step ``train_owed(.., remat=False)``; a served
+    batch of ragged prompts prefills on the masked plain ``sdpa`` (one call a
+    layer) and decodes through K1 and K3; a pipelined rank of geo_train's
+    (2, 2, 2) runs one layer a microbatch, four microbatches a step."""
+    smoke = train_owed(2 * 2, 2, remat=False)
+
+    def serve(new_tokens: int) -> dict:  # one batch: its prefill, then new_tokens - 1 decode steps
+        steps = new_tokens - 1
+        return dict(dict.fromkeys(smoke, 0), rmsnorm=5 * (1 + steps), decode_attention=2 * steps, sdpa_masked_calls=2)
+
+    qs_train = {k: 150 * v for k, v in smoke.items()}
+    qs = {k: qs_train[k] + serve(8)[k] for k in smoke}
+    stages = [pipeline_owed(2, 1, last, 4, remat=False) for last in (False, True)]
+    geo = {k: 30 * 4 * (stages[0][k] + stages[1][k]) for k in smoke}  # 30 steps, four ranks a stage
+    return {"quickstart": qs, "bubbletea_serve": serve(6), "train_100m": {k: 200 * v for k, v in
+                                                                          train_owed(2 * 12, 12, remat=False).items()},
+            "geo_train": geo, "whatif": dict.fromkeys(smoke, 0)}
+
+
+def phase_examples() -> dict:
+    """``whatif``, ``bubbletea_serve``, ``quickstart`` (150 steps),
+    ``train_100m`` (200 steps of 4 x 256, its checkpoints under
+    EXAMPLES_CKPT, removed after) and ``geo_train`` (30 steps on eight ranks
+    sharing the card) through their mains, each counted from zero (geo_train
+    summed over its ranks), their printed lines kept out of this script's
+    output.  Raises unless each example's launches are ``example_owed``'s,
+    the trained losses fall (train_100m asserts it itself), every request got
+    its tokens and the simulated parts printed what they print.  Emits one
+    line an example; returns the counters by path."""
+    owed, counts, failures = example_owed(), {}, []
+    runs = (("whatif", lambda: whatif.main()), ("bubbletea_serve", lambda: bubbletea_serve.main()),
+            ("quickstart", lambda: quickstart.main(steps=150)),
+            ("train_100m", lambda: train_100m.main(["--ckpt-dir", EXAMPLES_CKPT])),
+            ("geo_train", lambda: geo_train.main(steps=30)))
+    shutil.rmtree(EXAMPLES_CKPT, ignore_errors=True)
+    try:
+        for name, run in runs:
+            release()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counters()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                got = run()
+            seconds = time.perf_counter() - t0
+            lines = buf.getvalue().splitlines()
+            line = {"phase": "examples", "example": name, "seconds": seconds, "lines_printed": len(lines),
+                    "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+            if name == "geo_train":
+                counters = dict.fromkeys(owed[name], 0)
+                for r in got["ranks"]:
+                    for k, v in r["launches"].items():
+                        counters[k] += v
+                losses = got["ranks"][0]["losses"]
+                line.update(losses=[losses[0], losses[-1]], ranks=len(got["ranks"]),
+                            pod_bytes_rank0=got["ranks"][0]["bytes"]["pod"],
+                            same_losses_on_every_rank=all(r["losses"] == losses for r in got["ranks"]))
+                if not line["same_losses_on_every_rank"] or not losses[-1] < losses[0]:
+                    failures.append((name, "losses", [r["losses"] for r in got["ranks"]]))
+                line["simulated"] = [ln for ln in lines if ln.startswith(("[plan]", "[sim]"))]
+                if len(line["simulated"]) != 7:
+                    failures.append((name, "parts 1-2", lines))
+            else:
+                counters = read_counters()
+            if name == "whatif":
+                line["timed"] = [ln for ln in lines if "searched 8 DCs" in ln]
+                if len(line["timed"]) != 1:
+                    failures.append((name, "lines", lines))
+            if name == "bubbletea_serve":
+                line.update(kv_bytes_moved=got["kv_bytes_moved"], tokens=[r.generated for r in got["requests"]],
+                            printed=[ln for ln in lines if ln.startswith(("[atlas]", "[bubbletea]", "[splitwise]"))])
+                if not got["kv_bytes_moved"] > 0 or any(len(r.generated) != 6 for r in got["requests"]):
+                    failures.append((name, "served", line))
+            if name == "quickstart":
+                line.update(losses=[got["losses"][0], got["losses"][-1]], tokens=[r.generated for r in got["requests"]])
+                if not got["losses"][-1] < got["losses"][0] or any(len(r.generated) != 8 for r in got["requests"]):
+                    failures.append((name, "trained or served", line))
+            if name == "train_100m":
+                line.update(losses=[got["losses"][0], got["losses"][-1]], checkpoint=os.path.basename(got["checkpoint"]),
+                            files=sorted(f for f in os.listdir(EXAMPLES_CKPT) if f.endswith(".npz")),
+                            tokens_per_s_printed=[ln for ln in lines if ln.startswith("step")][-1])
+            line["counters"], line["owed"] = counters, owed[name]
+            if counters != owed[name]:
+                failures.append((name, "counters", counters, owed[name]))
+            if name != "whatif":
+                counts[f"examples {name}"] = counters
+            emit(line)
+    finally:
+        shutil.rmtree(EXAMPLES_CKPT, ignore_errors=True)
+    if failures:
+        raise AssertionError(f"examples: {failures}")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -3049,6 +3367,10 @@ def main() -> int:
     counts.update(phase_train_pipeline(started))
     release()
     counts.update(phase_train_pipeline_hybrid(started))
+    release()
+    counts.update(phase_train_dp())
+    release()
+    counts.update(phase_examples())
     release()
     counts["qwen2-moe-a2.7b"] = serve_moe_model("qwen2_moe_a2p7b", "serve_moe")
     release()

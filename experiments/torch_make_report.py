@@ -83,7 +83,7 @@ def matrix(rs) -> str:
             if r is None:
                 cells.append("-")
             elif r["status"] == "skipped":
-                cells.append("skip: 7d" if "7d" in r["reason"] else "skip: encoder")
+                cells.append("skip: encoder")  # the only skips: an encoder does not decode
             elif r["status"] == "error":
                 cells.append("**error**")
             else:

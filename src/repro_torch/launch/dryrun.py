@@ -16,8 +16,11 @@ The programs (``ARCHS[:10]`` x ``SHAPES`` x single (16, 16) / multi (2, 16, 16))
     ``pod`` coordinate (stage 0 and stage 1), through a ``MetaTransport``;
     ``model`` ranks are replicas, as the port runs them.  Each figure is the
     larger of the two stages'; each stage's figures are under ``stages``.
-  * single x train: skipped; the port's plain step over several ranks is
-    ROADMAP Queue 1 item 7d, and ``launch/train.py`` raises there.
+  * single x train: the port's plain data-parallel step (``DataParallelLoss``
+    and the AdamW update) on one rank of the (16, 16) mesh: its ``data``
+    share of the global batch, the whole model's f32 state (the ``model``
+    ranks are replicas), and the gradients' all-reduce over ``data`` through a
+    ``MetaTransport``.
   * prefill / decode: the port has no tensor-parallel serving, so each rank
     serves a whole replica (the weights in ``cfg.dtype``, as the serving
     engine holds them) on its share of the global batch, ceil(B / ranks) rows
@@ -94,6 +97,7 @@ from repro_torch.launch import shapes as shp
 from repro_torch.launch.mesh import Mesh, production_mesh_shape
 from repro_torch.models.transformer import build_model
 from repro_torch.optim.optimizer import OptimizerConfig, init_opt_state, make_train_step
+from repro_torch.parallel.data_parallel import DataParallelLoss
 from repro_torch.parallel.pipeline import PipelineLoss, stage_params
 from repro_torch.parallel.sharding import make_param_shardings
 from repro_torch.parallel.transport import MetaTransport
@@ -112,8 +116,6 @@ NODE_GPUS = 8  # GPUs of one node joined by NVLink (DGX H100 / HGX H100 8-GPU)
 DEVICE_BYTES = 80 * 2**30  # an H100 80GB's HBM3
 ALLOC_ROUND = 512  # the CUDA caching allocator rounds every block up to a multiple of 512 bytes
 N_MICRO = 4
-SKIP_SINGLE_TRAIN = ("the port's plain step over several ranks is not ported (ROADMAP.md Queue 1, item 7d): "
-                     "launch/train.py raises on a mesh of more than one rank without --pipeline")
 # aten ops that allocate and write nothing: no traffic
 _NO_TRAFFIC = {"empty", "empty_strided", "empty_like", "new_empty", "new_empty_strided"}
 # aten ops that make a tensor of zeros (the start of an indexing op's backward)
@@ -300,6 +302,20 @@ def train_program(cfg, mesh: Mesh, batch: Dict[str, torch.Tensor], *, boundary: 
     return (lambda: step(params, opt, batch)), (params, opt, batch), transport
 
 
+def dp_train_program(cfg, mesh: Mesh, batch: Dict[str, torch.Tensor]
+                     ) -> Tuple[Callable[[], Any], Any, MetaTransport]:
+    """(step, its arguments, the transport) of ``mesh.rank``'s plain
+    data-parallel train step on ``meta``: the whole model's f32 parameters,
+    zero moments, and ``make_train_step`` over a ``DataParallelLoss`` with a
+    ``MetaTransport``, on the global ``batch``."""
+    model = build_model(cfg)
+    params = meta_params(model)
+    opt = init_opt_state(params)
+    transport = MetaTransport(mesh)
+    step = make_train_step(DataParallelLoss(model.loss, mesh, transport=transport), OptimizerConfig())
+    return (lambda: step(params, opt, batch)), (params, opt, batch), transport
+
+
 def serve_program(cfg, kind: str, rows: int, seq: int) -> Tuple[Callable[[], Any], Any]:
     """(call, its arguments) of one replica serving ``rows`` rows on ``meta``,
     under ``torch.no_grad()``, its weights in ``cfg.dtype``: the encoder's
@@ -435,9 +451,6 @@ def run_one(arch: str, shape: str, mesh_name: str, boundary: str = "striped",
         return {"arch": arch, "shape": shape, "mesh": mesh_name, "status": "skipped", "reason": why}
     s = shp.SHAPES[shape]
     kind = s["kind"]
-    if kind == "train" and not multi_pod:
-        return {"arch": arch, "shape": shape, "mesh": mesh_name, "boundary": boundary, "status": "skipped",
-                "reason": SKIP_SINGLE_TRAIN}
     t0 = time.time()
     cfg = shp.config_for(arch, shape)
     if fsdp is None:
@@ -446,7 +459,15 @@ def run_one(arch: str, shape: str, mesh_name: str, boundary: str = "striped",
     mesh = Mesh(mesh_shape, names)
     ranks = mesh.size
     result: Dict[str, Any] = {"arch": arch, "shape": shape, "mesh": mesh_name, "boundary": boundary, "status": "ok"}
-    if kind == "train":
+    if kind == "train" and not multi_pod:
+        batch = train_batch(cfg, s["global_batch"], s["seq_len"])
+        fn, args, transport = dp_train_program(cfg, mesh, batch)
+        counted = count(fn, args)
+        del fn, args
+        top = _figures(counted, collectives(transport.counts(), mesh))
+        result.update(program="data_parallel", rows_per_rank=s["global_batch"] // mesh.shape["data"],
+                      ranks_busy=ranks)
+    elif kind == "train":
         batch = train_batch(cfg, s["global_batch"], s["seq_len"])
         figs = {}
         for stage in range(mesh.shape["pod"]):

@@ -25,9 +25,20 @@ over the ranks that ``torch.distributed.run`` (torchrun) starts: each reads
 and on the card takes ``cuda:(LOCAL_RANK % device_count)``, so every rank
 shares the one card of a one-card machine.  The mesh is the reference's host
 mesh over the world (``--production-mesh``: the (2, 16, 16) mesh, which needs
-exactly 512 ranks).  Rank 0 prints the lines.  Not yet ported: a plain
-(non-pipelined) step over several ranks and checkpoints under ``--pipeline``
-(ROADMAP.md Queue 1, slices 7d and 7c); both raise.
+exactly 512 ranks).  Rank 0 prints the lines.  Without ``--pipeline`` the
+same world runs the plain step data-parallel on the host mesh (data, model)
+(``repro_torch.parallel.data_parallel``: each rank its ``data`` shard of the
+batch, the global masked mean, the gradients summed over ``data``; ``model``
+ranks are replicas).  A checkpoint holds the whole, unpadded state in either
+case and only rank 0 writes it: under ``--pipeline`` the stages' rows are
+gathered to rank 0 on the host first (``gather_train_state``), and every rank
+waits for the write.
+
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+      -m repro_torch.launch.train --arch gpt-a --smoke --steps 4 --batch 8 --seq 32 --device cpu
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 8 \\
+      -m repro_torch.launch.train --arch gpt-a --smoke --pipeline --steps 4 --batch 8 --seq 32 \\
+      --ckpt-dir local/ck --device cpu
 """
 from __future__ import annotations
 
@@ -47,7 +58,8 @@ from repro_torch.launch.mesh import TIMEOUT, Mesh, make_host_mesh, make_producti
 from repro_torch.models.modules import ModelConfig, Params
 from repro_torch.models.transformer import build_model
 from repro_torch.optim.optimizer import OptimizerConfig, init_opt_state, make_train_step
-from repro_torch.parallel.pipeline import make_pipeline_loss, stage_params
+from repro_torch.parallel.data_parallel import DataParallelLoss
+from repro_torch.parallel.pipeline import gather_train_state, make_pipeline_loss, stage_params
 
 
 def optimizer_config(lr: float, steps: int) -> OptimizerConfig:
@@ -70,24 +82,22 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, lr: float = 3e-
     With ``pipeline``, this rank trains its stage of the cross-pod pipeline
     over ``mesh`` (``n_micro`` microbatches, ``boundary`` "striped" or
     "direct"): ``params``, where given, are this rank's (``stage_params``),
-    else the whole model is made from ``seed`` and cut to them.  Only rank 0
-    of the mesh prints.  A mesh of more than one rank without ``pipeline``,
-    and ``ckpt_dir`` with it, raise ``NotImplementedError``.
+    else the whole model is made from ``seed`` and cut to them.  Without it,
+    a mesh of more than one rank trains the whole model data-parallel over its
+    ``data`` axis (``DataParallelLoss``).  Only rank 0 of the mesh prints and
+    writes checkpoints; under ``pipeline`` every save first gathers the whole
+    state to it (``gather_train_state``) and every rank waits for the write.
 
     Returns {"params", "opt_state", "history": [{"step", "loss", "grad_norm",
     "lr", "started", "seconds"}, ...], "checkpoint"}, where ``seconds`` is each
     step's wall time from ``started`` (``time.perf_counter()``), ending in a
     synchronisation, and ``checkpoint`` is None or {"path": the latest,
-    "saves": the checkpointer's ``timings``}; under ``pipeline`` each entry also
-    holds ``bytes`` and ``transport_seconds``, this rank's transport counters
-    after the step."""
+    "saves": rank 0's checkpointer's ``timings`` (empty elsewhere), "gather_s":
+    each save's seconds from its call to the end of the gather, under
+    ``pipeline``}; over several ranks each entry also holds ``bytes`` and
+    ``transport_seconds``, this rank's transport counters after the step."""
     device = resolve_device(device)
     mesh = mesh or Mesh((1,), ("data",))
-    if mesh.size > 1 and not pipeline:
-        raise NotImplementedError(f"a mesh {mesh.shape} without --pipeline: data parallelism on the plain step is "
-                                  "not ported yet (ROADMAP.md Queue 1, slice 7d)")
-    if pipeline and ckpt_dir:
-        raise NotImplementedError("checkpoints under --pipeline are not ported yet (ROADMAP.md Queue 1, slice 7c)")
     model = build_model(cfg)
     if params is None:
         gen = torch.Generator(device=device)
@@ -97,9 +107,32 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, lr: float = 3e-
             params = stage_params(params, cfg, mesh)
     opt_cfg = optimizer_config(lr, steps)
     opt_state = init_opt_state(params)
-    ckpt = AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
-    loss_fn = make_pipeline_loss(cfg, mesh, n_micro=n_micro, boundary=boundary) if pipeline else model.loss
+    ckpt = AsyncCheckpointer(ckpt_dir) if ckpt_dir and mesh.rank == 0 else None
+    if pipeline:
+        loss_fn = make_pipeline_loss(cfg, mesh, n_micro=n_micro, boundary=boundary)
+    elif mesh.size > 1:
+        loss_fn = DataParallelLoss(model.loss, mesh)
+    else:
+        loss_fn = model.loss
     step_fn = make_train_step(loss_fn, opt_cfg)
+    gather_s: List[float] = []
+
+    def save(step: int, meta: Dict) -> None:
+        """Rank 0 saves {"params", "opt"}; under ``pipeline`` after the
+        gather, and every rank waits until the file is written."""
+        if not pipeline:
+            if ckpt:
+                ckpt.save(step, {"params": params, "opt": opt_state}, meta)
+            return
+        t0 = time.perf_counter()
+        state = gather_train_state(params, opt_state, cfg, mesh)
+        gather_s.append(time.perf_counter() - t0)
+        if ckpt:
+            ckpt.save(step, state, meta)
+            del state
+            ckpt.wait()
+        if mesh.size > 1:
+            dist.barrier()
     data = make_batches(cfg, DataConfig(seed=seed, batch_size=batch, seq_len=seq), num_steps=steps)
     speak = mesh.rank == 0
 
@@ -120,21 +153,23 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, lr: float = 3e-
         tokens_done += batch * seq
         history.append({"step": step, "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
                         "lr": float(metrics["lr"]), "started": t_step, "seconds": now - t_step})
-        if pipeline:
+        if hasattr(loss_fn, "transport"):
             history[-1]["bytes"] = loss_fn.transport.counts()
             history[-1]["transport_seconds"] = loss_fn.transport.times()
         if speak and (step % log_every == 0 or step == steps - 1):
             h = history[-1]
             print(f"step {step:5d} loss {h['loss']:.4f} gnorm {h['grad_norm']:.3f} lr {h['lr']:.2e} "
                   f"tok/s {tokens_done / max(now - t0, 1e-9):,.0f}", flush=True)
-        if ckpt and step and step % ckpt_every == 0:
-            ckpt.save(step, {"params": params, "opt": opt_state}, {"step": step, "loss": history[-1]["loss"]})
+        if ckpt_dir and step and step % ckpt_every == 0:
+            save(step, {"step": step, "loss": history[-1]["loss"]})
     checkpoint = None
-    if ckpt:
-        ckpt.save(steps, {"params": params, "opt": opt_state}, {"step": steps})
-        ckpt.close()
-        checkpoint = {"path": ckpt.latest_path(), "saves": ckpt.timings}
-        print(f"[train] checkpoint at {checkpoint['path']}", flush=True)
+    if ckpt_dir:
+        save(steps, {"step": steps})
+        checkpoint = {"path": os.path.join(ckpt_dir, f"step_{steps:08d}.npz"), "saves": [], "gather_s": gather_s}
+        if ckpt:
+            ckpt.close()
+            checkpoint.update(path=ckpt.latest_path(), saves=ckpt.timings)
+            print(f"[train] checkpoint at {checkpoint['path']}", flush=True)
     return {"params": params, "opt_state": opt_state, "history": history, "checkpoint": checkpoint}
 
 

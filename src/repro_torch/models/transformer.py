@@ -60,6 +60,23 @@ def _save_dots(ctx, op, *args, **kwargs):
     return ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
+@contextlib.contextmanager
+def _entered(*contexts):
+    with contextlib.ExitStack() as stack:
+        for c in contexts:
+            stack.enter_context(c)
+        yield
+
+
+def _recompute_as_run(contexts: Optional[Callable] = None):
+    """``context_fn`` of a checkpoint: the recomputation in the backward runs
+    under the attention impl that the forward ran under (a batch that
+    ``_inputs_to_embeds`` pins to the masked plain ``sdpa`` leaves that pin
+    before its backward), inside ``contexts``' pair where given."""
+    forward, recompute = contexts() if contexts else (contextlib.nullcontext(), contextlib.nullcontext())
+    return forward, _entered(recompute, attn.force_impl(attn.get_attention_impl()))
+
+
 def _remat(fn: Callable, policy: str) -> Callable:
     """``fn`` as the reference's ``_remat`` wraps it: "none" keeps every
     activation, "full" keeps only the inputs and recomputes the rest in the
@@ -68,9 +85,10 @@ def _remat(fn: Callable, policy: str) -> Callable:
         return fn
     if policy == "dots":
         context = functools.partial(ckpt.create_selective_checkpoint_contexts, _save_dots)
-        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, context_fn=context)
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                                 context_fn=functools.partial(_recompute_as_run, context))
     if policy == "full":
-        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, context_fn=_recompute_as_run)
     raise ValueError(f"unknown remat policy {policy!r}")
 
 

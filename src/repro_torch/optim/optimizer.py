@@ -150,11 +150,11 @@ def make_train_step(loss_fn: Callable[[Params, Dict], Any], opt_cfg: OptimizerCo
     accum_steps > 1 splits the batch on dim 0 and sums each microbatch's
     gradients, divided by ``accum_steps``, into f32 sums.
 
-    A ``PipelineLoss`` (``repro_torch/parallel/pipeline.py``) gives this
-    rank's loss and its gradients, already summed over the ranks, in place of
+    A ``PipelineLoss`` (``repro_torch/parallel/pipeline.py``) or a
+    ``DataParallelLoss`` (``parallel/data_parallel.py``) gives this rank's
+    loss and its gradients, already summed over the ranks, in place of
     autograd of a scalar loss; the clip then sees its ``grad_norm``, the norm
-    of the whole model's gradient, and each rank updates its own layers and
-    its copy of the leaves outside the stack."""
+    of the whole model's gradient, and each rank updates the leaves it holds."""
     pipelined = hasattr(loss_fn, "grad_norm")
 
     def train_step(params: Params, opt_state: OptState, batch: Dict[str, torch.Tensor]):

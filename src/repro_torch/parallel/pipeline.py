@@ -48,11 +48,12 @@ with no gradient, as in the reference.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.convert import flatten, tree_map
+from repro_torch.convert import flatten, tree_map, unflatten
 from repro_torch.models.modules import ModelConfig, Params
 from repro_torch.models.transformer import (
     _batch_positions,
@@ -62,6 +63,7 @@ from repro_torch.models.transformer import (
     _unstack,
     build_pipeline_parts,
 )
+from repro_torch.optim.optimizer import OptState
 from repro_torch.parallel.transport import Transport
 
 BOUNDARIES = ("striped", "direct")
@@ -113,6 +115,74 @@ def stage_params(params: Params, cfg: ModelConfig, mesh) -> Params:
     lo, hi = stage_layer_range(L, mesh.shape["pod"], mesh.coords["pod"])
     lo, hi = min(lo, L), min(hi, L)
     return {k: (tree_map(lambda t: t[lo:hi].detach().clone(), v) if k == key else v) for k, v in params.items()}
+
+
+def assemble_params(stages: Sequence[Params], cfg: ModelConfig) -> Params:
+    """The inverse of ``stage_params``: the whole model from the stages' trees
+    in ``pod`` order, the rows of the stack concatenated in layer order, every
+    leaf outside it from stage 0."""
+    key = build_pipeline_parts(cfg).layer_key
+    layers = [flatten(s[key]) for s in stages]
+    whole = unflatten({p: torch.cat([f[p] for f in layers], 0) for p in layers[0]})
+    return {k: (whole if k == key else v) for k, v in stages[0].items()}
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bit patterns summed as int64: equal tensors give equal sums."""
+    view = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]
+    return t.detach().contiguous().reshape(-1).view(view).sum(dtype=torch.int64)
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu", copy=True).contiguous()
+
+
+def gather_train_state(params: Params, opt_state, cfg: ModelConfig, mesh) -> Optional[Dict[str, Any]]:
+    """The whole, unpadded train state ``{"params", "opt"}`` of a pipelined
+    run, on rank 0's host; None on every other rank.  Every rank must call it.
+
+    The stack's rows and their moments come from the rank of each stage in
+    rank 0's ``data`` and ``model`` coordinates, received by rank 0 over
+    ``pod`` on the host (``gloo`` point to point, CPU tensors, nothing through
+    the card) and put back in layer order (``assemble_params``); the leaves
+    outside the stack, their moments and ``.step`` are rank 0's.  Those are
+    replicated: before the gather every rank's sums of their bit patterns are
+    held equal over the world (all-reduced as a minimum and a maximum), and a
+    rank that differs raises on every rank."""
+    key = build_pipeline_parts(cfg).layer_key
+    trees = {"params": params, "mu": opt_state.mu, "nu": opt_state.nu}
+    replicated = [opt_state.step] + [t for tree in trees.values() for k, v in tree.items() if k != key
+                                     for t in flatten({k: v}).values()]
+    if mesh.size > 1:
+        sums = torch.stack([_bits(t).cpu() for t in replicated])
+        lo, hi = sums.clone(), sums.clone()
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+        if not torch.equal(lo, hi):
+            raise RuntimeError(f"rank {mesh.rank}: the replicated leaves or the step differ across the ranks")
+
+    if mesh.coords["data"] or mesh.coords["model"]:
+        return None
+    L, S = stack_length(cfg), mesh.shape["pod"]
+    if mesh.coords["pod"]:
+        for tree in trees.values():
+            for t in flatten(tree[key]).values():
+                if t.numel():
+                    dist.send(_host(t), mesh.rank_at(pod=0))
+        return None
+    out = {}
+    for name, tree in trees.items():
+        stages = [tree_map(_host, tree)]
+        for s in range(1, S):
+            lo_s, hi_s = (min(i, L) for i in stage_layer_range(L, S, s))
+            rows = {}
+            for path, t in flatten(tree[key]).items():
+                rows[path] = torch.empty((hi_s - lo_s,) + tuple(t.shape[1:]), dtype=t.dtype)
+                if rows[path].numel():
+                    dist.recv(rows[path], mesh.rank_at(pod=s))
+            stages.append({key: unflatten(rows)})
+        out[name] = assemble_params(stages, cfg)
+    return {"params": out["params"], "opt": OptState(_host(opt_state.step), out["mu"], out["nu"])}
 
 
 def _microbatch(batch: Dict[str, torch.Tensor], rows: slice) -> Dict[str, torch.Tensor]:

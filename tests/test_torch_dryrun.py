@@ -5,13 +5,14 @@ table functions against the reference's (``benchmarks/roofline.py``) on the
 same files."""
 import dataclasses
 import json
+import math
 
 import pytest
 import torch
 
 import benchmarks.roofline as ref_roofline
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.convert import flatten
+from repro_torch.convert import expected_shapes, flatten
 from repro_torch.launch import dryrun, roofline
 from repro_torch.launch import shapes as shp
 from repro_torch.launch.mesh import Mesh
@@ -181,8 +182,16 @@ def test_run_one_completes_full_size_combinations(full_results, combo):
 
 
 def test_single_train_and_encoder_decode_are_skipped_with_reasons():
+    """Single x train is no longer skipped (slice 7d): one rank of (16, 16)
+    runs the plain data-parallel step on its 16 rows of the batch with the
+    whole f32 state, and all-reduces every gradient and the loss's count and
+    value over ``data`` alone.  The encoder's decodes stay skipped."""
     r = dryrun.run_one("gpt_a", "train_4k", "single")
-    assert r["status"] == "skipped" and "7d" in r["reason"]
+    n = sum(math.prod(s) for s in expected_shapes(shp.config_for("gpt_a", "train_4k")).values())
+    assert r["status"] == "ok" and r["program"] == "data_parallel" and r["rows_per_rank"] == 16
+    assert r["memory"]["argument_bytes"] > 12 * n  # f32 parameters and two moments
+    assert r["collectives"]["by_axis"]["data"] == {"send": 0, "all_reduce": 4 * n + 8, "all_gather": 0}
+    assert not any(r["collectives"]["by_axis"]["model"].values()) and r["collectives"]["dcn"] == 0
     r = dryrun.run_one("hubert_xlarge", "decode_32k", "multi")
     assert r["status"] == "skipped" and "encoder-only" in r["reason"]
 

@@ -56,7 +56,9 @@ def test_package_has_every_serving_module():
             "obs/tracer.py", "obs/schema.py", "obs/metrics.py", "obs/crosscheck.py", "obs/export.py", "obs/emit.py",
             "core/__init__.py", "core/wan.py", "core/topology.py", "core/simulator.py", "core/temporal.py",
             "core/fastforward.py", "core/validate.py", "core/dc_selection.py", "core/bubbletea.py",
-            "core/failures.py", "core/control.py", "core/fleet.py", "core/reference.py"}
+            "core/failures.py", "core/control.py", "core/fleet.py", "core/reference.py",
+            "parallel/data_parallel.py", "examples/__init__.py", "examples/whatif.py", "examples/bubbletea_serve.py",
+            "examples/quickstart.py", "examples/train_100m.py", "examples/geo_train.py"}
     assert want <= have
     csrc = {p.name for p in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").iterdir()}
     assert {"rmsnorm.cu", "flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu", "wkv6.cu"} <= csrc
@@ -73,6 +75,8 @@ import repro_torch.serving.engine, repro_torch.launch.serve, repro_torch.convert
 import repro_torch.models.rwkv, repro_torch.models.ssm, repro_torch.launch.train, repro_torch.optim.optimizer, repro_torch.data.pipeline
 import repro_torch.ckpt.checkpoint, repro_torch.launch.mesh, repro_torch.parallel.pipeline, repro_torch.parallel.sharding
 import repro_torch.core, repro_torch.core.reference, repro_torch.obs, repro_torch.obs.__main__, repro_torch.units
+import repro_torch.parallel.data_parallel, repro_torch.examples.whatif, repro_torch.examples.bubbletea_serve
+import repro_torch.examples.quickstart, repro_torch.examples.train_100m, repro_torch.examples.geo_train
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro") for m in sys.modules)
 print("imported")
 """
@@ -110,6 +114,23 @@ def test_entry_points_raise_without_a_card_unless_the_cpu_is_asked_for():
         train.main(["--arch", "gpt-a", "--smoke", "--steps", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         train.train(cfg, steps=1, batch=2, seq=8)
+
+
+@pytest.mark.parametrize("example, kwargs", [("quickstart", {"steps": 1}), ("bubbletea_serve", {}),
+                                             ("geo_train", {"steps": 1}), ("train_100m", {"argv": ["--steps", "1"]})])
+def test_examples_raise_without_a_card_unless_the_cpu_is_asked_for(example, kwargs, tmp_path, capsys):
+    """Each example that trains or serves refuses before it prints or writes
+    anything (``whatif`` is host code and has no device)."""
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.examples.{example}")
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: nothing to refuse")
+    if "argv" in kwargs:
+        kwargs = {"argv": kwargs["argv"] + ["--ckpt-dir", str(tmp_path / "ck")]}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(**kwargs)
+    assert capsys.readouterr().out == "" and not (tmp_path / "ck").exists()
 
 
 def test_chip_smoke_fails_without_a_card_and_prints_no_result():

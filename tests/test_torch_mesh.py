@@ -2,9 +2,10 @@
 mesh shapes against the reference's arithmetic (its ``make_host_mesh`` and
 ``make_production_mesh`` over n stand-in devices), the row-major rank layout,
 a world of one process as a mesh of ones whose collectives are identities,
-and the launcher's refusals: a mesh other than the world, a multi-rank mesh
-without ``--pipeline`` and checkpoints under it."""
+and the launcher's refusal of a multi-rank mesh without process groups
+(data parallelism and checkpoints under ``--pipeline`` now run)."""
 import dataclasses
+import os
 
 import pytest
 import torch
@@ -77,13 +78,17 @@ def test_a_world_of_one_is_a_mesh_of_ones_with_identity_collectives():
         tr.send(t, "pod", 1)
 
 
-def test_the_launcher_refuses_what_is_not_ported():
+def test_the_launcher_refuses_what_is_not_ported(tmp_path):
+    """Slices 7d and 7c are ported: a plain step over several ranks needs the
+    mesh's process groups (``make_mesh``) and refuses a mesh without them, and
+    a pipelined run on a world of one saves its state as a plain run does."""
     cfg = configs.get_smoke_config("gpt_a")
-    with pytest.raises(NotImplementedError, match="slice 7d"):
+    with pytest.raises(RuntimeError, match="make_mesh"):
         train(cfg, steps=1, batch=8, seq=8, device="cpu", mesh=mesh.Mesh((2, 2), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="slice 7c"):
-        train(cfg, steps=1, batch=8, seq=8, device="cpu", pipeline=True, ckpt_dir="unused",
-              mesh=mesh.Mesh((1, 1, 1), ("pod", "data", "model")))
+    out = train(cfg, steps=1, batch=8, seq=8, device="cpu", pipeline=True, ckpt_dir=str(tmp_path),
+                mesh=mesh.Mesh((1, 1, 1), ("pod", "data", "model")))
+    assert out["checkpoint"]["path"] == str(tmp_path / "step_00000001.npz")
+    assert os.path.exists(out["checkpoint"]["path"])
 
 
 def test_the_pipeline_refuses_what_the_reference_refuses():

@@ -132,7 +132,27 @@ def test_random_specs(stages, M, preset, policy, d, data):
     cap = data.draw(st.sampled_from([None, 1, 2, stages]))
 
     def build(m):
+        """The result, or the package's own invariant fault as (name, message):
+        a draw may land on a fault of the reference (ROADMAP.md Queue 3 (l),
+        (m)), which the copy must raise alike."""
         spec = m.simulator.PipelineSpec(num_stages=stages, microbatches=M, t_fwd_ms=t_fwd, act_bytes=act,
                                         stage_dc=stage_dc, stage_param_bytes=params, inflight_cap=cap)
-        return m.simulator.simulate(spec, m.topology.preset(preset), policy=policy, n_pipelines=d, validate=True)
+        try:
+            return m.simulator.simulate(spec, m.topology.preset(preset), policy=policy, n_pipelines=d, validate=True)
+        except m.validate.InvariantViolation as e:
+            return ("InvariantViolation", str(e))
     same(build)
+
+
+@pytest.mark.parametrize("preset", ["azure", "skewed", "star", "chain"])
+def test_gpipe_under_an_inflight_cap_of_one_faults_alike(preset):
+    """ROADMAP.md Queue 3 (m): GPipe under an in-flight cap of 1 stops short
+    in the reference; the copy raises the same ``InvariantViolation``."""
+    def build(m):
+        spec = m.simulator.PipelineSpec(num_stages=2, microbatches=2, t_fwd_ms=1.0, act_bytes=1e5, stage_dc=(0, 0),
+                                        stage_param_bytes=0.0, inflight_cap=1)
+        with pytest.raises(m.validate.InvariantViolation) as e:
+            m.simulator.simulate(spec, m.topology.preset(preset), policy="gpipe", validate=True)
+        return str(e.value)
+    ref, port = same(build)
+    assert "stage did not run M forwards + M backwards" in ref

@@ -120,43 +120,43 @@ def assemble(results, key: str, boundary: str) -> dict:
     return out
 
 
-def reference_microbatch_mean(ref_cfg, ref_params, batch_np: dict, num_stages: int, chunks: int):
-    """``jax.value_and_grad`` of the reference's pipelined loss over one
-    device: the mean over the ``chunks`` row chunks of the batch (microbatch m,
-    data shard d is chunk m * DP + d) of ``final_loss`` plus the layers' aux,
-    each chunk through the reference's ``build_pipeline_parts`` over the stack
-    padded for ``num_stages``, as ``repro/parallel/pipeline.py`` computes it."""
+def reference_pipeline_loss(ref_cfg, num_stages: int, chunks: int):
+    """``loss(params, batch)`` of the reference's pipelined step over one
+    device (JAX arrays): the mean over the ``chunks`` row chunks of the batch
+    (microbatch m, data shard d is chunk m * DP + d) of ``final_loss`` plus the
+    layers' aux, each chunk through the reference's ``build_pipeline_parts``
+    over the stack padded for ``num_stages``, as ``repro/parallel/pipeline.py``
+    computes it."""
     import jax
     import jax.numpy as jnp
     from repro.models.transformer import build_pipeline_parts
     from repro.parallel.pipeline import pad_layer_stack
 
     parts = build_pipeline_parts(ref_cfg)
-    batch = {k: jnp.asarray(v) for k, v in batch_np.items()}
-    embeds = "embeds" in batch
-    B, T = (batch["embeds"] if embeds else batch["tokens"]).shape[:2]
-    c = B // chunks
-    if "positions" in batch:
-        positions = batch["positions"]
-    else:
-        positions = jnp.broadcast_to(jnp.arange(T, dtype=jnp.int32)[None], (B, T))
-        if ref_cfg.mrope_sections is not None:
-            positions = jnp.broadcast_to(positions[None], (3, B, T))
-    if positions.ndim == 3:
-        pos_c = positions.reshape(3, chunks, c, T).transpose(1, 0, 2, 3)
-    else:
-        pos_c = positions.reshape(chunks, c, T)
-    targets = batch.get("labels")
-    if targets is None:
-        targets = jnp.pad(batch["tokens"][:, 1:], ((0, 0), (0, 1)))
-        mask = jnp.ones_like(targets, jnp.float32).at[:, -1].set(0.0)
-    else:
-        mask = batch.get("mask", jnp.ones_like(targets, jnp.float32))
-    inp = batch["embeds"] if embeds else batch["tokens"]
-    inp_c = inp.reshape((chunks, c) + inp.shape[1:])
-    t_c, m_c = targets.reshape(chunks, c, T), mask.reshape(chunks, c, T)
 
-    def loss(params):
+    def loss(params, batch):
+        embeds = "embeds" in batch
+        B, T = (batch["embeds"] if embeds else batch["tokens"]).shape[:2]
+        c = B // chunks
+        if "positions" in batch:
+            positions = batch["positions"]
+        else:
+            positions = jnp.broadcast_to(jnp.arange(T, dtype=jnp.int32)[None], (B, T))
+            if ref_cfg.mrope_sections is not None:
+                positions = jnp.broadcast_to(positions[None], (3, B, T))
+        if positions.ndim == 3:
+            pos_c = positions.reshape(3, chunks, c, T).transpose(1, 0, 2, 3)
+        else:
+            pos_c = positions.reshape(chunks, c, T)
+        targets = batch.get("labels")
+        if targets is None:
+            targets = jnp.pad(batch["tokens"][:, 1:], ((0, 0), (0, 1)))
+            mask = jnp.ones_like(targets, jnp.float32).at[:, -1].set(0.0)
+        else:
+            mask = batch.get("mask", jnp.ones_like(targets, jnp.float32))
+        inp = batch["embeds"] if embeds else batch["tokens"]
+        inp_c = inp.reshape((chunks, c) + inp.shape[1:])
+        t_c, m_c = targets.reshape(chunks, c, T), mask.reshape(chunks, c, T)
         layers = pad_layer_stack(params[parts.layer_key], num_stages)
         rest = {k: v for k, v in params.items() if k != parts.layer_key}
 
@@ -169,7 +169,18 @@ def reference_microbatch_mean(ref_cfg, ref_params, batch_np: dict, num_stages: i
         total, _ = jax.lax.scan(chunk, jnp.float32(0.0), (inp_c, pos_c, t_c, m_c))
         return total / chunks
 
-    value, grads = jax.jit(jax.value_and_grad(loss))(ref_params)
+    return loss
+
+
+def reference_microbatch_mean(ref_cfg, ref_params, batch_np: dict, num_stages: int, chunks: int):
+    """``jax.value_and_grad`` of ``reference_pipeline_loss`` on one batch:
+    (value, flat gradients)."""
+    import jax
+    import jax.numpy as jnp
+
+    loss = reference_pipeline_loss(ref_cfg, num_stages, chunks)
+    batch = {k: jnp.asarray(v) for k, v in batch_np.items()}
+    value, grads = jax.jit(jax.value_and_grad(lambda p: loss(p, batch)))(ref_params)
     return float(value), {k: np.asarray(v) for k, v in _jax_flat(grads).items()}
 
 
@@ -263,3 +274,27 @@ def stack_rows(tree) -> int:
     from repro_torch.convert import flatten
 
     return next(iter(flatten(tree).values())).shape[0]
+
+
+def train_rank(rank: int, runs) -> list:
+    """This rank of ``launch.train.train`` for each (cfg, mesh shape, axes,
+    keyword arguments) of ``runs`` in turn, on the CPU: each run's history
+    and this rank's final state (params, mu, nu flat; step).  Parameters
+    given in ``kwargs`` are copied first: the spawned ranks receive them in
+    shared memory, and ``train`` updates them in place."""
+    from repro_torch.convert import tree_map
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train
+
+    out = []
+    for cfg, shape, axes, kwargs in runs:
+        if kwargs.get("params") is not None:
+            kwargs = {**kwargs, "params": tree_map(lambda t: t.clone(), kwargs["params"])}
+        mesh = make_mesh(shape, axes)
+        res = train(cfg, device="cpu", mesh=mesh, **kwargs)
+        st = res["opt_state"]
+        out.append({"coords": mesh.coords, "losses": [h["loss"] for h in res["history"]],
+                    "bytes": res["history"][-1].get("bytes"), "checkpoint": res["checkpoint"],
+                    "params": {k: v.detach() for k, v in _flat(res["params"]).items()},
+                    "mu": _flat(st.mu), "nu": _flat(st.nu), "step": st.step})
+    return out
