@@ -128,6 +128,8 @@ from repro_torch.parallel.pipeline import (  # noqa: E402
     stage_layer_range,
     stage_params,
 )
+from repro_torch.parallel.sharding import local_block, shard_params  # noqa: E402
+from repro_torch.parallel.tensor_parallel import is_split, model_plan  # noqa: E402
 from repro_torch.parallel.transport import MetaTransport  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
     Request,
@@ -614,14 +616,16 @@ def check_flash_bwd(ck: Checker, gen) -> None:
     # (full, both ways) and D 32, 64 and 128; then head size 80: HuBERT-XLarge's
     # encoder (4 x 1024 frames, 16 heads, non-causal), a ragged causal group of
     # 3 and a T != S, and Zamba2-2.7B's shared block (4 x 512, 32 heads, causal);
-    # last a pipelined microbatch's data shard: GPT-A's 1 or 2 rows, Zamba2's 1
+    # then a pipelined microbatch's data shard: GPT-A's 1 or 2 rows, Zamba2's 1;
+    # last a tensor-parallel GPT-A rank's 16 of the 32 heads (phase train_tp)
     cases = [(4, 512, 512, 32, 32, 128, True), (2, 77, 77, 4, 2, 64, True), (2, 77, 77, 4, 2, 64, False),
              (1, 300, 300, 24, 8, 128, True), (1, 300, 300, 24, 8, 128, False), (2, 512, 512, 4, 2, 64, True),
              (1, 512, 512, 8, 8, 128, False), (1, 70, 300, 4, 2, 128, False), (1, 300, 70, 6, 3, 64, False),
              (2, 128, 128, 6, 1, 32, True), (2, 17, 17, 8, 8, 128, True),
              (4, 1024, 1024, 16, 16, 80, False), (2, 200, 200, 6, 2, 80, True), (1, 150, 260, 4, 4, 80, False),
              (4, 512, 512, 32, 32, 80, True),
-             (1, 512, 512, 32, 32, 128, True), (2, 512, 512, 32, 32, 128, True), (1, 512, 512, 32, 32, 80, True)]
+             (1, 512, 512, 32, 32, 128, True), (2, 512, 512, 32, 32, 128, True), (1, 512, 512, 32, 32, 80, True),
+             (4, 512, 512, 16, 16, 128, True)]
     for dtype in BWD_TOL:
         for B, T, S, Hq, Hkv, D, causal in cases:
             q, do = randn(gen, (B, T, Hq, D), dtype), randn(gen, (B, T, Hq, D), dtype)
@@ -1145,10 +1149,11 @@ def measure_backward(gen) -> dict:
 
     # K2 backward: one layer's causal training attention, 4 x 512 tokens, 32 heads of 128;
     # ("long_") a 4K context, one sequence; ("hubert_") HuBERT-XLarge's encoder, non-causal,
-    # heads of 80; ("zamba_") Zamba2-2.7B's shared block, causal, heads of 80
+    # heads of 80; ("zamba_") Zamba2-2.7B's shared block, causal, heads of 80; ("tp_") a
+    # tensor-parallel GPT-A rank's 16 of the 32 heads (phase train_tp)
     out["flash_attention_bwd"] = flash_bwd_row(gen, TRAIN_BATCH, TRAIN_SEQ, 32, 128, True)
     for label, B, T, H, D, causal in (("long_", 1, 4096, 32, 128, True), ("hubert_", 4, 1024, 16, 80, False),
-                                      ("zamba_", 4, 512, 32, 80, True)):
+                                      ("zamba_", 4, 512, 32, 80, True), ("tp_", 4, 512, 16, 128, True)):
         out["flash_attention_bwd"].update({label + key: val for key, val in
                                            flash_bwd_row(gen, B, T, H, D, causal, iters=3).items()})
     out["wkv6_bwd"] = wkv6_bwd_row(gen, TRAIN_BATCH, TRAIN_SEQ, 64, 64)
@@ -2493,6 +2498,15 @@ def dryrun_steps() -> dict:
     steps["pipe_zamba_2x1x1_striped"] = functools.partial(
         pipelined, dataclasses.replace(get_config("zamba2_2p7b"), dtype=torch.bfloat16), (2, 1, 1), "striped",
         HYBRID_PIPE_BATCH)
+
+    def tensor_parallel(cfg, shape, batch):
+        mesh = Mesh(*shape, 0)
+        model, plan = build_model(cfg), model_plan(cfg, mesh)
+        args = (shard_params(dryrun.meta_params(model), mesh, plan), dryrun.train_batch(cfg, batch, TRAIN_SEQ))
+        loss_fn = DataParallelLoss(model.loss, mesh, transport=MetaTransport(mesh), plan=plan)
+        return (lambda: loss_fn(*args)), args, loss_fn.transport
+
+    steps[TP_CHECK] = functools.partial(tensor_parallel, train_config(TP_LAYERS, torch.bfloat16), TP_MESH, TP_BATCH)
     return steps
 
 
@@ -2691,8 +2705,8 @@ def phase_dryrun(started: list) -> None:
                        "device_over_bound": x["roofline"]["device_over_bound"], "failures": x["failures"]}
                       for x in DRYRUN_LINES],
           "run_one": combos, "note": "run_one's seconds are the host's; its roofline is computed, not measured"})
-    if len(DRYRUN_LINES) != 7:
-        raise AssertionError(f"dry-run: {len(DRYRUN_LINES)} comparisons made, 7 owed")
+    if len(DRYRUN_LINES) != 8:
+        raise AssertionError(f"dry-run: {len(DRYRUN_LINES)} comparisons made, 8 owed")
     check_dryrun_lines(DRYRUN_LINES)
 
 
@@ -3191,6 +3205,197 @@ def phase_train_dp() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase train_tp: tensor parallelism over model on the plain step (slice 7b-i)
+# ---------------------------------------------------------------------------
+
+# GPT-A at full width with 4 of its 24 layers on a (data, model) = (2, 2) mesh:
+# four gloo ranks that share the card, each holding its shards under the
+# reference's placement plan (every matrix halved: 608,735,232 of the
+# 1,217,433,600 parameters, 9.74 GB of f32 parameters, gradients and moments)
+TP_MESH = ((2, 2), ("data", "model"))
+TP_LAYERS, TP_STEPS, TP_BATCH = 4, 2, 8
+TP_REDUCED = {"num_layers": "24 -> 4", "why": "four ranks share the card's 80 GB: each makes the whole model "
+              "(4.87 GB of f32 parameters at 4 layers) from the seed before it cuts its shards and trains them"}
+TP_TOL = TRAIN_PARITY_TOL["bf16"]  # the port's bf16 kernel path against the plain one, loss and a leaf in norm
+TP_CHECK = "tp_gpt_a_2x2"  # the dry-run's prediction of rank 0's held call
+
+
+def tp_reference(cfg, path: str) -> dict:
+    """The plain one-process step's loss and gradients of ``cfg`` from the
+    seed on the first TP_BATCH x TRAIN_SEQ batch, computed once on the card
+    before the ranks start; the gradients saved at ``path`` (flat, on the
+    host) for the ranks to read their blocks of, and the card freed."""
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    whole = model.init(gen)
+    b0 = next(make_batches(cfg, DataConfig(seed=SEED, batch_size=TP_BATCH, seq_len=TRAIN_SEQ)))
+    b0 = {k: torch.from_numpy(v).to("cuda") for k, v in b0.items()}
+    torch.cuda.reset_peak_memory_stats()
+    loss, _, grads = accumulated_value_and_grad(model.loss, whole, b0)
+    out = {"loss": float(loss), "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    torch.save({p: g.cpu() for p, g in grads.items()}, path)
+    del whole, grads, b0
+    release()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def tp_rank(rank: int, world: int, cfg, predicted, ref_path: str, store: str) -> None:
+    """One rank of the tensor-parallel run on the card: joins TP_MESH, makes
+    the whole model from the seed and keeps its shards (``shard_params``),
+    holds one ``DataParallelLoss`` call with the plan on the first batch
+    (rank 0's against its dry-run, ``hold_dryrun``) and sums, leaf by leaf,
+    its gradient blocks' squared differences from the one-process reference
+    at ``ref_path`` and the reference's squares; then trains TP_STEPS steps
+    through ``launch.train.train`` on the mesh, counting the kernels' launches
+    from zero, and hashes its final shards and moments.  Writes its results
+    as JSON beside ``store``."""
+    join_as_rank(rank, world, store)
+    try:
+        mesh = make_mesh(*TP_MESH)
+        model, plan = build_model(cfg), model_plan(cfg, mesh)
+        specs = flatten(plan)
+        b0 = next(make_batches(cfg, DataConfig(seed=SEED, batch_size=TP_BATCH, seq_len=TRAIN_SEQ)))
+        b0 = {k: torch.from_numpy(v).to("cuda") for k, v in b0.items()}
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        whole = model.init(gen)
+        params = shard_params(whole, mesh, plan)
+        del whole
+        release()
+        loss_fn = DataParallelLoss(model.loss, mesh, plan=plan)
+        held = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if rank == 0:
+            held, (loss, grads) = hold_dryrun(f"{cfg.name} tensor-parallel call, rank 0 of 2x2", TP_CHECK, predicted,
+                                              lambda: loss_fn(params, b0), (params, b0), backward=True,
+                                              transport=loss_fn.transport)
+        else:
+            loss, grads = loss_fn(params, b0)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        ref = torch.load(ref_path, mmap=True, weights_only=True)
+        sums = {}
+        for p, g in grads.items():
+            r = local_block(ref[p], specs[p], mesh).to("cuda")
+            sums[p] = [float((g.float() - r).square().sum()), float(r.square().sum())]
+        out = {"rank": rank, "coords": mesh.coords,
+               "local_heads": params["layers"]["attn"]["wq"].shape[-1] // cfg.resolved_head_dim,
+               "split": sorted(p for p, spec in specs.items() if is_split(spec)),
+               "parity": {"loss": float(loss), "sums": sums,
+                          "finite": all(bool(torch.isfinite(g).all()) for g in grads.values()),
+                          "call_seconds": call_s, "bytes": loss_fn.transport.counts(),
+                          "transport_seconds": loss_fn.transport.times(), "dryrun": held}}
+        del params, grads, loss_fn, ref, r
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        t0 = time.perf_counter()
+        res = train(cfg, steps=TP_STEPS, batch=TP_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR, seed=SEED, log_every=TP_STEPS,
+                    device="cuda", mesh=mesh)
+        hist = res["history"]
+        out["train"] = {"counters": read_counters(), "losses": [h["loss"] for h in hist],
+                        "grad_norms": [h["grad_norm"] for h in hist], "step_ms": [h["seconds"] * 1e3 for h in hist],
+                        "bytes": [h["bytes"] for h in hist], "transport_seconds": [h["transport_seconds"] for h in hist],
+                        "peak_memory_bytes": torch.cuda.max_memory_allocated(), "seconds": time.perf_counter() - t0}
+        out["digests"] = leaf_digests({"params": res["params"], "opt": res["opt_state"]})
+        with open(f"{store}.rank{rank}.json", "w") as f:
+            json.dump([out], f)
+    finally:
+        dist.destroy_process_group()
+
+
+def per_step(cumulative: list) -> list:
+    """Each step's share of ``Transport`` counters read after every step: by axis and op."""
+    prev, out = {}, []
+    for c in cumulative:
+        out.append({a: {op: v - prev.get(a, {}).get(op, 0) for op, v in ops.items()} for a, ops in c.items()})
+        prev = c
+    return out
+
+
+def phase_train_tp(started) -> dict:
+    """GPT-A at full width with TP_LAYERS layers on TP_MESH (``tp_rank``),
+    tensor-parallel over ``model``: raises unless (a) each rank's step 0 loss
+    and every gradient leaf, gathered whole, are within TP_TOL of the plain
+    one-process step on the same batch (``tp_reference``, computed once), (b)
+    the trained run's first loss is that call's, (c) the counters show
+    exactly ``train_owed`` a rank a step, with K2 on the rank's 16 heads, and
+    (d) the two ``data`` replicas of each ``model`` index are bit-equal after
+    the steps and the leaves the plan leaves whole bit-equal on all four
+    ranks; rank 0's call is held against its dry-run.  Prints each rank's
+    step ms, peak, and bytes and seconds a step by axis and op; returns the
+    counters summed over the ranks."""
+    cfg = train_config(TP_LAYERS, torch.bfloat16)
+    world = math.prod(TP_MESH[0])
+    predicted = predictions(started)[TP_CHECK]
+    os.makedirs(PIPE_DIR, exist_ok=True)
+    ref_path = os.path.join(PIPE_DIR, "tp_reference.pt")
+    reference = tp_reference(cfg, ref_path)
+    t0 = time.perf_counter()
+    ranks = [r[0] for r in spawn_ranks(tp_rank, world, cfg, predicted, ref_path)]
+    wall = time.perf_counter() - t0
+    owed = train_owed(2 * TP_LAYERS, TP_LAYERS)
+    want = {k: TP_STEPS * v for k, v in owed.items()}
+    split = set(ranks[0]["split"])
+    failures, total = [], dict.fromkeys(want, 0)
+    leaves = {}  # leaf -> [sum of squared differences, sum of the reference's squares], whole
+    for r in ranks:
+        p, t = r["parity"], r["train"]
+        p["loss_rel_diff"] = abs(p["loss"] - reference["loss"]) / abs(reference["loss"])
+        if not (p["finite"] and p["loss_rel_diff"] <= TP_TOL["loss_rel"]):
+            failures.append((r["rank"], "loss", p["loss"], reference["loss"]))
+        for leaf, (d, w) in p.pop("sums").items():
+            if r["coords"]["data"] == 0 and (leaf in split or r["coords"]["model"] == 0):
+                acc = leaves.setdefault(leaf, [0.0, 0.0])
+                acc[0], acc[1] = acc[0] + d, acc[1] + w
+        if p["dryrun"]:
+            DRYRUN_LINES.append(p["dryrun"])
+            failures += [(r["rank"], "dryrun", p["dryrun"]["failures"])] if p["dryrun"]["failures"] else []
+        elif r["rank"] == 0:
+            failures.append((0, "dryrun", "the held call was not checked"))
+        if r["local_heads"] != cfg.num_heads // TP_MESH[0][1]:
+            failures.append((r["rank"], "heads", r["local_heads"]))
+        if not all(np.isfinite(t["losses"])) or t["losses"][0] != p["loss"]:
+            failures.append((r["rank"], "losses", t["losses"], p["loss"]))
+        if t["counters"] != want:
+            failures.append((r["rank"], "counters", t["counters"], want))
+        for k, v in t["counters"].items():
+            total[k] += v
+        t["bytes_per_step"] = per_step(t.pop("bytes"))
+        t["transport_seconds_per_step"] = per_step(t.pop("transport_seconds"))
+    gaps = {leaf: math.sqrt(d) / max(math.sqrt(w), 1e-30) for leaf, (d, w) in leaves.items()}
+    worst = max(gaps, key=gaps.get)
+    if gaps[worst] > TP_TOL["grad_rel"] or len(gaps) != len(expected_shapes(cfg)):
+        failures.append(("grads", worst, gaps[worst], len(gaps)))
+
+    def whole(key: str) -> bool:
+        return key.split("/", 2)[-1] not in split if key.startswith("opt/.") else key[len("params/"):] not in split
+
+    digests = {r["rank"]: r.pop("digests") for r in ranks}
+    coords = {r["rank"]: r["coords"] for r in ranks}
+    for a in digests:
+        for b in digests:
+            same_model = coords[a]["model"] == coords[b]["model"]
+            differ = sorted(k for k, v in digests[a].items() if digests[b][k] != v and (same_model or whole(k)))
+            if differ:
+                failures.append((a, b, "replicas differ", differ[:8]))
+    emit({"phase": "train_tp", "model": cfg.name, "reduced": TP_REDUCED, "mesh": dict(zip(TP_MESH[1], TP_MESH[0])),
+          "layers": cfg.num_layers, "batch": TP_BATCH, "seq": TRAIN_SEQ, "steps": TP_STEPS, "lr": TRAIN_LR,
+          "reference": {"what": "make_train_step(model.loss)'s loss and gradients on the same parameters and "
+                                "global batch, one process, once before the ranks", **reference},
+          "tol": TP_TOL, "grad_rel_diff": {"worst_leaf": worst, "worst": gaps[worst], "by_leaf": gaps},
+          "split_leaves": len(split), "replicas_bit_equal": not any("replicas differ" in f for f in failures),
+          "spawn_wall_seconds": wall, "counters_per_step": owed, "note": "the ranks share one card", "ranks": ranks})
+    if failures:
+        raise AssertionError(f"train_tp: {failures}")
+    return {f"train_tp {cfg.name} 2x2": total}
+
+
+# ---------------------------------------------------------------------------
 # phase examples: the five examples through their mains on the card
 # ---------------------------------------------------------------------------
 
@@ -3369,6 +3574,8 @@ def main() -> int:
     counts.update(phase_train_pipeline_hybrid(started))
     release()
     counts.update(phase_train_dp())
+    release()
+    counts.update(phase_train_tp(started))
     release()
     counts.update(phase_examples())
     release()

@@ -18,9 +18,13 @@ The programs (``ARCHS[:10]`` x ``SHAPES`` x single (16, 16) / multi (2, 16, 16))
     larger of the two stages'; each stage's figures are under ``stages``.
   * single x train: the port's plain data-parallel step (``DataParallelLoss``
     and the AdamW update) on one rank of the (16, 16) mesh: its ``data``
-    share of the global batch, the whole model's f32 state (the ``model``
-    ranks are replicas), and the gradients' all-reduce over ``data`` through a
-    ``MetaTransport``.
+    share of the global batch and the gradients' all-reduce over ``data``
+    through a ``MetaTransport``.  For the dense decoder family the step is
+    tensor-parallel over ``model`` (``"program": "data_parallel+tensor_parallel"``):
+    the rank's f32 state is its shards under the placement plan, fsdp off
+    (``param_bytes`` is ``plan_bytes(cfg, mesh, fsdp=False)``), and the
+    ``model`` axis's collectives are counted with the ``data`` axis's; every
+    other family's ``model`` ranks are replicas holding the whole model's state.
   * prefill / decode: the port has no tensor-parallel serving, so each rank
     serves a whole replica (the weights in ``cfg.dtype``, as the serving
     engine holds them) on its share of the global batch, ceil(B / ranks) rows
@@ -53,8 +57,9 @@ reduce-scatter and all-gather, as the reference's HLO count does) and sends as
 ``collective-permute``; ``dcn`` is the ``pod`` axis.  ``plan_bytes_per_device``
 is beside them: the f32 parameters a device would hold under the placement plan
 (``make_param_shardings``: fsdp by default for train shapes, ``--no-fsdp``,
-``--relayout``'s head-aligned (256 / tp, tp) mesh), which the port does not yet
-execute (ROADMAP 7b); ``--no-fsdp`` and ``--relayout`` change only that number.
+``--relayout``'s head-aligned (256 / tp, tp) mesh); the port executes the plan
+without fsdp for the dense family's single x train (FSDP is ROADMAP 7f), and
+``--no-fsdp`` and ``--relayout`` change only that number.
 
 The roofline's seconds are at one H100 SXM's published peaks at 700 W
 (``kernels/cost.py``: 989e12 FLOP/s bf16, 3.35e12 B/s HBM); a collective is
@@ -99,7 +104,8 @@ from repro_torch.models.transformer import build_model
 from repro_torch.optim.optimizer import OptimizerConfig, init_opt_state, make_train_step
 from repro_torch.parallel.data_parallel import DataParallelLoss
 from repro_torch.parallel.pipeline import PipelineLoss, stage_params
-from repro_torch.parallel.sharding import make_param_shardings
+from repro_torch.parallel.sharding import make_param_shardings, shard_params
+from repro_torch.parallel.tensor_parallel import model_plan
 from repro_torch.parallel.transport import MetaTransport
 from repro_torch.serving.engine import zeros_cache
 
@@ -305,14 +311,18 @@ def train_program(cfg, mesh: Mesh, batch: Dict[str, torch.Tensor], *, boundary: 
 def dp_train_program(cfg, mesh: Mesh, batch: Dict[str, torch.Tensor]
                      ) -> Tuple[Callable[[], Any], Any, MetaTransport]:
     """(step, its arguments, the transport) of ``mesh.rank``'s plain
-    data-parallel train step on ``meta``: the whole model's f32 parameters,
-    zero moments, and ``make_train_step`` over a ``DataParallelLoss`` with a
-    ``MetaTransport``, on the global ``batch``."""
+    data-parallel train step on ``meta``: the whole model's f32 parameters, or
+    its shards where ``tensor_parallel.model_plan`` gives a plan (the launcher's
+    rule), zero moments, and ``make_train_step`` over a ``DataParallelLoss``
+    with a ``MetaTransport``, on the global ``batch``."""
     model = build_model(cfg)
+    plan = model_plan(cfg, mesh)
     params = meta_params(model)
+    if plan is not None:
+        params = shard_params(params, mesh, plan)
     opt = init_opt_state(params)
     transport = MetaTransport(mesh)
-    step = make_train_step(DataParallelLoss(model.loss, mesh, transport=transport), OptimizerConfig())
+    step = make_train_step(DataParallelLoss(model.loss, mesh, transport=transport, plan=plan), OptimizerConfig())
     return (lambda: step(params, opt, batch)), (params, opt, batch), transport
 
 
@@ -462,11 +472,13 @@ def run_one(arch: str, shape: str, mesh_name: str, boundary: str = "striped",
     if kind == "train" and not multi_pod:
         batch = train_batch(cfg, s["global_batch"], s["seq_len"])
         fn, args, transport = dp_train_program(cfg, mesh, batch)
+        param_bytes = argument_bytes(args[0])
         counted = count(fn, args)
         del fn, args
         top = _figures(counted, collectives(transport.counts(), mesh))
-        result.update(program="data_parallel", rows_per_rank=s["global_batch"] // mesh.shape["data"],
-                      ranks_busy=ranks)
+        program = "data_parallel+tensor_parallel" if model_plan(cfg, mesh) is not None else "data_parallel"
+        result.update(program=program, rows_per_rank=s["global_batch"] // mesh.shape["data"], ranks_busy=ranks,
+                      param_bytes=param_bytes)
     elif kind == "train":
         batch = train_batch(cfg, s["global_batch"], s["seq_len"])
         figs = {}

@@ -28,14 +28,20 @@ mesh over the world (``--production-mesh``: the (2, 16, 16) mesh, which needs
 exactly 512 ranks).  Rank 0 prints the lines.  Without ``--pipeline`` the
 same world runs the plain step data-parallel on the host mesh (data, model)
 (``repro_torch.parallel.data_parallel``: each rank its ``data`` shard of the
-batch, the global masked mean, the gradients summed over ``data``; ``model``
-ranks are replicas).  A checkpoint holds the whole, unpadded state in either
-case and only rank 0 writes it: under ``--pipeline`` the stages' rows are
-gathered to rank 0 on the host first (``gather_train_state``), and every rank
-waits for the write.
+batch, the global masked mean, the gradients summed over ``data``), and on a
+``model`` axis of more than 1 tensor-parallel for the dense decoder family
+(``repro_torch.parallel.tensor_parallel``: each rank holds its shards of the
+parameters and moments by the reference's placement plan, ``shard_params``);
+the other families keep whole replicas on the ``model`` ranks, and rank 0's
+``[train]`` line says so (``tp=replicated (ROADMAP 7b-ii)``).  A checkpoint
+holds the whole, unpadded state in every case and only rank 0 writes it:
+under ``--pipeline`` the stages' rows, under tensor parallelism the split
+leaves, are gathered to rank 0 on the host first (``gather_train_state``),
+and every rank waits for the write.
 
   PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \\
       -m repro_torch.launch.train --arch gpt-a --smoke --steps 4 --batch 8 --seq 32 --device cpu
+      # the host mesh (data, model) = (2, 2), tensor-parallel over model
   PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 8 \\
       -m repro_torch.launch.train --arch gpt-a --smoke --pipeline --steps 4 --batch 8 --seq 32 \\
       --ckpt-dir local/ck --device cpu
@@ -58,8 +64,10 @@ from repro_torch.launch.mesh import TIMEOUT, Mesh, make_host_mesh, make_producti
 from repro_torch.models.modules import ModelConfig, Params
 from repro_torch.models.transformer import build_model
 from repro_torch.optim.optimizer import OptimizerConfig, init_opt_state, make_train_step
+from repro_torch.parallel import tensor_parallel as tp
 from repro_torch.parallel.data_parallel import DataParallelLoss
 from repro_torch.parallel.pipeline import gather_train_state, make_pipeline_loss, stage_params
+from repro_torch.parallel.sharding import shard_params
 
 
 def optimizer_config(lr: float, steps: int) -> OptimizerConfig:
@@ -83,10 +91,16 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, lr: float = 3e-
     over ``mesh`` (``n_micro`` microbatches, ``boundary`` "striped" or
     "direct"): ``params``, where given, are this rank's (``stage_params``),
     else the whole model is made from ``seed`` and cut to them.  Without it,
-    a mesh of more than one rank trains the whole model data-parallel over its
-    ``data`` axis (``DataParallelLoss``).  Only rank 0 of the mesh prints and
-    writes checkpoints; under ``pipeline`` every save first gathers the whole
-    state to it (``gather_train_state``) and every rank waits for the write.
+    a mesh of more than one rank trains data-parallel over its ``data`` axis
+    (``DataParallelLoss``), and where ``tensor_parallel.model_plan`` gives a
+    plan (a dense-family config, ``model`` > 1) tensor-parallel over
+    ``model``: ``params``, where given, are the whole model, which this rank
+    cuts to its shards (``shard_params``; the whole is then the caller's),
+    else the whole model is made from ``seed`` on ``device``, cut, and freed.
+    The returned ``params`` and ``opt_state`` are the rank's shards.  Only
+    rank 0 of the mesh prints and writes checkpoints; under ``pipeline`` or
+    tensor parallelism every save first gathers the whole state to it
+    (``gather_train_state``) and every rank waits for the write.
 
     Returns {"params", "opt_state", "history": [{"step", "loss", "grad_norm",
     "lr", "started", "seconds"}, ...], "checkpoint"}, where ``seconds`` is each
@@ -94,38 +108,43 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, lr: float = 3e-
     synchronisation, and ``checkpoint`` is None or {"path": the latest,
     "saves": rank 0's checkpointer's ``timings`` (empty elsewhere), "gather_s":
     each save's seconds from its call to the end of the gather, under
-    ``pipeline``}; over several ranks each entry also holds ``bytes`` and
-    ``transport_seconds``, this rank's transport counters after the step."""
+    ``pipeline`` or tensor parallelism}; over several ranks each entry also
+    holds ``bytes`` and ``transport_seconds``, this rank's transport counters
+    after the step."""
     device = resolve_device(device)
     mesh = mesh or Mesh((1,), ("data",))
     model = build_model(cfg)
+    plan = None if pipeline else tp.model_plan(cfg, mesh)
     if params is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         params = model.init(gen)
         if pipeline:
             params = stage_params(params, cfg, mesh)
+    if plan is not None:
+        params = shard_params(params, mesh, plan)  # a whole model made here is freed with its last name
     opt_cfg = optimizer_config(lr, steps)
     opt_state = init_opt_state(params)
     ckpt = AsyncCheckpointer(ckpt_dir) if ckpt_dir and mesh.rank == 0 else None
     if pipeline:
         loss_fn = make_pipeline_loss(cfg, mesh, n_micro=n_micro, boundary=boundary)
     elif mesh.size > 1:
-        loss_fn = DataParallelLoss(model.loss, mesh)
+        loss_fn = DataParallelLoss(model.loss, mesh, plan=plan)
     else:
         loss_fn = model.loss
     step_fn = make_train_step(loss_fn, opt_cfg)
     gather_s: List[float] = []
 
     def save(step: int, meta: Dict) -> None:
-        """Rank 0 saves {"params", "opt"}; under ``pipeline`` after the
-        gather, and every rank waits until the file is written."""
-        if not pipeline:
+        """Rank 0 saves {"params", "opt"}; under ``pipeline`` or tensor
+        parallelism after the gather, and every rank waits until the file is
+        written."""
+        if not pipeline and plan is None:
             if ckpt:
                 ckpt.save(step, {"params": params, "opt": opt_state}, meta)
             return
         t0 = time.perf_counter()
-        state = gather_train_state(params, opt_state, cfg, mesh)
+        state = gather_train_state(params, opt_state, cfg, mesh, plan=plan)
         gather_s.append(time.perf_counter() - t0)
         if ckpt:
             ckpt.save(step, state, meta)
@@ -212,8 +231,10 @@ def main(argv=None):
         mesh = (make_production_mesh if args.production_mesh else make_host_mesh)(multi_pod=args.pipeline)
         where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
         if mesh.rank == 0:
-            print(f"[train] arch={cfg.name} device={where} mesh={mesh.shape} params={cfg.param_count() / 1e6:.1f}M",
-                  flush=True)
+            note = "" if args.pipeline or mesh.shape.get("model", 1) == 1 or tp.tp_family(cfg) else \
+                f" tp=replicated (ROADMAP {tp.replicated_reason(cfg)})"
+            print(f"[train] arch={cfg.name} device={where} mesh={mesh.shape} params={cfg.param_count() / 1e6:.1f}M"
+                  f"{note}", flush=True)
         return train(cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr, seed=args.seed,
                      log_every=args.log_every, device=device, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                      mesh=mesh, pipeline=args.pipeline, n_micro=args.n_micro, boundary=args.boundary)

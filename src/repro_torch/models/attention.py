@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.modules import ModelConfig, Params, dense, dense_init
+from repro_torch.parallel import tensor_parallel as tp
 
 NEG_INF = -2.0**30
 
@@ -206,12 +207,33 @@ def gqa_apply(
     slots are distinct only where the positions are (the reference assumes
     it): a VLM batch's image patches, all at temporal position 0, all write
     slot 0, which keeps one of them, which one unspecified (ROADMAP Queue 3).
+
+    Under tensor parallelism (``parallel/tensor_parallel.py``, no cache) the
+    plan splits ``wq``, ``wk`` and ``wv`` on their output dim and ``wo`` on
+    its contracting dim.  Where every rank's columns are whole heads that line
+    up (H and Hkv divide over ``model``), the rank attends with its own H/TP
+    heads and ``wo``'s output is summed over ``model``.  Where the plan cuts
+    inside a head (Granite's one kv head, Qwen2-VL's 28 heads at TP 16), each
+    split projection's output is gathered before the rotary embedding, every
+    rank attends with all heads, and ``wo`` takes the rank's rows of its input:
+    the re-layout GSPMD makes there.
     """
     B, T, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = dense(params["wq"], x).reshape(B, T, cfg.num_heads, hd)
-    k = dense(params["wk"], x).reshape(B, T, cfg.num_kv_heads, hd)
-    v = dense(params["wv"], x).reshape(B, T, cfg.num_kv_heads, hd)
+    split = {n: tp.split_dim(n) for n in ("wq", "wk", "wv", "wo")}
+    cols = [n for n in ("wq", "wk", "wv") if split[n] == 1]
+    local = len(cols) == 3 and tp.divides(cfg.num_heads) and tp.divides(cfg.num_kv_heads)
+    xs = tp.copy_in(x) if cols else x
+
+    def project(name: str) -> torch.Tensor:
+        if split[name] != 1:
+            return dense(params[name], x)
+        y = dense(params[name], xs)
+        return y if local else tp.gather(y, -1)
+
+    q = project("wq").reshape(B, T, -1, hd)
+    k = project("wk").reshape(B, T, -1, hd)
+    v = project("wv").reshape(B, T, -1, hd)
     scalar_pos = positions if positions.dim() == 2 else positions[0]
     q = _rotate(cfg, q, positions)
     k = _rotate(cfg, k, positions)
@@ -238,8 +260,10 @@ def gqa_apply(
             out = sdpa(q, ck, cv, scalar_pos, cpos, causal=True, window=cfg.window)
         new_cache = {"k": ck, "v": cv, "pos": cpos}
 
-    out = out.reshape(B, T, cfg.num_heads * hd)
-    return dense(params["wo"], out), new_cache
+    out = out.reshape(B, T, -1)
+    if split["wo"] == 0:
+        return tp.reduce_out(dense(params["wo"], out if local else tp.slice_(out, -1))), new_cache
+    return dense(params["wo"], tp.gather(out, -1) if local else out), new_cache
 
 
 def gqa_cache_shape(cfg: ModelConfig, batch: int, max_len: int):

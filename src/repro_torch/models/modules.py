@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel import tensor_parallel as tp
 
 Params = Dict[str, Any]
 
@@ -201,6 +202,12 @@ def dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def ffn_apply(params: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
+    """Under tensor parallelism (``parallel/tensor_parallel.py``) the plan
+    splits ``w_gate`` and ``w_up`` on their output dim (this rank's columns of
+    h) and ``w_down`` on its contracting dim (its output summed over ``model``);
+    where it leaves one whole, h is gathered or sliced to match."""
+    up, down = tp.split_dim("w_up"), tp.split_dim("w_down")
+    x = tp.copy_in(x) if up == 1 else x
     if activation == "swiglu":
         h = F.silu(dense(params["w_gate"], x)) * dense(params["w_up"], x)
     elif activation == "relu2":
@@ -209,7 +216,10 @@ def ffn_apply(params: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
         h = F.gelu(dense(params["w_up"], x), approximate="tanh")  # the reference's gelu is the tanh form
     else:
         raise ValueError(f"unknown activation {activation}")
-    return dense(params["w_down"], h)
+    if (up == 1) != (down == 0):
+        h = tp.gather(h, -1) if up == 1 else tp.slice_(h, -1)
+    y = dense(params["w_down"], h)
+    return tp.reduce_out(y) if down == 0 else y
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:

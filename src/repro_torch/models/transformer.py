@@ -44,6 +44,7 @@ from repro_torch.models.modules import (
     rmsnorm,
     rmsnorm_init,
 )
+from repro_torch.parallel import tensor_parallel as tp
 
 NORM_KEYS = ("ln1", "ln2", "final_norm")  # f32 scales: RMSNorm runs in f32 whatever cfg.dtype
 # the leaves the computing copy keeps as made: the norm scales, the MoE router
@@ -162,13 +163,26 @@ def _hybrid_group(gp: Params, shared: Params, cfg: ModelConfig, x, positions, ca
 
 
 def _embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(cfg.dtype)  # gather, then cast
+    """The rows of the tokens, cast; under tensor parallelism, whose plan
+    splits ``embed`` on its features, this rank's columns of them gathered
+    over ``model``."""
+    x = params["embed"][tokens.long()].to(cfg.dtype)  # gather, then cast
+    return tp.gather(x, -1) if tp.split_dim("embed") == 1 else x
 
 
 def _head_weight(params: Params, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return params["embed"].T  # (d, V)
     return params["lm_head"]
+
+
+def _head_split(cfg: ModelConfig) -> Optional[int]:
+    """The dim of the (d, V) head weight that tensor parallelism splits over
+    ``model``: ``lm_head``'s (the vocabulary), or for a tied embedding, split
+    on its features, the contracting dim 0; None where it is whole."""
+    if not cfg.tie_embeddings:
+        return tp.split_dim("lm_head")
+    return None if tp.split_dim("embed") is None else 1 - tp.split_dim("embed")
 
 
 def _cast_tree(params: Params, dtype: torch.dtype, keep: Tuple[str, ...]) -> Params:
@@ -229,14 +243,21 @@ def _batch_route(batch: Dict[str, torch.Tensor]):
 
 
 def _lm_loss_chunked(x: torch.Tensor, w_head: torch.Tensor, labels: torch.Tensor,
-                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     mask: Optional[torch.Tensor] = None, split: Optional[int] = None) -> torch.Tensor:
     """Next-token cross entropy in sequence chunks of ``min(LOSS_CHUNK, T)``.
 
     x (B, T, d) already final-normed; labels (B, T) the targets at each
     position (shifted by the caller); mask (B, T) optional.  T is padded to a
     multiple of the chunk with mask 0; each chunk's logits are computed in x's
-    dtype, then taken to f32.  Returns sum(nll * mask) / max(sum(mask), 1)."""
+    dtype, then taken to f32.  Returns sum(nll * mask) / max(sum(mask), 1).
+
+    ``split`` (``_head_split``) is the dim of ``w_head`` that tensor
+    parallelism splits: 1, this rank's columns of the vocabulary, whose logits
+    stay local and whose cross entropy is taken over the ranks
+    (``tp.vocab_parallel_nll``); 0, its rows, whose partial logits are summed."""
     B, T, d = x.shape
+    if split is not None:
+        x = tp.copy_in(x) if split == 1 else tp.slice_(x, -1)
     chunk = min(LOSS_CHUNK, T)
     pad = (-T) % chunk
     pad_mask = torch.ones((B, T), dtype=torch.float32, device=x.device) if mask is None else mask.float()
@@ -247,9 +268,14 @@ def _lm_loss_chunked(x: torch.Tensor, w_head: torch.Tensor, labels: torch.Tensor
     w = w_head.to(x.dtype)
     total = x.new_zeros((), dtype=torch.float32)
     for c0 in range(0, T + pad, chunk):
-        logits = (x[:, c0:c0 + chunk] @ w).float()
-        gold = logits.gather(-1, labels[:, c0:c0 + chunk].long()[..., None])[..., 0]
-        total = total + ((torch.logsumexp(logits, dim=-1) - gold) * pad_mask[:, c0:c0 + chunk]).sum()
+        logits = x[:, c0:c0 + chunk] @ w
+        logits = (tp.reduce_out(logits) if split == 0 else logits).float()
+        if split == 1:
+            nll = tp.vocab_parallel_nll(logits, labels[:, c0:c0 + chunk])
+        else:
+            gold = logits.gather(-1, labels[:, c0:c0 + chunk].long()[..., None])[..., 0]
+            nll = torch.logsumexp(logits, dim=-1) - gold
+        total = total + (nll * pad_mask[:, c0:c0 + chunk]).sum()
     return total / torch.clamp(pad_mask.sum(), min=1.0)
 
 
@@ -340,7 +366,7 @@ class Model:
         x, positions, route = _inputs_to_embeds(params, cfg, batch)
         with route:
             x, _, aux = self._backbone(params, x, positions, None)
-        ce = _lm_loss_chunked(x, _head_weight(params, cfg), *_loss_targets(batch))
+        ce = _lm_loss_chunked(x, _head_weight(params, cfg), *_loss_targets(batch), split=_head_split(cfg))
         return ce + aux, {"ce": ce, "aux": aux}
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor], cache) -> Tuple[torch.Tensor, Any]:

@@ -25,8 +25,21 @@ counted transport, leaf by leaf in place (no second copy of the gradients on
 the device), and the loss with them.  Every rank of a ``data`` group then
 holds the same bits and applies the same clip and AdamW update
 (``make_train_step`` treats this loss as it treats ``PipelineLoss``), so the
-replicas stay bit-equal.  ``model`` ranks are replicas that compute the same
-numbers, as under ``--pipeline``: no tensor parallelism (ROADMAP 7b).
+replicas stay bit-equal.
+
+Tensor parallelism over ``model`` (``parallel/tensor_parallel.py``): given
+the placement ``plan`` of the whole model (``tensor_parallel.model_plan``: the
+dense decoder family, GQA or MQA attention and a dense FFN, on a ``model``
+axis of more than 1), ``params`` are this rank's shards (``shard_params``) and
+the loss runs inside the ``model`` context, so that each product computes on
+the rank's shard as the plan places it.  Each gradient is then this rank's
+block, summed over ``data`` only; a leaf the plan leaves whole (the norm
+scales) has its whole gradient on every ``model`` rank, the same bits on each.
+``grad_norm`` sums the squares of the split leaves over ``model`` and adds
+those of the whole leaves once: the clip sees the whole model's norm.  The MoE
+and MLA configs (ROADMAP 7b-ii), RWKV-6, Mamba2 and the hybrid (7b-iii) have
+no plan here: their ``model`` ranks are replicas that compute the same
+numbers, as under ``--pipeline``.
 """
 from __future__ import annotations
 
@@ -38,6 +51,7 @@ from repro_torch.convert import flatten
 from repro_torch.models.modules import Params
 from repro_torch.models.transformer import _loss_targets
 from repro_torch.optim.optimizer import global_norm, gradients
+from repro_torch.parallel import tensor_parallel as tp
 from repro_torch.parallel.sharding import make_batch_shardings
 from repro_torch.parallel.transport import Transport
 
@@ -60,19 +74,23 @@ def shard_batch(batch: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]
 
 class DataParallelLoss:
     """``loss(params, batch) -> (loss, grads)`` of this rank over the mesh's
-    ``data`` axis: ``params`` the whole model (every rank holds it), ``batch``
-    the global batch, ``loss`` the f32 scalar every rank returns alike and
-    ``grads`` a flat dict in ``flatten(params)``'s order, summed over ``data``
-    as the module docstring says.  ``model_loss`` is ``Model.loss`` (or any
-    loss returning (loss, {"ce", optional "aux"})).  ``transport`` is a
-    ``Transport`` over ``mesh`` by default; the dry-run gives a
-    ``MetaTransport``."""
+    ``data`` axis: ``params`` the whole model (every rank holds it), or this
+    rank's shards of it under ``plan``, ``batch`` the global batch, ``loss``
+    the f32 scalar every rank returns alike and ``grads`` a flat dict in
+    ``flatten(params)``'s order, summed over ``data`` as the module docstring
+    says.  ``model_loss`` is ``Model.loss`` (or any loss returning (loss,
+    {"ce", optional "aux"})).  ``transport`` is a ``Transport`` over ``mesh``
+    by default; the dry-run gives a ``MetaTransport``.  ``plan`` (a nested
+    dict of ``P``s, ``tensor_parallel.model_plan``) turns tensor parallelism
+    over ``model`` on."""
 
     def __init__(self, model_loss: Callable[[Params, Dict], Tuple[torch.Tensor, Dict[str, Any]]], mesh,
-                 transport: Optional[Transport] = None):
+                 transport: Optional[Transport] = None, plan: Optional[Dict] = None):
         self.model_loss, self.mesh = model_loss, mesh
         self.DP = mesh.shape.get("data", 1)
         self.transport = Transport(mesh) if transport is None else transport
+        self.tp = tp.TPContext(mesh, self.transport, plan) if plan is not None else None
+        self.split = {p for p, spec in flatten(plan).items() if tp.is_split(spec)} if plan is not None else set()
 
     def __call__(self, params: Params, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         local = shard_batch(batch, self.mesh)
@@ -84,15 +102,22 @@ class DataParallelLoss:
         leaves = list(flat.values())
         for t in leaves:
             t.requires_grad_(True)
-        _, metrics = self.model_loss(params, local)
-        term = metrics["ce"] * (n / torch.clamp(total_n, min=1.0))
-        if metrics.get("aux") is not None:
-            term = term + metrics["aux"] / self.DP
-        grads = dict(zip(flat.keys(), gradients(term, leaves)))
+        with tp.use(self.tp):
+            _, metrics = self.model_loss(params, local)
+            term = metrics["ce"] * (n / torch.clamp(total_n, min=1.0))
+            if metrics.get("aux") is not None:
+                term = term + metrics["aux"] / self.DP
+            grads = dict(zip(flat.keys(), gradients(term, leaves)))
         for g in grads.values():
             self.transport.all_reduce(g, "data")
         return self.transport.all_reduce(term.detach().float(), "data"), grads
 
     def grad_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """The global norm of the summed gradient (every rank holds all of it)."""
-        return global_norm(grads)
+        """The global norm of the summed gradient: every rank holds all of it,
+        or under tensor parallelism the squares of its blocks of the split
+        leaves are summed over ``model`` and those of the whole leaves added once."""
+        if not self.split:
+            return global_norm(grads)
+        squares = [sum(g.float().square().sum() for p, g in grads.items() if (p in self.split) == s)
+                   for s in (True, False)]
+        return torch.sqrt(self.transport.all_reduce(squares[0], "model") + squares[1])

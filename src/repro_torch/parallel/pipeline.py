@@ -64,6 +64,8 @@ from repro_torch.models.transformer import (
     build_pipeline_parts,
 )
 from repro_torch.optim.optimizer import OptState
+from repro_torch.parallel.sharding import unshard
+from repro_torch.parallel.tensor_parallel import is_split
 from repro_torch.parallel.transport import Transport
 
 BOUNDARIES = ("striped", "direct")
@@ -137,22 +139,34 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True).contiguous()
 
 
-def gather_train_state(params: Params, opt_state, cfg: ModelConfig, mesh) -> Optional[Dict[str, Any]]:
+def gather_train_state(params: Params, opt_state, cfg: ModelConfig, mesh,
+                       plan: Optional[Dict] = None) -> Optional[Dict[str, Any]]:
     """The whole, unpadded train state ``{"params", "opt"}`` of a pipelined
-    run, on rank 0's host; None on every other rank.  Every rank must call it.
+    run, or with ``plan`` of a tensor-parallel plain run, on rank 0's host;
+    None on every other rank.  Every rank must call it.
 
-    The stack's rows and their moments come from the rank of each stage in
-    rank 0's ``data`` and ``model`` coordinates, received by rank 0 over
-    ``pod`` on the host (``gloo`` point to point, CPU tensors, nothing through
-    the card) and put back in layer order (``assemble_params``); the leaves
-    outside the stack, their moments and ``.step`` are rank 0's.  Those are
-    replicated: before the gather every rank's sums of their bit patterns are
-    held equal over the world (all-reduced as a minimum and a maximum), and a
-    rank that differs raises on every rank."""
-    key = build_pipeline_parts(cfg).layer_key
+    Pipelined: the stack's rows and their moments come from the rank of each
+    stage in rank 0's ``data`` and ``model`` coordinates, received by rank 0
+    over ``pod`` on the host (``gloo`` point to point, CPU tensors, nothing
+    through the card) and put back in layer order (``assemble_params``); the
+    leaves outside the stack, their moments and ``.step`` are rank 0's.
+    Tensor-parallel (``plan``, the whole model's placement plan, no ``pod``
+    axis): each leaf the plan splits over ``model`` and its two moments come
+    from the ranks of rank 0's ``data`` coordinate, received by rank 0 over
+    ``model`` in the same way and concatenated (``unshard``); every other leaf,
+    its moments and ``.step`` are rank 0's.  No rank's block is ever written
+    as a whole leaf.  The leaves that are not gathered are replicated: before
+    the gather every rank's sums of their bit patterns are held equal over the
+    world (all-reduced as a minimum and a maximum), and a rank that differs
+    raises on every rank."""
     trees = {"params": params, "mu": opt_state.mu, "nu": opt_state.nu}
-    replicated = [opt_state.step] + [t for tree in trees.values() for k, v in tree.items() if k != key
-                                     for t in flatten({k: v}).values()]
+    if plan is None:
+        key = build_pipeline_parts(cfg).layer_key
+        gathered = {p for p in flatten(params) if p.split("/", 1)[0] == key}
+    else:
+        gathered = {p for p, spec in flatten(plan).items() if is_split(spec)}
+    replicated = [opt_state.step] + [t for tree in trees.values() for p, t in flatten(tree).items()
+                                     if p not in gathered]
     if mesh.size > 1:
         sums = torch.stack([_bits(t).cpu() for t in replicated])
         lo, hi = sums.clone(), sums.clone()
@@ -161,6 +175,8 @@ def gather_train_state(params: Params, opt_state, cfg: ModelConfig, mesh) -> Opt
         if not torch.equal(lo, hi):
             raise RuntimeError(f"rank {mesh.rank}: the replicated leaves or the step differ across the ranks")
 
+    if plan is not None:
+        return _gather_model_blocks(trees, opt_state.step, gathered, plan, mesh)
     if mesh.coords["data"] or mesh.coords["model"]:
         return None
     L, S = stack_length(cfg), mesh.shape["pod"]
@@ -183,6 +199,33 @@ def gather_train_state(params: Params, opt_state, cfg: ModelConfig, mesh) -> Opt
             stages.append({key: unflatten(rows)})
         out[name] = assemble_params(stages, cfg)
     return {"params": out["params"], "opt": OptState(_host(opt_state.step), out["mu"], out["nu"])}
+
+
+def _gather_model_blocks(trees: Dict[str, Params], step: torch.Tensor, gathered, plan, mesh):
+    """``gather_train_state`` under tensor parallelism: the ``gathered``
+    leaves of ``trees`` sent by the ranks of ``data`` coordinate 0 to rank 0
+    in order, which makes each whole (``unshard``)."""
+    if mesh.coords["data"]:
+        return None
+    if mesh.coords["model"]:
+        for tree in trees.values():
+            for p, t in flatten(tree).items():
+                if p in gathered:
+                    dist.send(_host(t), mesh.rank_at(model=0))
+        return None
+    out = {}
+    for name, tree in trees.items():
+        flat = flatten(tree)
+        blocks = [tree_map(_host, tree)]
+        for j in range(1, mesh.shape["model"]):
+            got = {}
+            for p in flat:
+                if p in gathered:
+                    got[p] = torch.empty(tuple(flat[p].shape), dtype=flat[p].dtype)
+                    dist.recv(got[p], mesh.rank_at(model=j))
+            blocks.append(got)
+        out[name] = unshard(blocks, plan)
+    return {"params": out["params"], "opt": OptState(_host(step), out["mu"], out["nu"])}
 
 
 def _microbatch(batch: Dict[str, torch.Tensor], rows: slice) -> Dict[str, torch.Tensor]:

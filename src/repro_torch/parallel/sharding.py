@@ -8,9 +8,11 @@ The production layout (DESIGN.md §5) follows the paper's placement:
 
 Pure functions over shapes and a mesh's axis sizes (anything with a
 ``shape`` mapping axis names to sizes): each returns a ``P``, one entry per
-dim (None, an axis name or a tuple of names), or a tree of them.  Nothing here
-moves a tensor; the dry-run's shapes and the tensor-parallel products (both
-still to be ported) read this plan.
+dim (None, an axis name or a tuple of names), or a tree of them.  The dry-run's
+shapes read this plan, and ``shard_params`` applies it: each rank keeps its
+block of every leaf (``NamedSharding(mesh, spec).shard_shape`` of the
+reference), and ``unshard`` puts the ``model`` ranks' blocks back together,
+for the tensor-parallel plain step (``parallel/tensor_parallel.py``).
 
 Not ported: the reference's ``constrain``, ``constraints_disabled`` and
 ``_ambient_mesh``.  They only steer XLA's partitioner, which the port does not
@@ -21,7 +23,9 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
-from repro_torch.convert import tree_map
+import torch
+
+from repro_torch.convert import flatten, tree_map, unflatten
 
 
 class P(tuple):
@@ -182,6 +186,57 @@ def make_param_shardings(params_shape: Any, mesh, stacked_prefixes=("layers", "g
         return _leaf_plan(names, _shape(tree), mesh, stacked, fsdp)
 
     return walk(params_shape, ())
+
+
+def _block(entry, mesh) -> Tuple[int, int]:
+    """(blocks, this rank's block) of a dim whose plan entry is ``entry``: an
+    axis name, or a tuple of names split in row-major order, as JAX splits."""
+    n, i = 1, 0
+    for a in (entry if isinstance(entry, tuple) else (entry,)):
+        n, i = n * mesh.shape[a], i * mesh.shape[a] + mesh.coords[a]
+    return n, i
+
+
+def local_block(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec`` (a view)."""
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            n, i = _block(entry, mesh)
+            size = t.shape[dim] // n
+            t = t.narrow(dim, i * size, size)
+    return t
+
+
+def shard_params(params: Any, mesh, plan: Any = None) -> Any:
+    """This rank's share of a whole model's parameters under ``plan``
+    (``make_param_shardings(params, mesh)`` by default): its block of each
+    leaf the plan splits, a copy outside any graph (so that the whole leaf can
+    be freed), and every leaf the plan leaves whole, shared with ``params``."""
+    plan = make_param_shardings(params, mesh) if plan is None else plan
+    specs = flatten(plan)
+
+    def cut(p: str, t: torch.Tensor) -> torch.Tensor:
+        if all(e is None for e in specs[p]):
+            return t
+        return local_block(t, specs[p], mesh).detach().clone(memory_format=torch.contiguous_format)
+
+    return unflatten({p: cut(p, t) for p, t in flatten(params).items()})
+
+
+def unshard(shards, plan: Any, axis: str = "model") -> Any:
+    """The inverse of ``shard_params`` over ``axis``: the leaves the plan
+    splits over ``axis`` concatenated from ``shards`` (the trees of the ranks
+    along ``axis`` in order, at one place on every other axis), every other
+    leaf from ``shards[0]``.  Raises on a leaf split over another axis too."""
+    specs = flatten(plan)
+    flats = [flatten(s) for s in shards]
+    out = {}
+    for p, t in flats[0].items():
+        dims = [d for d, e in enumerate(specs[p]) if e is not None]
+        if any(specs[p][d] != axis for d in dims):
+            raise ValueError(f"{p}: {specs[p]} splits over more than {axis!r}")
+        out[p] = torch.cat([f[p] for f in flats], dims[0]) if dims else t
+    return unflatten(out)
 
 
 def batch_spec(ndim: int) -> P:

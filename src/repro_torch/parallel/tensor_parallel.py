@@ -1,0 +1,219 @@
+"""Tensor parallelism over the mesh's ``model`` axis on the plain step: the
+products that the reference's GSPMD splits by the placement plan
+(``repro/parallel/sharding.py``'s ``PARAM_RULES`` through
+``make_param_shardings``, fsdp off, as ``repro/launch/train.py`` places the
+parameters), written out as the model group's four operations.
+
+  * ``copy_in``:    identity forward, all-reduce (sum) of the gradient backward;
+  * ``reduce_out``: all-reduce forward, identity backward;
+  * ``gather``:     all-gather forward, this rank's slice of the gradient backward;
+  * ``slice_``:     this rank's slice forward, all-gather of the gradient backward.
+
+Every one goes over the counted ``Transport`` (``parallel/transport.py``),
+whose only reduction is the sum.  The model functions ask ``split_dim(name)``
+which dim of a leaf's (per-layer) matrix the plan splits over ``model``, and
+apply the rule the plan implies: a product whose weight is split on its output
+dim yields this rank's columns (its input goes through ``copy_in``); one whose
+weight is split on its contracting dim takes this rank's columns of its input
+and reduces its output; a consumer that needs columns whole gathers them.
+
+The operations read a module-level context (``use``), not a thread-local one:
+autograd runs a CUDA backward, and with it the rematerialised forward, on a
+thread of its own.  With no context, or a ``model`` axis of 1, every operation
+is the identity and returns its input itself, and ``split_dim`` is None, so the
+single-process step and the pipeline compute exactly what they computed before.
+The model modules import this one, so it imports none of the port's modules at
+its top.
+
+Which configs split: the dense decoder family (``tp_family``: dense, VLM and
+audio transformers with GQA or MQA attention and a dense FFN).  The MoE and
+MLA configs (ROADMAP 7b-ii) and RWKV-6, Mamba2 and the Zamba2 hybrid (7b-iii)
+keep whole replicas on every ``model`` rank.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, Optional
+
+import torch
+
+AXIS = "model"
+STACKED = ("layers", "groups")
+
+
+def tp_family(cfg) -> bool:
+    """Whether ``cfg`` splits over ``model``: a transformer of the dense
+    family (GQA or MQA attention, a dense FFN), not MoE, MLA, RWKV-6 or Mamba2."""
+    return (cfg.family in ("dense", "vlm", "audio") and cfg.moe is None and cfg.mla is None and cfg.ssm is None
+            and cfg.rwkv is None)
+
+
+def replicated_reason(cfg) -> str:
+    """The ROADMAP item under which a config that keeps ``model`` replicas will split."""
+    return "7b-ii" if cfg.moe is not None or cfg.mla is not None else "7b-iii"
+
+
+def model_plan(cfg, mesh) -> Optional[Dict]:
+    """The placement plan of ``cfg``'s parameters on ``mesh`` (a nested dict of
+    ``P``s, fsdp off) where the plain step splits them over ``model``: a
+    dense-family config on a ``model`` axis of more than 1.  None otherwise."""
+    from repro_torch.convert import expected_shapes, unflatten
+    from repro_torch.parallel.sharding import make_param_shardings
+
+    if mesh.shape.get(AXIS, 1) == 1 or not tp_family(cfg):
+        return None
+    return make_param_shardings(unflatten(expected_shapes(cfg)), mesh)
+
+
+def is_split(spec, axis: str = AXIS) -> bool:
+    """Whether a leaf's ``P`` splits a dim over ``axis``."""
+    return any(e == axis or (isinstance(e, tuple) and axis in e) for e in spec)
+
+
+def split_dims(plan, axis: str = AXIS) -> Dict[str, Optional[int]]:
+    """leaf name -> the dim of its per-layer tensor (a stacked leaf without its
+    leading layer axis) that ``plan`` splits over ``axis``, None where it
+    stays whole.  Raises if two leaves of one name are split differently."""
+    from repro_torch.convert import flatten
+
+    dims: Dict[str, Optional[int]] = {}
+    for path, spec in flatten(plan).items():
+        names = path.split("/")
+        entries = list(spec)[1:] if any(n in STACKED for n in names) else list(spec)
+        dim = next((i for i, e in enumerate(entries) if is_split((e,), axis)), None)
+        if dims.setdefault(names[-1], dim) != dim:
+            raise ValueError(f"{names[-1]}: split on dim {dims[names[-1]]} and on dim {dim}")
+    return dims
+
+
+class TPContext:
+    """This rank's place on the ``model`` axis of ``mesh`` (``size``,
+    ``index``), the transport the operations go over, and ``dims``
+    (``split_dims`` of the plan)."""
+
+    def __init__(self, mesh, transport, plan):
+        self.size, self.index = mesh.shape[AXIS], mesh.coords[AXIS]
+        self.transport = transport
+        self.dims = split_dims(plan)
+
+
+_CURRENT: Optional[TPContext] = None
+
+
+@contextlib.contextmanager
+def use(ctx: Optional[TPContext]):
+    """Run the model's functions split as ``ctx`` says (None: whole)."""
+    global _CURRENT
+    prev = _CURRENT
+    _CURRENT = ctx
+    try:
+        yield
+    finally:
+        _CURRENT = prev
+
+
+def _active() -> Optional[TPContext]:
+    return _CURRENT if _CURRENT is not None and _CURRENT.size > 1 else None
+
+
+def split_dim(name: str) -> Optional[int]:
+    """The dim of leaf ``name``'s per-layer matrix that is split over
+    ``model`` in the current context; None without one or where it is whole."""
+    ctx = _active()
+    return None if ctx is None else ctx.dims.get(name)
+
+
+def divides(n: int) -> bool:
+    """Whether ``n`` (a head count) splits evenly over the ``model`` ranks."""
+    ctx = _active()
+    return ctx is None or n % ctx.size == 0
+
+
+def _my_part(ctx: TPContext, t: torch.Tensor, dim: int) -> torch.Tensor:
+    n = t.shape[dim] // ctx.size
+    return t.narrow(dim, ctx.index * n, n).contiguous()
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.ctx = ctx
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.ctx.transport.all_reduce(g.clone(memory_format=torch.contiguous_format), AXIS), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx):
+        return ctx.transport.all_reduce(x.clone(memory_format=torch.contiguous_format), AXIS)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, dim, ctx):
+        fctx.ctx, fctx.dim = ctx, dim
+        return ctx.transport.all_gather(x.contiguous(), AXIS, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _my_part(fctx.ctx, g, fctx.dim), None, None
+
+
+class _Slice(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, dim, ctx):
+        fctx.ctx, fctx.dim = ctx, dim
+        return _my_part(ctx, x, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.ctx.transport.all_gather(g.contiguous(), AXIS, fctx.dim), None, None
+
+
+def copy_in(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (whole on every rank) entering a product split on its output dim."""
+    ctx = _active()
+    return x if ctx is None else _CopyIn.apply(x, ctx)
+
+
+def reduce_out(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the ``model`` ranks of their partial ``x``."""
+    ctx = _active()
+    return x if ctx is None else _ReduceOut.apply(x, ctx)
+
+
+def gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks' parts of ``x`` concatenated along ``dim`` in ``model`` order."""
+    ctx = _active()
+    return x if ctx is None else _Gather.apply(x, dim % x.dim(), ctx)
+
+
+def slice_(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's part of ``x`` (whole on every rank) along ``dim``."""
+    ctx = _active()
+    return x if ctx is None else _Slice.apply(x, dim % x.dim(), ctx)
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The cross entropy (B, c) in f32 of f32 ``logits`` (B, c, V / TP), this
+    rank's columns of the vocabulary, against ``labels`` (B, c) in the whole
+    vocabulary: logsumexp - the gold logit, over the ranks.  The row maxima
+    are gathered (the transport only sums) and their largest taken; the sums
+    of exponentials and the gold logits, each from the rank that owns its
+    label, are summed over ``model`` in one all-reduce."""
+    ctx = _active()
+    n = logits.shape[-1]
+    with torch.no_grad():
+        top = ctx.transport.all_gather(logits.amax(-1)[None].contiguous(), AXIS, 0).amax(0)
+    local = labels.long() - ctx.index * n
+    inside = (local >= 0) & (local < n)
+    gold = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0].masked_fill(~inside, 0)
+    sums = reduce_out(torch.stack([torch.exp(logits - top[..., None]).sum(-1), gold]))
+    return torch.log(sums[0]) + top - sums[1]

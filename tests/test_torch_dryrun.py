@@ -183,17 +183,34 @@ def test_run_one_completes_full_size_combinations(full_results, combo):
 
 def test_single_train_and_encoder_decode_are_skipped_with_reasons():
     """Single x train is no longer skipped (slice 7d): one rank of (16, 16)
-    runs the plain data-parallel step on its 16 rows of the batch with the
-    whole f32 state, and all-reduces every gradient and the loss's count and
-    value over ``data`` alone.  The encoder's decodes stay skipped."""
-    r = dryrun.run_one("gpt_a", "train_4k", "single")
-    n = sum(math.prod(s) for s in expected_shapes(shp.config_for("gpt_a", "train_4k")).values())
+    runs the plain data-parallel step on its 16 rows of the batch; a family
+    that keeps its ``model`` replicas (RWKV-6, until 7b-iii) holds the whole
+    f32 state, and all-reduces every gradient and the loss's count and value
+    over ``data`` alone.  The encoder's decodes stay skipped."""
+    r = dryrun.run_one("rwkv6_7b", "train_4k", "single")
+    n = sum(math.prod(s) for s in expected_shapes(shp.config_for("rwkv6_7b", "train_4k")).values())
     assert r["status"] == "ok" and r["program"] == "data_parallel" and r["rows_per_rank"] == 16
     assert r["memory"]["argument_bytes"] > 12 * n  # f32 parameters and two moments
     assert r["collectives"]["by_axis"]["data"] == {"send": 0, "all_reduce": 4 * n + 8, "all_gather": 0}
     assert not any(r["collectives"]["by_axis"]["model"].values()) and r["collectives"]["dcn"] == 0
     r = dryrun.run_one("hubert_xlarge", "decode_32k", "multi")
     assert r["status"] == "skipped" and "encoder-only" in r["reason"]
+
+
+def test_single_train_of_the_dense_family_is_the_tensor_parallel_rank():
+    """Since slice 7b-i the dense family's single x train rank is the
+    tensor-parallel step: its f32 parameters are exactly the plan's bytes
+    without fsdp, and it all-reduces 4 B of its shards' gradients a parameter
+    and 8 over ``data``, and something over ``model``."""
+    cfg = shp.config_for("gpt_a", "train_4k")
+    r = dryrun.run_one("gpt_a", "train_4k", "single")
+    mesh = dryrun.Mesh((16, 16), ("data", "model"))
+    assert r["status"] == "ok" and r["program"] == "data_parallel+tensor_parallel" and r["rows_per_rank"] == 16
+    assert r["param_bytes"] == dryrun.plan_bytes(cfg, mesh, fsdp=False)
+    assert r["collectives"]["by_axis"]["data"] == {"send": 0, "all_reduce": r["param_bytes"] + 8, "all_gather": 0}
+    assert r["collectives"]["by_axis"]["model"]["all_reduce"] > 0 and r["collectives"]["dcn"] == 0
+    n = sum(math.prod(s) for s in expected_shapes(cfg).values())
+    assert r["memory"]["argument_bytes"] < 12 * n / 8  # the whole f32 parameters and moments no longer
 
 
 def test_roofline_functions_equal_the_reference_s_on_the_same_files(full_results, tmp_path, monkeypatch):

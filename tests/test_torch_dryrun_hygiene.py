@@ -25,7 +25,8 @@ DRAWN = ((0.5, 80.0), (1e5, 3e8))
 LOADED = [ROOT / "src" / "repro_torch" / f for f in (
     "kernels/cost.py", "kernels/rmsnorm.py", "kernels/flash_attention.py", "kernels/decode_attention.py",
     "kernels/wkv6.py", "kernels/ops.py", "launch/shapes.py", "launch/dryrun.py", "launch/roofline.py",
-    "parallel/transport.py", "parallel/pipeline.py")] + [ROOT / "experiments" / "torch_make_report.py",
+    "parallel/transport.py", "parallel/pipeline.py", "parallel/data_parallel.py", "parallel/sharding.py",
+    "parallel/tensor_parallel.py")] + [ROOT / "experiments" / "torch_make_report.py",
                                                           ROOT / "chip_smoke.py"]
 
 _BLOCKED = """

@@ -58,7 +58,7 @@ def test_package_has_every_serving_module():
             "core/fastforward.py", "core/validate.py", "core/dc_selection.py", "core/bubbletea.py",
             "core/failures.py", "core/control.py", "core/fleet.py", "core/reference.py",
             "parallel/data_parallel.py", "examples/__init__.py", "examples/whatif.py", "examples/bubbletea_serve.py",
-            "examples/quickstart.py", "examples/train_100m.py", "examples/geo_train.py"}
+            "examples/quickstart.py", "examples/train_100m.py", "examples/geo_train.py", "parallel/tensor_parallel.py"}
     assert want <= have
     csrc = {p.name for p in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").iterdir()}
     assert {"rmsnorm.cu", "flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu", "wkv6.cu"} <= csrc

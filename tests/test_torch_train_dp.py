@@ -1,5 +1,5 @@
 """Data parallelism on the plain step (ROADMAP.md Queue 1, 7d): the launcher
-over a (data, model) = (2, 2) mesh of four ``gloo`` ranks on the CPU, gpt_a
+over a (data, model) = (2, 1) mesh of two ``gloo`` ranks on the CPU, gpt_a
 smoke in f32 from the reference's ``PRNGKey(0)`` parameters, converted.
 
 ``train()`` on the ranks: two steps of 8 x 16 (each rank its ``data`` half of
@@ -9,8 +9,10 @@ within 1e-5 of the reference's jitted ``make_train_step(model.loss)`` on the
 same batches; a batch of 3 rows, which the ``data`` axis does not split, is
 replicated (the reference's ``P()``) and gives one process's steps too.  The
 transport counts each step's mask count, gradients and loss over ``data`` and
-nothing over ``model``.  Under ``torchrun`` the launcher runs the same world
-without ``--pipeline`` and prints the reference's lines from rank 0."""
+nothing over ``model``.  (On (2, 2) the ``model`` axis splits gpt_a since
+slice 7b-i: ``test_torch_tensor_parallel_train.py``.)  Under ``torchrun`` the
+launcher runs four ranks, (2, 2), without ``--pipeline`` and prints the
+reference's lines from rank 0."""
 import dataclasses
 import os
 import re
@@ -35,7 +37,7 @@ from torch_helpers import F32_TOL  # noqa: F401  (importing it sets one torch th
 from torch_pipeline_helpers import _jax_flat, spawn, train_rank
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SHAPE, AXES = (2, 2), ("data", "model")
+SHAPE, AXES = (2, 1), ("data", "model")
 STEPS, SEQ = 2, 16
 ONE_PROCESS_TOL = 1e-6  # the shards' masked sums over the global count: f32 sums in another order
 REFERENCE_TOL = 1e-5  # the port's f32 step against the reference's (test_torch_optim.py's steps)
@@ -64,7 +66,7 @@ def test_the_plain_step_over_data_ranks_is_one_process_s_step(tmp_path):
     params = convert.from_reference(jax.tree.map(np.asarray, ref_params), cfg)
     runs = [(cfg, SHAPE, AXES, dict(steps=STEPS, batch=b, seq=SEQ, log_every=STEPS, params=params))
             for b in (8, 3)]
-    ranks = spawn(train_rank, 4, tmp_path, runs)
+    ranks = spawn(train_rank, 2, tmp_path, runs)
     n_params = sum(t.numel() for t in convert.flatten(params).values())
     for i, batch in enumerate((8, 3)):
         first = ranks[0][i]
