@@ -43,17 +43,20 @@ trains through the cross-pod pipeline (``repro_torch.parallel.pipeline``),
 ranks as ``gloo`` processes that share the card: GPT-A at full width with 4
 of its 24 layers on meshes (pod, data, model) of (2, 2, 1) and (2, 1, 2), and
 Zamba2-2.7B at full width and depth on (2, 1, 1), each held against gradient
-accumulation over the same chunks; the GPT-A (2, 1, 2) run saves its whole
-state at the end (rank 0 gathers the stages' rows), and the file, cut back
-into stages, must hash as every rank's own state.  Then it trains GPT-A with
-4 layers data-parallel on two ranks sharing the card (step 0 held against
-accumulation, the replicas bit-equal after), and runs the five examples of
+accumulation over the same chunks; on (2, 1, 2) GPT-A is tensor-parallel over
+``model`` inside the stages, held against the replicated call on the same
+mesh, which is held against accumulation; the GPT-A (2, 1, 2) run saves its
+whole state at the end (rank 0 gathers the stages' blocks), and the file, cut
+back into stages and blocks, must hash as every rank's own state.  Then it
+trains GPT-A with 4 layers data-parallel on two ranks sharing the card (step 0
+held against accumulation, the replicas bit-equal after), and tensor-parallel
+on (data, model) = (2, 2), and runs the five examples of
 ``repro_torch.examples`` through their mains (``whatif``,
 ``bubbletea_serve``, ``quickstart``, ``train_100m``, ``geo_train`` on eight
 ranks), each's launches counted.  For each path it checks by
 the kernels' launch counters that it really went through the kernels, and
 compares the kernel path's logits, or loss and gradients, with the plain
-path's.  Seven of its steps are also held against the port's dry-run
+path's.  Eight of its steps are also held against the port's dry-run
 (``repro_torch.launch.dryrun``), predicted on ``meta`` from the config alone
 in a background process: argument bytes, launches and transport bytes
 exactly, the peak within max(3 %, 256 MiB); phase ``dryrun`` adds three
@@ -129,7 +132,7 @@ from repro_torch.parallel.pipeline import (  # noqa: E402
     stage_params,
 )
 from repro_torch.parallel.sharding import local_block, shard_params  # noqa: E402
-from repro_torch.parallel.tensor_parallel import is_split, model_plan  # noqa: E402
+from repro_torch.parallel.tensor_parallel import is_split, model_plan, split_paths  # noqa: E402
 from repro_torch.parallel.transport import MetaTransport  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
     Request,
@@ -2483,10 +2486,12 @@ def dryrun_steps() -> dict:
         step = make_train_step(model.loss, optimizer_config(lr, TRAIN_STEPS))
         return (lambda: step(*args)), args, None
 
-    def pipelined(cfg, shape, boundary, batch):
+    def pipelined(cfg, shape, boundary, batch):  # tensor-parallel inside the stages where model_plan has a plan
         mesh = Mesh(shape, PIPE_AXES, 0)
-        args = (stage_params(dryrun.meta_params(build_model(cfg)), cfg, mesh), dryrun.train_batch(cfg, batch, TRAIN_SEQ))
-        loss_fn = PipelineLoss(cfg, mesh, PIPE_N_MICRO, boundary, transport=MetaTransport(mesh))
+        plan = model_plan(cfg, mesh)
+        params = stage_params(dryrun.meta_params(build_model(cfg)), cfg, mesh)
+        args = (params if plan is None else shard_params(params, mesh, plan), dryrun.train_batch(cfg, batch, TRAIN_SEQ))
+        loss_fn = PipelineLoss(cfg, mesh, PIPE_N_MICRO, boundary, transport=MetaTransport(mesh), plan=plan)
         return (lambda: loss_fn(*args)), args, loss_fn.transport
 
     steps = {"serve_prefill": lambda: serve("prefill"), "serve_decode": lambda: serve("decode"),
@@ -2725,12 +2730,19 @@ def phase_dryrun(started: list) -> None:
 # Before its stage, each rank makes the whole model from the seed and its
 # accumulated reference, then keeps its stage of both (GPT-A: 4.9 GB of
 # parameters and two gradient buffers as large for a moment, four ranks at
-# once; Zamba2: 8.2 GB and two as large, two ranks).
+# once; Zamba2: 8.2 GB and two as large, two ranks).  On (2, 1, 2) GPT-A is
+# tensor-parallel over model inside the stages (slice 7b-iv): after the
+# replicated calls on its whole stage (the control, one a boundary, the peak
+# above) a rank holds its shards of its stage, 407,392,256 parameters (6.52 GB
+# of f32 state).
 PIPE_LAYERS = 4
 PIPE_REDUCED = {"num_layers": "24 -> 4", "why": "four ranks share the card, each holding its stage's layers and "
                 "a copy of embed and lm_head: 18.87 GB a rank at 4 layers, 19.5 GB of state alone at 8"}
 # (mesh shape, the boundaries held on step 0's call, the boundary trained):
-# each mesh trains once, since step 0 already holds the boundaries bit-equal
+# each mesh trains once, since step 0 already holds the boundaries bit-equal;
+# (2, 1, 2) holds and trains tensor-parallel, its control replicated with both
+# boundaries (replicated compute with a striped send is what the families
+# without a plan run under --pipeline on a model axis > 1)
 PIPE_MESHES = (((2, 2, 1), ("direct",), "direct"), ((2, 1, 2), ("direct", "striped"), "striped"))
 PIPE_STEPS, PIPE_BATCH, PIPE_N_MICRO = 2, 8, 4
 HYBRID_PIPE_STEPS, HYBRID_PIPE_BATCH = 2, 4
@@ -2747,8 +2759,9 @@ PIPE_DEADLINE_S = 600  # a whole spawned run; a rank that waits on another more 
 PIPE_TOL = {"loss_rel": 1e-6, "grad": 1e-5}  # grad: max|diff| <= 1e-5 max|g| a leaf
 PIPE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "local", "chip_smoke_pipeline")
 # the pipelined run that saves its state at the end (slice 7c): rank 0 gathers
-# the stages' rows over pod on the host and writes the whole, unpadded state,
-# 12 B x 1,217,433,600 parameters = 14.6 GB, into PIPE_DIR (removed with it)
+# the stages' blocks over pod and model on the host and writes the whole,
+# unpadded state, 12 B x 1,217,433,600 parameters = 14.6 GB, into PIPE_DIR
+# (removed with it)
 PIPE_CKPT_MESH = (2, 1, 2)
 
 
@@ -2791,22 +2804,58 @@ def join_as_rank(rank: int, world: int, store: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world, timeout=TIMEOUT)
 
 
+def pipe_call(cfg, mesh, boundary: str, params, batch, plan, check, predicted: dict):
+    """One pipelined call of this rank on ``batch`` (``plan``: tensor-parallel
+    inside the stages), held against its dry-run on rank 0 where ``check``
+    ("<mesh>_<boundary>") is in ``predicted`` (``hold_dryrun``): (its line,
+    its loss, its gradients)."""
+    t0 = time.perf_counter()
+    loss_fn = make_pipeline_loss(cfg, mesh, n_micro=PIPE_N_MICRO, boundary=boundary, plan=plan)
+    held = None
+    if mesh.rank == 0 and check in predicted:
+        held, (loss, grads) = hold_dryrun(f"{cfg.name} pipelined call, rank 0 of {check}", check, predicted[check],
+                                          lambda: loss_fn(params, batch), (params, batch), backward=True,
+                                          transport=loss_fn.transport)
+    else:
+        loss, grads = loss_fn(params, batch)
+    torch.cuda.synchronize()
+    line = {"loss": float(loss), "finite": all(bool(torch.isfinite(g).all()) for g in grads.values()),
+            "bytes": loss_fn.transport.counts(), "transport_seconds": loss_fn.transport.times(),
+            "call_seconds": time.perf_counter() - t0, "dryrun": held}
+    return line, loss, grads
+
+
+def against_accumulation(grads: dict, ref: dict, ref_loss: float, loss: float) -> dict:
+    """A pipelined call's loss and gradients against accumulation's (PIPE_TOL's terms)."""
+    gaps = {p: float((g - ref[p]).abs().max()) / max(float(ref[p].abs().max()), 1e-30) for p, g in grads.items()}
+    worst = max(gaps, key=gaps.get)
+    return {"ref_loss": ref_loss, "loss_rel_diff": abs(loss - ref_loss) / abs(ref_loss),
+            "grad_max_diff_over_max": gaps[worst], "worst_leaf": worst}
+
+
 def pipeline_rank(rank: int, world: int, cfg, meshes, steps: int, batch: int, seq: int, lr: float,
                   predicted: dict, ckpt_mesh, store: str) -> None:
     """One rank of the pipelined runs on the card, for each (mesh shape,
     boundaries, trained boundary) of ``meshes`` in turn: joins the mesh, makes
     the whole model from the seed and its reference, ``make_train_step``'s
     accumulated loss and gradients over n_micro * DP chunks of the first batch
-    (``accumulated_value_and_grad``), keeps its stage of both, and holds one
-    pipelined call's loss and gradients on that batch against them for each
-    boundary (and the boundaries against each other, bit for bit), rank 0's
-    held calls against their dry-runs where ``predicted`` ("<mesh>_<boundary>"
-    -> ``write_predictions``' entry) has them (``hold_dryrun``); then
-    trains ``steps`` steps through ``launch.train.train`` with the trained
-    boundary from the same seed, counting the kernels' launches from zero; on
-    the mesh ``ckpt_mesh`` the run saves its state at the end under PIPE_DIR
-    (slice 7c) and ``pipeline_checkpoint`` hashes it.  Writes its results as
-    JSON beside ``store``."""
+    (``accumulated_value_and_grad``), and keeps its stage of both.  Where the
+    mesh splits ``cfg`` over ``model`` (``model_plan``: slice 7b-iv) it first
+    holds one replicated call on its whole stage for each boundary against
+    them, the control, and then cuts its shards (``shard_params``) and makes
+    one tensor-parallel call for each boundary, its loss against the first
+    control's and its gradients' squared differences from that control's
+    blocks summed leaf by leaf (the parent puts the leaves together);
+    elsewhere it holds one call for each boundary against them.  The
+    boundaries of each kind of call are held against each other bit for bit,
+    and rank 0's calls against their dry-runs where
+    ``predicted`` ("<mesh>_<boundary>" -> ``write_predictions``' entry) has
+    them (``hold_dryrun``).  Then it trains ``steps`` steps through
+    ``launch.train.train`` with the trained boundary from the same seed,
+    counting the kernels' launches from zero; on the mesh ``ckpt_mesh`` the run
+    saves its state at the end under PIPE_DIR (slice 7c) and
+    ``pipeline_checkpoint`` hashes it.  Writes its results as JSON beside
+    ``store``."""
     began = time.time()
     join_as_rank(rank, world, store)
     t0 = time.perf_counter()
@@ -2822,6 +2871,8 @@ def pipeline_rank(rank: int, world: int, cfg, meshes, steps: int, batch: int, se
             if rank >= math.prod(shape):
                 raise ValueError(f"rank {rank} outside the mesh {shape}")
             mesh = make_mesh(shape, PIPE_AXES)
+            plan = model_plan(cfg, mesh)
+            label = "x".join(map(str, shape))
             lo, hi = stage_layer_range(L, shape[0], mesh.coords["pod"])
             out = {"rank": rank, "coords": mesh.coords, "parity": {}, "train": {}, "began": began,
                    "first_pin_seconds": first_pin, "joined": time.time(),
@@ -2838,33 +2889,39 @@ def pipeline_rank(rank: int, world: int, cfg, meshes, steps: int, batch: int, se
             del whole
             release()
             out["reference_seconds"] = time.perf_counter() - t0
+            if plan is not None:  # the control: the replicated calls on the whole stage, then this rank's shards
+                out["control"], control = {}, None
+                for boundary in runs:
+                    line, loss, grads = pipe_call(cfg, mesh, boundary, params, b0, None, None, predicted)
+                    line.update(against_accumulation(grads, ref, ref_loss, line["loss"]))
+                    out["control"][boundary] = line
+                    if control is None:
+                        control = (loss, grads)
+                    else:
+                        line["bit_equal_to_" + runs[0]] = bool(torch.equal(loss, control[0]) and all(
+                            torch.equal(g, control[1][p]) for p, g in grads.items()))
+                    del loss, grads
+                specs = flatten(plan)
+                ref = {p: local_block(g, specs[p], mesh) for p, g in control[1].items()}
+                ref_loss = out["control"][runs[0]]["loss"]
+                params = shard_params(params, mesh, plan)
+                out["split"] = sorted(split_paths(plan))
+                out["param_count"] = sum(t.numel() for t in flatten(params).values())
+                del control
+                release()
             for boundary in runs:
-                t0 = time.perf_counter()
-                loss_fn = make_pipeline_loss(cfg, mesh, n_micro=PIPE_N_MICRO, boundary=boundary)
-                check, held = f"{'x'.join(map(str, shape))}_{boundary}", None
-                if rank == 0 and check in predicted:  # this rank's held call against its dry-run
-                    held, (loss, grads) = hold_dryrun(f"{cfg.name} pipelined call, rank 0 of {check}", check,
-                                                      predicted[check], lambda: loss_fn(params, b0), (params, b0),
-                                                      backward=True, transport=loss_fn.transport)
-                else:
-                    loss, grads = loss_fn(params, b0)
-                transport = loss_fn.transport
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                gaps = {p: float((g - ref[p]).abs().max()) / max(float(ref[p].abs().max()), 1e-30)
-                        for p, g in grads.items()}
-                worst = max(gaps, key=gaps.get)
-                out["parity"][boundary] = {"loss": float(loss), "ref_loss": ref_loss,
-                                           "loss_rel_diff": abs(float(loss) - ref_loss) / abs(ref_loss),
-                                           "grad_max_diff_over_max": gaps[worst], "worst_leaf": worst,
-                                           "finite": all(bool(torch.isfinite(g).all()) for g in grads.values()),
-                                           "bytes": transport.counts(),
-                                           "transport_seconds": transport.times(), "call_seconds": t1 - t0,
-                                           "seconds": time.perf_counter() - t0, "dryrun": held}
+                line, loss, grads = pipe_call(cfg, mesh, boundary, params, b0, plan, f"{label}_{boundary}", predicted)
+                if plan is None:
+                    line.update(against_accumulation(grads, ref, ref_loss, line["loss"]))
+                else:  # against the control, each leaf's blocks as phase train_tp holds them
+                    line.update(ref_loss=ref_loss, loss_rel_diff=abs(line["loss"] - ref_loss) / abs(ref_loss),
+                                sums={p: [float((g.float() - ref[p].float()).square().sum()),
+                                          float(ref[p].float().square().sum())] for p, g in grads.items()})
+                out["parity"][boundary] = line
                 if first is None:
                     first = (loss, grads)
                 else:
-                    out["parity"][boundary]["bit_equal_to_" + runs[0]] = bool(
+                    line["bit_equal_to_" + runs[0]] = bool(
                         torch.equal(loss, first[0]) and all(torch.equal(g, first[1][p]) for p, g in grads.items()))
                 del grads
             del params, first, ref
@@ -2880,8 +2937,9 @@ def pipeline_rank(rank: int, world: int, cfg, meshes, steps: int, batch: int, se
             hist = res["history"]
             out["train"][trained] = {"counters": counters, "losses": [h["loss"] for h in hist],
                                      "grad_norms": [h["grad_norm"] for h in hist],
-                                     "step_ms": [h["seconds"] * 1e3 for h in hist], "bytes": hist[-1]["bytes"],
-                                     "transport_seconds": hist[-1]["transport_seconds"],
+                                     "step_ms": [h["seconds"] * 1e3 for h in hist],
+                                     "bytes_per_step": per_step([h["bytes"] for h in hist]),
+                                     "transport_seconds_per_step": per_step([h["transport_seconds"] for h in hist]),
                                      "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                                      "seconds": time.perf_counter() - t0}
             if ckpt_dir:
@@ -2927,12 +2985,18 @@ def run_pipeline(phase: str, cfg, meshes, *, steps: int, batch: int, seq: int, l
                  predicted: dict, ckpt_mesh=None) -> dict:
     """The ranks of ``pipeline_rank`` on the card over ``meshes`` ((mesh
     shape, boundaries, trained boundary), all of one size) in one spawn;
-    raises unless every rank's parity is within PIPE_TOL, a second boundary
-    is bit-equal to the first with 1/TP of its ``pod`` bytes, the trained
-    run's losses are finite and its first is step 0's call's, and the
-    counters show exactly ``owed(last)`` a rank a step (``last``: whether the
-    rank's stage is the last), and on ``ckpt_mesh`` the saved file, cut into
-    stages, has every rank's own state bit for bit (``hold_checkpoint``).
+    raises unless every rank's parity holds: within PIPE_TOL of accumulation,
+    or on a mesh that splits ``cfg`` over ``model`` the control (the
+    replicated calls, one a boundary) within PIPE_TOL and each
+    tensor-parallel call within TP_TOL of the first control (the loss on
+    every rank, each gradient leaf put together from the ranks' blocks,
+    relative in norm); a second boundary is bit-equal to the first with 1/TP
+    of its ``pod`` bytes, replicated and tensor-parallel alike; the trained run's
+    losses are finite and its first is step 0's call's; the counters show
+    exactly ``owed(last)`` a rank a step (``last``: whether the rank's stage
+    is the last); and on ``ckpt_mesh`` the saved file, cut into stages (and
+    blocks), has every rank's own state bit for bit and the leaves that no
+    rank splits are bit-equal where they are copies (``hold_checkpoint``).
     Emits one line a mesh; returns the counters summed over the ranks, by path."""
     world = math.prod(meshes[0][0])
     if any(math.prod(shape) != world for shape, _, _ in meshes):
@@ -2946,34 +3010,48 @@ def run_pipeline(phase: str, cfg, meshes, *, steps: int, batch: int, seq: int, l
     for i, (shape, runs, trained) in enumerate(meshes):
         mine = [r[i] for r in ranks]
         acc = PIPE_N_MICRO * shape[1]
+        split = set(mine[0].get("split", ()))
+        tensor_parallel = "control" in mine[0]
         line = {"phase": phase, "model": cfg.name, **extra, "mesh": dict(zip(PIPE_AXES, shape)), "boundaries": runs,
-                "trained": trained, "layers": cfg.num_layers, "batch": batch, "seq": seq, "n_micro": PIPE_N_MICRO,
-                "steps": steps, "lr": lr,
+                "trained": trained, "tensor_parallel": tensor_parallel, "layers": cfg.num_layers, "batch": batch,
+                "seq": seq, "n_micro": PIPE_N_MICRO, "steps": steps, "lr": lr,
                 "reference": f"make_train_step(model.loss, accum_steps={acc}) on the same parameters, in each rank",
                 "spawn_wall_seconds": wall, "spawned": spawned, "tol": PIPE_TOL, "param_count": cfg.param_count(),
                 "stage_state_bytes": stage_state_bytes(cfg, shape[0]), "parent_memory_at_spawn": held,
                 "note": "the ranks share one card", "ranks": mine}
         failures = []
+        leaves = {b: {} for b in runs}  # boundary -> leaf -> [sum of squared differences, sum of the control's squares]
         for r in mine:
             last = r["coords"]["pod"] == shape[0] - 1
             want = {k: steps * v for k, v in owed(last).items()}
-            for boundary in runs:
-                p = r["parity"][boundary]
+            held_calls = [(b + " (control)", r["control"][b]) for b in runs] if tensor_parallel else \
+                [(b, r["parity"][b]) for b in runs]
+            for name, p in held_calls:
                 if not (p["finite"] and p["loss_rel_diff"] <= PIPE_TOL["loss_rel"]
                         and p["grad_max_diff_over_max"] <= PIPE_TOL["grad"]):
-                    failures.append((r["rank"], boundary, "parity", p))
+                    failures.append((r["rank"], name, "parity", {k: v for k, v in p.items() if k != "bytes"}))
+            for boundary in runs if tensor_parallel else ():
+                p = r["parity"][boundary]
+                if not (p["finite"] and p["loss_rel_diff"] <= TP_TOL["loss_rel"]):
+                    failures.append((r["rank"], boundary, "tensor-parallel loss", p["loss"], p["ref_loss"]))
+                for leaf, (d, w) in p.pop("sums").items():
+                    if (r["coords"]["data"] == 0 and (leaf in split or r["coords"]["model"] == 0)
+                            and (leaf.split("/", 1)[0] == "layers" or r["coords"]["pod"] == 0)):
+                        sums = leaves[boundary].setdefault(leaf, [0.0, 0.0])
+                        sums[0], sums[1] = sums[0] + d, sums[1] + w
             checked = [r["parity"][b]["dryrun"] for b in runs if r["parity"][b].get("dryrun")]
             owed_checks = [b for b in runs if f"{'x'.join(map(str, shape))}_{b}" in predicted] if r["rank"] == 0 else []
             if len(checked) != len(owed_checks):
                 failures.append((r["rank"], "dryrun", f"{len(checked)} held calls checked, {len(owed_checks)} owed"))
             DRYRUN_LINES.extend(checked)
             failures += [(r["rank"], x["check"], "dryrun", x["failures"]) for x in checked if x["failures"]]
-            for boundary in runs[1:]:
-                p, d = r["parity"][boundary], r["parity"][runs[0]]
-                if not p["bit_equal_to_" + runs[0]]:
-                    failures.append((r["rank"], boundary, "not bit-equal"))
-                if p["bytes"]["pod"]["send"] * shape[2] != d["bytes"]["pod"]["send"]:
-                    failures.append((r["rank"], boundary, "pod bytes", p["bytes"]["pod"], d["bytes"]["pod"]))
+            for calls in [r["parity"]] + ([r["control"]] if tensor_parallel else []):
+                for boundary in runs[1:]:
+                    p, d = calls[boundary], calls[runs[0]]
+                    if not p["bit_equal_to_" + runs[0]]:
+                        failures.append((r["rank"], boundary, "not bit-equal"))
+                    if p["bytes"]["pod"]["send"] * shape[2] != d["bytes"]["pod"]["send"]:
+                        failures.append((r["rank"], boundary, "pod bytes", p["bytes"]["pod"], d["bytes"]["pod"]))
             t = r["train"][trained]
             if not all(np.isfinite(t["losses"])) or t["losses"][0] != r["parity"][trained]["loss"]:
                 failures.append((r["rank"], trained, "losses", t["losses"], r["parity"][trained]["loss"]))
@@ -2983,8 +3061,17 @@ def run_pipeline(phase: str, cfg, meshes, *, steps: int, batch: int, seq: int, l
             total = counts.setdefault(path, dict.fromkeys(want, 0))
             for k, v in t["counters"].items():
                 total[k] += v
+        if tensor_parallel:
+            line["tp_tol"] = TP_TOL
+            line["grad_rel_diff"] = {}
+            for boundary, by_leaf in leaves.items():
+                gaps = {leaf: math.sqrt(d) / max(math.sqrt(w), 1e-30) for leaf, (d, w) in by_leaf.items()}
+                worst = max(gaps, key=gaps.get)
+                line["grad_rel_diff"][boundary] = {"worst_leaf": worst, "worst": gaps[worst], "by_leaf": gaps}
+                if gaps[worst] > TP_TOL["grad_rel"] or len(gaps) != len(expected_shapes(cfg)):
+                    failures.append((boundary, "tensor-parallel grads", worst, gaps[worst], len(gaps)))
         if tuple(shape) == ckpt_mesh:
-            line["checkpoint"] = hold_checkpoint(mine, steps, failures)
+            line["checkpoint"] = hold_checkpoint(mine, steps, failures, split)
         emit(line)
         if failures:
             raise AssertionError(f"{phase} {shape}: {failures}")
@@ -2999,8 +3086,10 @@ def pipe_predictions(started, prefix: str) -> dict:
 def phase_train_pipeline(started) -> dict:
     """GPT-A at full width with PIPE_LAYERS layers, meshes (2, 2, 1) direct
     and (2, 1, 2) held with both boundaries and trained striped: K1 and K2,
-    forward and backward.  The (2, 1, 2) run saves its state at the end
-    (slice 7c), held against every rank's own."""
+    forward and backward, on (2, 1, 2) tensor-parallel over ``model`` inside
+    the stages (K2 at 16 of 32 heads; slice 7b-iv), held against the
+    replicated call on the same mesh.  The (2, 1, 2) run saves its state at
+    the end (slice 7c), held against every rank's own."""
     cfg = train_config(PIPE_LAYERS, torch.bfloat16)
     per = PIPE_LAYERS // 2
 
@@ -3043,8 +3132,10 @@ def pipeline_checkpoint(res: dict, cfg, mesh) -> dict:
     """This rank's view of the pipelined run's checkpoint (slice 7c): the
     SHA-256 of each leaf of its own state (``leaf_digests``), and on rank 0
     the file's, loaded with ``load_pytree`` into the whole model's tree on the
-    host, cut into each stage with ``stage_params`` and hashed the same way;
-    with the save's gather, snapshot and write seconds and the load's."""
+    host, cut into each stage with ``stage_params`` (and where the mesh splits
+    ``cfg`` over ``model``, into each block of it with ``shard_params``) and
+    hashed the same way, by "<pod>/<model>"; with the save's gather, snapshot
+    and write seconds and the load's."""
     ck = res["checkpoint"]
     t0 = time.perf_counter()
     out = {"gather_s": ck["gather_s"], "own": leaf_digests({"params": res["params"], "opt": res["opt_state"]})}
@@ -3060,38 +3151,63 @@ def pipeline_checkpoint(res: dict, cfg, mesh) -> dict:
     out["file_bytes"] = os.path.getsize(ck["path"])
     out["saves"] = [{"bytes": s["bytes"], "snapshot_s": s["snapshot_s"], "write_s": s["write_ended"] - s["write_started"]}
                     for s in ck["saves"]]
-    out["by_stage"] = {}
+    out["by_block"] = {}
+    plan = model_plan(cfg, mesh)
     t0 = time.perf_counter()
     for stage in range(mesh.shape["pod"]):
-        m = Mesh(tuple(mesh.shape.values()), mesh.axis_names, mesh.rank_at(pod=stage))
-        opt = whole["opt"]
-        cut = {"params": stage_params(whole["params"], cfg, m),
-               "opt": OptState(opt.step, stage_params(opt.mu, cfg, m), stage_params(opt.nu, cfg, m))}
-        out["by_stage"][stage] = leaf_digests(cut)
-        del cut
+        for j in range(mesh.shape["model"] if plan is not None else 1):
+            m = Mesh(tuple(mesh.shape.values()), mesh.axis_names, mesh.rank_at(pod=stage, model=j))
+
+            def cut(tree):
+                staged = stage_params(tree, cfg, m)
+                return staged if plan is None else shard_params(staged, m, plan)
+
+            opt = whole["opt"]
+            out["by_block"][f"{stage}/{j}"] = leaf_digests(
+                {"params": cut(whole["params"]), "opt": OptState(opt.step, cut(opt.mu), cut(opt.nu))})
     out["file_digest_s"] = time.perf_counter() - t0
     return out
 
 
-def hold_checkpoint(ranks: list, steps: int, failures: list) -> dict:
-    """Adds to ``failures`` unless rank 0 wrote exactly ``step_<steps>.npz``
-    and every rank's own leaves hash as its stage's cut of that file; returns
-    the figures of the line, the digests dropped."""
+def whole_key(key: str, split) -> bool:
+    """Whether the leaf of checkpoint key ``key`` (``params/...``,
+    ``opt/.mu/...``, ``opt/.step``) is one that no ``model`` rank splits."""
+    return key.split("/", 2)[-1] not in split if key.startswith("opt/.") else key[len("params/"):] not in split
+
+
+def hold_checkpoint(ranks: list, steps: int, failures: list, split=()) -> dict:
+    """Adds to ``failures`` unless rank 0 wrote exactly ``step_<steps>.npz``,
+    every rank's own leaves hash as its (stage, block) cut of that file, and
+    the leaves that no rank splits (``split``: the leaves the plan splits over
+    ``model``) hash alike on the ranks that hold copies of them: a stage's
+    rows on the ranks of its ``pod`` coordinate, every other leaf and the step
+    on every rank; returns the figures of the line, the digests dropped."""
     zero = next(r for r in ranks if r["rank"] == 0)["checkpoint"]
     written = [f for f in zero["files"] if f.endswith(".npz")]
     if written != [f"step_{steps:08d}.npz"]:
         failures.append((0, "checkpoint files", zero["files"]))
+    blocks = zero.pop("by_block")
+    own = {r["rank"]: r["checkpoint"].pop("own") for r in ranks}
     for r in ranks:
-        own, want = r["checkpoint"].pop("own"), zero["by_stage"][str(r["coords"]["pod"])]
-        if own != want:
-            failures.append((r["rank"], "checkpoint", sorted(k for k in want if own.get(k) != want[k])[:8]))
-        r["checkpoint"]["leaves_held"] = len(own)
-    leaves = {k: len(v) for k, v in zero.pop("by_stage").items()}
+        c = r["coords"]
+        want = blocks[f"{c['pod']}/{c['model'] if split else 0}"]
+        if own[r["rank"]] != want:
+            failures.append((r["rank"], "checkpoint", sorted(k for k in want if own[r["rank"]].get(k) != want[k])[:8]))
+        r["checkpoint"]["leaves_held"] = len(own[r["rank"]])
+        for q in ranks:
+            same_stage = q["coords"]["pod"] == c["pod"]
+            differ = sorted(k for k, v in own[r["rank"]].items()
+                            if whole_key(k, split) and (same_stage or "/layers/" not in f"/{k}")
+                            and own[q["rank"]].get(k) != v)
+            if differ:
+                failures.append((r["rank"], q["rank"], "copies differ", differ[:8]))
     return {"file": written, "file_bytes": zero["file_bytes"], "saves": zero["saves"], "load_s": zero["load_s"],
-            "file_digest_s": zero["file_digest_s"], "leaves_by_stage": leaves,
+            "file_digest_s": zero["file_digest_s"], "leaves_by_block": {k: len(v) for k, v in blocks.items()},
             "gather_s": {r["rank"]: r["checkpoint"]["gather_s"] for r in ranks},
             "own_digest_s": {r["rank"]: r["checkpoint"]["own_digest_s"] for r in ranks},
-            "held": "the file, loaded and cut into stages (stage_params), hashes as every rank's own state (SHA-256 a leaf)"}
+            "copies_bit_equal": not any("copies differ" in f for f in failures),
+            "held": "the file, loaded and cut into stages (stage_params) and blocks (shard_params), hashes as every "
+                    "rank's own state (SHA-256 a leaf); the leaves no rank splits hash alike wherever they are copies"}
 
 
 # ---------------------------------------------------------------------------
@@ -3372,15 +3488,12 @@ def phase_train_tp(started) -> dict:
     if gaps[worst] > TP_TOL["grad_rel"] or len(gaps) != len(expected_shapes(cfg)):
         failures.append(("grads", worst, gaps[worst], len(gaps)))
 
-    def whole(key: str) -> bool:
-        return key.split("/", 2)[-1] not in split if key.startswith("opt/.") else key[len("params/"):] not in split
-
     digests = {r["rank"]: r.pop("digests") for r in ranks}
     coords = {r["rank"]: r["coords"] for r in ranks}
     for a in digests:
         for b in digests:
             same_model = coords[a]["model"] == coords[b]["model"]
-            differ = sorted(k for k, v in digests[a].items() if digests[b][k] != v and (same_model or whole(k)))
+            differ = sorted(k for k, v in digests[a].items() if digests[b][k] != v and (same_model or whole_key(k, split)))
             if differ:
                 failures.append((a, b, "replicas differ", differ[:8]))
     emit({"phase": "train_tp", "model": cfg.name, "reduced": TP_REDUCED, "mesh": dict(zip(TP_MESH[1], TP_MESH[0])),

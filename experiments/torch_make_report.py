@@ -42,7 +42,8 @@ def report(rs) -> str:
         mem, coll = r["memory"], r["collectives"]
         ops = " ".join(f"{k}:{v/1e6:.0f}MB" for k, v in sorted(coll["by_op"].items()))
         fits = "yes" if mem["peak_bytes"] <= DEVICE_BYTES else "**no**"
-        out.append(f"| {r['arch']} | {r['shape']} | {r['mesh']} | {r.get('program', '-')} | {r['host_s']} | "
+        program = r.get("program", "-") + ("+tensor_parallel" if r.get("tensor_parallel") else "")
+        out.append(f"| {r['arch']} | {r['shape']} | {r['mesh']} | {program} | {r['host_s']} | "
                    f"{gb(mem['peak_bytes'])} | {gb(mem['argument_bytes'])} | {gb(r.get('plan_bytes_per_device'))} | "
                    f"{fits} | {coll['dcn']/1e6:.1f} | {ops or '-'} |")
     for r in sk:

@@ -4,10 +4,11 @@
 2. The discrete-event simulator compares Atlas vs Varuna/GPipe on it.
 3. The REAL cross-pod pipeline (``repro_torch.parallel.pipeline``: sends and
    receives over the ``pod`` axis, striped Atlas boundary) trains a reduced
-   model on the mesh (pod, data, model) = (2, 2, 2): eight ``gloo`` ranks
-   that this script spawns, which share the one card (``cuda:(rank %
-   device_count)``; the RMSNorm and flash attention kernels and their backward
-   kernels), or run on the CPU when asked.
+   model on the mesh (pod, data, model) = (2, 2, 2), tensor-parallel over
+   ``model`` inside each stage as the reference's partial-auto pipeline is:
+   eight ``gloo`` ranks that this script spawns, which share the one card
+   (``cuda:(rank % device_count)``; the RMSNorm and flash attention kernels
+   and their backward kernels), or run on the CPU when asked.
 
   PYTHONPATH=src python -m repro_torch.examples.geo_train [--device cpu]
 
@@ -37,14 +38,17 @@ from repro_torch.launch.mesh import TIMEOUT, make_mesh
 from repro_torch.models.transformer import build_model
 from repro_torch.optim.optimizer import OptimizerConfig, init_opt_state, make_train_step
 from repro_torch.parallel.pipeline import make_pipeline_loss, stage_params
+from repro_torch.parallel.sharding import shard_params
+from repro_torch.parallel.tensor_parallel import model_plan
 
 MESH = ((2, 2, 2), ("pod", "data", "model"))
 DEADLINE_S = 900  # the spawned ranks' whole run; a rank that waits on another fails after TIMEOUT
 
 
 def _pipeline_rank(rank: int, world: int, store: str, cfg, steps: int, device, params) -> None:
-    """One rank of part 3: joins the mesh, takes its stage of ``params`` (or
-    of parameters made from seed 0 on its device), trains ``steps`` steps of
+    """One rank of part 3: joins the mesh, takes its shards of its stage of
+    ``params`` (or of parameters made from seed 0 on its device) under the
+    placement plan (``model_plan``), trains ``steps`` steps of
     the pipelined step, rank 0 printing, and writes its losses and its
     kernels' launch counts beside ``store``."""
     torch.set_num_threads(1)  # eight ranks on the host's cores
@@ -61,8 +65,9 @@ def _pipeline_rank(rank: int, world: int, store: str, cfg, steps: int, device, p
             params = model.init(gen)
         else:  # the caller's tensors, which every rank shares: copied before they are updated in place
             params = tree_map(lambda t: t.to(dev, copy=True), params)
-        params = stage_params(params, cfg, mesh)
-        loss_fn = make_pipeline_loss(cfg, mesh, n_micro=4, boundary="striped")
+        plan = model_plan(cfg, mesh)
+        params = shard_params(stage_params(params, cfg, mesh), mesh, plan)
+        loss_fn = make_pipeline_loss(cfg, mesh, n_micro=4, boundary="striped", plan=plan)
         step_fn = make_train_step(loss_fn, OptimizerConfig(peak_lr=3e-3, warmup_steps=5, total_steps=steps))
         opt_state = init_opt_state(params)
         losses = []

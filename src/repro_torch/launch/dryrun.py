@@ -13,9 +13,12 @@ v5e constants and are not carried over.
 The programs (``ARCHS[:10]`` x ``SHAPES`` x single (16, 16) / multi (2, 16, 16)):
   * multi x train: ``PipelineLoss`` (n_micro 4, ``--boundary``) and the
     port's AdamW update (``make_train_step``) on a rank of each distinct
-    ``pod`` coordinate (stage 0 and stage 1), through a ``MetaTransport``;
-    ``model`` ranks are replicas, as the port runs them.  Each figure is the
-    larger of the two stages'; each stage's figures are under ``stages``.
+    ``pod`` coordinate (stage 0 and stage 1), through a ``MetaTransport``.
+    For the dense decoder family the stages are tensor-parallel over
+    ``model``, as the launcher runs them (``"tensor_parallel": true``): the rank's f32 state is its shards
+    of its stage under the placement plan, fsdp off; every other family's
+    ``model`` ranks are replicas of their stage.  Each figure is the larger
+    of the two stages'; each stage's figures are under ``stages``.
   * single x train: the port's plain data-parallel step (``DataParallelLoss``
     and the AdamW update) on one rank of the (16, 16) mesh: its ``data``
     share of the global batch and the gradients' all-reduce over ``data``
@@ -298,12 +301,16 @@ def train_program(cfg, mesh: Mesh, batch: Dict[str, torch.Tensor], *, boundary: 
                   ) -> Tuple[Callable[[], Any], Any, MetaTransport]:
     """(step, its arguments, the transport) of ``mesh.rank``'s pipelined train
     step on ``meta``: its stage of the whole model's f32 parameters
-    (``stage_params``), zero moments, and ``make_train_step`` over a
-    ``PipelineLoss`` with a ``MetaTransport``, on the global ``batch``."""
+    (``stage_params``), cut to its shards where ``tensor_parallel.model_plan``
+    gives a plan (the launcher's rule), zero moments, and ``make_train_step``
+    over a ``PipelineLoss`` with a ``MetaTransport``, on the global ``batch``."""
+    plan = model_plan(cfg, mesh)
     params = stage_params(meta_params(build_model(cfg)), cfg, mesh)
+    if plan is not None:
+        params = shard_params(params, mesh, plan)
     opt = init_opt_state(params)
     transport = MetaTransport(mesh)
-    loss_fn = PipelineLoss(cfg, mesh, N_MICRO, boundary, transport=transport)
+    loss_fn = PipelineLoss(cfg, mesh, N_MICRO, boundary, transport=transport, plan=plan)
     step = make_train_step(loss_fn, OptimizerConfig())
     return (lambda: step(params, opt, batch)), (params, opt, batch), transport
 
@@ -489,7 +496,8 @@ def run_one(arch: str, shape: str, mesh_name: str, boundary: str = "striped",
             figs[str(stage)] = _figures(counted, collectives(transport.counts(), rank_mesh))
             del fn, args
         top = _larger(figs)
-        result.update(program="pipeline", n_micro=N_MICRO, ranks_busy=ranks, stages=figs)
+        result.update(program="pipeline", tensor_parallel=model_plan(cfg, mesh) is not None, n_micro=N_MICRO,
+                      ranks_busy=ranks, stages=figs)
     else:
         rows = -(-s["global_batch"] // ranks)
         fn, args = serve_program(cfg, kind, rows, s["seq_len"])

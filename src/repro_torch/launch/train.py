@@ -33,11 +33,14 @@ batch, the global masked mean, the gradients summed over ``data``), and on a
 (``repro_torch.parallel.tensor_parallel``: each rank holds its shards of the
 parameters and moments by the reference's placement plan, ``shard_params``);
 the other families keep whole replicas on the ``model`` ranks, and rank 0's
-``[train]`` line says so (``tp=replicated (ROADMAP 7b-ii)``).  A checkpoint
+``[train]`` line says so (``tp=replicated (ROADMAP 7b-ii)``).  Under
+``--pipeline`` the same plan splits the dense family over ``model`` inside
+each stage (each rank its stage's rows of its shards), and the other families
+keep replicas there too, with the same note.  A checkpoint
 holds the whole, unpadded state in every case and only rank 0 writes it:
 under ``--pipeline`` the stages' rows, under tensor parallelism the split
-leaves, are gathered to rank 0 on the host first (``gather_train_state``),
-and every rank waits for the write.
+leaves' blocks, and under both each stage's blocks, are gathered to rank 0 on
+the host first (``gather_train_state``), and every rank waits for the write.
 
   PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \\
       -m repro_torch.launch.train --arch gpt-a --smoke --steps 4 --batch 8 --seq 32 --device cpu
@@ -89,14 +92,15 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, lr: float = 3e-
 
     With ``pipeline``, this rank trains its stage of the cross-pod pipeline
     over ``mesh`` (``n_micro`` microbatches, ``boundary`` "striped" or
-    "direct"): ``params``, where given, are this rank's (``stage_params``),
-    else the whole model is made from ``seed`` and cut to them.  Without it,
-    a mesh of more than one rank trains data-parallel over its ``data`` axis
-    (``DataParallelLoss``), and where ``tensor_parallel.model_plan`` gives a
-    plan (a dense-family config, ``model`` > 1) tensor-parallel over
-    ``model``: ``params``, where given, are the whole model, which this rank
-    cuts to its shards (``shard_params``; the whole is then the caller's),
-    else the whole model is made from ``seed`` on ``device``, cut, and freed.
+    "direct"): ``params``, where given, are this rank's stage
+    (``stage_params``), else the whole model is made from ``seed`` and cut to
+    it.  Without it, a mesh of more than one rank trains data-parallel over
+    its ``data`` axis (``DataParallelLoss``), and ``params``, where given, are
+    the whole model.  In both cases, where ``tensor_parallel.model_plan``
+    gives a plan (a dense-family config, ``model`` > 1), the rank trains
+    tensor-parallel over ``model`` and cuts what it holds to its shards
+    (``shard_params``; what was given stays the caller's, what was made here
+    is freed).
     The returned ``params`` and ``opt_state`` are the rank's shards.  Only
     rank 0 of the mesh prints and writes checkpoints; under ``pipeline`` or
     tensor parallelism every save first gathers the whole state to it
@@ -114,7 +118,7 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, lr: float = 3e-
     device = resolve_device(device)
     mesh = mesh or Mesh((1,), ("data",))
     model = build_model(cfg)
-    plan = None if pipeline else tp.model_plan(cfg, mesh)
+    plan = tp.model_plan(cfg, mesh)
     if params is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
@@ -127,7 +131,7 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, lr: float = 3e-
     opt_state = init_opt_state(params)
     ckpt = AsyncCheckpointer(ckpt_dir) if ckpt_dir and mesh.rank == 0 else None
     if pipeline:
-        loss_fn = make_pipeline_loss(cfg, mesh, n_micro=n_micro, boundary=boundary)
+        loss_fn = make_pipeline_loss(cfg, mesh, n_micro=n_micro, boundary=boundary, plan=plan)
     elif mesh.size > 1:
         loss_fn = DataParallelLoss(model.loss, mesh, plan=plan)
     else:
@@ -231,7 +235,7 @@ def main(argv=None):
         mesh = (make_production_mesh if args.production_mesh else make_host_mesh)(multi_pod=args.pipeline)
         where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
         if mesh.rank == 0:
-            note = "" if args.pipeline or mesh.shape.get("model", 1) == 1 or tp.tp_family(cfg) else \
+            note = "" if mesh.shape.get("model", 1) == 1 or tp.tp_family(cfg) else \
                 f" tp=replicated (ROADMAP {tp.replicated_reason(cfg)})"
             print(f"[train] arch={cfg.name} device={where} mesh={mesh.shape} params={cfg.param_count() / 1e6:.1f}M"
                   f"{note}", flush=True)

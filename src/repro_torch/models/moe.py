@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.modules import ModelConfig, Params, dense, dense_init
+from repro_torch.parallel import batch_mean
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int, dtype=None) -> Params:
@@ -84,6 +85,8 @@ def moe_apply(params: Params, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.
     # ---- load-balance auxiliary loss (Switch-style) ----
     me = gates.mean(dim=(0, 1))  # mean router probability an expert
     ce = F.one_hot(top_i, E).float().sum(dim=2).mean(dim=(0, 1)) / K  # fraction routed
+    # the whole batch's where a data axis splits it (parallel/batch_mean.py)
+    me, ce = batch_mean.means(me, ce)
     aux = E * torch.sum(me * ce) * m.router_aux_weight
 
     # ---- sort-based dispatch, batched over B ----

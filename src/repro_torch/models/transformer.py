@@ -654,8 +654,9 @@ def build_pipeline_parts(cfg: ModelConfig) -> PipelineParts:
     def embed(params, batch):
         return _inputs_to_embeds(params, cfg, batch)[:2]
 
-    def final_loss(params, x, targets, mask):
-        return _lm_loss_chunked(rmsnorm(params["final_norm"], x), _head_weight(params, cfg), targets, mask)
+    def final_loss(params, x, targets, mask):  # under tensor parallelism over the vocabulary's ranks, as Model.loss
+        return _lm_loss_chunked(rmsnorm(params["final_norm"], x), _head_weight(params, cfg), targets, mask,
+                                split=_head_split(cfg))
 
     if cfg.rwkv is not None:
         def layer(lp, params, x, positions):

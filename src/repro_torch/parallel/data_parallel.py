@@ -15,10 +15,16 @@ mask (``n``, the positions its cross entropy averages over), the counts are
 summed over ``data`` (``N``), and the rank's term is its cross entropy times
 ``n / N``: its masked sum over the global count, so that the terms sum to the
 whole batch's masked mean.  A batch the plan leaves whole weighs each rank's
-copy 1 / DP.  The MoE load-balance aux, where the model has one, is each
-shard's, averaged over ``data``: the reference computes it once over the
-whole batch's routing, a product of two batch means, which a shard's does not
-equal (ROADMAP.md, "Places where a straightforward port will diverge").
+copy 1 / DP.  The MoE load-balance aux, where the model has one, is the
+whole batch's, as the reference computes it once over the whole batch's
+routing: a product of two batch means, which a shard's does not equal.  While
+``data`` splits the batch the loss runs under ``batch_mean.use``, so that
+``moe_apply`` averages the two means over ``data`` before their product; each
+rank's term weighs that aux 1 / DP, so that the terms sum to it once, and
+``batch_mean``'s docstring gives the arithmetic by which the router's
+gradients, summed over ``data``, are the reference's.  A batch the plan leaves
+whole has the whole batch's aux on every rank already, and each copy weighs
+1 / DP.
 
 Gradients: autograd of the rank's term, then summed over ``data`` through the
 counted transport, leaf by leaf in place (no second copy of the gradients on
@@ -39,7 +45,8 @@ scales) has its whole gradient on every ``model`` rank, the same bits on each.
 those of the whole leaves once: the clip sees the whole model's norm.  The MoE
 and MLA configs (ROADMAP 7b-ii), RWKV-6, Mamba2 and the hybrid (7b-iii) have
 no plan here: their ``model`` ranks are replicas that compute the same
-numbers, as under ``--pipeline``.
+numbers, on this step and under ``--pipeline`` alike (where the dense family
+splits over ``model`` inside each stage, ``parallel/pipeline.py``).
 """
 from __future__ import annotations
 
@@ -51,17 +58,19 @@ from repro_torch.convert import flatten
 from repro_torch.models.modules import Params
 from repro_torch.models.transformer import _loss_targets
 from repro_torch.optim.optimizer import global_norm, gradients
+from repro_torch.parallel import batch_mean
 from repro_torch.parallel import tensor_parallel as tp
 from repro_torch.parallel.sharding import make_batch_shardings
 from repro_torch.parallel.transport import Transport
 
 
-def shard_batch(batch: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+def shard_batch(batch: Dict[str, torch.Tensor], mesh) -> Tuple[Dict[str, torch.Tensor], bool]:
     """This rank's ``data`` shard of every leaf of a global batch, by the
-    reference's batch plan; a leaf the plan does not split is the whole leaf."""
+    reference's batch plan (a leaf the plan does not split is the whole
+    leaf), and whether a ``data`` axis of more than 1 split any leaf."""
     specs = make_batch_shardings(batch, mesh)
     n, i = mesh.shape.get("data", 1), mesh.coords.get("data", 0)
-    out = {}
+    out, split = {}, False
     for k, v in batch.items():
         dims = [d for d, entry in enumerate(specs[k]) if entry == "data"]
         if not dims:
@@ -69,7 +78,8 @@ def shard_batch(batch: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]
             continue
         rows = v.shape[dims[0]] // n
         out[k] = v.narrow(dims[0], i * rows, rows)
-    return out
+        split = split or n > 1
+    return out, split
 
 
 class DataParallelLoss:
@@ -90,10 +100,10 @@ class DataParallelLoss:
         self.DP = mesh.shape.get("data", 1)
         self.transport = Transport(mesh) if transport is None else transport
         self.tp = tp.TPContext(mesh, self.transport, plan) if plan is not None else None
-        self.split = {p for p, spec in flatten(plan).items() if tp.is_split(spec)} if plan is not None else set()
+        self.split = tp.split_paths(plan)
 
     def __call__(self, params: Params, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        local = shard_batch(batch, self.mesh)
+        local, split = shard_batch(batch, self.mesh)
         targets, mask = _loss_targets(local)
         n = mask.float().sum() if mask is not None else torch.full((), targets.numel(), dtype=torch.float32,
                                                                     device=targets.device)
@@ -102,7 +112,7 @@ class DataParallelLoss:
         leaves = list(flat.values())
         for t in leaves:
             t.requires_grad_(True)
-        with tp.use(self.tp):
+        with tp.use(self.tp), batch_mean.use(self.transport if split else None):
             _, metrics = self.model_loss(params, local)
             term = metrics["ce"] * (n / torch.clamp(total_n, min=1.0))
             if metrics.get("aux") is not None:

@@ -28,15 +28,30 @@ Boundary modes, the paper's two transports:
   The numbers are the same in both; only the bytes on each link differ
   (``Transport.bytes``).
 
-Tensor parallelism is not done here: ranks on the ``model`` axis compute the
-same numbers, as the reference's fully manual fall-back does ("the model axis
-carrying replicas").
+Tensor parallelism over ``model`` inside each stage (``plan``, the whole
+model's placement plan, ``tensor_parallel.model_plan``: the dense decoder
+family on a ``model`` axis of more than 1), as the reference's partial-auto
+region has GSPMD place the parameters of its ``--pipeline`` launcher
+(``make_param_shardings``, fsdp off): each rank holds its stage's rows of its
+``model`` block of every stacked leaf and its block of ``embed`` and
+``lm_head`` (``stage_params``, then ``shard_params``), and the whole step runs
+inside the ``model`` context (``tensor_parallel.use``): the embedding gathers
+its feature columns, each layer's products compute on the rank's shards, and
+the last stage takes the cross entropy over the vocabulary's ranks.  The
+residual stream stays whole on every ``model`` rank, so the boundaries carry
+what they carry without a plan, and the input's gradient that a stage sends
+back is the ``copy_in`` all-reduce's, the same bits on every ``model`` rank.
+Without a plan (the MoE and MLA configs, ROADMAP 7b-ii; RWKV-6, Mamba2 and the
+hybrid, 7b-iii) the ``model`` ranks compute the same numbers, as the
+reference's fully manual fall-back does ("the model axis carrying replicas").
 
 Loss and gradients: the loss is the sum over this rank's microbatches of
 ``final_loss`` (last stage only) plus the layers' aux, summed over ``pod``
 and ``data`` and divided by n_micro * DP.  Layer gradients are summed over
 ``data``; the gradients of ``rest`` over ``data`` and ``pod`` (the transpose
-of the replicated input).  Gradients are f32, as the f32 parameters.
+of the replicated input).  Under a plan each is this rank's block; a leaf the
+plan leaves whole (the norm scales) has its whole gradient on every ``model``
+rank, the same bits on each.  Gradients are f32, as the f32 parameters.
 
 Non-divisible layer counts (deepseek-v2-lite: 27, zamba2: 9 groups) are
 padded with exact-identity zero layers (residual blocks with zero weights add
@@ -64,8 +79,8 @@ from repro_torch.models.transformer import (
     build_pipeline_parts,
 )
 from repro_torch.optim.optimizer import OptState
+from repro_torch.parallel import tensor_parallel as tp
 from repro_torch.parallel.sharding import unshard
-from repro_torch.parallel.tensor_parallel import is_split
 from repro_torch.parallel.transport import Transport
 
 BOUNDARIES = ("striped", "direct")
@@ -142,31 +157,28 @@ def _host(t: torch.Tensor) -> torch.Tensor:
 def gather_train_state(params: Params, opt_state, cfg: ModelConfig, mesh,
                        plan: Optional[Dict] = None) -> Optional[Dict[str, Any]]:
     """The whole, unpadded train state ``{"params", "opt"}`` of a pipelined
-    run, or with ``plan`` of a tensor-parallel plain run, on rank 0's host;
-    None on every other rank.  Every rank must call it.
+    run (a mesh with a ``pod`` axis), of a tensor-parallel one (``plan``, the
+    whole model's placement plan), or of both, on rank 0's host; None on
+    every other rank.  Every rank must call it.
 
-    Pipelined: the stack's rows and their moments come from the rank of each
-    stage in rank 0's ``data`` and ``model`` coordinates, received by rank 0
-    over ``pod`` on the host (``gloo`` point to point, CPU tensors, nothing
-    through the card) and put back in layer order (``assemble_params``); the
-    leaves outside the stack, their moments and ``.step`` are rank 0's.
-    Tensor-parallel (``plan``, the whole model's placement plan, no ``pod``
-    axis): each leaf the plan splits over ``model`` and its two moments come
-    from the ranks of rank 0's ``data`` coordinate, received by rank 0 over
-    ``model`` in the same way and concatenated (``unshard``); every other leaf,
-    its moments and ``.step`` are rank 0's.  No rank's block is ever written
-    as a whole leaf.  The leaves that are not gathered are replicated: before
-    the gather every rank's sums of their bit patterns are held equal over the
-    world (all-reduced as a minimum and a maximum), and a rank that differs
-    raises on every rank."""
+    The ranks of rank 0's ``data`` coordinate hold the pieces: stage s's rows
+    of the stack on the ranks of ``pod`` s, and under ``plan`` block j of each
+    leaf it splits over ``model`` on the ranks of ``model`` j.  Rank 0
+    receives from each of them, in (stage, block) order, the pieces it lacks
+    (``_pieces``: the stack's rows from every stage, the split leaves' blocks
+    from every ``model`` rank, and nothing twice), on the host (``gloo`` point
+    to point, CPU tensors, nothing through the card); it puts the blocks of
+    each stage together (``unshard``) and the stages in layer order
+    (``assemble_params``).  Every other leaf, its moments and ``.step`` are
+    rank 0's.  No rank's rows or block are ever written as a whole leaf.  The
+    leaves that are not gathered are replicated: before the gather every
+    rank's sums of their bit patterns are held equal over the world
+    (all-reduced as a minimum and a maximum), and a rank that differs raises
+    on every rank."""
     trees = {"params": params, "mu": opt_state.mu, "nu": opt_state.nu}
-    if plan is None:
-        key = build_pipeline_parts(cfg).layer_key
-        gathered = {p for p in flatten(params) if p.split("/", 1)[0] == key}
-    else:
-        gathered = {p for p, spec in flatten(plan).items() if is_split(spec)}
+    staged, split = _pieces(cfg, mesh, plan)
     replicated = [opt_state.step] + [t for tree in trees.values() for p, t in flatten(tree).items()
-                                     if p not in gathered]
+                                     if not staged(p) and p not in split]
     if mesh.size > 1:
         sums = torch.stack([_bits(t).cpu() for t in replicated])
         lo, hi = sums.clone(), sums.clone()
@@ -175,57 +187,56 @@ def gather_train_state(params: Params, opt_state, cfg: ModelConfig, mesh,
         if not torch.equal(lo, hi):
             raise RuntimeError(f"rank {mesh.rank}: the replicated leaves or the step differ across the ranks")
 
-    if plan is not None:
-        return _gather_model_blocks(trees, opt_state.step, gathered, plan, mesh)
-    if mesh.coords["data"] or mesh.coords["model"]:
+    def needed(p: str, s: int, j: int) -> bool:  # whether rank (pod s, model j) holds a piece of p rank 0 lacks
+        return (s, j) != (0, 0) and (s == 0 or staged(p)) and (j == 0 or p in split)
+
+    if mesh.coords.get("data", 0):
         return None
-    L, S = stack_length(cfg), mesh.shape["pod"]
-    if mesh.coords["pod"]:
+    S, TP = mesh.shape.get("pod", 1), mesh.shape.get("model", 1)
+    me = (mesh.coords.get("pod", 0), mesh.coords.get("model", 0))
+    if me != (0, 0):
         for tree in trees.values():
-            for t in flatten(tree[key]).values():
-                if t.numel():
-                    dist.send(_host(t), mesh.rank_at(pod=0))
+            for p, t in flatten(tree).items():
+                if needed(p, *me) and t.numel():
+                    dist.send(_host(t), mesh.rank_at(**_at(mesh, 0, 0)))
         return None
+    L = stack_length(cfg)
     out = {}
     for name, tree in trees.items():
-        stages = [tree_map(_host, tree)]
-        for s in range(1, S):
+        own = {p: _host(t) for p, t in flatten(tree).items()}
+        stages = []
+        for s in range(S):
             lo_s, hi_s = (min(i, L) for i in stage_layer_range(L, S, s))
-            rows = {}
-            for path, t in flatten(tree[key]).items():
-                rows[path] = torch.empty((hi_s - lo_s,) + tuple(t.shape[1:]), dtype=t.dtype)
-                if rows[path].numel():
-                    dist.recv(rows[path], mesh.rank_at(pod=s))
-            stages.append({key: unflatten(rows)})
-        out[name] = assemble_params(stages, cfg)
+            blocks = []
+            for j in range(TP):
+                if (s, j) == (0, 0):
+                    blocks.append(own)
+                    continue
+                got = {}
+                for p, t in own.items():
+                    if needed(p, s, j):
+                        shape = (hi_s - lo_s,) + tuple(t.shape[1:]) if staged(p) else tuple(t.shape)
+                        got[p] = torch.empty(shape, dtype=t.dtype)
+                        if got[p].numel():
+                            dist.recv(got[p], mesh.rank_at(**_at(mesh, s, j)))
+                blocks.append(got)
+            trees_j = [unflatten(b) for b in blocks]
+            stages.append(trees_j[0] if plan is None else unshard(trees_j, plan))
+        out[name] = assemble_params(stages, cfg) if S > 1 else stages[0]
     return {"params": out["params"], "opt": OptState(_host(opt_state.step), out["mu"], out["nu"])}
 
 
-def _gather_model_blocks(trees: Dict[str, Params], step: torch.Tensor, gathered, plan, mesh):
-    """``gather_train_state`` under tensor parallelism: the ``gathered``
-    leaves of ``trees`` sent by the ranks of ``data`` coordinate 0 to rank 0
-    in order, which makes each whole (``unshard``)."""
-    if mesh.coords["data"]:
-        return None
-    if mesh.coords["model"]:
-        for tree in trees.values():
-            for p, t in flatten(tree).items():
-                if p in gathered:
-                    dist.send(_host(t), mesh.rank_at(model=0))
-        return None
-    out = {}
-    for name, tree in trees.items():
-        flat = flatten(tree)
-        blocks = [tree_map(_host, tree)]
-        for j in range(1, mesh.shape["model"]):
-            got = {}
-            for p in flat:
-                if p in gathered:
-                    got[p] = torch.empty(tuple(flat[p].shape), dtype=flat[p].dtype)
-                    dist.recv(got[p], mesh.rank_at(model=j))
-            blocks.append(got)
-        out[name] = unshard(blocks, plan)
-    return {"params": out["params"], "opt": OptState(_host(step), out["mu"], out["nu"])}
+def _pieces(cfg: ModelConfig, mesh, plan: Optional[Dict]):
+    """(whether a leaf is cut into stages, the leaves ``plan`` splits over
+    ``model``) for ``gather_train_state``: on a mesh with a ``pod`` axis the
+    stacked leaves are staged."""
+    key = build_pipeline_parts(cfg).layer_key if "pod" in mesh.shape else None
+    return (lambda p: p.split("/", 1)[0] == key), tp.split_paths(plan)
+
+
+def _at(mesh, pod: int, model: int) -> Dict[str, int]:
+    """The coordinates of (``pod``, ``model``) at ``data`` 0, for the axes the mesh has."""
+    return {a: c for a, c in (("pod", pod), ("data", 0), ("model", model)) if a in mesh.shape}
 
 
 def _microbatch(batch: Dict[str, torch.Tensor], rows: slice) -> Dict[str, torch.Tensor]:
@@ -246,10 +257,13 @@ class PipelineLoss:
     ranks as the module docstring says.  ``grad_norm(grads)`` is the global
     norm of the whole (unpadded) model's gradient; ``transport.bytes`` counts
     what this rank has sent.  ``transport`` is a ``Transport`` over ``mesh``
-    by default; the dry-run gives a ``MetaTransport``."""
+    by default; the dry-run gives a ``MetaTransport``.  ``plan`` (the whole
+    model's, ``tensor_parallel.model_plan``) turns tensor parallelism over
+    ``model`` on inside the stages: ``params`` are then this rank's shards of
+    its stage (``shard_params`` of ``stage_params``)."""
 
     def __init__(self, cfg: ModelConfig, mesh, n_micro: int = 4, boundary: str = "striped",
-                 transport: Optional[Transport] = None):
+                 transport: Optional[Transport] = None, plan: Optional[Dict] = None):
         if boundary not in BOUNDARIES:
             raise ValueError(f"boundary {boundary!r}: one of {BOUNDARIES}")
         if cfg.tie_embeddings:
@@ -261,6 +275,8 @@ class PipelineLoss:
         if boundary == "striped" and cfg.d_model % self.TP:
             raise ValueError(f"striped boundary: d_model {cfg.d_model} is not split by the model axis {self.TP}")
         self.transport = Transport(mesh) if transport is None else transport
+        self.tp = tp.TPContext(mesh, self.transport, plan) if plan is not None else None
+        self.split = tp.split_paths(plan)
 
     # ---- the stage boundary ----------------------------------------------
 
@@ -307,7 +323,7 @@ class PipelineLoss:
 
         total = torch.zeros((), dtype=torch.float32, device=dev)
         saved: List[Optional[Tuple]] = []
-        with _batch_route(batch):
+        with tp.use(self.tp), _batch_route(batch):
             for m in range(n_micro):
                 mb = _microbatch(batch, rows(m))
                 if stage == 0:
@@ -372,20 +388,27 @@ class PipelineLoss:
     def grad_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The global norm of the whole model's gradient: this stage's layer
         squares summed over ``pod``, plus ``rest``'s counted once (every rank
-        holds the same, and ``model`` ranks are replicas)."""
+        holds the same).  Without a plan the ``model`` ranks are replicas;
+        under one the squares of the split leaves' blocks are summed over
+        ``model`` first, and the whole leaves' counted once."""
         key = self.parts.layer_key
-        layer_sq = rest_sq = torch.zeros((), dtype=torch.float32, device=next(iter(grads.values())).device)
+        zero = torch.zeros((), dtype=torch.float32, device=next(iter(grads.values())).device)
+        sq = {(layer, split): zero for layer in (True, False) for split in (True, False)}
         for path, g in grads.items():
-            s = g.float().square().sum()
-            if path.split("/", 1)[0] == key:
-                layer_sq = layer_sq + s
-            else:
-                rest_sq = rest_sq + s
+            at = (path.split("/", 1)[0] == key, path in self.split)
+            sq[at] = sq[at] + g.float().square().sum()
+        if self.split:
+            blocks = self.transport.all_reduce(torch.stack([sq[True, True], sq[False, True]]), "model")
+            layer_sq, rest_sq = blocks[0] + sq[True, False], blocks[1] + sq[False, False]
+        else:
+            layer_sq, rest_sq = sq[True, False], sq[False, False]
         layer_sq = self.transport.all_reduce(layer_sq.clone(), "pod")
         return torch.sqrt(layer_sq + rest_sq)
 
 
-def make_pipeline_loss(cfg: ModelConfig, mesh, *, n_micro: int = 4, boundary: str = "striped") -> PipelineLoss:
-    """Build loss(params, batch) -> (loss, grads) running PP over the mesh's ``pod`` axis."""
-    return PipelineLoss(cfg, mesh, n_micro, boundary)
+def make_pipeline_loss(cfg: ModelConfig, mesh, *, n_micro: int = 4, boundary: str = "striped",
+                       plan: Optional[Dict] = None) -> PipelineLoss:
+    """Build loss(params, batch) -> (loss, grads) running PP over the mesh's
+    ``pod`` axis, and with ``plan`` TP over ``model`` inside each stage."""
+    return PipelineLoss(cfg, mesh, n_micro, boundary, plan=plan)
 

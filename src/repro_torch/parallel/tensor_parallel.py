@@ -1,5 +1,7 @@
-"""Tensor parallelism over the mesh's ``model`` axis on the plain step: the
-products that the reference's GSPMD splits by the placement plan
+"""Tensor parallelism over the mesh's ``model`` axis, on the plain step
+(``parallel/data_parallel.py``) and inside each stage of the pipeline
+(``parallel/pipeline.py``): the products that the reference's GSPMD splits by
+the placement plan
 (``repro/parallel/sharding.py``'s ``PARAM_RULES`` through
 ``make_param_shardings``, fsdp off, as ``repro/launch/train.py`` places the
 parameters), written out as the model group's four operations.
@@ -21,14 +23,16 @@ The operations read a module-level context (``use``), not a thread-local one:
 autograd runs a CUDA backward, and with it the rematerialised forward, on a
 thread of its own.  With no context, or a ``model`` axis of 1, every operation
 is the identity and returns its input itself, and ``split_dim`` is None, so the
-single-process step and the pipeline compute exactly what they computed before.
+single-process step, and a step or pipeline given no plan, compute exactly what
+they computed before.
 The model modules import this one, so it imports none of the port's modules at
 its top.
 
 Which configs split: the dense decoder family (``tp_family``: dense, VLM and
-audio transformers with GQA or MQA attention and a dense FFN).  The MoE and
-MLA configs (ROADMAP 7b-ii) and RWKV-6, Mamba2 and the Zamba2 hybrid (7b-iii)
-keep whole replicas on every ``model`` rank.
+audio transformers with GQA or MQA attention and a dense FFN), on the plain
+step and under ``--pipeline`` alike.  The MoE and MLA configs (ROADMAP 7b-ii)
+and RWKV-6, Mamba2 and the Zamba2 hybrid (7b-iii) keep whole replicas on every
+``model`` rank, on both.
 """
 from __future__ import annotations
 
@@ -55,8 +59,9 @@ def replicated_reason(cfg) -> str:
 
 def model_plan(cfg, mesh) -> Optional[Dict]:
     """The placement plan of ``cfg``'s parameters on ``mesh`` (a nested dict of
-    ``P``s, fsdp off) where the plain step splits them over ``model``: a
-    dense-family config on a ``model`` axis of more than 1.  None otherwise."""
+    ``P``s, fsdp off) where the plain step and the pipeline's stages split them
+    over ``model``: a dense-family config on a ``model`` axis of more than 1.
+    None otherwise."""
     from repro_torch.convert import expected_shapes, unflatten
     from repro_torch.parallel.sharding import make_param_shardings
 
@@ -68,6 +73,14 @@ def model_plan(cfg, mesh) -> Optional[Dict]:
 def is_split(spec, axis: str = AXIS) -> bool:
     """Whether a leaf's ``P`` splits a dim over ``axis``."""
     return any(e == axis or (isinstance(e, tuple) and axis in e) for e in spec)
+
+
+def split_paths(plan, axis: str = AXIS) -> set:
+    """The paths (``flatten``'s) of the leaves that ``plan`` splits over
+    ``axis``; none without a plan."""
+    from repro_torch.convert import flatten
+
+    return {p for p, spec in flatten(plan).items() if is_split(spec, axis)} if plan is not None else set()
 
 
 def split_dims(plan, axis: str = AXIS) -> Dict[str, Optional[int]]:

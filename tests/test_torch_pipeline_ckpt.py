@@ -6,8 +6,10 @@ its keys, shapes and dtypes are those of a plain run's file, the reference's
 ``load_pytree`` reads it into the reference's own init tree, the padded row of
 a stack that needs one (DeepSeek-V2-Lite smoke cut to 3 layers: 2 rows a
 stage, the last padded) is not in it, and cut back into stages
-(``stage_params``) it equals every rank's own parameters, moments and step bit
-for bit.  ``assemble_params`` undoes ``stage_params``."""
+(``stage_params``), and for gpt_a, which is tensor-parallel over ``model``
+inside its stages (slice 7b-iv), into each rank's blocks by the placement plan
+(``shard_params``), it equals every rank's own parameters, moments and step
+bit for bit.  ``assemble_params`` undoes ``stage_params``."""
 import dataclasses
 import os
 
@@ -26,6 +28,8 @@ from repro_torch.convert import flatten
 from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.train import train
 from repro_torch.parallel.pipeline import assemble_params, stage_params
+from repro_torch.parallel.sharding import shard_params
+from repro_torch.parallel.tensor_parallel import model_plan
 from torch_pipeline_helpers import spawn, train_rank
 
 SHAPE, AXES = (2, 1, 2), ("pod", "data", "model")
@@ -80,11 +84,18 @@ def test_pipelined_checkpoints_hold_the_whole_unpadded_state(tmp_path):
             assert np.array_equal(ref_flat[k], v.numpy()), k
 
         stages = []
+        plan = model_plan(cfg, Mesh(SHAPE, AXES))
+        assert (plan is not None) == (arch == "gpt_a")
         for rank, res in enumerate(ranks):
             mine, mesh = res[i], Mesh(SHAPE, AXES, rank)
-            _equal(flatten(stage_params(got["params"], cfg, mesh)), mine["params"])
-            _equal(flatten(stage_params(got["opt"].mu, cfg, mesh)), mine["mu"])
-            _equal(flatten(stage_params(got["opt"].nu, cfg, mesh)), mine["nu"])
+
+            def cut(tree):
+                staged = stage_params(tree, cfg, mesh)
+                return flatten(staged if plan is None else shard_params(staged, mesh, plan))
+
+            _equal(cut(got["params"]), mine["params"])
+            _equal(cut(got["opt"].mu), mine["mu"])
+            _equal(cut(got["opt"].nu), mine["nu"])
             assert torch.equal(got["opt"].step, mine["step"])
             if mesh.coords["model"] == 0:
                 stages.append(stage_params(got["params"], cfg, mesh))

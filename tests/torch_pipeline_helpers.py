@@ -53,27 +53,35 @@ def spawn(fn, world: int, tmp_path, *args, deadline: float = DEADLINE_S) -> list
 
 
 def pipeline_run(rank: int, cfg, shape, params_path: str, batches_path: str, boundaries, n_micro: int,
-                 train_steps: int = 0, lr: float = 3e-3) -> dict:
+                 train_steps: int = 0, lr: float = 3e-3, tensor_parallel: bool = False) -> dict:
     """This rank of a pipeline over a (pod, data, model) mesh of ``shape``:
     for each boundary, the loss, gradients and byte counters of one call on
     the first batch; with ``train_steps``, that many steps of the pipelined
-    train step (the last boundary) on the batches in turn, and the state."""
+    train step (the last boundary) on the batches in turn, and the state.
+    With ``tensor_parallel``, tensor-parallel over ``model`` inside the
+    stages by ``model_plan``: the rank holds its shards of its stage."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.optim.optimizer import OptimizerConfig, init_opt_state, make_train_step
     from repro_torch.parallel.pipeline import make_pipeline_loss, stage_params
+    from repro_torch.parallel.sharding import shard_params
+    from repro_torch.parallel.tensor_parallel import model_plan
 
     mesh = make_mesh(shape, AXES)
+    plan = model_plan(cfg, mesh) if tensor_parallel else None
     params = stage_params(torch.load(params_path), cfg, mesh)
+    if plan is not None:
+        params = shard_params(params, mesh, plan)
     batches = torch.load(batches_path)
-    out = {"coords": mesh.coords, "runs": {}}
+    out = {"coords": mesh.coords, "runs": {}, "shapes": {k: tuple(v.shape) for k, v in _flat(params).items()}}
     for boundary in boundaries:
-        loss_fn = make_pipeline_loss(cfg, mesh, n_micro=n_micro, boundary=boundary)
+        loss_fn = make_pipeline_loss(cfg, mesh, n_micro=n_micro, boundary=boundary, plan=plan)
         loss, grads = loss_fn(params, batches[0])
         out["runs"][boundary] = {"loss": loss, "grads": grads, "grad_norm": loss_fn.grad_norm(grads),
                                  "bytes": loss_fn.transport.counts()}
     if train_steps:
         ocfg = OptimizerConfig(peak_lr=lr, warmup_steps=1, total_steps=train_steps)
-        step = make_train_step(make_pipeline_loss(cfg, mesh, n_micro=n_micro, boundary=boundaries[-1]), ocfg)
+        step = make_train_step(make_pipeline_loss(cfg, mesh, n_micro=n_micro, boundary=boundaries[-1], plan=plan),
+                               ocfg)
         state = init_opt_state(params)
         out["losses"], out["grad_norms"] = [], []
         for b in batches[:train_steps]:
@@ -118,6 +126,23 @@ def assemble(results, key: str, boundary: str) -> dict:
         else:
             out[path] = g
     return out
+
+
+def assemble_blocks(results, cfg, plan, part) -> dict:
+    """The whole model's tree (flat) from the ranks of a tensor-parallel
+    pipeline: ``part(rank's result)`` (a flat dict of its shards of its
+    stage) of the ranks of data coordinate 0, each stage's put together over
+    ``model`` (``unshard``) and the stages in layer order (``assemble_params``)."""
+    from repro_torch.convert import flatten, unflatten
+    from repro_torch.parallel.pipeline import assemble_params
+    from repro_torch.parallel.sharding import unshard
+
+    stages = []
+    for s in range(1 + max(r["coords"]["pod"] for r in results)):
+        ranks = sorted((r for r in results if r["coords"]["pod"] == s and r["coords"]["data"] == 0),
+                       key=lambda r: r["coords"]["model"])
+        stages.append(unshard([unflatten(part(r)) for r in ranks], plan))
+    return flatten(assemble_params(stages, cfg))
 
 
 def reference_pipeline_loss(ref_cfg, num_stages: int, chunks: int):
@@ -192,14 +217,19 @@ def _jax_flat(tree, prefix=""):
     return out
 
 
-def hold_against_reference(results, ref, key: str, boundary: str, tol: float) -> None:
-    """Every rank's loss, and the whole gradient assembled from the stages,
-    against the reference's (value, flat gradients) at ``tol``: the loss
-    relative and absolute, each leaf relative with atol = tol * max|ref leaf|."""
+def hold_against_reference(results, ref, key: str, boundary: str, tol: float, cfg=None, plan=None) -> None:
+    """Every rank's loss, and the whole gradient assembled from the stages
+    (under a tensor-parallel ``plan``, from the stages' blocks:
+    ``assemble_blocks``), against the reference's (value, flat gradients) at
+    ``tol``: the loss relative and absolute, each leaf relative with atol =
+    tol * max|ref leaf|."""
     ref_loss, ref_grads = ref
     for r in results:
         np.testing.assert_allclose(float(r["runs"][boundary]["loss"]), ref_loss, rtol=tol, atol=tol)
-    grads = assemble(results, key, boundary)
+    if plan is None:
+        grads = assemble(results, key, boundary)
+    else:
+        grads = assemble_blocks(results, cfg, plan, lambda r: r["runs"][boundary]["grads"])
     assert set(grads) == set(ref_grads)
     for path, g in grads.items():
         want = ref_grads[path]
@@ -223,11 +253,12 @@ def jax_tree(tree):
 
 
 def pipeline_case(tmp_path, arch: str, shape, boundaries, *, n_micro: int = 4, batch: int = 8, seq: int = 32,
-                  train_steps: int = 0, lr: float = 3e-3, **replace) -> dict:
+                  train_steps: int = 0, lr: float = 3e-3, tensor_parallel: bool = False, **replace) -> dict:
     """``arch``'s smoke config in f32 (with ``replace``'s fields) from the
     port's init (seed 0), its batches from ``make_batches(seed 0)``: the ranks'
-    results on a mesh of ``shape``, and the reference's microbatch mean on the
-    first batch."""
+    results on a mesh of ``shape`` (``tensor_parallel``: by ``model_plan``
+    inside the stages), and the reference's microbatch mean on the first
+    batch."""
     import dataclasses
 
     import jax.numpy as jnp
@@ -244,7 +275,8 @@ def pipeline_case(tmp_path, arch: str, shape, boundaries, *, n_micro: int = 4, b
     it = make_batches(cfg, DataConfig(seed=0, batch_size=batch, seq_len=seq), num_steps=max(train_steps, 1))
     batches = [{k: torch.from_numpy(v) for k, v in b.items()} for b in it]
     results = spawn(pipeline_run, int(np.prod(shape)), tmp_path, cfg, tuple(shape),
-                    *save_inputs(tmp_path, params, batches), tuple(boundaries), n_micro, train_steps, lr)
+                    *save_inputs(tmp_path, params, batches), tuple(boundaries), n_micro, train_steps, lr,
+                    tensor_parallel)
     ref = reference_microbatch_mean(ref_cfg, jax_tree(convert.to_reference(params)),
                                     {k: v.numpy() for k, v in batches[0].items()}, shape[0], n_micro * shape[1])
     return {"cfg": cfg, "params": params, "batches": batches, "results": results, "ref": ref}

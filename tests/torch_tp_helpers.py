@@ -16,7 +16,8 @@ AXES = ("data", "model")
 
 
 def tp_loss_rank(rank: int, cfg, shape, params, batches) -> dict:
-    """This rank of (data, model) = ``shape``: its shards of ``params`` and, for
+    """This rank of (data, model) = ``shape``: its shards of ``params`` (the
+    whole model where ``model_plan`` gives no plan) and, for
     each batch of ``batches``, the loss, gradients (its blocks, summed over
     ``data``), their norm and the transport's byte counts of one call."""
     from repro_torch.launch.mesh import make_mesh
@@ -27,7 +28,7 @@ def tp_loss_rank(rank: int, cfg, shape, params, batches) -> dict:
 
     mesh = make_mesh(shape, AXES)
     plan = model_plan(cfg, mesh)
-    shards = shard_params(params, mesh, plan)
+    shards = shard_params(params, mesh, plan) if plan is not None else params
     out = {"coords": mesh.coords, "runs": []}
     for batch in batches:
         loss_fn = DataParallelLoss(build_model(cfg).loss, mesh, plan=plan)
