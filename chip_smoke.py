@@ -50,13 +50,17 @@ whole state at the end (rank 0 gathers the stages' blocks), and the file, cut
 back into stages and blocks, must hash as every rank's own state.  Then it
 trains GPT-A with 4 layers data-parallel on two ranks sharing the card (step 0
 held against accumulation, the replicas bit-equal after), and tensor-parallel
-on (data, model) = (2, 2), and runs the five examples of
+on (data, model) = (2, 2); trains DeepSeek-V2-Lite at full width with 2 of its
+27 layers tensor-parallel on (2, 2), its experts split over ``model`` (32 of
+64 a rank), MLA by heads (8 of 16) and its shared expert on its matrices'
+first dims, held against each rank's replicated call on the same mesh, whose
+routes it replays; and runs the five examples of
 ``repro_torch.examples`` through their mains (``whatif``,
 ``bubbletea_serve``, ``quickstart``, ``train_100m``, ``geo_train`` on eight
 ranks), each's launches counted.  For each path it checks by
 the kernels' launch counters that it really went through the kernels, and
 compares the kernel path's logits, or loss and gradients, with the plain
-path's.  Eight of its steps are also held against the port's dry-run
+path's.  Nine of its steps are also held against the port's dry-run
 (``repro_torch.launch.dryrun``), predicted on ``meta`` from the config alone
 in a background process: argument bytes, launches and transport bytes
 exactly, the peak within max(3 %, 256 MiB); phase ``dryrun`` adds three
@@ -2512,6 +2516,7 @@ def dryrun_steps() -> dict:
         return (lambda: loss_fn(*args)), args, loss_fn.transport
 
     steps[TP_CHECK] = functools.partial(tensor_parallel, train_config(TP_LAYERS, torch.bfloat16), TP_MESH, TP_BATCH)
+    steps[TP_MOE_CHECK] = functools.partial(tensor_parallel, tp_moe_config(), TP_MESH, TP_MOE_BATCH)
     return steps
 
 
@@ -2710,8 +2715,8 @@ def phase_dryrun(started: list) -> None:
                        "device_over_bound": x["roofline"]["device_over_bound"], "failures": x["failures"]}
                       for x in DRYRUN_LINES],
           "run_one": combos, "note": "run_one's seconds are the host's; its roofline is computed, not measured"})
-    if len(DRYRUN_LINES) != 8:
-        raise AssertionError(f"dry-run: {len(DRYRUN_LINES)} comparisons made, 8 owed")
+    if len(DRYRUN_LINES) != 9:
+        raise AssertionError(f"dry-run: {len(DRYRUN_LINES)} comparisons made, 9 owed")
     check_dryrun_lines(DRYRUN_LINES)
 
 
@@ -2741,8 +2746,9 @@ PIPE_REDUCED = {"num_layers": "24 -> 4", "why": "four ranks share the card, each
 # (mesh shape, the boundaries held on step 0's call, the boundary trained):
 # each mesh trains once, since step 0 already holds the boundaries bit-equal;
 # (2, 1, 2) holds and trains tensor-parallel, its control replicated with both
-# boundaries (replicated compute with a striped send is what the families
-# without a plan run under --pipeline on a model axis > 1)
+# boundaries (replicated compute with a striped send is what RWKV-6, Mamba2
+# and the hybrid, which have no plan until ROADMAP 7b-iii, run under
+# --pipeline on a model axis > 1)
 PIPE_MESHES = (((2, 2, 1), ("direct",), "direct"), ((2, 1, 2), ("direct", "striped"), "striped"))
 PIPE_STEPS, PIPE_BATCH, PIPE_N_MICRO = 2, 8, 4
 HYBRID_PIPE_STEPS, HYBRID_PIPE_BATCH = 2, 4
@@ -3433,6 +3439,20 @@ def per_step(cumulative: list) -> list:
     return out
 
 
+def leaf_gaps(ranks: list, key: str, split: set) -> dict:
+    """Each leaf's relative gap in norm of the ranks' ``key`` call from its
+    reference, from their ``sums`` (a leaf's squared differences and the
+    reference's squares) over the ranks of ``data`` 0: a split leaf's blocks
+    from every ``model`` rank, a whole leaf from ``model`` 0."""
+    leaves = {}
+    for r in ranks:
+        for leaf, (d, w) in r[key]["sums"].items():
+            if r["coords"]["data"] == 0 and (leaf in split or r["coords"]["model"] == 0):
+                acc = leaves.setdefault(leaf, [0.0, 0.0])
+                acc[0], acc[1] = acc[0] + d, acc[1] + w
+    return {leaf: math.sqrt(d) / max(math.sqrt(w), 1e-30) for leaf, (d, w) in leaves.items()}
+
+
 def phase_train_tp(started) -> dict:
     """GPT-A at full width with TP_LAYERS layers on TP_MESH (``tp_rank``),
     tensor-parallel over ``model``: raises unless (a) each rank's step 0 loss
@@ -3458,16 +3478,13 @@ def phase_train_tp(started) -> dict:
     want = {k: TP_STEPS * v for k, v in owed.items()}
     split = set(ranks[0]["split"])
     failures, total = [], dict.fromkeys(want, 0)
-    leaves = {}  # leaf -> [sum of squared differences, sum of the reference's squares], whole
+    gaps = leaf_gaps(ranks, "parity", split)
     for r in ranks:
         p, t = r["parity"], r["train"]
         p["loss_rel_diff"] = abs(p["loss"] - reference["loss"]) / abs(reference["loss"])
         if not (p["finite"] and p["loss_rel_diff"] <= TP_TOL["loss_rel"]):
             failures.append((r["rank"], "loss", p["loss"], reference["loss"]))
-        for leaf, (d, w) in p.pop("sums").items():
-            if r["coords"]["data"] == 0 and (leaf in split or r["coords"]["model"] == 0):
-                acc = leaves.setdefault(leaf, [0.0, 0.0])
-                acc[0], acc[1] = acc[0] + d, acc[1] + w
+        p.pop("sums")
         if p["dryrun"]:
             DRYRUN_LINES.append(p["dryrun"])
             failures += [(r["rank"], "dryrun", p["dryrun"]["failures"])] if p["dryrun"]["failures"] else []
@@ -3483,7 +3500,6 @@ def phase_train_tp(started) -> dict:
             total[k] += v
         t["bytes_per_step"] = per_step(t.pop("bytes"))
         t["transport_seconds_per_step"] = per_step(t.pop("transport_seconds"))
-    gaps = {leaf: math.sqrt(d) / max(math.sqrt(w), 1e-30) for leaf, (d, w) in leaves.items()}
     worst = max(gaps, key=gaps.get)
     if gaps[worst] > TP_TOL["grad_rel"] or len(gaps) != len(expected_shapes(cfg)):
         failures.append(("grads", worst, gaps[worst], len(gaps)))
@@ -3506,6 +3522,200 @@ def phase_train_tp(started) -> dict:
     if failures:
         raise AssertionError(f"train_tp: {failures}")
     return {f"train_tp {cfg.name} 2x2": total}
+
+
+# ---------------------------------------------------------------------------
+# phase train_tp_moe: the MoE and MLA families split over model (slice 7b-ii)
+# ---------------------------------------------------------------------------
+
+# DeepSeek-V2-Lite at full width with 2 of its 27 layers on (data, model) =
+# (2, 2): four gloo ranks that share the card.  The plan splits the 64 experts
+# on their expert dim (32 a rank), MLA by heads (8 of 16 a rank), the shared
+# expert's matrices on their first dim, embed on its features and lm_head on
+# the vocabulary: 795,879,424 of the 1,589,127,168 parameters a rank, 12.73 GB
+# of f32 parameters, gradients and moments.  MLA attends in plain f32, as the
+# reference's, so K1 is the only kernel on the path.
+TP_MOE_ARCH, TP_MOE_LAYERS, TP_MOE_STEPS, TP_MOE_BATCH = "deepseek_v2_lite_16b", 2, 2, 8
+TP_MOE_REDUCED = {"num_layers": "27 -> 2", "why": "four ranks share the card's 80 GB: each makes the whole model "
+                  "(6.36 GB of f32 parameters at 2 layers) from the seed and holds the replicated control's whole "
+                  "gradients beside it before it cuts its shards"}
+TP_MOE_CHECK = "tp_moe_deepseek_2x2"  # the dry-run's prediction of rank 0's pinned tensor-parallel call
+
+
+def tp_moe_config():
+    return train_config(TP_MOE_LAYERS, torch.bfloat16, TP_MOE_ARCH)
+
+
+def leaf_sums(grads: dict, ref: dict) -> dict:
+    """Each leaf's sum of squared differences from ``ref``'s block and ``ref``'s sum of squares."""
+    return {p: [float((g.float() - ref[p].float()).square().sum()), float(ref[p].float().square().sum())]
+            for p, g in grads.items()}
+
+
+def tp_moe_rank(rank: int, world: int, cfg, predicted, store: str) -> None:
+    """One rank of the MoE run on the card: joins TP_MESH, makes the whole
+    model from the seed and runs the replicated ``DataParallelLoss`` call on
+    it (no plan, the control), recording its routes (``route_log``: the
+    forward's and remat's recomputation's calls in order), and keeps the
+    control's block of each gradient; frees the whole model and keeps its
+    shards (``shard_params``); then makes the tensor-parallel call pinned to
+    the control's routes (rank 0's against its dry-run, ``hold_dryrun``) and
+    one unpinned, and sums, leaf by leaf, each's squared differences from the
+    control's blocks.  Then it trains TP_MOE_STEPS steps through
+    ``launch.train.train`` on the mesh, counting the kernels' launches from
+    zero, and hashes its final shards and moments.  Writes its results as
+    JSON beside ``store``."""
+    join_as_rank(rank, world, store)
+    try:
+        mesh = make_mesh(*TP_MESH)
+        model, plan = build_model(cfg), model_plan(cfg, mesh)
+        specs = flatten(plan)
+        b0 = next(make_batches(cfg, DataConfig(seed=SEED, batch_size=TP_MOE_BATCH, seq_len=TRAIN_SEQ)))
+        b0 = {k: torch.from_numpy(v).to("cuda") for k, v in b0.items()}
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        torch.cuda.reset_peak_memory_stats()
+        whole = model.init(gen)
+        t0 = time.perf_counter()
+        with route_log() as routes:
+            c_loss, c_grads = DataParallelLoss(model.loss, mesh)(whole, b0)
+        torch.cuda.synchronize()
+        control = {"loss": float(c_loss), "call_seconds": time.perf_counter() - t0,
+                   "finite": all(bool(torch.isfinite(g).all()) for g in c_grads.values()),
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated(), "route_calls": len(routes)}
+        ref = {p: local_block(g, specs[p], mesh).clone() for p, g in c_grads.items()}
+        del c_grads
+        params = shard_params(whole, mesh, plan)
+        del whole
+        release()
+        loss_fn = DataParallelLoss(model.loss, mesh, plan=plan)
+        held = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with route_log(routes) as replayed:
+            if rank == 0:
+                held, (loss, grads) = hold_dryrun(f"{cfg.name} tensor-parallel call, rank 0 of 2x2, pinned",
+                                                  TP_MOE_CHECK, predicted, lambda: loss_fn(params, b0), (params, b0),
+                                                  backward=True, transport=loss_fn.transport)
+            else:
+                loss, grads = loss_fn(params, b0)
+        torch.cuda.synchronize()
+        out = {"rank": rank, "coords": mesh.coords, "control": control,
+               "local_heads": params["layers"]["attn"]["wq"].shape[-1] // sum(
+                   (cfg.mla.qk_nope_head_dim, cfg.mla.qk_rope_head_dim)),
+               "local_experts": params["layers"]["moe"]["w_gate"].shape[1],
+               "shard_params": sum(t.numel() for t in flatten(params).values()),
+               "split": sorted(split_paths(plan)),
+               "parity": {"loss": float(loss), "sums": leaf_sums(grads, ref), "route_calls": len(replayed),
+                          "finite": all(bool(torch.isfinite(g).all()) for g in grads.values()),
+                          "call_seconds": time.perf_counter() - t0, "bytes": loss_fn.transport.counts(),
+                          "transport_seconds": loss_fn.transport.times(), "dryrun": held}}
+        del grads, loss_fn
+        release()
+        with route_log() as free:
+            u_loss, u_grads = DataParallelLoss(model.loss, mesh, plan=plan)(params, b0)
+        out["unpinned"] = {"loss": float(u_loss), "sums": leaf_sums(u_grads, ref),
+                           "route_agreement": route_agreement(free, routes)}
+        del params, u_grads, ref, routes, free
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        t0 = time.perf_counter()
+        res = train(cfg, steps=TP_MOE_STEPS, batch=TP_MOE_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR, seed=SEED,
+                    log_every=TP_MOE_STEPS, device="cuda", mesh=mesh)
+        hist = res["history"]
+        out["train"] = {"counters": read_counters(), "losses": [h["loss"] for h in hist],
+                        "grad_norms": [h["grad_norm"] for h in hist], "step_ms": [h["seconds"] * 1e3 for h in hist],
+                        "bytes": [h["bytes"] for h in hist], "transport_seconds": [h["transport_seconds"] for h in hist],
+                        "peak_memory_bytes": torch.cuda.max_memory_allocated(), "seconds": time.perf_counter() - t0}
+        out["digests"] = leaf_digests({"params": res["params"], "opt": res["opt_state"]})
+        with open(f"{store}.rank{rank}.json", "w") as f:
+            json.dump([out], f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train_tp_moe(started) -> dict:
+    """DeepSeek-V2-Lite at full width with TP_MOE_LAYERS layers on TP_MESH
+    (``tp_moe_rank``), its experts, MLA's heads and its shared expert split
+    over ``model``: raises unless (a) each rank's tensor-parallel call,
+    pinned to the routes of the replicated control on the same rank, has its
+    loss and every gradient leaf, put together from the ranks, within TP_TOL
+    of the control's, with 8 of 16 heads and 32 of 64 experts a rank, (b)
+    the trained run's first loss is the unpinned call's, (c) the counters show
+    exactly ``train_owed`` a rank a step (K1 forward and backward alone), and
+    (d) the two ``data`` replicas of each ``model`` index are bit-equal after
+    the steps and the leaves the plan leaves whole bit-equal on all four
+    ranks; rank 0's pinned call is held against its dry-run.  The unpinned
+    call's gaps and route agreement are reported, held to nothing (top-k
+    routing turns a near-tie into a different expert: ``serve_moe_parity``).
+    Prints each rank's step ms, peak, and bytes and seconds a step by axis and
+    op; returns the counters summed over the ranks."""
+    cfg = tp_moe_config()
+    world = math.prod(TP_MESH[0])
+    predicted = predictions(started)[TP_MOE_CHECK]
+    t0 = time.perf_counter()
+    ranks = [r[0] for r in spawn_ranks(tp_moe_rank, world, cfg, predicted)]
+    wall = time.perf_counter() - t0
+    owed = train_owed(2 * TP_MOE_LAYERS, 0)
+    want = {k: TP_MOE_STEPS * v for k, v in owed.items()}
+    split = set(ranks[0]["split"])
+    TP = TP_MESH[0][1]
+    failures, total = [], dict.fromkeys(want, 0)
+    for r in ranks:
+        c, p, u, t = r["control"], r["parity"], r["unpinned"], r["train"]
+        p["loss_rel_diff"] = abs(p["loss"] - c["loss"]) / abs(c["loss"])
+        u["loss_rel_diff"] = abs(u["loss"] - c["loss"]) / abs(c["loss"])
+        if not (c["finite"] and p["finite"] and p["loss_rel_diff"] <= TP_TOL["loss_rel"]):
+            failures.append((r["rank"], "loss", p["loss"], c["loss"]))
+        if p["route_calls"] != c["route_calls"] or c["route_calls"] != 2 * TP_MOE_LAYERS:
+            failures.append((r["rank"], "routes", c["route_calls"], p["route_calls"]))
+        if p["dryrun"]:
+            DRYRUN_LINES.append(p["dryrun"])
+            failures += [(r["rank"], "dryrun", p["dryrun"]["failures"])] if p["dryrun"]["failures"] else []
+        elif r["rank"] == 0:
+            failures.append((0, "dryrun", "the held call was not checked"))
+        if (r["local_heads"], r["local_experts"]) != (cfg.num_heads // TP, cfg.moe.num_experts // TP):
+            failures.append((r["rank"], "heads, experts", r["local_heads"], r["local_experts"]))
+        if not all(np.isfinite(t["losses"])) or t["losses"][0] != u["loss"]:
+            failures.append((r["rank"], "losses", t["losses"], u["loss"]))
+        if t["counters"] != want:
+            failures.append((r["rank"], "counters", t["counters"], want))
+        for k, v in t["counters"].items():
+            total[k] += v
+        t["bytes_per_step"] = per_step(t.pop("bytes"))
+        t["transport_seconds_per_step"] = per_step(t.pop("transport_seconds"))
+    gaps = leaf_gaps(ranks, "parity", split)
+    free = leaf_gaps(ranks, "unpinned", split)
+    for r in ranks:
+        r["parity"].pop("sums")
+        r["unpinned"].pop("sums")
+    worst, worst_free = max(gaps, key=gaps.get), max(free, key=free.get)
+    if gaps[worst] > TP_TOL["grad_rel"] or len(gaps) != len(expected_shapes(cfg)):
+        failures.append(("grads", worst, gaps[worst], len(gaps)))
+
+    digests = {r["rank"]: r.pop("digests") for r in ranks}
+    coords = {r["rank"]: r["coords"] for r in ranks}
+    for a in digests:
+        for b in digests:
+            same_model = coords[a]["model"] == coords[b]["model"]
+            differ = sorted(k for k, v in digests[a].items() if digests[b][k] != v and (same_model or whole_key(k, split)))
+            if differ:
+                failures.append((a, b, "replicas differ", differ[:8]))
+    emit({"phase": "train_tp_moe", "model": cfg.name, "reduced": TP_MOE_REDUCED,
+          "mesh": dict(zip(TP_MESH[1], TP_MESH[0])), "layers": cfg.num_layers, "batch": TP_MOE_BATCH,
+          "seq": TRAIN_SEQ, "steps": TP_MOE_STEPS, "lr": TRAIN_LR,
+          "control": "each rank's replicated DataParallelLoss call (no plan) on the whole model, the same mesh and "
+                     "batch; the tensor-parallel call replays its routes",
+          "tol": TP_TOL, "grad_rel_diff": {"worst_leaf": worst, "worst": gaps[worst], "by_leaf": gaps},
+          "unpinned": {"held_to": "nothing", "worst_leaf": worst_free, "worst": free[worst_free], "by_leaf": free,
+                       "loss_rel_diff": [r["unpinned"]["loss_rel_diff"] for r in ranks],
+                       "route_agreement": [r["unpinned"]["route_agreement"] for r in ranks]},
+          "split_leaves": len(split), "replicas_bit_equal": not any("replicas differ" in f for f in failures),
+          "spawn_wall_seconds": wall, "counters_per_step": owed, "note": "the ranks share one card", "ranks": ranks})
+    if failures:
+        raise AssertionError(f"train_tp_moe: {failures}")
+    return {f"train_tp_moe {cfg.name} 2x2": total}
 
 
 # ---------------------------------------------------------------------------
@@ -3689,6 +3899,8 @@ def main() -> int:
     counts.update(phase_train_dp())
     release()
     counts.update(phase_train_tp(started))
+    release()
+    counts.update(phase_train_tp_moe(started))
     release()
     counts.update(phase_examples())
     release()

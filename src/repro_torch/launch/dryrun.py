@@ -14,20 +14,22 @@ The programs (``ARCHS[:10]`` x ``SHAPES`` x single (16, 16) / multi (2, 16, 16))
   * multi x train: ``PipelineLoss`` (n_micro 4, ``--boundary``) and the
     port's AdamW update (``make_train_step``) on a rank of each distinct
     ``pod`` coordinate (stage 0 and stage 1), through a ``MetaTransport``.
-    For the dense decoder family the stages are tensor-parallel over
-    ``model``, as the launcher runs them (``"tensor_parallel": true``): the rank's f32 state is its shards
-    of its stage under the placement plan, fsdp off; every other family's
-    ``model`` ranks are replicas of their stage.  Each figure is the larger
+    For the transformers, dense and MoE, the stages are tensor-parallel over
+    ``model``, as the launcher runs them (``"tensor_parallel": true``): the
+    rank's f32 state is its shards of its stage under the placement plan,
+    fsdp off; RWKV-6's and the hybrid's ``model`` ranks are replicas of
+    their stage (ROADMAP 7b-iii).  Each figure is the larger
     of the two stages'; each stage's figures are under ``stages``.
   * single x train: the port's plain data-parallel step (``DataParallelLoss``
     and the AdamW update) on one rank of the (16, 16) mesh: its ``data``
     share of the global batch and the gradients' all-reduce over ``data``
-    through a ``MetaTransport``.  For the dense decoder family the step is
-    tensor-parallel over ``model`` (``"program": "data_parallel+tensor_parallel"``):
+    through a ``MetaTransport``.  For the transformers, dense and MoE, the
+    step is tensor-parallel over ``model`` (``"program": "data_parallel+tensor_parallel"``):
     the rank's f32 state is its shards under the placement plan, fsdp off
     (``param_bytes`` is ``plan_bytes(cfg, mesh, fsdp=False)``), and the
-    ``model`` axis's collectives are counted with the ``data`` axis's; every
-    other family's ``model`` ranks are replicas holding the whole model's state.
+    ``model`` axis's collectives are counted with the ``data`` axis's;
+    RWKV-6's and the hybrid's ``model`` ranks are replicas holding the whole
+    model's state.
   * prefill / decode: the port has no tensor-parallel serving, so each rank
     serves a whole replica (the weights in ``cfg.dtype``, as the serving
     engine holds them) on its share of the global batch, ceil(B / ranks) rows
@@ -61,7 +63,7 @@ reduce-scatter and all-gather, as the reference's HLO count does) and sends as
 is beside them: the f32 parameters a device would hold under the placement plan
 (``make_param_shardings``: fsdp by default for train shapes, ``--no-fsdp``,
 ``--relayout``'s head-aligned (256 / tp, tp) mesh); the port executes the plan
-without fsdp for the dense family's single x train (FSDP is ROADMAP 7f), and
+without fsdp for the transformers' single x train (FSDP is ROADMAP 7f), and
 ``--no-fsdp`` and ``--relayout`` change only that number.
 
 The roofline's seconds are at one H100 SXM's published peaks at 700 W

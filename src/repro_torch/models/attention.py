@@ -331,14 +331,26 @@ def mla_apply(
     position -1 lands in slot S-1 and keeps pos -1; of writes to one slot the
     last is kept, ``_last_writer``) and the queries attend over the ring, the
     pads' queries (no valid slot) over all of it; **the cache's tensors are
-    updated in place** and returned."""
+    updated in place** and returned.
+
+    Under tensor parallelism (``parallel/tensor_parallel.py``) the plan splits
+    ``wq``, ``w_uk`` and ``w_uv`` on their output dim, whose columns are
+    head-major, and ``wo`` on its rows; ``w_dkv`` stays whole.  The rank
+    attends with its H / TP heads: its queries from ``copy_in(x)``, the whole
+    latent, and ``wo``'s output summed over ``model``.  The latent goes
+    through ``copy_in`` after its product, so that its gradient, partial on
+    each rank (its heads'), is summed over ``model`` before ``w_dkv``'s
+    gradient is formed from it: ``w_dkv`` is then whole and the same on every
+    rank.  Where H does not divide ``model`` this raises (the reference's
+    GSPMD re-lays the heads out there; ROADMAP Queue 1)."""
     m = cfg.mla
     B, T, _ = x.shape
-    H = cfg.num_heads
     dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
     scale = (dn + dr) ** -0.5
+    split = _mla_split(cfg)
+    H = params["wq"].shape[-1] // (dn + dr)  # this rank's heads: all of them with no split
 
-    q = dense(params["wq"], x).reshape(B, T, H, dn + dr)
+    q = dense(params["wq"], tp.copy_in(x) if split else x).reshape(B, T, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     # absorb W_uk into the query: (B,T,H,dn) x (lora,H,dn) -> (B,T,H,lora)
@@ -346,6 +358,8 @@ def mla_apply(
     q_lat = torch.einsum("bthd,rhd->bthr", q_nope.float(), w_uk.float())
 
     dkv = dense(params["w_dkv"], x)
+    if split:  # every rank's heads read the whole latent: its gradient is summed before w_dkv's
+        dkv = tp.copy_in(dkv)
     ckv, k_rope = dkv[..., :m.kv_lora_rank], dkv[..., m.kv_lora_rank:]
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
 
@@ -378,7 +392,23 @@ def mla_apply(
     w_uv = params["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
     out = torch.einsum("bthr,rhv->bthv", lat_out, w_uv.float())
     out = out.reshape(B, T, H * m.v_head_dim).to(x.dtype)
-    return dense(params["wo"], out), new_cache
+    y = dense(params["wo"], out)
+    return (tp.reduce_out(y) if split else y), new_cache
+
+
+def _mla_split(cfg: ModelConfig) -> bool:
+    """Whether the current tensor-parallel context splits MLA by heads (the
+    plan's ``wq``, ``w_uk`` and ``w_uv`` on their output dim, ``wo`` on its
+    rows, ``w_dkv`` whole); raises where it splits them otherwise, or where
+    the heads do not divide ``model``."""
+    dims = {n: tp.split_dim(n) for n in ("wq", "w_uk", "w_uv", "wo", "w_dkv")}
+    if all(v is None for v in dims.values()):
+        return False
+    if dims != {"wq": 1, "w_uk": 1, "w_uv": 1, "wo": 0, "w_dkv": None} or not tp.divides(cfg.num_heads):
+        raise NotImplementedError(
+            f"{cfg.name}: MLA's {cfg.num_heads} heads split as {dims} over the mesh {tp.mesh_shape()}: the port "
+            "splits MLA only where the heads divide the model axis (ROADMAP Queue 1, 7b-ii's gap)")
+    return True
 
 
 def mla_cache_shape(cfg: ModelConfig, batch: int, max_len: int):

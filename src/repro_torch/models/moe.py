@@ -11,6 +11,19 @@ Nothing here syncs with the host: the dropped assignments are written to one
 extra slot an expert that is cut away, and the combine sums each token's K
 contributions in a fixed order (ascending expert id, the reference's slot
 order), with no float atomics.
+
+Under tensor parallelism (``parallel/tensor_parallel.py``) the experts are
+split over ``model`` as the reference's ``MOE_RULES`` place them, and the
+computation follows the placement, as the reference's ``constrain``s lay it
+out (``repro/models/moe.py:103-111``): the router, the routes and the aux stay whole on
+every rank; with the expert dim split (expert parallelism) a rank runs its
+E / TP experts on its rows of the buffer and ``out_buf`` is gathered over
+``model`` before the combine; with the features split (the expert count does
+not divide ``model``) every rank runs every expert on its f / TP features and
+``out_buf`` is the sum of the ranks' partial products.  The shared expert's
+matrices are split on their first dim (``w_gate`` and ``w_up`` on d,
+``w_down`` on its features): each product takes the rank's columns of its
+input and sums its output over ``model``.
 """
 from __future__ import annotations
 
@@ -22,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.modules import ModelConfig, Params, dense, dense_init
 from repro_torch.parallel import batch_mean
+from repro_torch.parallel import tensor_parallel as tp
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int, dtype=None) -> Params:
@@ -73,7 +87,13 @@ def moe_apply(params: Params, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.
     the gate weight of another (token, k) pair wherever the sort moved it.  A
     per-token top-k MoE would take ``flat_w`` through ``order`` first.  The port
     mirrors the reference, because parity with it is what the port is held to
-    (ROADMAP Queue 3 (e))."""
+    (ROADMAP Queue 3 (e)).
+
+    Under tensor parallelism (the module docstring) the router reads ``x``
+    itself, so that its gradient into ``x`` is whole on every rank, and the
+    dispatch reads ``tp.copy_in(x)``, whose gradient, partial on each rank,
+    is summed over ``model``.  With no context, or a ``model`` axis of 1,
+    this computes what it computes on one process, bit for bit."""
     m = cfg.moe
     B, T, d = x.shape
     E, K = m.num_experts, m.top_k
@@ -101,16 +121,24 @@ def moe_apply(params: Params, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.
     token_idx = order // K  # (B, NK)
     keep = pos_in_e < C
 
+    split = _expert_split()
+    xs = x if split is None else tp.copy_in(x)
     bidx = torch.arange(B, device=x.device)[:, None]
     # rows of a (B, E, C + 1) buffer; a dropped assignment goes to slot C, which is cut away
     dest = (bidx * E + sorted_e) * (C + 1) + torch.where(keep, pos_in_e, C)
-    src = x.gather(1, token_idx[..., None].expand(B, NK, d))  # (B, NK, d)
-    buf = x.new_zeros((B * E * (C + 1), d)).index_copy(0, dest.reshape(-1), src.reshape(-1, d))
+    src = xs.gather(1, token_idx[..., None].expand(B, NK, d))  # (B, NK, d)
+    buf = xs.new_zeros((B * E * (C + 1), d)).index_copy(0, dest.reshape(-1), src.reshape(-1, d))
     buf = buf.reshape(B, E, C + 1, d)[:, :, :C]
+    if split == "experts":  # this rank's experts: its rows of the buffer
+        buf = tp.part(buf, 1)
 
     h = F.silu(torch.einsum("becd,edf->becf", buf, params["w_gate"].to(x.dtype)))
     h = h * torch.einsum("becd,edf->becf", buf, params["w_up"].to(x.dtype))
     out_buf = torch.einsum("becf,efd->becd", h, params["w_down"].to(x.dtype))
+    if split == "experts":  # every expert's rows, for a combine on the whole buffer
+        out_buf = tp.gather(out_buf, 1)
+    elif split == "features":  # the sum of the ranks' parts of each expert's features
+        out_buf = tp.reduce_out(out_buf)
 
     w = (flat_w * keep.float()).to(x.dtype)  # token-major weights against sorted slots (see above)
     vals = out_buf.reshape(B, E * C, d).gather(
@@ -127,6 +155,32 @@ def moe_apply(params: Params, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.
     y = y.to(x.dtype)
 
     if m.num_shared_experts:
-        s = params["shared"]
-        y = y + dense(s["w_down"], F.silu(dense(s["w_gate"], x)) * dense(s["w_up"], x))
+        y = y + _shared_expert(params["shared"], x)
     return y, aux
+
+
+def _expert_split():
+    """How the current tensor-parallel context splits the routed experts:
+    "experts" (their expert dim), "features" (``w_gate`` and ``w_up`` on f,
+    ``w_down`` on its rows f) or None (whole)."""
+    dims = tuple(tp.split_dim(f"moe/{n}") for n in ("w_gate", "w_up", "w_down"))
+    layouts = {(None, None, None): None, (0, 0, 0): "experts", (2, 2, 1): "features"}
+    if dims not in layouts:
+        raise ValueError(f"routed experts split on dims {dims} over model {tp.mesh_shape()}: not MOE_RULES' placement")
+    return layouts[dims]
+
+
+def _shared_expert(s: Params, x: torch.Tensor) -> torch.Tensor:
+    """The shared expert on ``x``; under tensor parallelism each matrix is
+    split on its first dim (the plan's first ``MOE_RULES`` candidate on a
+    stacked 3-D leaf): ``w_gate`` and ``w_up`` take the rank's columns of
+    ``x`` and ``w_down`` the rank's of their product, and each output is
+    summed over ``model``."""
+    dims = tuple(tp.split_dim(f"moe/shared/{n}") for n in ("w_gate", "w_up", "w_down"))
+    if dims == (None, None, None):
+        return dense(s["w_down"], F.silu(dense(s["w_gate"], x)) * dense(s["w_up"], x))
+    if dims != (0, 0, 0):
+        raise ValueError(f"the shared expert split on dims {dims} over model {tp.mesh_shape()}: not the plan's")
+    xs = tp.slice_(x, -1)
+    h = F.silu(tp.reduce_out(dense(s["w_gate"], xs))) * tp.reduce_out(dense(s["w_up"], xs))
+    return tp.reduce_out(dense(s["w_down"], tp.slice_(h, -1)))

@@ -35,18 +35,20 @@ replicas stay bit-equal.
 
 Tensor parallelism over ``model`` (``parallel/tensor_parallel.py``): given
 the placement ``plan`` of the whole model (``tensor_parallel.model_plan``: the
-dense decoder family, GQA or MQA attention and a dense FFN, on a ``model``
+transformers, dense or MoE, with GQA, MQA or MLA attention, on a ``model``
 axis of more than 1), ``params`` are this rank's shards (``shard_params``) and
 the loss runs inside the ``model`` context, so that each product computes on
-the rank's shard as the plan places it.  Each gradient is then this rank's
-block, summed over ``data`` only; a leaf the plan leaves whole (the norm
-scales) has its whole gradient on every ``model`` rank, the same bits on each.
+the rank's shard as the plan places it (a MoE's experts on their expert dim,
+or on their features where the expert count does not divide ``model``).  Each
+gradient is then this rank's block, summed over ``data`` only; a leaf the
+plan leaves whole (the norm scales, MLA's latent down-projection, the router)
+has its whole gradient on every ``model`` rank, the same bits on each.
 ``grad_norm`` sums the squares of the split leaves over ``model`` and adds
-those of the whole leaves once: the clip sees the whole model's norm.  The MoE
-and MLA configs (ROADMAP 7b-ii), RWKV-6, Mamba2 and the hybrid (7b-iii) have
-no plan here: their ``model`` ranks are replicas that compute the same
-numbers, on this step and under ``--pipeline`` alike (where the dense family
-splits over ``model`` inside each stage, ``parallel/pipeline.py``).
+those of the whole leaves once: the clip sees the whole model's norm.  RWKV-6,
+Mamba2 and the hybrid (ROADMAP 7b-iii) have no plan here: their ``model``
+ranks are replicas that compute the same numbers, on this step and under
+``--pipeline`` alike (where the transformers split over ``model`` inside each
+stage, ``parallel/pipeline.py``).
 """
 from __future__ import annotations
 

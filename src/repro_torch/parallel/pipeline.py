@@ -29,8 +29,8 @@ Boundary modes, the paper's two transports:
   (``Transport.bytes``).
 
 Tensor parallelism over ``model`` inside each stage (``plan``, the whole
-model's placement plan, ``tensor_parallel.model_plan``: the dense decoder
-family on a ``model`` axis of more than 1), as the reference's partial-auto
+model's placement plan, ``tensor_parallel.model_plan``: the transformers,
+dense or MoE, on a ``model`` axis of more than 1), as the reference's partial-auto
 region has GSPMD place the parameters of its ``--pipeline`` launcher
 (``make_param_shardings``, fsdp off): each rank holds its stage's rows of its
 ``model`` block of every stacked leaf and its block of ``embed`` and
@@ -41,9 +41,12 @@ the last stage takes the cross entropy over the vocabulary's ranks.  The
 residual stream stays whole on every ``model`` rank, so the boundaries carry
 what they carry without a plan, and the input's gradient that a stage sends
 back is the ``copy_in`` all-reduce's, the same bits on every ``model`` rank.
-Without a plan (the MoE and MLA configs, ROADMAP 7b-ii; RWKV-6, Mamba2 and the
-hybrid, 7b-iii) the ``model`` ranks compute the same numbers, as the
-reference's fully manual fall-back does ("the model axis carrying replicas").
+A routed expert's leaf is 4-D, (layers, E, d, f), and split on its expert dim
+(dim 1 of the stack) or its features: ``stage_params`` cuts the stage's rows
+first and ``shard_params`` the block of those.  Without a plan (RWKV-6, Mamba2
+and the hybrid, ROADMAP 7b-iii) the ``model`` ranks compute the same numbers,
+as the reference's fully manual fall-back does ("the model axis carrying
+replicas").
 
 Loss and gradients: the loss is the sum over this rank's microbatches of
 ``final_loss`` (last stage only) plus the layers' aux, summed over ``pod``

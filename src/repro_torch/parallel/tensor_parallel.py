@@ -28,11 +28,15 @@ they computed before.
 The model modules import this one, so it imports none of the port's modules at
 its top.
 
-Which configs split: the dense decoder family (``tp_family``: dense, VLM and
-audio transformers with GQA or MQA attention and a dense FFN), on the plain
-step and under ``--pipeline`` alike.  The MoE and MLA configs (ROADMAP 7b-ii)
-and RWKV-6, Mamba2 and the Zamba2 hybrid (7b-iii) keep whole replicas on every
-``model`` rank, on both.
+Which configs split: the transformers (``tp_family``: GQA, MQA or MLA
+attention, a dense or a MoE FFN), on the plain step and under ``--pipeline``
+alike.  The MoE leaves split as ``MOE_RULES`` place them: the routed experts
+on their expert dim (expert parallelism), or on their feature dim where the
+expert count does not divide ``model``, and the shared expert's stacked
+leaves on the first dim of each matrix.  ``split_dims`` therefore keys a leaf
+under ``moe`` by its path from ``moe`` (``moe/w_gate``, ``moe/shared/w_gate``)
+and every other leaf by its name.  RWKV-6, Mamba2 and the Zamba2 hybrid
+(ROADMAP 7b-iii) keep whole replicas on every ``model`` rank, on both.
 """
 from __future__ import annotations
 
@@ -46,21 +50,15 @@ STACKED = ("layers", "groups")
 
 
 def tp_family(cfg) -> bool:
-    """Whether ``cfg`` splits over ``model``: a transformer of the dense
-    family (GQA or MQA attention, a dense FFN), not MoE, MLA, RWKV-6 or Mamba2."""
-    return (cfg.family in ("dense", "vlm", "audio") and cfg.moe is None and cfg.mla is None and cfg.ssm is None
-            and cfg.rwkv is None)
-
-
-def replicated_reason(cfg) -> str:
-    """The ROADMAP item under which a config that keeps ``model`` replicas will split."""
-    return "7b-ii" if cfg.moe is not None or cfg.mla is not None else "7b-iii"
+    """Whether ``cfg`` splits over ``model``: a transformer (GQA, MQA or MLA
+    attention, a dense or a MoE FFN), not RWKV-6 or Mamba2 (ROADMAP 7b-iii)."""
+    return cfg.family in ("dense", "vlm", "audio", "moe") and cfg.ssm is None and cfg.rwkv is None
 
 
 def model_plan(cfg, mesh) -> Optional[Dict]:
     """The placement plan of ``cfg``'s parameters on ``mesh`` (a nested dict of
     ``P``s, fsdp off) where the plain step and the pipeline's stages split them
-    over ``model``: a dense-family config on a ``model`` axis of more than 1.
+    over ``model``: a ``tp_family`` config on a ``model`` axis of more than 1.
     None otherwise."""
     from repro_torch.convert import expected_shapes, unflatten
     from repro_torch.parallel.sharding import make_param_shardings
@@ -83,19 +81,28 @@ def split_paths(plan, axis: str = AXIS) -> set:
     return {p for p, spec in flatten(plan).items() if is_split(spec, axis)} if plan is not None else set()
 
 
+def leaf_key(path: str) -> str:
+    """The key ``split_dim`` answers for the leaf at ``path``: a leaf under
+    ``moe`` by its path from ``moe`` (the routed ``moe/w_gate`` and the shared
+    ``moe/shared/w_gate`` split on different dims), every other by its name."""
+    names = path.split("/")
+    return "/".join(names[names.index("moe"):]) if "moe" in names[:-1] else names[-1]
+
+
 def split_dims(plan, axis: str = AXIS) -> Dict[str, Optional[int]]:
-    """leaf name -> the dim of its per-layer tensor (a stacked leaf without its
-    leading layer axis) that ``plan`` splits over ``axis``, None where it
-    stays whole.  Raises if two leaves of one name are split differently."""
+    """leaf key (``leaf_key``) -> the dim of its per-layer tensor (a stacked
+    leaf without its leading layer axis) that ``plan`` splits over ``axis``,
+    None where it stays whole.  Raises if two leaves of one key are split
+    differently."""
     from repro_torch.convert import flatten
 
     dims: Dict[str, Optional[int]] = {}
     for path, spec in flatten(plan).items():
-        names = path.split("/")
+        names, key = path.split("/"), leaf_key(path)
         entries = list(spec)[1:] if any(n in STACKED for n in names) else list(spec)
         dim = next((i for i, e in enumerate(entries) if is_split((e,), axis)), None)
-        if dims.setdefault(names[-1], dim) != dim:
-            raise ValueError(f"{names[-1]}: split on dim {dims[names[-1]]} and on dim {dim}")
+        if dims.setdefault(key, dim) != dim:
+            raise ValueError(f"{key}: split on dim {dims[key]} and on dim {dim}")
     return dims
 
 
@@ -105,7 +112,7 @@ class TPContext:
     (``split_dims`` of the plan)."""
 
     def __init__(self, mesh, transport, plan):
-        self.size, self.index = mesh.shape[AXIS], mesh.coords[AXIS]
+        self.size, self.index, self.mesh_shape = mesh.shape[AXIS], mesh.coords[AXIS], dict(mesh.shape)
         self.transport = transport
         self.dims = split_dims(plan)
 
@@ -130,8 +137,9 @@ def _active() -> Optional[TPContext]:
 
 
 def split_dim(name: str) -> Optional[int]:
-    """The dim of leaf ``name``'s per-layer matrix that is split over
-    ``model`` in the current context; None without one or where it is whole."""
+    """The dim of the per-layer matrix of the leaf of key ``name``
+    (``leaf_key``) that is split over ``model`` in the current context; None
+    without one or where it is whole."""
     ctx = _active()
     return None if ctx is None else ctx.dims.get(name)
 
@@ -142,9 +150,15 @@ def divides(n: int) -> bool:
     return ctx is None or n % ctx.size == 0
 
 
+def mesh_shape() -> Optional[Dict[str, int]]:
+    """The current context's mesh (axis -> size), for messages; None without one."""
+    ctx = _active()
+    return None if ctx is None else ctx.mesh_shape
+
+
 def _my_part(ctx: TPContext, t: torch.Tensor, dim: int) -> torch.Tensor:
     n = t.shape[dim] // ctx.size
-    return t.narrow(dim, ctx.index * n, n).contiguous()
+    return t.narrow(dim, ctx.index * n, n)
 
 
 class _CopyIn(torch.autograd.Function):
@@ -176,14 +190,14 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(fctx, g):
-        return _my_part(fctx.ctx, g, fctx.dim), None, None
+        return _my_part(fctx.ctx, g, fctx.dim).contiguous(), None, None
 
 
 class _Slice(torch.autograd.Function):
     @staticmethod
     def forward(fctx, x, dim, ctx):
         fctx.ctx, fctx.dim = ctx, dim
-        return _my_part(ctx, x, dim)
+        return _my_part(ctx, x, dim).contiguous()
 
     @staticmethod
     def backward(fctx, g):
@@ -212,6 +226,14 @@ def slice_(x: torch.Tensor, dim: int) -> torch.Tensor:
     """This rank's part of ``x`` (whole on every rank) along ``dim``."""
     ctx = _active()
     return x if ctx is None else _Slice.apply(x, dim % x.dim(), ctx)
+
+
+def part(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's part of ``x`` along ``dim``, a view with no collective: its
+    gradient is zero outside the part, for an ``x`` that a ``copy_in``
+    upstream sums over ``model`` on the way back."""
+    ctx = _active()
+    return x if ctx is None else _my_part(ctx, x, dim)
 
 
 def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -6,8 +6,9 @@ its keys, shapes and dtypes are those of a plain run's file, the reference's
 ``load_pytree`` reads it into the reference's own init tree, the padded row of
 a stack that needs one (DeepSeek-V2-Lite smoke cut to 3 layers: 2 rows a
 stage, the last padded) is not in it, and cut back into stages
-(``stage_params``), and for gpt_a, which is tensor-parallel over ``model``
-inside its stages (slice 7b-iv), into each rank's blocks by the placement plan
+(``stage_params``) and, as both are tensor-parallel over ``model`` inside
+their stages (gpt_a since slice 7b-iv, DeepSeek-V2-Lite's experts and MLA
+since 7b-ii), into each rank's blocks by the placement plan
 (``shard_params``), it equals every rank's own parameters, moments and step
 bit for bit.  ``assemble_params`` undoes ``stage_params``."""
 import dataclasses
@@ -85,7 +86,7 @@ def test_pipelined_checkpoints_hold_the_whole_unpadded_state(tmp_path):
 
         stages = []
         plan = model_plan(cfg, Mesh(SHAPE, AXES))
-        assert (plan is not None) == (arch == "gpt_a")
+        assert plan is not None
         for rank, res in enumerate(ranks):
             mine, mesh = res[i], Mesh(SHAPE, AXES, rank)
 

@@ -1,11 +1,14 @@
-"""The placement plan applied (ROADMAP 7b-i): every shard ``shard_params``
-keeps of the eight dense-family configs at full size equals the reference's
+"""The placement plan applied (ROADMAP 7b-i, 7b-ii): every shard
+``shard_params`` keeps of the eight dense-family configs and the two MoE
+configs at full size equals the reference's
 ``NamedSharding(mesh, spec).shard_shape`` on an ``AbstractMesh`` of (16, 16)
-and of (2, 2), leaf by leaf (on ``meta``: no device, nothing drawn);
-``unshard`` puts the ``model`` ranks' blocks back bit for bit; the families
-that keep replicas have no plan; and with no tensor-parallel context, or one
-of a single rank, every operation is the identity and the loss is the one it
-was, bit for bit."""
+and of (2, 2), leaf by leaf (on ``meta``: no device, nothing drawn): both
+``MOE_RULES`` candidates (Qwen1.5-MoE's 60 experts on their features at 16,
+on their expert dim at 2) and the shared expert's stacked leaves, which the
+plan splits on their first dim; ``unshard`` puts the ``model`` ranks' blocks
+back bit for bit; the families that keep replicas have no plan; and with no
+tensor-parallel context, or one of a single rank, every operation is the
+identity and the loss is the one it was, bit for bit."""
 import math
 
 import jax
@@ -29,12 +32,13 @@ from torch_pipeline_helpers import _jax_flat
 
 DENSE = ["gpt_a", "gpt_b", "minitron_4b", "nemotron_4_15b", "deepseek_coder_33b", "granite_34b", "qwen2_vl_7b",
          "hubert_xlarge"]
+MOE = ["qwen2_moe_a2p7b", "deepseek_v2_lite_16b"]
 MESHES = [(16, 16), (2, 2)]
 AXES = ("data", "model")
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=lambda s: "x".join(map(str, s)))
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_every_shard_is_the_reference_s_shard_shape(arch, shape):
     cfg = configs.get_config(arch)
     assert tp.tp_family(cfg)
@@ -58,13 +62,24 @@ def test_split_dims_follow_the_plan_leaf_by_leaf():
                    "wv": 1, "wo": 0, "w_up": 1, "w_down": 0}
     hubert = tp.split_dims(tp.model_plan(configs.get_config("hubert_xlarge"), mesh))
     assert hubert["lm_head"] is None and hubert["embed"] == 1  # 504 classes do not divide 16
-    for arch in ("rwkv6_7b", "zamba2_2p7b", "qwen2_moe_a2p7b", "deepseek_v2_lite_16b"):
+    for arch in ("rwkv6_7b", "zamba2_2p7b"):
         cfg = configs.get_config(arch)
         assert not tp.tp_family(cfg) and tp.model_plan(cfg, mesh) is None
+    # the MoE leaves by their path from moe: the routed and the shared w_gate split on different dims
+    qwen = tp.split_dims(tp.model_plan(configs.get_config("qwen2_moe_a2p7b"), mesh))
+    shared = {"moe/shared/w_gate": 0, "moe/shared/w_up": 0, "moe/shared/w_down": 0, "moe/router": None}
+    assert qwen == {"embed": 1, "lm_head": 1, "final_norm": None, "ln1": None, "ln2": None, "wq": 1, "wk": 1,
+                    "wv": 1, "wo": 0, "moe/w_gate": 2, "moe/w_up": 2, "moe/w_down": 1, **shared}  # 60 experts on 16
+    qwen_ep = tp.split_dims(tp.model_plan(configs.get_config("qwen2_moe_a2p7b"), Mesh((2, 2), AXES)))
+    assert [qwen_ep[f"moe/{n}"] for n in ("w_gate", "w_up", "w_down")] == [0, 0, 0]
+    deepseek = tp.split_dims(tp.model_plan(configs.get_config("deepseek_v2_lite_16b"), mesh))
+    assert deepseek == {"embed": 1, "lm_head": 1, "final_norm": None, "ln1": None, "ln2": None, "wq": 1,
+                        "w_dkv": None, "w_uk": 1, "w_uv": 1, "wo": 0, "moe/w_gate": 0, "moe/w_up": 0,
+                        "moe/w_down": 0, **shared}  # 64 experts on 16
     assert tp.model_plan(configs.get_config("gpt_a"), Mesh((2, 1), AXES)) is None
 
 
-@pytest.mark.parametrize("arch", ["gpt_a", "granite_34b", "hubert_xlarge"])
+@pytest.mark.parametrize("arch", ["gpt_a", "granite_34b", "hubert_xlarge", "qwen2_moe_a2p7b", "deepseek_v2_lite_16b"])
 def test_unshard_puts_the_model_blocks_back(arch):
     cfg = configs.get_smoke_config(arch)
     gen = torch.Generator()

@@ -253,12 +253,13 @@ def jax_tree(tree):
 
 
 def pipeline_case(tmp_path, arch: str, shape, boundaries, *, n_micro: int = 4, batch: int = 8, seq: int = 32,
-                  train_steps: int = 0, lr: float = 3e-3, tensor_parallel: bool = False, **replace) -> dict:
-    """``arch``'s smoke config in f32 (with ``replace``'s fields) from the
-    port's init (seed 0), its batches from ``make_batches(seed 0)``: the ranks'
-    results on a mesh of ``shape`` (``tensor_parallel``: by ``model_plan``
-    inside the stages), and the reference's microbatch mean on the first
-    batch."""
+                  train_steps: int = 0, lr: float = 3e-3, tensor_parallel: bool = False, experts=None,
+                  **replace) -> dict:
+    """``arch``'s smoke config in f32 (with ``replace``'s fields, and
+    ``experts`` routed experts where given) from the port's init (seed 0),
+    its batches from ``make_batches(seed 0)``: the ranks' results on a mesh of
+    ``shape`` (``tensor_parallel``: by ``model_plan`` inside the stages), and
+    the reference's microbatch mean on the first batch."""
     import dataclasses
 
     import jax.numpy as jnp
@@ -269,6 +270,9 @@ def pipeline_case(tmp_path, arch: str, shape, boundaries, *, n_micro: int = 4, b
 
     cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype=torch.float32, **replace)
     ref_cfg = dataclasses.replace(ref_configs.get_smoke_config(arch), dtype=jnp.float32, **replace)
+    if experts is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, num_experts=experts))
+        ref_cfg = dataclasses.replace(ref_cfg, moe=dataclasses.replace(ref_cfg.moe, num_experts=experts))
     gen = torch.Generator()
     gen.manual_seed(0)
     params = build_model(cfg).init(gen)
@@ -279,7 +283,7 @@ def pipeline_case(tmp_path, arch: str, shape, boundaries, *, n_micro: int = 4, b
                     tensor_parallel)
     ref = reference_microbatch_mean(ref_cfg, jax_tree(convert.to_reference(params)),
                                     {k: v.numpy() for k, v in batches[0].items()}, shape[0], n_micro * shape[1])
-    return {"cfg": cfg, "params": params, "batches": batches, "results": results, "ref": ref}
+    return {"cfg": cfg, "ref_cfg": ref_cfg, "params": params, "batches": batches, "results": results, "ref": ref}
 
 
 def smoke_case(arch: str, replace: dict, batch: int, seq: int):

@@ -17,14 +17,15 @@ REF_TOL = 2e-5  # the pipelined f32 tests' bound against the reference (test_tor
 N_MICRO, BATCH, SEQ = 4, 8, 32
 
 
-def run(tmp_path_factory, arch: str, shape, train_steps: int = 0) -> dict:
-    """``pipeline_case`` of ``arch`` on ``shape``, tensor-parallel, both
-    boundaries, with the plan of the mesh."""
+def run(tmp_path_factory, arch: str, shape, train_steps: int = 0, experts=None) -> dict:
+    """``pipeline_case`` of ``arch`` (with ``experts`` routed experts where
+    given) on ``shape``, tensor-parallel, both boundaries, with the plan of
+    the mesh."""
     from repro_torch.launch.mesh import Mesh
     from repro_torch.parallel.tensor_parallel import model_plan
 
     case = pipeline_case(tmp_path_factory.mktemp(f"tp_{arch}"), arch, shape, ("direct", "striped"), n_micro=N_MICRO,
-                         batch=BATCH, seq=SEQ, train_steps=train_steps, tensor_parallel=True)
+                         batch=BATCH, seq=SEQ, train_steps=train_steps, tensor_parallel=True, experts=experts)
     case["plan"] = model_plan(case["cfg"], Mesh(shape, AXES))
     case["shape"] = tuple(shape)
     assert case["plan"] is not None
@@ -59,7 +60,8 @@ def hold_shard_shapes(case, arch: str) -> None:
     from torch_pipeline_helpers import _jax_flat
 
     cfg, shape = case["cfg"], case["shape"]
-    ref_shapes = jax.eval_shape(ref_build_model(ref_configs.get_smoke_config(arch)).init, jax.random.PRNGKey(0))
+    ref_shapes = jax.eval_shape(ref_build_model(case.get("ref_cfg") or ref_configs.get_smoke_config(arch)).init,
+                                jax.random.PRNGKey(0))
     amesh = AbstractMesh(shape, AXES)
     specs = _jax_flat(ref_sharding.make_param_shardings(ref_shapes, amesh))
     whole = {p: tuple(v.shape) for p, v in _jax_flat(ref_shapes).items()}
