@@ -54,13 +54,17 @@ on (data, model) = (2, 2); trains DeepSeek-V2-Lite at full width with 2 of its
 27 layers tensor-parallel on (2, 2), its experts split over ``model`` (32 of
 64 a rank), MLA by heads (8 of 16) and its shared expert on its matrices'
 first dims, held against each rank's replicated call on the same mesh, whose
-routes it replays; and runs the five examples of
+routes it replays; trains RWKV-6 7B (2 of its 32 layers, by heads: K4 and
+its backward at 32 of 64 heads a rank) and Zamba2-2.7B (12 of its 54 layers,
+as the reference's plan places it: w_z and w_x on d, conv_x on its taps, the
+shared block at 16 of 32 heads) tensor-parallel on (data, model) = (1, 2),
+each held against each rank's replicated call; and runs the five examples of
 ``repro_torch.examples`` through their mains (``whatif``,
 ``bubbletea_serve``, ``quickstart``, ``train_100m``, ``geo_train`` on eight
 ranks), each's launches counted.  For each path it checks by
 the kernels' launch counters that it really went through the kernels, and
 compares the kernel path's logits, or loss and gradients, with the plain
-path's.  Nine of its steps are also held against the port's dry-run
+path's.  Eleven of its steps are also held against the port's dry-run
 (``repro_torch.launch.dryrun``), predicted on ``meta`` from the config alone
 in a background process: argument bytes, launches and transport bytes
 exactly, the peak within max(3 %, 256 MiB); phase ``dryrun`` adds three
@@ -502,7 +506,8 @@ def check_flash(ck: Checker, gen) -> None:
               (4, 512, 512, 56, 8, 128), (4, 512, 512, 48, 1, 128), (4, 512, 512, 48, 8, 128),
               (4, 512, 512, 28, 4, 128), (4, 1024, 1024, 16, 16, 80), (1, 300, 300, 16, 16, 80),
               (2, 17, 17, 4, 4, 80), (1, 70, 300, 4, 2, 80), (1, 300, 70, 6, 3, 80),
-              (4, 512, 512, 32, 32, 80)]  # Zamba2-2.7B's shared block: a prefill of 4 x 512, 32 heads of 80
+              (4, 512, 512, 32, 32, 80),  # Zamba2-2.7B's shared block: a prefill of 4 x 512, 32 heads of 80
+              (4, 512, 512, 16, 16, 80)]  # its tensor-parallel rank's 16 heads (phase train_tp_recurrent)
     for dtype in TOL:
         for B, T, S, Hq, Hkv, D in shapes:
             for causal in (True, False):
@@ -624,7 +629,8 @@ def check_flash_bwd(ck: Checker, gen) -> None:
     # encoder (4 x 1024 frames, 16 heads, non-causal), a ragged causal group of
     # 3 and a T != S, and Zamba2-2.7B's shared block (4 x 512, 32 heads, causal);
     # then a pipelined microbatch's data shard: GPT-A's 1 or 2 rows, Zamba2's 1;
-    # last a tensor-parallel GPT-A rank's 16 of the 32 heads (phase train_tp)
+    # last a tensor-parallel GPT-A rank's 16 of the 32 heads (phase train_tp) and a
+    # tensor-parallel Zamba2 rank's 16 of the 32 heads of 80 (phase train_tp_recurrent)
     cases = [(4, 512, 512, 32, 32, 128, True), (2, 77, 77, 4, 2, 64, True), (2, 77, 77, 4, 2, 64, False),
              (1, 300, 300, 24, 8, 128, True), (1, 300, 300, 24, 8, 128, False), (2, 512, 512, 4, 2, 64, True),
              (1, 512, 512, 8, 8, 128, False), (1, 70, 300, 4, 2, 128, False), (1, 300, 70, 6, 3, 64, False),
@@ -632,7 +638,7 @@ def check_flash_bwd(ck: Checker, gen) -> None:
              (4, 1024, 1024, 16, 16, 80, False), (2, 200, 200, 6, 2, 80, True), (1, 150, 260, 4, 4, 80, False),
              (4, 512, 512, 32, 32, 80, True),
              (1, 512, 512, 32, 32, 128, True), (2, 512, 512, 32, 32, 128, True), (1, 512, 512, 32, 32, 80, True),
-             (4, 512, 512, 16, 16, 128, True)]
+             (4, 512, 512, 16, 16, 128, True), (4, 512, 512, 16, 16, 80, True)]
     for dtype in BWD_TOL:
         for B, T, S, Hq, Hkv, D, causal in cases:
             q, do = randn(gen, (B, T, Hq, D), dtype), randn(gen, (B, T, Hq, D), dtype)
@@ -784,7 +790,7 @@ def check_wkv6(ck: Checker, gen) -> None:
     t_min = wkv_mod.CHUNKED_T_MIN
     shapes = [(2, 128, 2, 64), (2, 96, 4, 32), (2, 128, 1, 64),
               (2, 1, 2, 64), (2, 31, 2, 64), (3, 100, 2, 32), (1, 300, 3, 64),
-              (4, 512, 64, 64), (4, 1, 64, 64),
+              (4, 512, 64, 64), (4, 1, 64, 64), (4, 512, 32, 64),  # the last a tensor-parallel rank's 32 heads
               (2, t_min - 1, 2, 64), (2, t_min, 2, 64), (2, 63, 2, 64), (2, 64, 2, 64), (2, 65, 2, 64),
               (2, 129, 2, 64), (2, 300, 2, 64)]
     for dtype in WKV_TOL:
@@ -842,7 +848,8 @@ def check_wkv6_bwd(ck: Checker, gen) -> None:
     ``wkv6_bwd_plain`` on the same inputs and dy, each case on both routes
     (forced through the threshold; f32 and head size 32 have only the
     sequential one): the reference's sweep, ragged T around the chunks of 64
-    and the threshold, RWKV-6 7B's training shape (4 x 512, 64 heads of 64),
+    and the threshold, RWKV-6 7B's training shape (4 x 512, 64 heads of 64)
+    and a tensor-parallel rank's (32 heads),
     strided views; then strong decay against autograd through the recurrence
     (``wkv6_sequential``), where the chunked plain form overflows; two runs bit
     for bit; the threshold's own choice on both sides of it; and ``WKV6Fn``
@@ -852,7 +859,8 @@ def check_wkv6_bwd(ck: Checker, gen) -> None:
     t_min = wkv_mod.CHUNKED_BWD_T_MIN
     shapes = [(2, 128, 2, 64), (2, 96, 4, 32), (2, 128, 1, 64),
               (2, 1, 2, 64), (2, 31, 2, 64), (2, 63, 2, 64), (2, 64, 2, 64), (2, 65, 2, 64), (2, 129, 2, 64),
-              (2, max(t_min - 1, 1), 2, 64), (2, t_min, 2, 64), (1, 300, 3, 64), (3, 100, 2, 32), (4, 512, 64, 64)]
+              (2, max(t_min - 1, 1), 2, 64), (2, t_min, 2, 64), (1, 300, 3, 64), (3, 100, 2, 32), (4, 512, 64, 64),
+              (4, 512, 32, 64)]  # the last a tensor-parallel RWKV-6 rank's 32 of the 64 heads
 
     def hold(case, got, want):
         for name, g, w in zip(("dr", "dk", "dv", "dlogw", "du"), got, want):
@@ -1043,10 +1051,12 @@ def measure_kernels(gen) -> dict:
 
     # K4: one layer of RWKV-6 7B, a prefill of 4 x 512 tokens (the chunked
     # kernel on the tensor cores) and a decode step of 4 (the sequential
-    # kernel), 64 heads of 64, bf16 r, k, v, the state carried in place.  No
-    # single PyTorch call computes this recurrence, so there is no library time.
-    H, D = 64, 64
-    for label, T, nsets in (("", 512, 2), ("decode_", 1, 8)):
+    # kernel), 64 heads of 64, bf16 r, k, v, the state carried in place; ("tp_")
+    # a tensor-parallel rank's 32 of the 64 heads at 4 x 512 (phase
+    # train_tp_recurrent).  No single PyTorch call computes this recurrence,
+    # so there is no library time.
+    D = 64
+    for label, T, H, nsets in (("", 512, 64, 2), ("decode_", 1, 64, 8), ("tp_", 512, 32, 4)):
         B = 4
         sets = [wkv_inputs(gen, B, T, H, D, dt, True) for _ in range(nsets)]
         # r, k, v and y in bf16, logw f32, u, and the state read once and written once
@@ -1084,8 +1094,9 @@ def measure_stack(gen, out: dict) -> None:
     added to ``out``'s rows under a prefix a model (``coder_``: DeepSeek-Coder
     33B, ``granite_``, ``nemotron_``, ``vl_``: Qwen2-VL 7B, ``hubert_``,
     ``zamba_``: Zamba2-2.7B, ``zamba_gated_``: its Mamba2 gated norm over
-    d_inner): K1 at a prefill's 4 x 512 rows (HuBERT: 4 x 1024 frames), K2 at
-    one layer's prefill (HuBERT non-causal, Zamba2 causal, at head size 80),
+    d_inner, ``zamba_tp_``: its tensor-parallel rank's 16 of 32 heads): K1 at a
+    prefill's 4 x 512 rows (HuBERT: 4 x 1024 frames), K2 at one layer's
+    prefill (HuBERT non-causal, Zamba2 causal, at head size 80),
     K3 at one layer's decode step, 520 of 1024 slots valid (Zamba2 at head
     size 80).  The library calls take the group as it is (``enable_gqa``)."""
     import torch.nn.functional as F  # timed here as a yardstick; the port never calls it
@@ -1104,7 +1115,8 @@ def measure_stack(gen, out: dict) -> None:
     for label, B, T, Hq, Hkv, D, causal in (("coder_", 4, 512, 56, 8, 128, True), ("granite_", 4, 512, 48, 1, 128, True),
                                             ("nemotron_", 4, 512, 48, 8, 128, True), ("vl_", 4, 512, 28, 4, 128, True),
                                             ("hubert_", 4, 1024, 16, 16, 80, False),
-                                            ("zamba_", 4, 512, 32, 32, 80, True)):
+                                            ("zamba_", 4, 512, 32, 32, 80, True),
+                                            ("zamba_tp_", 4, 512, 16, 16, 80, True)):
         sets = [(randn(gen, (B, T, Hq, D), dt), randn(gen, (B, T, Hkv, D), dt), randn(gen, (B, T, Hkv, D), dt))
                 for _ in range(2)]
         add("flash_attention", label, timed_row(
@@ -1157,13 +1169,17 @@ def measure_backward(gen) -> dict:
     # K2 backward: one layer's causal training attention, 4 x 512 tokens, 32 heads of 128;
     # ("long_") a 4K context, one sequence; ("hubert_") HuBERT-XLarge's encoder, non-causal,
     # heads of 80; ("zamba_") Zamba2-2.7B's shared block, causal, heads of 80; ("tp_") a
-    # tensor-parallel GPT-A rank's 16 of the 32 heads (phase train_tp)
+    # tensor-parallel GPT-A rank's 16 of the 32 heads (phase train_tp); ("zamba_tp_") a
+    # tensor-parallel Zamba2 rank's 16 of the 32 heads of 80 (phase train_tp_recurrent)
     out["flash_attention_bwd"] = flash_bwd_row(gen, TRAIN_BATCH, TRAIN_SEQ, 32, 128, True)
     for label, B, T, H, D, causal in (("long_", 1, 4096, 32, 128, True), ("hubert_", 4, 1024, 16, 80, False),
-                                      ("zamba_", 4, 512, 32, 80, True), ("tp_", 4, 512, 16, 128, True)):
+                                      ("zamba_", 4, 512, 32, 80, True), ("tp_", 4, 512, 16, 128, True),
+                                      ("zamba_tp_", 4, 512, 16, 80, True)):
         out["flash_attention_bwd"].update({label + key: val for key, val in
                                            flash_bwd_row(gen, B, T, H, D, causal, iters=3).items()})
+    # K4 backward: RWKV-6 7B's 64 heads; ("tp_") a tensor-parallel rank's 32 (phase train_tp_recurrent)
     out["wkv6_bwd"] = wkv6_bwd_row(gen, TRAIN_BATCH, TRAIN_SEQ, 64, 64)
+    out["wkv6_bwd"].update({"tp_" + key: val for key, val in wkv6_bwd_row(gen, TRAIN_BATCH, TRAIN_SEQ, 32, 64).items()})
     return out
 
 
@@ -2517,6 +2533,8 @@ def dryrun_steps() -> dict:
 
     steps[TP_CHECK] = functools.partial(tensor_parallel, train_config(TP_LAYERS, torch.bfloat16), TP_MESH, TP_BATCH)
     steps[TP_MOE_CHECK] = functools.partial(tensor_parallel, tp_moe_config(), TP_MESH, TP_MOE_BATCH)
+    for arch, layers, _, check in TP_REC_MODELS:
+        steps[check] = functools.partial(tensor_parallel, tp_rec_config(arch, layers), TP_REC_MESH, TP_REC_BATCH)
     return steps
 
 
@@ -2715,8 +2733,8 @@ def phase_dryrun(started: list) -> None:
                        "device_over_bound": x["roofline"]["device_over_bound"], "failures": x["failures"]}
                       for x in DRYRUN_LINES],
           "run_one": combos, "note": "run_one's seconds are the host's; its roofline is computed, not measured"})
-    if len(DRYRUN_LINES) != 9:
-        raise AssertionError(f"dry-run: {len(DRYRUN_LINES)} comparisons made, 9 owed")
+    if len(DRYRUN_LINES) != 11:
+        raise AssertionError(f"dry-run: {len(DRYRUN_LINES)} comparisons made, 11 owed")
     check_dryrun_lines(DRYRUN_LINES)
 
 
@@ -3719,6 +3737,249 @@ def phase_train_tp_moe(started) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase train_tp_recurrent: RWKV-6 and the Zamba2 hybrid split over model (slice 7b-iii)
+# ---------------------------------------------------------------------------
+
+# Two models at full width on (data, model) = (1, 2), two gloo ranks sharing
+# the card, each model in turn: RWKV-6 7B with 2 of its 32 layers, split by
+# heads (K4 and its backward on 32 of the 64 heads a rank; the channel mix on
+# d_ff and d), and Zamba2-2.7B with 12 of its 54 layers (2 groups), split as
+# the reference's plan places it: w_z and w_x on d, conv_x on 2 of its 4 taps,
+# the rest of each Mamba2 layer whole (ROADMAP Queue 3 (p)), the shared block
+# at 16 of 32 heads of 80 (K2 and its backward).  `data` x `model` is held by
+# train_tp and train_tp_moe; two ranks keep this phase short.
+TP_REC_MESH = ((1, 2), ("data", "model"))
+TP_REC_STEPS, TP_REC_BATCH = 2, 4
+# arch, layers, lr (the single-process phases'), the dry-run's prediction of rank 0's held call
+TP_REC_MODELS = (("rwkv6_7b", 2, RWKV_TRAIN_LR, "tp_rwkv_1x2"), ("zamba2_2p7b", 12, HYBRID_TRAIN_LR, "tp_zamba_1x2"))
+TP_REC_REDUCED = {"num_layers": "32 -> 2 (rwkv6-7b), 54 -> 12 (zamba2-2.7b: 2 of 9 groups)",
+                  "why": "two ranks share the card's 80 GB with the phase's time: each makes the whole model "
+                         "(3.90 and 2.66 GB of f32 parameters) from the seed and holds the replicated control's "
+                         "whole gradients beside it before it cuts its shards"}
+
+
+def tp_rec_owed(cfg) -> dict:
+    """The launches a train step owes on a rank: RWKV-6's two norms and one
+    WKV-6 recurrence a block; a Zamba2 group's two norms a Mamba2 layer and
+    the shared block's two norms and one attention (``train_owed``)."""
+    if cfg.rwkv is not None:
+        return train_owed(2 * cfg.num_layers, 0, wkvs=cfg.num_layers)
+    G, M = cfg.num_layers // cfg.attn_period, cfg.attn_period - 1
+    return train_owed(G * (2 * M + 2), G)
+
+
+def tp_rec_config(arch: str, layers: int):
+    return train_config(layers, torch.bfloat16, arch)
+
+
+def tp_rec_layout(cfg, params) -> dict:
+    """What a rank holds of the split: its heads (RWKV-6's u; the shared
+    block's wq), and the hybrid's rows of w_z and taps of conv_x."""
+    if cfg.rwkv is not None:
+        return {"heads": params["layers"]["u"].shape[1]}
+    m = params["groups"]["mamba"]["mamba"]
+    return {"heads": params["shared_attn"]["attn"]["wq"].shape[-1] // cfg.resolved_head_dim,
+            "w_z_rows": m["w_z"].shape[2], "w_x_rows": m["w_x"].shape[2], "conv_x_taps": m["conv_x"].shape[2]}
+
+
+def tp_rec_model(rank: int, mesh, cfg, lr: float, check: str, predicted) -> dict:
+    """One model on this rank: the replicated ``DataParallelLoss`` call on
+    the whole model made from the seed (no plan, the control), its block of
+    each gradient kept; then the rank's shards (``shard_params``) and the
+    tensor-parallel call (rank 0's against its dry-run, ``hold_dryrun``),
+    each leaf's squared differences from the control's block summed; for the
+    hybrid also, in f32 activations, the replicated and the tensor-parallel
+    calls, and both bf16 calls' differences from the replicated f32 call's,
+    summed alike; then TP_REC_STEPS steps through
+    ``launch.train.train`` on the mesh, counting the kernels' launches from
+    zero, and the final shards and moments hashed."""
+    model, plan = build_model(cfg), model_plan(cfg, mesh)
+    specs = flatten(plan)
+    b0 = next(make_batches(cfg, DataConfig(seed=SEED, batch_size=TP_REC_BATCH, seq_len=TRAIN_SEQ)))
+    b0 = {k: torch.from_numpy(v).to("cuda") for k, v in b0.items()}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    whole = model.init(gen)
+    t0 = time.perf_counter()
+    c_loss, c_grads = DataParallelLoss(model.loss, mesh)(whole, b0)
+    torch.cuda.synchronize()
+    control = {"loss": float(c_loss), "call_seconds": time.perf_counter() - t0,
+               "finite": all(bool(torch.isfinite(g).all()) for g in c_grads.values()),
+               "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    ref = {p: local_block(g, specs[p], mesh).clone() for p, g in c_grads.items()}
+    del c_grads
+    extra = {}
+    if cfg.family == "hybrid":  # the replicated call in f32 activations, the same f32 weights
+        model32 = build_model(dataclasses.replace(cfg, dtype=torch.float32))
+        f_loss, f_grads = DataParallelLoss(model32.loss, mesh)(whole, b0)
+        ref32 = {p: local_block(g, specs[p], mesh).clone() for p, g in f_grads.items()}
+        del f_grads
+        extra = {"f32": {"control_loss": float(f_loss)}, "control_vs_f32": {"sums": leaf_sums(ref, ref32)}}
+    params = shard_params(whole, mesh, plan)
+    del whole
+    release()
+    loss_fn = DataParallelLoss(model.loss, mesh, plan=plan)
+    held = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if rank == 0:
+        held, (loss, grads) = hold_dryrun(f"{cfg.name} tensor-parallel call, rank 0 of 1x2", check, predicted,
+                                          lambda: loss_fn(params, b0), (params, b0), backward=True,
+                                          transport=loss_fn.transport)
+    else:
+        loss, grads = loss_fn(params, b0)
+    torch.cuda.synchronize()
+    out = {"model": cfg.name, "rank": rank, "coords": mesh.coords, "control": control,
+           "layout": tp_rec_layout(cfg, params), "shard_params": sum(t.numel() for t in flatten(params).values()),
+           "split": sorted(split_paths(plan)),
+           "parity": {"loss": float(loss), "sums": leaf_sums(grads, ref),
+                      "finite": all(bool(torch.isfinite(g).all()) for g in grads.values()),
+                      "call_seconds": time.perf_counter() - t0, "bytes": loss_fn.transport.counts(),
+                      "transport_seconds": loss_fn.transport.times(), "dryrun": held}, **extra}
+    if "f32" in out:
+        out["bf16_vs_f32"] = {"sums": leaf_sums(grads, ref32)}
+    del grads, loss_fn, ref
+    if "f32" in out:
+        f_loss, f_grads = DataParallelLoss(model32.loss, mesh, plan=plan)(params, b0)
+        out["f32"].update(loss=float(f_loss), sums=leaf_sums(f_grads, ref32))
+        del f_grads, ref32
+    del params
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    res = train(cfg, steps=TP_REC_STEPS, batch=TP_REC_BATCH, seq=TRAIN_SEQ, lr=lr, seed=SEED,
+                log_every=TP_REC_STEPS, device="cuda", mesh=mesh)
+    hist = res["history"]
+    out["train"] = {"counters": read_counters(), "losses": [h["loss"] for h in hist],
+                    "grad_norms": [h["grad_norm"] for h in hist], "step_ms": [h["seconds"] * 1e3 for h in hist],
+                    "bytes": [h["bytes"] for h in hist], "transport_seconds": [h["transport_seconds"] for h in hist],
+                    "peak_memory_bytes": torch.cuda.max_memory_allocated(), "seconds": time.perf_counter() - t0}
+    out["digests"] = leaf_digests({"params": res["params"], "opt": res["opt_state"]})
+    del res
+    release()
+    return out
+
+
+def tp_rec_rank(rank: int, world: int, cfgs, predicted, store: str) -> None:
+    """One rank of the recurrent families' run on the card: joins
+    TP_REC_MESH and runs ``tp_rec_model`` for each model of TP_REC_MODELS in
+    turn.  Writes its results as JSON beside ``store``."""
+    join_as_rank(rank, world, store)
+    try:
+        mesh = make_mesh(*TP_REC_MESH)
+        outs = [tp_rec_model(rank, mesh, cfg, lr, check, predicted[check])
+                for cfg, (_, _, lr, check) in zip(cfgs, TP_REC_MODELS)]
+        with open(f"{store}.rank{rank}.json", "w") as f:
+            json.dump(outs, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train_tp_recurrent(started) -> dict:
+    """RWKV-6 7B (2 layers) and Zamba2-2.7B (12 layers) at full width on
+    TP_REC_MESH (``tp_rec_rank``), each split over ``model`` as the
+    reference's plan places it: raises unless, for each, (a) each rank's
+    tensor-parallel call has its loss and every gradient leaf, put together
+    from the ranks, within TP_TOL of the replicated control's on the same
+    rank, with 32 of 64 RWKV-6 heads, or 16 of 32 shared-block heads and the
+    hybrid's w_z and w_x on half of d and conv_x on 2 of 4 taps, a rank.  The
+    hybrid's f32 calls (the same f32 weights, f32 activations) are held at
+    TRAIN_PARITY_TOL["f32"]; its bf16 gradients, which part chaotically under
+    any change of rounding (ROADMAP Queue 3 (w2)), are held where TP_TOL
+    misses as ``hold_train_parity`` holds them against a control: each leaf
+    of the tensor-parallel bf16 call, measured from the replicated f32 call,
+    at twice the replicated bf16 call's own gap from it plus
+    HYBRID_GRAD_SLACK, at most HYBRID_GRAD_CAP; (b)
+    the trained run's first loss is that call's; (c) the counters show
+    exactly ``tp_rec_owed`` a rank a step (K4 and K4 bwd on RWKV-6's path,
+    K2 and K2 bwd on the hybrid's); (d) the leaves the plan leaves whole are
+    bit-equal on both ranks after the steps; rank 0's call is held against
+    its dry-run.  Prints each rank's step ms, peak, and bytes and seconds a
+    step by axis and op; returns each model's counters summed over the
+    ranks."""
+    cfgs = [tp_rec_config(arch, layers) for arch, layers, _, _ in TP_REC_MODELS]
+    world = math.prod(TP_REC_MESH[0])
+    pred = predictions(started)
+    predicted = {check: pred[check] for *_, check in TP_REC_MODELS}
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(tp_rec_rank, world, cfgs, predicted)
+    wall = time.perf_counter() - t0
+    TP = TP_REC_MESH[0][1]
+    failures, totals, lines = [], {}, []
+    for i, cfg in enumerate(cfgs):
+        runs = [r[i] for r in ranks]
+        owed = tp_rec_owed(cfg)
+        want = {k: TP_REC_STEPS * v for k, v in owed.items()}
+        layout = ({"heads": cfg.num_heads // TP} if cfg.rwkv is not None else
+                  {"heads": cfg.num_heads // TP, "w_z_rows": cfg.d_model // TP, "w_x_rows": cfg.d_model // TP,
+                   "conv_x_taps": cfg.ssm.conv_width // TP})
+        split = set(runs[0]["split"])
+        total = dict.fromkeys(want, 0)
+        for r in runs:
+            c, p, t = r["control"], r["parity"], r["train"]
+            p["loss_rel_diff"] = abs(p["loss"] - c["loss"]) / abs(c["loss"])
+            if not (c["finite"] and p["finite"] and p["loss_rel_diff"] <= TP_TOL["loss_rel"]):
+                failures.append((cfg.name, r["rank"], "loss", p["loss"], c["loss"]))
+            if p["dryrun"]:
+                DRYRUN_LINES.append(p["dryrun"])
+                failures += [(cfg.name, r["rank"], "dryrun", p["dryrun"]["failures"])] if p["dryrun"]["failures"] else []
+            elif r["rank"] == 0:
+                failures.append((cfg.name, 0, "dryrun", "the held call was not checked"))
+            if r["layout"] != layout:
+                failures.append((cfg.name, r["rank"], "layout", r["layout"], layout))
+            if not all(np.isfinite(t["losses"])) or t["losses"][0] != p["loss"]:
+                failures.append((cfg.name, r["rank"], "losses", t["losses"], p["loss"]))
+            if t["counters"] != want:
+                failures.append((cfg.name, r["rank"], "counters", t["counters"], want))
+            for k, v in t["counters"].items():
+                total[k] += v
+            t["bytes_per_step"] = per_step(t.pop("bytes"))
+            t["transport_seconds_per_step"] = per_step(t.pop("transport_seconds"))
+        gaps = leaf_gaps(runs, "parity", split)
+        worst = max(gaps, key=gaps.get)
+        limit, held = dict.fromkeys(gaps, TP_TOL["grad_rel"]), {}
+        if "f32" in runs[0]:  # the hybrid: its f32 calls, and its bf16 leaves beside the control's where TP_TOL misses
+            held["f32"] = leaf_gaps(runs, "f32", split)
+            held["control_vs_f32"] = leaf_gaps(runs, "control_vs_f32", split)
+            held["bf16_vs_f32"] = leaf_gaps(runs, "bf16_vs_f32", split)
+            f32_loss = [abs(r["f32"]["loss"] - r["f32"]["control_loss"]) / abs(r["f32"]["control_loss"]) for r in runs]
+            f32_worst = max(held["f32"], key=held["f32"].get)
+            if max(f32_loss) > TRAIN_PARITY_TOL["f32"]["loss_rel"] or \
+                    held["f32"][f32_worst] > TRAIN_PARITY_TOL["f32"]["grad_rel"]:
+                failures.append((cfg.name, "f32", f32_loss, f32_worst, held["f32"][f32_worst]))
+            held["f32_loss_rel_diff"] = f32_loss
+        against = gaps
+        if held and gaps[worst] > TP_TOL["grad_rel"]:
+            against = held["bf16_vs_f32"]
+            limit = {k: min(2 * held["control_vs_f32"][k] + HYBRID_GRAD_SLACK, HYBRID_GRAD_CAP) for k in gaps}
+            held["grad_tol_against_control"] = limit
+        for r in runs:
+            for key in ("parity", "f32", "control_vs_f32", "bf16_vs_f32"):
+                r.get(key, {}).pop("sums", None)
+        missed = {k: (against[k], limit[k]) for k in gaps if not against[k] <= limit[k]}
+        if missed or len(gaps) != len(expected_shapes(cfg)):
+            failures.append((cfg.name, "grads", missed, len(gaps)))
+        digests = [r.pop("digests") for r in runs]
+        differ = sorted(k for k, v in digests[0].items() if whole_key(k, split) and digests[1][k] != v)
+        if differ:
+            failures.append((cfg.name, "whole leaves differ", differ[:8]))
+        totals[f"train_tp_recurrent {cfg.name} 1x2"] = total
+        lines.append({"model": cfg.name, "layers": cfg.num_layers, "counters_per_step": owed,
+                      "grad_rel_diff": {"worst_leaf": worst, "worst": gaps[worst], "by_leaf": gaps}, **held,
+                      "split_leaves": len(split), "whole_leaves_bit_equal": not differ, "ranks": runs})
+    emit({"phase": "train_tp_recurrent", "reduced": TP_REC_REDUCED, "mesh": dict(zip(TP_REC_MESH[1], TP_REC_MESH[0])),
+          "batch": TP_REC_BATCH, "seq": TRAIN_SEQ, "steps": TP_REC_STEPS,
+          "control": "each rank's replicated DataParallelLoss call (no plan) on the whole model, the same mesh and "
+                     "batch", "tol": TP_TOL, "spawn_wall_seconds": wall, "note": "the ranks share one card",
+          "models": lines})
+    if failures:
+        raise AssertionError(f"train_tp_recurrent: {failures}")
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # phase examples: the five examples through their mains on the card
 # ---------------------------------------------------------------------------
 
@@ -3901,6 +4162,8 @@ def main() -> int:
     counts.update(phase_train_tp(started))
     release()
     counts.update(phase_train_tp_moe(started))
+    release()
+    counts.update(phase_train_tp_recurrent(started))
     release()
     counts.update(phase_examples())
     release()

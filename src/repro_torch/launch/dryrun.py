@@ -14,22 +14,20 @@ The programs (``ARCHS[:10]`` x ``SHAPES`` x single (16, 16) / multi (2, 16, 16))
   * multi x train: ``PipelineLoss`` (n_micro 4, ``--boundary``) and the
     port's AdamW update (``make_train_step``) on a rank of each distinct
     ``pod`` coordinate (stage 0 and stage 1), through a ``MetaTransport``.
-    For the transformers, dense and MoE, the stages are tensor-parallel over
-    ``model``, as the launcher runs them (``"tensor_parallel": true``): the
-    rank's f32 state is its shards of its stage under the placement plan,
-    fsdp off; RWKV-6's and the hybrid's ``model`` ranks are replicas of
-    their stage (ROADMAP 7b-iii).  Each figure is the larger
+    For the transformers, dense and MoE, RWKV-6 and the hybrid, the stages
+    are tensor-parallel over ``model``, as the launcher runs them
+    (``"tensor_parallel": true``): the rank's f32 state is its shards of its
+    stage under the placement plan, fsdp off.  Each figure is the larger
     of the two stages'; each stage's figures are under ``stages``.
   * single x train: the port's plain data-parallel step (``DataParallelLoss``
     and the AdamW update) on one rank of the (16, 16) mesh: its ``data``
     share of the global batch and the gradients' all-reduce over ``data``
-    through a ``MetaTransport``.  For the transformers, dense and MoE, the
-    step is tensor-parallel over ``model`` (``"program": "data_parallel+tensor_parallel"``):
-    the rank's f32 state is its shards under the placement plan, fsdp off
-    (``param_bytes`` is ``plan_bytes(cfg, mesh, fsdp=False)``), and the
-    ``model`` axis's collectives are counted with the ``data`` axis's;
-    RWKV-6's and the hybrid's ``model`` ranks are replicas holding the whole
-    model's state.
+    through a ``MetaTransport``.  For the transformers, dense and MoE,
+    RWKV-6 and the hybrid, the step is tensor-parallel over ``model``
+    (``"program": "data_parallel+tensor_parallel"``): the rank's f32 state is
+    its shards under the placement plan, fsdp off (``param_bytes`` is
+    ``plan_bytes(cfg, mesh, fsdp=False)``), and the ``model`` axis's
+    collectives are counted with the ``data`` axis's.
   * prefill / decode: the port has no tensor-parallel serving, so each rank
     serves a whole replica (the weights in ``cfg.dtype``, as the serving
     engine holds them) on its share of the global batch, ceil(B / ranks) rows

@@ -14,6 +14,13 @@ step, and the kernel takes any T, so the prefill is not padded to a chunk.
 Parameters are layer-stacked (leading ``L`` axis) with the reference's keys;
 the state, where given, is updated in place.  The loss differentiates the
 block with no state: then it starts from zeros and writes nothing.
+
+Under tensor parallelism (``parallel/tensor_parallel.py``, the loss only) the
+plan splits the time mix by heads: ``wr``, ``wk``, ``wv``, ``wg`` and
+``w_lora_b`` on their output dim, ``w0`` on d and ``u`` on its heads, ``wo``
+on its rows; and the channel mix's ``ck`` and ``cr`` on their output dim,
+``cv`` on its rows.  The ``mu_*``, ``ln_scale`` and ``w_lora_a`` stay whole.
+A rank runs the WKV-6 recurrence on its H / TP heads.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.modules import ModelConfig, Params, dense, dense_init, rmsnorm
+from repro_torch.parallel import tensor_parallel as tp
 
 LORA = 64  # rank of the decay's data-dependent LoRA
 # leaves the reference makes f32 whatever cfg.param_dtype
@@ -82,10 +90,20 @@ def rwkv6_apply(
     zeros.  Returns (out, the state after x); differentiated with no state (the
     loss, as the reference's), (out, None): nothing is made or written in
     place, which a rematerialised block must not do.  A call under grad that
-    differentiates nothing (x and params need no grad) still gets the state."""
+    differentiates nothing (x and params need no grad) still gets the state.
+
+    Under tensor parallelism each of ``xr``, ``xk``, ``xv``, ``xg`` and the
+    decay LoRA's ``tanh`` (after the whole ``w_lora_a``) enters its split
+    product through ``copy_in``, so that the gradients of the whole ``mu_*``
+    and ``w_lora_a`` are summed over ``model``; ``wo``'s output is summed
+    over ``model``.  In the channel mix ``xk2`` enters ``ck`` and ``cr``
+    through one ``copy_in``, ``cv``'s partial output is summed, and the
+    rank's columns of the receptance are gathered before the product."""
     B, T, d = x.shape
     hd = cfg.rwkv.head_dim
-    H = d // hd
+    split = _rwkv_split(cfg)
+    H = params["u"].shape[-2]  # this rank's heads: all of them with no split
+    dh = H * hd
 
     # ---- time mix ----
     xn = rmsnorm(params["ln_scale"], x)
@@ -96,12 +114,17 @@ def rwkv6_apply(
     xw = _token_shift(xn, params["mu_w"], prev_t)
     xg = _token_shift(xn, params["mu_g"], prev_t)
 
+    if split:  # each whole input's gradient, partial on each rank (its heads'), is summed before its mu's
+        xr, xk, xv, xg = (tp.copy_in(t) for t in (xr, xk, xv, xg))
+
     r = dense(params["wr"], xr).reshape(B, T, H, hd)
     k = dense(params["wk"], xk).reshape(B, T, H, hd)
     v = dense(params["wv"], xv).reshape(B, T, H, hd)
     g = F.silu(dense(params["wg"], xg))
 
     lora = torch.tanh(dense(params["w_lora_a"], xw))
+    if split:  # after w_lora_a, as MLA's latent: w_lora_a's gradient is then whole
+        lora = tp.copy_in(lora)
     w_dd = dense(params["w_lora_b"], lora).float()
     logw = (-torch.exp(params["w0"] + w_dd)).reshape(B, T, H, hd)  # f32, <= 0
 
@@ -114,17 +137,44 @@ def rwkv6_apply(
     if not loss_path:
         state["shift_t"].copy_(xn[:, -1])
 
-    y = y.reshape(B, T, d).to(x.dtype) * g.to(x.dtype)
-    x = x + dense(params["wo"], y)
+    y = y.reshape(B, T, dh).to(x.dtype) * g.to(x.dtype)
+    o = dense(params["wo"], y)
+    x = x + (tp.reduce_out(o) if split else o)
+    del o  # not kept alive through the channel mix: a prefill's peak counts it
 
     # ---- channel mix ----
     xn2 = rmsnorm(params["ln_scale"], x)  # the reference shares the scale
     xk2 = _token_shift(xn2, params["mu_ck"], None if loss_path else state["shift_c"])
     if not loss_path:
         state["shift_c"].copy_(xn2[:, -1])
+    if split:
+        xk2 = tp.copy_in(xk2)
     h = torch.square(torch.relu(dense(params["ck"], xk2)))
-    cm = dense(params["cv"], h) * torch.sigmoid(dense(params["cr"], xk2))
+    kv, rr = dense(params["cv"], h), torch.sigmoid(dense(params["cr"], xk2))
+    if split:
+        kv, rr = tp.reduce_out(kv), tp.gather(rr, -1)
+    cm = kv * rr
+    del kv, rr  # not kept alive through the residual's sum
     return x + cm, state
+
+
+_SPLIT = {"wr": 1, "wk": 1, "wv": 1, "wg": 1, "wo": 0, "w0": 0, "u": 0, "w_lora_a": None, "w_lora_b": 1,
+          "ck": 1, "cv": 0, "cr": 1}  # the plan's dims where it splits RWKV-6 by heads
+
+
+def _rwkv_split(cfg: ModelConfig) -> bool:
+    """Whether the current tensor-parallel context splits the block by heads,
+    as the plan does (``_SPLIT``); raises where it splits it otherwise, or
+    where the heads do not divide ``model``."""
+    dims = {n: tp.split_dim(n) for n in _SPLIT}
+    if all(v is None for v in dims.values()):
+        return False
+    H = cfg.d_model // cfg.rwkv.head_dim
+    if dims != _SPLIT or not tp.divides(H):
+        raise NotImplementedError(
+            f"{cfg.name}: RWKV-6's {H} heads split as {dims} over the mesh {tp.mesh_shape()}: the port splits "
+            "RWKV-6 only where its heads divide the model axis (ROADMAP Queue 1, 7b-iii)")
+    return True
 
 
 def rwkv6_state_shape(cfg: ModelConfig, batch: int):

@@ -18,6 +18,15 @@ card), which is term for term the reference's inline expression.
 Parameters are stacked on leading axes (``lead``: (L,) in the SSM stack, (G, M)
 in the hybrid's groups) with the reference's keys; a state, where given, is
 updated in place.
+
+Under tensor parallelism (``parallel/tensor_parallel.py``, the loss only) the
+block runs as the reference's plan places the hybrid's (G, M)-stacked leaves,
+each rule one dim to the left of its docstring's head split (ROADMAP Queue 3
+(p)): ``w_z`` and ``w_x`` split on d, their contracting dim, and ``conv_x`` on
+its taps where ``model`` divides them; ``w_bc``, ``w_dt``, ``conv_bc``, the
+SSD's leaves, the gated norm and ``w_out`` stay whole, and so does the SSD's
+work, on every rank.  The pure stack's head split (the plan's rules where they
+land) is not run (ROADMAP Queue 1, 7b-v).
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.modules import ModelConfig, Params, dense, dense_init, rmsnorm
+from repro_torch.parallel import tensor_parallel as tp
 
 # leaves the reference makes f32 whatever cfg.param_dtype, and the forward reads in f32
 F32_KEYS = ("A_log", "D", "dt_bias", "norm_scale")
@@ -58,6 +68,16 @@ def mamba2_init(gen: torch.Generator, cfg: ModelConfig, lead: Sequence[int], dty
         "w_out": dense_init(gen, lead + (d_in, d), pdt),
         "norm_scale": full(d_in, 1.0),
     }
+
+
+def _conv_taps(x: torch.Tensor, conv_w: torch.Tensor, first: int, width: int) -> torch.Tensor:
+    """The depthwise causal conv1d of x (B, T, C) from zeros, before its
+    SiLU, over the taps ``conv_w`` (n, C) alone, which are taps ``first`` to
+    ``first + n - 1`` of a conv of ``width`` taps: a rank's share of the sum
+    where ``model`` splits the taps."""
+    T = x.shape[1]
+    xp = torch.cat([x.new_zeros(x.shape[:1] + (width - 1,) + x.shape[2:]), x], dim=1)
+    return sum(xp[:, first + i:first + i + T] * conv_w[i].to(x.dtype) for i in range(conv_w.shape[0]))
 
 
 def _causal_conv(x: torch.Tensor, conv_w: torch.Tensor, state: Optional[torch.Tensor]):
@@ -128,14 +148,25 @@ def mamba2_apply(
 
     As the reference: T > 1 or no state takes the chunked form, T padded with
     zeros to a multiple of ``chunk`` (dt = 0 there leaves the state as it is)
-    and y cut back to T; one token with a state takes the recurrence."""
+    and y cut back to T; one token with a state takes the recurrence.
+
+    Under tensor parallelism (no state) ``w_z`` and ``w_x`` take the rank's
+    columns of x (one ``slice_`` for both) and their partial outputs are
+    summed over ``model``; where ``conv_x`` is split on its taps the rank
+    convolves ``copy_in(xs)`` with its taps at their global offsets and the
+    partial sums are summed over ``model`` before the SiLU."""
     s = cfg.ssm
     B_, T, d = x.shape
     d_in = d * s.expand
     nheads = d_in // s.head_dim
+    rows, taps = _mamba_split(cfg)
 
-    z = dense(params["w_z"], x)
-    xs = dense(params["w_x"], x)
+    if rows:  # the plan splits w_z and w_x on d, their contracting dim
+        xr = tp.slice_(x, -1)
+        z, xs = tp.reduce_out(dense(params["w_z"], xr)), tp.reduce_out(dense(params["w_x"], xr))
+    else:
+        z = dense(params["w_z"], x)
+        xs = dense(params["w_x"], x)
     bc = dense(params["w_bc"], x)
     dt = dense(params["w_dt"], x)
     dt = F.softplus(dt.float() + params["dt_bias"])
@@ -143,7 +174,12 @@ def mamba2_apply(
 
     cx = state["conv_x"] if state is not None else None
     cb = state["conv_bc"] if state is not None else None
-    xs, new_cx = _causal_conv(xs, params["conv_x"], cx)
+    if taps:
+        W = s.conv_width
+        new_cx = xs[:, T - W + 1:] if T >= W - 1 else F.pad(xs, (0, 0, W - 1 - T, 0))  # the last W-1 inputs
+        xs = F.silu(tp.reduce_out(_conv_taps(tp.copy_in(xs), params["conv_x"], tp.first(W), W)))
+    else:
+        xs, new_cx = _causal_conv(xs, params["conv_x"], cx)
     bc, new_cb = _causal_conv(bc, params["conv_bc"], cb)
     Bmat, Cmat = bc.chunk(2, dim=-1)
     xh = xs.reshape(B_, T, nheads, s.head_dim)
@@ -176,6 +212,24 @@ def mamba2_apply(
         state["conv_x"].copy_(new_cx)
         state["conv_bc"].copy_(new_cb)
     return dense(params["w_out"], yz), state
+
+
+_WHOLE = ("w_bc", "w_dt", "conv_bc", "A_log", "D", "dt_bias", "w_out", "norm_scale")
+
+
+def _mamba_split(cfg: ModelConfig) -> Tuple[bool, bool]:
+    """(whether the current tensor-parallel context splits ``w_z`` and
+    ``w_x`` on d, whether it splits ``conv_x`` on its taps): the plan's
+    placement of the hybrid's Mamba2 leaves, or neither.  Raises on any other
+    split, such as the pure stack's by heads (ROADMAP Queue 1, 7b-v)."""
+    dims = {n: tp.split_dim(n) for n in ("w_z", "w_x", "conv_x") + _WHOLE}
+    if all(v is None for v in dims.values()):
+        return False, False
+    if dims != {"w_z": 0, "w_x": 0, "conv_x": dims["conv_x"], **dict.fromkeys(_WHOLE)} or dims["conv_x"] not in (0, None):
+        raise NotImplementedError(
+            f"{cfg.name}: Mamba2 split as {dims} over the mesh {tp.mesh_shape()}: the port splits only the hybrid's "
+            "w_z and w_x on d and conv_x on its taps, as the plan places them (ROADMAP Queue 1, 7b-v)")
+    return True, dims["conv_x"] == 0
 
 
 def mamba2_state_shape(cfg: ModelConfig, batch: int):

@@ -445,7 +445,7 @@ class RWKVModel:
         tokens = batch["tokens"]
         x, _ = self._backbone(params, _embed_tokens(params, self.cfg, tokens), None)
         targets, mask = _next_token_targets(tokens)
-        ce = _lm_loss_chunked(x, _head_weight(params, self.cfg), targets, mask)
+        ce = _lm_loss_chunked(x, _head_weight(params, self.cfg), targets, mask, split=_head_split(self.cfg))
         return ce, {"ce": ce}
 
     def _backbone(self, params: Params, x, cache):
@@ -546,7 +546,7 @@ class SSMModel:
         x = _embed_tokens(params, self.cfg, tokens)
         x, _ = self._backbone(params, x, _default_positions(tokens.shape, x.device), None)
         targets, mask = _next_token_targets(tokens)
-        ce = _lm_loss_chunked(x, _head_weight(params, self.cfg), targets, mask)
+        ce = _lm_loss_chunked(x, _head_weight(params, self.cfg), targets, mask, split=_head_split(self.cfg))
         return ce, {"ce": ce}
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor], cache) -> Tuple[torch.Tensor, Any]:

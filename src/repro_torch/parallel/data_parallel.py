@@ -35,20 +35,22 @@ replicas stay bit-equal.
 
 Tensor parallelism over ``model`` (``parallel/tensor_parallel.py``): given
 the placement ``plan`` of the whole model (``tensor_parallel.model_plan``: the
-transformers, dense or MoE, with GQA, MQA or MLA attention, on a ``model``
-axis of more than 1), ``params`` are this rank's shards (``shard_params``) and
-the loss runs inside the ``model`` context, so that each product computes on
-the rank's shard as the plan places it (a MoE's experts on their expert dim,
-or on their features where the expert count does not divide ``model``).  Each
-gradient is then this rank's block, summed over ``data`` only; a leaf the
-plan leaves whole (the norm scales, MLA's latent down-projection, the router)
-has its whole gradient on every ``model`` rank, the same bits on each.
-``grad_norm`` sums the squares of the split leaves over ``model`` and adds
-those of the whole leaves once: the clip sees the whole model's norm.  RWKV-6,
-Mamba2 and the hybrid (ROADMAP 7b-iii) have no plan here: their ``model``
-ranks are replicas that compute the same numbers, on this step and under
-``--pipeline`` alike (where the transformers split over ``model`` inside each
-stage, ``parallel/pipeline.py``).
+transformers, dense or MoE, with GQA, MQA or MLA attention, RWKV-6 and the
+Zamba2 hybrid, on a ``model`` axis of more than 1), ``params`` are this rank's
+shards (``shard_params``) and the loss runs inside the ``model`` context, so
+that each product computes on the rank's shard as the plan places it (a MoE's
+experts on their expert dim, or on their features where the expert count does
+not divide ``model``; RWKV-6 by heads; the hybrid's Mamba2 ``w_z`` and ``w_x``
+on d and ``conv_x`` on its taps).  Each gradient is then this rank's block,
+summed over ``data`` only; a leaf the plan leaves whole (the norm scales,
+MLA's latent down-projection, the router, RWKV-6's ``mu_*`` and
+``w_lora_a``, the rest of the hybrid's Mamba2 layer) has its whole gradient
+on every ``model`` rank, the same bits on each.  ``grad_norm`` sums the
+squares of the split leaves over ``model`` and adds those of the whole leaves
+once: the clip sees the whole model's norm.  The pure Mamba2 stack (ROADMAP
+7b-v) has no plan: its ``model`` ranks are replicas that compute the same
+numbers, on this step and under ``--pipeline`` alike (where the other
+families split over ``model`` inside each stage, ``parallel/pipeline.py``).
 """
 from __future__ import annotations
 

@@ -30,7 +30,8 @@ Boundary modes, the paper's two transports:
 
 Tensor parallelism over ``model`` inside each stage (``plan``, the whole
 model's placement plan, ``tensor_parallel.model_plan``: the transformers,
-dense or MoE, on a ``model`` axis of more than 1), as the reference's partial-auto
+dense or MoE, RWKV-6 and the Zamba2 hybrid, on a ``model`` axis of more than
+1), as the reference's partial-auto
 region has GSPMD place the parameters of its ``--pipeline`` launcher
 (``make_param_shardings``, fsdp off): each rank holds its stage's rows of its
 ``model`` block of every stacked leaf and its block of ``embed`` and
@@ -43,10 +44,12 @@ what they carry without a plan, and the input's gradient that a stage sends
 back is the ``copy_in`` all-reduce's, the same bits on every ``model`` rank.
 A routed expert's leaf is 4-D, (layers, E, d, f), and split on its expert dim
 (dim 1 of the stack) or its features: ``stage_params`` cuts the stage's rows
-first and ``shard_params`` the block of those.  Without a plan (RWKV-6, Mamba2
-and the hybrid, ROADMAP 7b-iii) the ``model`` ranks compute the same numbers,
-as the reference's fully manual fall-back does ("the model axis carrying
-replicas").
+first and ``shard_params`` the block of those; the hybrid's ``groups`` leaves
+likewise, the Mamba2 ones (G, M, ...) cut on G and then on the dim the plan
+splits, and its ``shared_attn`` block, outside the stack, by the plan alone.
+Without a plan (the pure Mamba2 stack, ROADMAP 7b-v) the ``model`` ranks
+compute the same numbers, as the reference's fully manual fall-back does
+("the model axis carrying replicas").
 
 Loss and gradients: the loss is the sum over this rank's microbatches of
 ``final_loss`` (last stage only) plus the layers' aux, summed over ``pod``

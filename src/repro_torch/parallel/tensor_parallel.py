@@ -28,15 +28,26 @@ they computed before.
 The model modules import this one, so it imports none of the port's modules at
 its top.
 
-Which configs split: the transformers (``tp_family``: GQA, MQA or MLA
-attention, a dense or a MoE FFN), on the plain step and under ``--pipeline``
-alike.  The MoE leaves split as ``MOE_RULES`` place them: the routed experts
-on their expert dim (expert parallelism), or on their feature dim where the
-expert count does not divide ``model``, and the shared expert's stacked
-leaves on the first dim of each matrix.  ``split_dims`` therefore keys a leaf
-under ``moe`` by its path from ``moe`` (``moe/w_gate``, ``moe/shared/w_gate``)
-and every other leaf by its name.  RWKV-6, Mamba2 and the Zamba2 hybrid
-(ROADMAP 7b-iii) keep whole replicas on every ``model`` rank, on both.
+Which configs split (``tp_family``), on the plain step and under
+``--pipeline`` alike: the transformers (GQA, MQA or MLA attention, a dense or
+a MoE FFN), RWKV-6 and the Zamba2 hybrid.  The MoE leaves split as
+``MOE_RULES`` place them: the routed experts on their expert dim (expert
+parallelism), or on their feature dim where the expert count does not divide
+``model``, and the shared expert's stacked leaves on the first dim of each
+matrix.  ``split_dims`` therefore keys a leaf under ``moe`` by its path from
+``moe`` (``moe/w_gate``, ``moe/shared/w_gate``) and every other leaf by its
+name.  RWKV-6 splits by heads (its time mix's projections, ``w0``, ``u`` and
+``w_lora_b``) and its channel mix on d_ff and d.  The hybrid splits as the
+plan places it, which is not by heads: the plan adds one leading ``None`` to
+a stacked leaf's rule, and the hybrid's Mamba2 leaves carry two stacked axes
+(G, M), so each rule lands one dim to the left (ROADMAP Queue 3 (p), mirrored
+here): ``w_z`` and ``w_x`` split on d, their contracting dim, ``conv_x`` on
+its taps where ``model`` divides them, and the rest of the layer stays whole.
+``split_dims`` strips the stacked axes a leaf really has (``lead_axes``), and
+``model_plan`` raises where the plan splits one of them (a hybrid whose M
+``model`` divides: ROADMAP Queue 1, 7b-vi; no config of the repo).  The pure
+Mamba2 stack keeps whole replicas on every ``model`` rank (``replicated_note``;
+ROADMAP Queue 1, 7b-v).
 """
 from __future__ import annotations
 
@@ -51,21 +62,39 @@ STACKED = ("layers", "groups")
 
 def tp_family(cfg) -> bool:
     """Whether ``cfg`` splits over ``model``: a transformer (GQA, MQA or MLA
-    attention, a dense or a MoE FFN), not RWKV-6 or Mamba2 (ROADMAP 7b-iii)."""
-    return cfg.family in ("dense", "vlm", "audio", "moe") and cfg.ssm is None and cfg.rwkv is None
+    attention, a dense or a MoE FFN), RWKV-6 or the Zamba2 hybrid; not the
+    pure Mamba2 stack (ROADMAP 7b-v)."""
+    if cfg.rwkv is not None or cfg.family == "hybrid":
+        return True
+    return cfg.family in ("dense", "vlm", "audio", "moe") and cfg.ssm is None
+
+
+def replicated_note(cfg, mesh) -> str:
+    """The launcher's note on a mesh whose ``model`` ranks hold whole
+    replicas of ``cfg`` (a ``model`` axis of more than 1, a config outside
+    ``tp_family``); empty otherwise."""
+    return "" if mesh.shape.get(AXIS, 1) == 1 or tp_family(cfg) else " tp=replicated (ROADMAP 7b-v)"
 
 
 def model_plan(cfg, mesh) -> Optional[Dict]:
     """The placement plan of ``cfg``'s parameters on ``mesh`` (a nested dict of
     ``P``s, fsdp off) where the plain step and the pipeline's stages split them
     over ``model``: a ``tp_family`` config on a ``model`` axis of more than 1.
-    None otherwise."""
-    from repro_torch.convert import expected_shapes, unflatten
+    None otherwise.  Raises where the plan splits a stacked axis (a hybrid
+    whose Mamba2 layers a group, M, the ``model`` axis divides), which the
+    port does not run."""
+    from repro_torch.convert import expected_shapes, flatten, unflatten
     from repro_torch.parallel.sharding import make_param_shardings
 
     if mesh.shape.get(AXIS, 1) == 1 or not tp_family(cfg):
         return None
-    return make_param_shardings(unflatten(expected_shapes(cfg)), mesh)
+    plan = make_param_shardings(unflatten(expected_shapes(cfg)), mesh)
+    stacked = sorted(p for p, spec in flatten(plan).items() if is_split(tuple(spec)[:lead_axes(p)]))
+    if stacked:
+        raise NotImplementedError(
+            f"{cfg.name}: the plan splits {stacked} on a stacked axis over the mesh {dict(mesh.shape)}: the port "
+            "splits no layer or group axis (ROADMAP Queue 1, 7b-vi)")
+    return plan
 
 
 def is_split(spec, axis: str = AXIS) -> bool:
@@ -89,17 +118,31 @@ def leaf_key(path: str) -> str:
     return "/".join(names[names.index("moe"):]) if "moe" in names[:-1] else names[-1]
 
 
+def lead_axes(path: str) -> int:
+    """The stacked axes ahead of the per-layer tensor of the leaf at
+    ``path``: (G, M) for the hybrid's Mamba2 layers (under ``groups/mamba``),
+    (L,) or (G,) for any other leaf under ``layers`` or ``groups``, none
+    outside them."""
+    names = path.split("/")[:-1]
+    top = next((i for i, n in enumerate(names) if n in STACKED), None)
+    if top is None:
+        return 0
+    return 2 if names[top] == "groups" and names[top + 1:top + 2] == ["mamba"] else 1
+
+
 def split_dims(plan, axis: str = AXIS) -> Dict[str, Optional[int]]:
     """leaf key (``leaf_key``) -> the dim of its per-layer tensor (a stacked
-    leaf without its leading layer axis) that ``plan`` splits over ``axis``,
-    None where it stays whole.  Raises if two leaves of one key are split
-    differently."""
+    leaf without its stacked axes, ``lead_axes``) that ``plan`` splits over
+    ``axis``, None where it stays whole.  Raises if the plan splits a stacked
+    axis, or two leaves of one key on different dims."""
     from repro_torch.convert import flatten
 
     dims: Dict[str, Optional[int]] = {}
     for path, spec in flatten(plan).items():
-        names, key = path.split("/"), leaf_key(path)
-        entries = list(spec)[1:] if any(n in STACKED for n in names) else list(spec)
+        key, lead = leaf_key(path), lead_axes(path)
+        if is_split(tuple(spec)[:lead], axis):
+            raise ValueError(f"{path}: {spec} splits a stacked axis")
+        entries = list(spec)[lead:]
         dim = next((i for i, e in enumerate(entries) if is_split((e,), axis)), None)
         if dims.setdefault(key, dim) != dim:
             raise ValueError(f"{key}: split on dim {dims[key]} and on dim {dim}")
@@ -142,6 +185,13 @@ def split_dim(name: str) -> Optional[int]:
     without one or where it is whole."""
     ctx = _active()
     return None if ctx is None else ctx.dims.get(name)
+
+
+def first(n: int) -> int:
+    """The first index of this rank's part of a dim of length ``n`` split over
+    ``model``; 0 without a context."""
+    ctx = _active()
+    return 0 if ctx is None else ctx.index * (n // ctx.size)
 
 
 def divides(n: int) -> bool:

@@ -190,16 +190,19 @@ def test_run_one_completes_full_size_combinations(full_results, combo):
 
 def test_single_train_and_encoder_decode_are_skipped_with_reasons():
     """Single x train is no longer skipped (slice 7d): one rank of (16, 16)
-    runs the plain data-parallel step on its 16 rows of the batch; a family
-    that keeps its ``model`` replicas (RWKV-6, until 7b-iii) holds the whole
-    f32 state, and all-reduces every gradient and the loss's count and value
-    over ``data`` alone.  The encoder's decodes stay skipped."""
+    runs the plain data-parallel step on its 16 rows of the batch.  Since
+    7b-iii RWKV-6's rank is tensor-parallel too: it holds its shards' f32
+    state (the plan's bytes without fsdp, not the whole model's), all-reduces
+    their gradients and the loss's count and value over ``data``, and
+    something over ``model``.  The encoder's decodes stay skipped."""
+    cfg = shp.config_for("rwkv6_7b", "train_4k")
     r = dryrun.run_one("rwkv6_7b", "train_4k", "single")
-    n = sum(math.prod(s) for s in expected_shapes(shp.config_for("rwkv6_7b", "train_4k")).values())
-    assert r["status"] == "ok" and r["program"] == "data_parallel" and r["rows_per_rank"] == 16
-    assert r["memory"]["argument_bytes"] > 12 * n  # f32 parameters and two moments
-    assert r["collectives"]["by_axis"]["data"] == {"send": 0, "all_reduce": 4 * n + 8, "all_gather": 0}
-    assert not any(r["collectives"]["by_axis"]["model"].values()) and r["collectives"]["dcn"] == 0
+    n = sum(math.prod(s) for s in expected_shapes(cfg).values())
+    assert r["status"] == "ok" and r["program"] == "data_parallel+tensor_parallel" and r["rows_per_rank"] == 16
+    assert r["param_bytes"] == dryrun.plan_bytes(cfg, dryrun.Mesh((16, 16), ("data", "model")), fsdp=False)
+    assert 12 * n / 16 < r["memory"]["argument_bytes"] < 12 * n / 8  # f32 parameters and two moments, in shards
+    assert r["collectives"]["by_axis"]["data"] == {"send": 0, "all_reduce": r["param_bytes"] + 8, "all_gather": 0}
+    assert r["collectives"]["by_axis"]["model"]["all_reduce"] > 0 and r["collectives"]["dcn"] == 0
     r = dryrun.run_one("hubert_xlarge", "decode_32k", "multi")
     assert r["status"] == "skipped" and "encoder-only" in r["reason"]
 

@@ -6,7 +6,8 @@ and of (2, 2), leaf by leaf (on ``meta``: no device, nothing drawn): both
 ``MOE_RULES`` candidates (Qwen1.5-MoE's 60 experts on their features at 16,
 on their expert dim at 2) and the shared expert's stacked leaves, which the
 plan splits on their first dim; ``unshard`` puts the ``model`` ranks' blocks
-back bit for bit; the families that keep replicas have no plan; and with no
+back bit for bit; RWKV-6 and the Zamba2 hybrid have plans since 7b-iii (their
+shards are held in ``test_torch_dryrun_tp_recurrent.py``); and with no
 tensor-parallel context, or one of a single rank, every operation is the
 identity and the loss is the one it was, bit for bit."""
 import math
@@ -62,9 +63,15 @@ def test_split_dims_follow_the_plan_leaf_by_leaf():
                    "wv": 1, "wo": 0, "w_up": 1, "w_down": 0}
     hubert = tp.split_dims(tp.model_plan(configs.get_config("hubert_xlarge"), mesh))
     assert hubert["lm_head"] is None and hubert["embed"] == 1  # 504 classes do not divide 16
-    for arch in ("rwkv6_7b", "zamba2_2p7b"):
-        cfg = configs.get_config(arch)
-        assert not tp.tp_family(cfg) and tp.model_plan(cfg, mesh) is None
+    rwkv = tp.split_dims(tp.model_plan(configs.get_config("rwkv6_7b"), mesh))  # by heads since 7b-iii
+    assert rwkv == {"embed": 1, "lm_head": 1, "final_norm": None, "ln_scale": None, "mu_r": None, "mu_k": None,
+                    "mu_v": None, "mu_w": None, "mu_g": None, "mu_ck": None, "wr": 1, "wk": 1, "wv": 1, "wg": 1,
+                    "wo": 0, "w0": 0, "u": 0, "w_lora_a": None, "w_lora_b": 1, "ck": 1, "cv": 0, "cr": 1}
+    zamba = tp.split_dims(tp.model_plan(configs.get_config("zamba2_2p7b"), mesh))  # the (G, M) leaves on d
+    mamba = {"w_z": 0, "w_x": 0, "w_bc": None, "w_dt": None, "conv_x": None, "conv_bc": None, "A_log": None,
+             "D": None, "dt_bias": None, "w_out": None, "norm_scale": None, "ln": None, "gate": None}
+    assert zamba == {"embed": 1, "lm_head": 1, "final_norm": None, "ln1": None, "ln2": None, "wq": 1, "wk": 1,
+                     "wv": 1, "wo": 0, "w_gate": 1, "w_up": 1, "w_down": 0, **mamba}  # 4 taps do not divide 16
     # the MoE leaves by their path from moe: the routed and the shared w_gate split on different dims
     qwen = tp.split_dims(tp.model_plan(configs.get_config("qwen2_moe_a2p7b"), mesh))
     shared = {"moe/shared/w_gate": 0, "moe/shared/w_up": 0, "moe/shared/w_down": 0, "moe/router": None}

@@ -48,15 +48,16 @@ def hold_boundaries(case) -> None:
 
 def hold_shard_shapes(case, arch: str) -> None:
     """Each rank's leaves have the reference's ``shard_shape`` on an
-    ``AbstractMesh`` of the same shape, of each leaf with its stack cut to
-    the rank's stage rows."""
+    ``AbstractMesh`` of the same shape, of each leaf with its stack (the
+    layers, or the hybrid's groups) cut to the rank's stage rows."""
     import jax
     from jax.sharding import AbstractMesh, NamedSharding
 
     from repro import configs as ref_configs
     from repro.models.transformer import build_model as ref_build_model
     from repro.parallel import sharding as ref_sharding
-    from repro_torch.parallel.pipeline import stage_layer_range
+    from repro_torch.models.transformer import build_pipeline_parts
+    from repro_torch.parallel.pipeline import stack_length, stage_layer_range
     from torch_pipeline_helpers import _jax_flat
 
     cfg, shape = case["cfg"], case["shape"]
@@ -65,16 +66,30 @@ def hold_shard_shapes(case, arch: str) -> None:
     amesh = AbstractMesh(shape, AXES)
     specs = _jax_flat(ref_sharding.make_param_shardings(ref_shapes, amesh))
     whole = {p: tuple(v.shape) for p, v in _jax_flat(ref_shapes).items()}
+    key, L = build_pipeline_parts(cfg).layer_key + "/", stack_length(cfg)
     for r in case["results"]:
-        lo, hi = (min(i, cfg.num_layers) for i in stage_layer_range(cfg.num_layers, shape[0], r["coords"]["pod"]))
-        stage = {p: ((hi - lo,) + w[1:] if p.startswith("layers/") else w) for p, w in whole.items()}
+        lo, hi = (min(i, L) for i in stage_layer_range(L, shape[0], r["coords"]["pod"]))
+        stage = {p: ((hi - lo,) + w[1:] if p.startswith(key) else w) for p, w in whole.items()}
         assert set(r["shapes"]) == set(specs)
         for p, got in r["shapes"].items():
             assert got == tuple(NamedSharding(amesh, specs[p].spec).shard_shape(stage[p])), (r["coords"], p, got)
         assert sum(np.prod(s) for s in r["shapes"].values()) < sum(np.prod(s) for s in stage.values())
 
 
-def bytes_owed(cfg, shape, stage: int, boundary: str, block_elems: dict) -> dict:
+def dense_row(cfg, TP: int, tok: int) -> tuple:
+    """(reduced, gathered) bytes over ``model`` of one transformer layer and
+    one microbatch of ``tok`` tokens a rank, f32, remat "none": the
+    attention's and the FFN's outputs reduced forward and their inputs'
+    gradients backward (4 act); where the heads do not line up with the
+    ranks (Granite's one kv head) the attention gathers q, k and v forward
+    and ``wo``'s input's gradient backward instead of attending on its own
+    heads."""
+    hd, H, Hkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    local = H % TP == 0 and Hkv % TP == 0
+    return 4 * 4 * tok * cfg.d_model, 0 if local else 4 * tok * (2 * H * hd + 2 * Hkv * hd) // TP
+
+
+def bytes_owed(cfg, shape, stage: int, boundary: str, block_elems: dict, row=dense_row) -> dict:
     """What one call of the pipelined loss and ``grad_norm`` puts on each
     axis from a rank of ``stage``, in f32, for a config with remat "none"
     (no recomputation), from the code.  A microbatch's activation ``act`` is
@@ -84,28 +99,27 @@ def bytes_owed(cfg, shape, stage: int, boundary: str, block_elems: dict) -> dict
     as many gradients back from stage 1, ``striped`` 1/TP of each; the
     gradients of ``rest`` (its blocks), the loss and the layers' squared
     norm are all-reduced.  ``data``: the layer and ``rest`` blocks' gradients
-    and the loss.  ``model``, a microbatch: each layer reduces the attention's
-    and the FFN's output forward and their inputs' gradients backward (4
-    act); where the heads do not line up with the ranks (Granite's one kv
-    head) the attention gathers q, k and v forward and ``wo``'s input's
-    gradient backward instead of attending on its own heads; stage 0 gathers
-    the embedding's columns; the last stage reduces the loss's input
-    gradient (act) and the vocabulary-parallel cross entropy's sums (2, rows,
-    SEQ) and gathers its maxima (1, rows, SEQ); ``striped`` gathers what the
-    rank receives (act / TP).  The norm reduces the split leaves' squares (2
-    f32) over ``model``."""
+    and the loss.  ``model``, a microbatch: each row of the stack (a layer,
+    or the hybrid's group) what ``row`` says (``dense_row`` for a
+    transformer layer); stage 0 gathers the embedding's columns; the last
+    stage reduces the loss's input gradient (act) and the
+    vocabulary-parallel cross entropy's sums (2, rows, SEQ) and gathers its
+    maxima (1, rows, SEQ); ``striped`` gathers what the rank receives (act /
+    TP).  The norm reduces the split leaves' squares (2 f32) over
+    ``model``."""
+    from repro_torch.parallel.pipeline import stack_length
+
     S, DP, TP = shape
     rows = BATCH // (N_MICRO * DP)
     tok = rows * SEQ
     act = 4 * tok * cfg.d_model
-    per = cfg.num_layers // S
-    hd, H, Hkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
-    local = H % TP == 0 and Hkv % TP == 0
+    per = stack_length(cfg) // S
+    row_reduce, row_gather = row(cfg, TP, tok)
     last = stage == S - 1
-    gather = 0 if local else per * 4 * tok * (2 * H * hd + 2 * Hkv * hd) // TP
+    gather = per * row_gather
     gather += act // TP if stage == 0 else 4 * tok  # the embedding's columns, the maxima
     gather += act // TP if boundary == "striped" else 0
-    reduce = 4 * per * act + (act + 4 * 2 * tok if last else 0)
+    reduce = per * row_reduce + (act + 4 * 2 * tok if last else 0)
     sends = N_MICRO * act // (TP if boundary == "striped" else 1)
     out = {"pod": {"send": sends, "all_reduce": 4 * block_elems["rest"] + 8, "all_gather": 0},
            "model": {"send": 0, "all_reduce": N_MICRO * reduce + 8, "all_gather": N_MICRO * gather}}
@@ -114,11 +128,14 @@ def bytes_owed(cfg, shape, stage: int, boundary: str, block_elems: dict) -> dict
     return out
 
 
-def hold_bytes(case) -> None:
+def hold_bytes(case, row=dense_row) -> None:
+    from repro_torch.models.transformer import build_pipeline_parts
+
+    key = build_pipeline_parts(case["cfg"]).layer_key + "/"
     for r in case["results"]:
         shapes = r["shapes"]
-        elems = {"layers": sum(int(np.prod(s)) for p, s in shapes.items() if p.startswith("layers/")),
-                 "rest": sum(int(np.prod(s)) for p, s in shapes.items() if not p.startswith("layers/"))}
+        elems = {"layers": sum(int(np.prod(s)) for p, s in shapes.items() if p.startswith(key)),
+                 "rest": sum(int(np.prod(s)) for p, s in shapes.items() if not p.startswith(key))}
         for boundary in ("direct", "striped"):
-            want = bytes_owed(case["cfg"], case["shape"], r["coords"]["pod"], boundary, elems)
+            want = bytes_owed(case["cfg"], case["shape"], r["coords"]["pod"], boundary, elems, row)
             assert r["runs"][boundary]["bytes"] == want, (r["coords"], boundary, r["runs"][boundary]["bytes"], want)
