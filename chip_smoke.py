@@ -40,7 +40,7 @@ attention block, 32 heads of 80, vocabulary 32000; RMSNorm kernel for every
 norm and Mamba2's gated norm, flash kernel causal and decode kernel at head
 size 80 in the shared block).  Between the training and the MoE phases it
 trains through the cross-pod pipeline (``repro_torch.parallel.pipeline``),
-ranks as ``gloo`` processes that share the card: GPT-A at full width with 4
+ranks as ``gloo`` processes that share the card: GPT-A at full width with 2
 of its 24 layers on meshes (pod, data, model) of (2, 2, 1) and (2, 1, 2), and
 Zamba2-2.7B at full width and depth on (2, 1, 1), each held against gradient
 accumulation over the same chunks; on (2, 1, 2) GPT-A is tensor-parallel over
@@ -50,7 +50,10 @@ whole state at the end (rank 0 gathers the stages' blocks), and the file, cut
 back into stages and blocks, must hash as every rank's own state.  Then it
 trains GPT-A with 4 layers data-parallel on two ranks sharing the card (step 0
 held against accumulation, the replicas bit-equal after), and tensor-parallel
-on (data, model) = (2, 2); trains DeepSeek-V2-Lite at full width with 2 of its
+on (data, model) = (2, 2), and on the same ranks FSDP over ``data`` on top
+(the reference's fsdp plan: each rank its ``data`` block of its ``model``
+shard, layers gathered inside remat, gradients reduce-scattered), held
+against the tensor-parallel call and state; trains DeepSeek-V2-Lite at full width with 2 of its
 27 layers tensor-parallel on (2, 2), its experts split over ``model`` (32 of
 64 a rank), MLA by heads (8 of 16) and its shared expert on its matrices'
 first dims, held against each rank's replicated call on the same mesh, whose
@@ -64,7 +67,7 @@ each held against each rank's replicated call; and runs the five examples of
 ranks), each's launches counted.  For each path it checks by
 the kernels' launch counters that it really went through the kernels, and
 compares the kernel path's logits, or loss and gradients, with the plain
-path's.  Eleven of its steps are also held against the port's dry-run
+path's.  Twelve of its steps are also held against the port's dry-run
 (``repro_torch.launch.dryrun``), predicted on ``meta`` from the config alone
 in a background process: argument bytes, launches and transport bytes
 exactly, the peak within max(3 %, 256 MiB); phase ``dryrun`` adds three
@@ -139,7 +142,7 @@ from repro_torch.parallel.pipeline import (  # noqa: E402
     stage_layer_range,
     stage_params,
 )
-from repro_torch.parallel.sharding import local_block, shard_params  # noqa: E402
+from repro_torch.parallel.sharding import P, local_block, shard_params  # noqa: E402
 from repro_torch.parallel.tensor_parallel import is_split, model_plan, split_paths  # noqa: E402
 from repro_torch.parallel.transport import MetaTransport  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
@@ -2524,14 +2527,16 @@ def dryrun_steps() -> dict:
         pipelined, dataclasses.replace(get_config("zamba2_2p7b"), dtype=torch.bfloat16), (2, 1, 1), "striped",
         HYBRID_PIPE_BATCH)
 
-    def tensor_parallel(cfg, shape, batch):
+    def tensor_parallel(cfg, shape, batch, fsdp=False):
         mesh = Mesh(*shape, 0)
-        model, plan = build_model(cfg), model_plan(cfg, mesh)
+        model, plan = build_model(cfg), model_plan(cfg, mesh, fsdp=fsdp)
         args = (shard_params(dryrun.meta_params(model), mesh, plan), dryrun.train_batch(cfg, batch, TRAIN_SEQ))
         loss_fn = DataParallelLoss(model.loss, mesh, transport=MetaTransport(mesh), plan=plan)
         return (lambda: loss_fn(*args)), args, loss_fn.transport
 
     steps[TP_CHECK] = functools.partial(tensor_parallel, train_config(TP_LAYERS, torch.bfloat16), TP_MESH, TP_BATCH)
+    steps[FSDP_CHECK] = functools.partial(tensor_parallel, train_config(TP_LAYERS, torch.bfloat16), TP_MESH, TP_BATCH,
+                                          fsdp=True)
     steps[TP_MOE_CHECK] = functools.partial(tensor_parallel, tp_moe_config(), TP_MESH, TP_MOE_BATCH)
     for arch, layers, _, check in TP_REC_MODELS:
         steps[check] = functools.partial(tensor_parallel, tp_rec_config(arch, layers), TP_REC_MESH, TP_REC_BATCH)
@@ -2733,8 +2738,8 @@ def phase_dryrun(started: list) -> None:
                        "device_over_bound": x["roofline"]["device_over_bound"], "failures": x["failures"]}
                       for x in DRYRUN_LINES],
           "run_one": combos, "note": "run_one's seconds are the host's; its roofline is computed, not measured"})
-    if len(DRYRUN_LINES) != 11:
-        raise AssertionError(f"dry-run: {len(DRYRUN_LINES)} comparisons made, 11 owed")
+    if len(DRYRUN_LINES) != 12:
+        raise AssertionError(f"dry-run: {len(DRYRUN_LINES)} comparisons made, 12 owed")
     check_dryrun_lines(DRYRUN_LINES)
 
 
@@ -2743,24 +2748,23 @@ def phase_dryrun(started: list) -> None:
 # ---------------------------------------------------------------------------
 
 # GPT-A at full width with PIPE_LAYERS of its 24 layers, on meshes of four
-# ranks: a rank holds 2 layers (201,326,592 parameters each) and embed and
-# lm_head (206,045,184 each), about 8.1e8 parameters, 13.0 GB of f32
-# parameters, gradients and two moments, and peaks at 18.87 GB with AdamW's
-# temporaries and the all-reduce buffer (NVIDIA H100 80GB HBM3): four ranks
-# fill 75.5 of the card's 85 GB.  At 8 layers a rank would hold 19.5 GB of
-# state.  Zamba2-2.7B at full depth on two ranks: nine groups padded to ten,
-# the last stage running one zero group that its zero gate switches off.
-# Before its stage, each rank makes the whole model from the seed and its
-# accumulated reference, then keeps its stage of both (GPT-A: 4.9 GB of
-# parameters and two gradient buffers as large for a moment, four ranks at
-# once; Zamba2: 8.2 GB and two as large, two ranks).  On (2, 1, 2) GPT-A is
-# tensor-parallel over model inside the stages (slice 7b-iv): after the
-# replicated calls on its whole stage (the control, one a boundary, the peak
-# above) a rank holds its shards of its stage, 407,392,256 parameters (6.52 GB
-# of f32 state).
-PIPE_LAYERS = 4
-PIPE_REDUCED = {"num_layers": "24 -> 4", "why": "four ranks share the card, each holding its stage's layers and "
-                "a copy of embed and lm_head: 18.87 GB a rank at 4 layers, 19.5 GB of state alone at 8"}
+# ranks: a rank holds 1 layer (201,334,784 parameters) and embed and lm_head
+# (206,045,184 each), 613,429,248 parameters, 9.81 GB of f32 parameters,
+# gradients and two moments (2 layers a rank, 13.0 GB, peaked at 18.87 GB on
+# NVIDIA H100 80GB HBM3 before the depth was cut to 2 to pay for phase
+# train_fsdp's time).  Zamba2-2.7B at full depth on two ranks: nine groups
+# padded to ten, the last stage running one zero group that its zero gate
+# switches off.  Before its stage, each rank makes the whole model from the
+# seed and its accumulated reference, then keeps its stage of both (GPT-A:
+# 3.26 GB of parameters and two gradient buffers as large for a moment, four
+# ranks at once; Zamba2: 8.2 GB and two as large, two ranks).  On (2, 1, 2)
+# GPT-A is tensor-parallel over model inside the stages (slice 7b-iv): after
+# the replicated calls on its whole stage (the control, one a boundary) a rank
+# holds its shards of its stage, 306,720,768 parameters (4.91 GB of f32 state).
+PIPE_LAYERS = 2
+PIPE_REDUCED = {"num_layers": "24 -> 2", "why": "four ranks share the card, each holding its stage's layers and a "
+                "copy of embed and lm_head (9.81 GB of f32 state a rank at 2 layers, 13.0 at 4); cut from 4 to 2 "
+                "layers to pay for phase train_fsdp's time within the script's budget"}
 # (mesh shape, the boundaries held on step 0's call, the boundary trained):
 # each mesh trains once, since step 0 already holds the boundaries bit-equal;
 # (2, 1, 2) holds and trains tensor-parallel, its control replicated with both
@@ -2784,7 +2788,7 @@ PIPE_TOL = {"loss_rel": 1e-6, "grad": 1e-5}  # grad: max|diff| <= 1e-5 max|g| a 
 PIPE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "local", "chip_smoke_pipeline")
 # the pipelined run that saves its state at the end (slice 7c): rank 0 gathers
 # the stages' blocks over pod and model on the host and writes the whole,
-# unpadded state, 12 B x 1,217,433,600 parameters = 14.6 GB, into PIPE_DIR
+# unpadded state, 12 B x 814,764,032 parameters = 9.78 GB, into PIPE_DIR
 # (removed with it)
 PIPE_CKPT_MESH = (2, 1, 2)
 
@@ -3358,6 +3362,10 @@ TP_REDUCED = {"num_layers": "24 -> 4", "why": "four ranks share the card's 80 GB
               "(4.87 GB of f32 parameters at 4 layers) from the seed before it cuts its shards and trains them"}
 TP_TOL = TRAIN_PARITY_TOL["bf16"]  # the port's bf16 kernel path against the plain one, loss and a leaf in norm
 TP_CHECK = "tp_gpt_a_2x2"  # the dry-run's prediction of rank 0's held call
+# FSDP over data on the same ranks (slice 7f): the reference's plan with fsdp
+# on halves 8 of GPT-A's 11 leaves again on data (the FFN, the attention's
+# four projections, embed and lm_head); the norms stay whole
+FSDP_CHECK = "fsdp_gpt_a_2x2"  # the dry-run's prediction of rank 0's held FSDP call
 
 
 def tp_reference(cfg, path: str) -> dict:
@@ -3390,13 +3398,21 @@ def tp_rank(rank: int, world: int, cfg, predicted, ref_path: str, store: str) ->
     its gradient blocks' squared differences from the one-process reference
     at ``ref_path`` and the reference's squares; then trains TP_STEPS steps
     through ``launch.train.train`` on the mesh, counting the kernels' launches
-    from zero, and hashes its final shards and moments.  Writes its results
-    as JSON beside ``store``."""
+    from zero, and hashes its final shards and moments.  Then the same with
+    FSDP over ``data`` on top (``fsdp_run``), held against what the
+    tensor-parallel call and training left, cut to the rank's ``data``
+    blocks.  Writes its results as JSON beside ``store``."""
     join_as_rank(rank, world, store)
     try:
         mesh = make_mesh(*TP_MESH)
         model, plan = build_model(cfg), model_plan(cfg, mesh)
         specs = flatten(plan)
+        fplan = model_plan(cfg, mesh, fsdp=True)
+        cut = {p: P(*(e if e == "data" else None for e in spec)) for p, spec in flatten(fplan).items()}
+
+        def on_data(tree: dict) -> dict:  # a tensor-parallel tree cut to this rank's data blocks, on the host
+            return {p: local_block(t.detach(), cut[p], mesh).cpu() for p, t in tree.items()}
+
         b0 = next(make_batches(cfg, DataConfig(seed=SEED, batch_size=TP_BATCH, seq_len=TRAIN_SEQ)))
         b0 = {k: torch.from_numpy(v).to("cuda") for k, v in b0.items()}
         gen = torch.Generator(device="cuda")
@@ -3410,9 +3426,9 @@ def tp_rank(rank: int, world: int, cfg, predicted, ref_path: str, store: str) ->
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if rank == 0:
-            held, (loss, grads) = hold_dryrun(f"{cfg.name} tensor-parallel call, rank 0 of 2x2", TP_CHECK, predicted,
-                                              lambda: loss_fn(params, b0), (params, b0), backward=True,
-                                              transport=loss_fn.transport)
+            held, (loss, grads) = hold_dryrun(f"{cfg.name} tensor-parallel call, rank 0 of 2x2", TP_CHECK,
+                                              predicted[TP_CHECK], lambda: loss_fn(params, b0), (params, b0),
+                                              backward=True, transport=loss_fn.transport)
         else:
             loss, grads = loss_fn(params, b0)
         torch.cuda.synchronize()
@@ -3429,6 +3445,8 @@ def tp_rank(rank: int, world: int, cfg, predicted, ref_path: str, store: str) ->
                           "finite": all(bool(torch.isfinite(g).all()) for g in grads.values()),
                           "call_seconds": call_s, "bytes": loss_fn.transport.counts(),
                           "transport_seconds": loss_fn.transport.times(), "dryrun": held}}
+        tp_call = {"loss": loss.detach().cpu(), "grads": on_data(grads),
+                   "model_bytes": loss_fn.transport.counts()["model"]}
         del params, grads, loss_fn, ref, r
         release()
         torch.cuda.reset_peak_memory_stats()
@@ -3442,10 +3460,98 @@ def tp_rank(rank: int, world: int, cfg, predicted, ref_path: str, store: str) ->
                         "bytes": [h["bytes"] for h in hist], "transport_seconds": [h["transport_seconds"] for h in hist],
                         "peak_memory_bytes": torch.cuda.max_memory_allocated(), "seconds": time.perf_counter() - t0}
         out["digests"] = leaf_digests({"params": res["params"], "opt": res["opt_state"]})
+        out["train"]["state_bytes"] = 16 * sum(t.numel() for t in flatten(res["params"]).values())
+        tp_final = {"params": on_data(flatten(res["params"])), "mu": on_data(flatten(res["opt_state"].mu)),
+                    "nu": on_data(flatten(res["opt_state"].nu))}
+        del res
+        release()
+        out["fsdp"] = fsdp_run(rank, mesh, cfg, fplan, b0, predicted[FSDP_CHECK], tp_call, tp_final)
         with open(f"{store}.rank{rank}.json", "w") as f:
             json.dump([out], f)
     finally:
         dist.destroy_process_group()
+
+
+def fsdp_run(rank: int, mesh, cfg, fplan, b0, predicted: dict, tp_call: dict, tp_final: dict) -> dict:
+    """FSDP over ``data`` on a rank of TP_MESH (slice 7f): the whole model
+    made from the seed again and cut by ``fplan``, the plan with fsdp on (each
+    rank its ``data`` block of its ``model`` shard of 8 of the 11 leaves);
+    one ``DataParallelLoss`` call on the first batch ``b0`` (rank 0's held
+    against its dry-run), its loss and gradient blocks against the
+    tensor-parallel call's cut to the same blocks (``tp_call``: bit for bit,
+    and each leaf's gap in norm); then TP_STEPS steps of ``make_train_step``
+    over that loss on the batches ``launch.train.train`` takes, at its
+    schedule, counting the kernels' launches from zero, and the final blocks
+    and moments against the tensor-parallel run's (``tp_final``)."""
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    whole = model.init(gen)
+    params = shard_params(whole, mesh, fplan)
+    del whole
+    release()
+    loss_fn = DataParallelLoss(model.loss, mesh, plan=fplan)
+    held = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if rank == 0:
+        held, (loss, grads) = hold_dryrun(f"{cfg.name} FSDP call, rank 0 of 2x2", FSDP_CHECK, predicted,
+                                          lambda: loss_fn(params, b0), (params, b0), backward=True,
+                                          transport=loss_fn.transport)
+    else:
+        loss, grads = loss_fn(params, b0)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    gaps, equal = {}, []
+    for p, g in grads.items():
+        want = tp_call["grads"][p].to("cuda")
+        gaps[p] = float((g.float() - want.float()).norm()) / max(float(want.float().norm()), 1e-30)
+        equal.append(bool(torch.equal(g, want)))
+    worst = max(gaps, key=gaps.get)
+    out = {"parity": {"loss": float(loss), "tp_loss": float(tp_call["loss"]),
+                      "loss_bit_equal": bool(torch.equal(loss.cpu(), tp_call["loss"])),
+                      "grads_bit_equal": all(equal), "leaves_bit_equal": sum(equal), "leaves": len(equal),
+                      "grad_rel_diff_worst": gaps[worst], "worst_leaf": worst,
+                      "finite": all(bool(torch.isfinite(g).all()) for g in grads.values()), "call_seconds": call_s,
+                      "bytes": loss_fn.transport.counts(), "transport_seconds": loss_fn.transport.times(),
+                      "model_bytes_as_tp": loss_fn.transport.counts()["model"] == tp_call["model_bytes"],
+                      "dryrun": held},
+           "split_over_data": sorted(split_paths(fplan, "data"))}
+    del grads, loss_fn
+    release()
+    n = sum(t.numel() for t in flatten(params).values())
+    out["params"], out["state_bytes"] = n, 16 * n  # f32 parameters, gradients and two moments
+    loss_fn = DataParallelLoss(model.loss, mesh, plan=fplan)
+    step = make_train_step(loss_fn, optimizer_config(TRAIN_LR, TP_STEPS))
+    opt = init_opt_state(params)
+    batches = make_batches(cfg, DataConfig(seed=SEED, batch_size=TP_BATCH, seq_len=TRAIN_SEQ), num_steps=TP_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    hist = []
+    for b in batches:
+        b = {k: torch.from_numpy(v).to("cuda") for k, v in b.items()}
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        torch.cuda.synchronize()
+        hist.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                     "ms": (time.perf_counter() - t0) * 1e3, "bytes": loss_fn.transport.counts(),
+                     "seconds": loss_fn.transport.times()})
+    out["train"] = {"counters": read_counters(), "losses": [h["loss"] for h in hist],
+                    "grad_norms": [h["grad_norm"] for h in hist], "step_ms": [h["ms"] for h in hist],
+                    "bytes": [h["bytes"] for h in hist], "transport_seconds": [h["seconds"] for h in hist],
+                    "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    final = {"params": {p: t.detach() for p, t in flatten(params).items()}, "mu": flatten(opt.mu),
+             "nu": flatten(opt.nu)}
+    state = {}
+    for part, tree in final.items():
+        for p, t in tree.items():
+            want = tp_final[part][p].to("cuda")
+            state[f"{part}/{p}"] = [bool(torch.equal(t, want)),
+                                    float((t.float() - want.float()).abs().max()) / max(float(want.abs().max()), 1e-30)]
+    worst = max(state, key=lambda k: state[k][1])
+    out["state"] = {"bit_equal": sum(v[0] for v in state.values()), "leaves": len(state), "worst": worst,
+                    "max_diff_over_max": state[worst][1]}
+    return out
 
 
 def per_step(cumulative: list) -> list:
@@ -3485,13 +3591,14 @@ def phase_train_tp(started) -> dict:
     counters summed over the ranks."""
     cfg = train_config(TP_LAYERS, torch.bfloat16)
     world = math.prod(TP_MESH[0])
-    predicted = predictions(started)[TP_CHECK]
+    predicted = {k: predictions(started)[k] for k in (TP_CHECK, FSDP_CHECK)}
     os.makedirs(PIPE_DIR, exist_ok=True)
     ref_path = os.path.join(PIPE_DIR, "tp_reference.pt")
     reference = tp_reference(cfg, ref_path)
     t0 = time.perf_counter()
     ranks = [r[0] for r in spawn_ranks(tp_rank, world, cfg, predicted, ref_path)]
     wall = time.perf_counter() - t0
+    fsdp_runs = {r["rank"]: r.pop("fsdp") for r in ranks}  # phase train_fsdp's (hold_fsdp)
     owed = train_owed(2 * TP_LAYERS, TP_LAYERS)
     want = {k: TP_STEPS * v for k, v in owed.items()}
     split = set(ranks[0]["split"])
@@ -3539,7 +3646,69 @@ def phase_train_tp(started) -> dict:
           "spawn_wall_seconds": wall, "counters_per_step": owed, "note": "the ranks share one card", "ranks": ranks})
     if failures:
         raise AssertionError(f"train_tp: {failures}")
-    return {f"train_tp {cfg.name} 2x2": total}
+    return {f"train_tp {cfg.name} 2x2": total, f"train_fsdp {cfg.name} 2x2": hold_fsdp(cfg, ranks, fsdp_runs, owed)}
+
+
+def hold_fsdp(cfg, ranks: list, fsdp_runs: dict, owed: dict) -> dict:
+    """Phase ``train_fsdp``: the FSDP runs of ``tp_rank``'s ranks
+    (``fsdp_run``, ``fsdp_runs`` by rank; ``ranks`` their tensor-parallel
+    results).  Raises unless each rank's loss and gradient blocks are
+    within TP_TOL of the tensor-parallel call's (bit-equal is the
+    prediction), its ``model`` bytes are the tensor-parallel call's, the
+    trained run's first loss is that call's and its losses finite, the
+    counters show exactly ``owed`` a step, its final blocks and moments are
+    within PIPE_TOL["grad"] of the tensor-parallel run's (the clip's norm is
+    summed in another order), and its peak is below the tensor-parallel
+    run's; rank 0's call is held against its dry-run.  Prints each rank's
+    bytes and seconds a step by axis and op beside the tensor-parallel run's,
+    its parameters, f32 state and peak; returns the counters summed over the
+    ranks."""
+    want = {k: TP_STEPS * v for k, v in owed.items()}
+    failures, total = [], dict.fromkeys(want, 0)
+    for r in ranks:
+        f = fsdp_runs[r["rank"]]
+        p, t = f["parity"], f["train"]
+        p["loss_rel_diff"] = abs(p["loss"] - p["tp_loss"]) / abs(p["tp_loss"])
+        if not (p["finite"] and p["loss_rel_diff"] <= TP_TOL["loss_rel"]
+                and p["grad_rel_diff_worst"] <= TP_TOL["grad_rel"]):
+            failures.append((r["rank"], "against tensor parallelism", p))
+        if not p["model_bytes_as_tp"]:
+            failures.append((r["rank"], "model bytes", p["bytes"]["model"]))
+        if p["dryrun"]:
+            DRYRUN_LINES.append(p["dryrun"])
+            failures += [(r["rank"], "dryrun", p["dryrun"]["failures"])] if p["dryrun"]["failures"] else []
+        elif r["rank"] == 0:
+            failures.append((0, "dryrun", "the held call was not checked"))
+        if not all(np.isfinite(t["losses"])) or t["losses"][0] != p["loss"]:
+            failures.append((r["rank"], "losses", t["losses"], p["loss"]))
+        if t["counters"] != want:
+            failures.append((r["rank"], "counters", t["counters"], want))
+        for k, v in t["counters"].items():
+            total[k] += v
+        if f["state"]["max_diff_over_max"] > PIPE_TOL["grad"]:
+            failures.append((r["rank"], "state against tensor parallelism", f["state"]))
+        f["peak_vs_tp"] = {"fsdp": t["peak_memory_bytes"], "tp": r["train"]["peak_memory_bytes"]}
+        if not t["peak_memory_bytes"] < r["train"]["peak_memory_bytes"]:
+            failures.append((r["rank"], "peak not below tensor parallelism's", f["peak_vs_tp"]))
+        f["state_bytes_vs_tp"] = {"fsdp": f["state_bytes"], "tp": r["train"]["state_bytes"]}
+        t["bytes_per_step"] = per_step(t.pop("bytes"))
+        t["transport_seconds_per_step"] = per_step(t.pop("transport_seconds"))
+        f["data_per_step_vs_tp"] = [{"fsdp_bytes": fb["data"], "fsdp_seconds": fs["data"], "tp_bytes": tb["data"],
+                                     "tp_seconds": ts["data"]}
+                                    for fb, fs, tb, ts in zip(t["bytes_per_step"], t["transport_seconds_per_step"],
+                                                              r["train"]["bytes_per_step"],
+                                                              r["train"]["transport_seconds_per_step"])]
+    emit({"phase": "train_fsdp", "model": cfg.name, "reduced": TP_REDUCED, "mesh": dict(zip(TP_MESH[1], TP_MESH[0])),
+          "layers": cfg.num_layers, "batch": TP_BATCH, "seq": TRAIN_SEQ, "steps": TP_STEPS, "lr": TRAIN_LR,
+          "plan": "model_plan(cfg, mesh, fsdp=True): the reference's make_param_shardings(fsdp=True), 4 MiB",
+          "split_over_data": fsdp_runs[0]["split_over_data"],
+          "reference": "the tensor-parallel call and run of phase train_tp on the same ranks, cut to each rank's data "
+                       "blocks", "tol": TP_TOL, "state_tol": PIPE_TOL["grad"], "counters_per_step": owed,
+          "note": "the ranks share one card", "ranks": [{"rank": r["rank"], "coords": r["coords"],
+                                                        **fsdp_runs[r["rank"]]} for r in ranks]})
+    if failures:
+        raise AssertionError(f"train_fsdp: {failures}")
+    return total
 
 
 # ---------------------------------------------------------------------------

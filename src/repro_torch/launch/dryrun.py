@@ -17,17 +17,25 @@ The programs (``ARCHS[:10]`` x ``SHAPES`` x single (16, 16) / multi (2, 16, 16))
     For the transformers, dense and MoE, RWKV-6 and the hybrid, the stages
     are tensor-parallel over ``model``, as the launcher runs them
     (``"tensor_parallel": true``): the rank's f32 state is its shards of its
-    stage under the placement plan, fsdp off.  Each figure is the larger
-    of the two stages'; each stage's figures are under ``stages``.
+    stage under the placement plan, fsdp off (``"fsdp": false``: FSDP inside
+    the stages is ROADMAP 7f-ii).  Each figure is the larger of the two
+    stages'; each stage's figures are under ``stages``.
   * single x train: the port's plain data-parallel step (``DataParallelLoss``
     and the AdamW update) on one rank of the (16, 16) mesh: its ``data``
-    share of the global batch and the gradients' all-reduce over ``data``
-    through a ``MetaTransport``.  For the transformers, dense and MoE,
-    RWKV-6 and the hybrid, the step is tensor-parallel over ``model``
-    (``"program": "data_parallel+tensor_parallel"``): the rank's f32 state is
-    its shards under the placement plan, fsdp off (``param_bytes`` is
-    ``plan_bytes(cfg, mesh, fsdp=False)``), and the ``model`` axis's
-    collectives are counted with the ``data`` axis's.
+    share of the global batch through a ``MetaTransport``.  For the
+    transformers, dense and MoE, RWKV-6 and the hybrid, the step is
+    tensor-parallel over ``model``, and by default it is the reference's
+    dry-run's program, FSDP over ``data`` (``parallel/fsdp.py``,
+    ``"program": "data_parallel+tensor_parallel+fsdp"``, ``"fsdp": true``):
+    the rank's f32 state is its blocks under the placement plan with fsdp on
+    (``param_bytes`` is ``plan_bytes(cfg, mesh, fsdp=True)``), each layer
+    gathers its blocks over ``data`` inside remat (again in the
+    recomputation) and reduce-scatters their gradients, and the leaves the
+    plan leaves whole are all-reduced over ``data``.  ``--no-fsdp`` runs the
+    step without it (``"program": "data_parallel+tensor_parallel"``: the
+    shards under the plan with fsdp off, every gradient all-reduced over
+    ``data``).  The ``model`` axis's collectives are counted with the
+    ``data`` axis's.
   * prefill / decode: the port has no tensor-parallel serving, so each rank
     serves a whole replica (the weights in ``cfg.dtype``, as the serving
     engine holds them) on its share of the global batch, ceil(B / ranks) rows
@@ -56,13 +64,14 @@ The JSON keeps the reference's keys, so that the roofline and the report read
 both packages' files.  ``collectives.by_axis`` is the transport's own count
 (the bytes of the tensor a rank hands to a call, ``Transport._count``);
 ``collectives.{ici, dcn, by_op}`` count an all-reduce twice (a ring's
-reduce-scatter and all-gather, as the reference's HLO count does) and sends as
-``collective-permute``; ``dcn`` is the ``pod`` axis.  ``plan_bytes_per_device``
-is beside them: the f32 parameters a device would hold under the placement plan
+reduce-scatter and all-gather, as the reference's HLO count does), a
+reduce-scatter and an all-gather once, and sends as ``collective-permute``;
+``dcn`` is the ``pod`` axis.  ``plan_bytes_per_device`` is beside them: the
+f32 parameters a device would hold under the placement plan
 (``make_param_shardings``: fsdp by default for train shapes, ``--no-fsdp``,
-``--relayout``'s head-aligned (256 / tp, tp) mesh); the port executes the plan
-without fsdp for the transformers' single x train (FSDP is ROADMAP 7f), and
-``--no-fsdp`` and ``--relayout`` change only that number.
+``--relayout``'s head-aligned (256 / tp, tp) mesh).  ``--no-fsdp`` also
+turns FSDP off in the single x train program; ``--relayout`` changes only
+that number.
 
 The roofline's seconds are at one H100 SXM's published peaks at 700 W
 (``kernels/cost.py``: 989e12 FLOP/s bf16, 3.35e12 B/s HBM); a collective is
@@ -315,15 +324,16 @@ def train_program(cfg, mesh: Mesh, batch: Dict[str, torch.Tensor], *, boundary: 
     return (lambda: step(params, opt, batch)), (params, opt, batch), transport
 
 
-def dp_train_program(cfg, mesh: Mesh, batch: Dict[str, torch.Tensor]
+def dp_train_program(cfg, mesh: Mesh, batch: Dict[str, torch.Tensor], *, fsdp: bool = False
                      ) -> Tuple[Callable[[], Any], Any, MetaTransport]:
     """(step, its arguments, the transport) of ``mesh.rank``'s plain
     data-parallel train step on ``meta``: the whole model's f32 parameters, or
     its shards where ``tensor_parallel.model_plan`` gives a plan (the launcher's
-    rule), zero moments, and ``make_train_step`` over a ``DataParallelLoss``
-    with a ``MetaTransport``, on the global ``batch``."""
+    rule; with ``fsdp`` the plan with fsdp on, the reference's dry-run's, and
+    the step FSDP over ``data``), zero moments, and ``make_train_step`` over a
+    ``DataParallelLoss`` with a ``MetaTransport``, on the global ``batch``."""
     model = build_model(cfg)
-    plan = model_plan(cfg, mesh)
+    plan = model_plan(cfg, mesh, fsdp=fsdp)
     params = meta_params(model)
     if plan is not None:
         params = shard_params(params, mesh, plan)
@@ -375,15 +385,17 @@ def axis_bandwidth(mesh: Mesh, axis: str) -> float:
 
 
 def wire_bytes(ops: Dict[str, int]) -> int:
-    """An axis's bytes as the reference counts them: an all-reduce twice."""
-    return ops.get("send", 0) + ops.get("all_gather", 0) + 2 * ops.get("all_reduce", 0)
+    """An axis's bytes as the reference counts them: an all-reduce twice (a
+    ring's reduce-scatter and all-gather), a reduce-scatter once."""
+    return ops.get("send", 0) + ops.get("all_gather", 0) + ops.get("reduce_scatter", 0) + 2 * ops.get("all_reduce", 0)
 
 
 def collectives(by_axis: Dict[str, Dict[str, int]], mesh: Mesh) -> Dict[str, Any]:
     """The reference's ``{ici, dcn, by_op}`` (all-reduce doubled, sends as
     collective-permute, ``dcn`` the pod axis), the transport's own
     ``by_axis``, and ``seconds``: each axis's bytes at its ``axis_bandwidth``."""
-    names = {"send": "collective-permute", "all_reduce": "all-reduce", "all_gather": "all-gather"}
+    names = {"send": "collective-permute", "all_reduce": "all-reduce", "all_gather": "all-gather",
+             "reduce_scatter": "reduce-scatter"}
     by_op: Dict[str, float] = {}
     for ops in by_axis.values():
         for op, n in ops.items():
@@ -478,14 +490,15 @@ def run_one(arch: str, shape: str, mesh_name: str, boundary: str = "striped",
     result: Dict[str, Any] = {"arch": arch, "shape": shape, "mesh": mesh_name, "boundary": boundary, "status": "ok"}
     if kind == "train" and not multi_pod:
         batch = train_batch(cfg, s["global_batch"], s["seq_len"])
-        fn, args, transport = dp_train_program(cfg, mesh, batch)
+        fn, args, transport = dp_train_program(cfg, mesh, batch, fsdp=fsdp)
         param_bytes = argument_bytes(args[0])
         counted = count(fn, args)
         del fn, args
         top = _figures(counted, collectives(transport.counts(), mesh))
-        program = "data_parallel+tensor_parallel" if model_plan(cfg, mesh) is not None else "data_parallel"
-        result.update(program=program, rows_per_rank=s["global_batch"] // mesh.shape["data"], ranks_busy=ranks,
-                      param_bytes=param_bytes)
+        program = "data_parallel" + ("+tensor_parallel" if model_plan(cfg, mesh) is not None else "") \
+            + ("+fsdp" if fsdp else "")
+        result.update(program=program, fsdp=fsdp, rows_per_rank=s["global_batch"] // mesh.shape["data"],
+                      ranks_busy=ranks, param_bytes=param_bytes)
     elif kind == "train":
         batch = train_batch(cfg, s["global_batch"], s["seq_len"])
         figs = {}
@@ -497,7 +510,7 @@ def run_one(arch: str, shape: str, mesh_name: str, boundary: str = "striped",
             del fn, args
         top = _larger(figs)
         result.update(program="pipeline", tensor_parallel=model_plan(cfg, mesh) is not None, n_micro=N_MICRO,
-                      ranks_busy=ranks, stages=figs)
+                      fsdp=False, ranks_busy=ranks, stages=figs)  # FSDP inside the stages: ROADMAP 7f-ii
     else:
         rows = -(-s["global_batch"] // ranks)
         fn, args = serve_program(cfg, kind, rows, s["seq_len"])
@@ -715,7 +728,8 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None, choices=["single", "multi", None])
     ap.add_argument("--boundary", default="striped", choices=["striped", "direct"])
     ap.add_argument("--no-fsdp", action="store_true",
-                    help="paper-faithful model-axis-only param sharding (plan_bytes_per_device only)")
+                    help="paper-faithful model-axis-only param sharding: plan_bytes_per_device, and the single x "
+                         "train step without FSDP")
     ap.add_argument("--relayout", action="store_true",
                     help="head-aligned single-pod mesh re-layout (plan_bytes_per_device only)")
     ap.add_argument("--wan-preset", default=None, choices=["azure", "skewed", "star", "chain"],

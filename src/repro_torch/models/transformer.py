@@ -16,7 +16,10 @@ Parameters are layer-stacked (leading ``L`` axis; the hybrid's Mamba2 layers
 ``(G, M)``) as in the reference; the reference's ``lax.scan`` over the stack is
 a Python loop here, and its ``jax.checkpoint`` of the scanned body
 (``cfg.remat``) a ``torch.utils.checkpoint`` of each block (of each group in the
-hybrid).  A cache is a flat dict of tensors: the hybrid's nested tree reads
+hybrid).  Under FSDP (``repro_torch/parallel/fsdp.py``) each block gathers its
+leaves over ``data`` inside the function that remat wraps, so a checkpointed
+block keeps only its blocks and gathers again when it is recomputed.  A cache
+is a flat dict of tensors: the hybrid's nested tree reads
 ``mamba/ssm``, ``mamba/conv_x``, ``mamba/conv_bc``, ``attn/k``, ``attn/v`` and
 ``attn/pos``, with the reference's shapes leaf for leaf.
 """
@@ -44,6 +47,7 @@ from repro_torch.models.modules import (
     rmsnorm,
     rmsnorm_init,
 )
+from repro_torch.parallel import fsdp
 from repro_torch.parallel import tensor_parallel as tp
 
 NORM_KEYS = ("ln1", "ln2", "final_norm")  # f32 scales: RMSNorm runs in f32 whatever cfg.dtype
@@ -165,15 +169,16 @@ def _hybrid_group(gp: Params, shared: Params, cfg: ModelConfig, x, positions, ca
 def _embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     """The rows of the tokens, cast; under tensor parallelism, whose plan
     splits ``embed`` on its features, this rank's columns of them gathered
-    over ``model``."""
-    x = params["embed"][tokens.long()].to(cfg.dtype)  # gather, then cast
+    over ``model`` (under FSDP the table is first gathered over ``data``)."""
+    x = fsdp.gather_leaf(params["embed"], "embed")[tokens.long()].to(cfg.dtype)  # gather, then cast
     return tp.gather(x, -1) if tp.split_dim("embed") == 1 else x
 
 
 def _head_weight(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    """The (d, V) head weight, gathered over ``data`` under FSDP."""
     if cfg.tie_embeddings:
-        return params["embed"].T  # (d, V)
-    return params["lm_head"]
+        return fsdp.gather_leaf(params["embed"], "embed").T  # (d, V)
+    return fsdp.gather_leaf(params["lm_head"], "lm_head")
 
 
 def _head_split(cfg: ModelConfig) -> Optional[int]:
@@ -339,7 +344,10 @@ class Model:
         in place.  Differentiated (a loss), each block runs under ``cfg.remat``.
         Returns (normed x, cache, the aux losses summed over the layers)."""
         cfg, L = self.cfg, self.cfg.num_layers
-        block = lambda lp, h, lc: _block_apply(lp, cfg, h, positions, lc)[::2]  # noqa: E731  (x, aux)
+
+        def block(lp, h, lc):  # (x, aux); under FSDP the layer gathers inside remat
+            return _block_apply(fsdp.gather_layer(lp, "layers"), cfg, h, positions, lc)[::2]
+
         if torch.is_grad_enabled() and cache is None:
             block = _remat(block, cfg.remat)
         caches = [None] * L if cache is None else _unstack(cache, L)
@@ -453,7 +461,7 @@ class RWKVModel:
         in place; each block under ``cfg.remat`` when differentiated.  Returns
         (normed x, cache)."""
         L = self.cfg.num_layers
-        block = lambda lp, h, lc: _rwkv_layer(lp, self.cfg, h, lc)  # noqa: E731
+        block = lambda lp, h, lc: _rwkv_layer(fsdp.gather_layer(lp, "layers"), self.cfg, h, lc)  # noqa: E731
         if torch.is_grad_enabled() and cache is None:
             block = _remat(block, self.cfg.remat)
         caches = [None] * L if cache is None else _unstack(cache, L)
@@ -523,8 +531,9 @@ class SSMModel:
         return _cast_tree(params, self.cfg.dtype, self.KEEP_F32)
 
     def _mamba(self, lp: Params, x, lc):
-        """One pre-normed Mamba2 layer with its residual (``_mamba_layer``)."""
-        return _mamba_layer(lp, self.cfg, x, lc)
+        """One pre-normed Mamba2 layer with its residual (``_mamba_layer``),
+        its leaves gathered over ``data`` under FSDP."""
+        return _mamba_layer(fsdp.gather_layer(lp, "layers"), self.cfg, x, lc)
 
     def _backbone(self, params: Params, x, positions, cache):
         """Loop over the layers (positions are not read). cache None or the
@@ -605,8 +614,9 @@ class HybridModel(SSMModel):
         cfg, G = self.cfg, self.groups
         shared = params["shared_attn"]
 
-        def group(gp, h, gc):
-            return _hybrid_group(gp, shared, cfg, h, positions, gc)[0]
+        def group(gp, h, gc):  # under FSDP the group and the shared block gather inside remat, the latter G times
+            return _hybrid_group(fsdp.gather_layer(gp, "groups"), fsdp.gather_layer(shared, "shared_attn"), cfg, h,
+                                 positions, gc)[0]
 
         if torch.is_grad_enabled() and cache is None:
             group = _remat(group, cfg.remat)

@@ -51,6 +51,20 @@ once: the clip sees the whole model's norm.  The pure Mamba2 stack (ROADMAP
 7b-v) has no plan: its ``model`` ranks are replicas that compute the same
 numbers, on this step and under ``--pipeline`` alike (where the other
 families split over ``model`` inside each stage, ``parallel/pipeline.py``).
+
+FSDP over ``data`` (``parallel/fsdp.py``): given the plan with fsdp on
+(``model_plan(cfg, mesh, fsdp=True)``, the reference's dry-run's placement of
+its train shapes), ``params`` are this rank's ``data`` blocks of its ``model``
+shards of the leaves the plan splits over ``data`` as well, and the loss runs
+inside the ``data`` context too: each layer gathers its blocks over ``data``
+where it runs, inside remat, and their gradients are reduce-scattered over
+``data`` in the backward, so that the rank ends with its block of the
+gradient summed over ``data``.  Those leaves are not all-reduced again; the
+leaves the plan leaves whole over ``data`` (the norm scales, and the leaves
+whose rule names no axis: the router, MLA's ``w_dkv``, RWKV-6's ``w_lora_a``,
+the hybrid's ``w_bc`` and ``w_dt``) keep the all-reduce.  ``grad_norm`` sums
+each leaf's squares over every axis that splits it (``data``, ``model`` or
+both) and adds a whole leaf's once.  AdamW updates the rank's blocks.
 """
 from __future__ import annotations
 
@@ -62,7 +76,7 @@ from repro_torch.convert import flatten
 from repro_torch.models.modules import Params
 from repro_torch.models.transformer import _loss_targets
 from repro_torch.optim.optimizer import global_norm, gradients
-from repro_torch.parallel import batch_mean
+from repro_torch.parallel import batch_mean, fsdp
 from repro_torch.parallel import tensor_parallel as tp
 from repro_torch.parallel.sharding import make_batch_shardings
 from repro_torch.parallel.transport import Transport
@@ -96,15 +110,19 @@ class DataParallelLoss:
     {"ce", optional "aux"})).  ``transport`` is a ``Transport`` over ``mesh``
     by default; the dry-run gives a ``MetaTransport``.  ``plan`` (a nested
     dict of ``P``s, ``tensor_parallel.model_plan``) turns tensor parallelism
-    over ``model`` on."""
+    over ``model`` on where it splits leaves over ``model``, and FSDP over
+    ``data`` where it splits leaves over ``data``."""
 
     def __init__(self, model_loss: Callable[[Params, Dict], Tuple[torch.Tensor, Dict[str, Any]]], mesh,
                  transport: Optional[Transport] = None, plan: Optional[Dict] = None):
         self.model_loss, self.mesh = model_loss, mesh
         self.DP = mesh.shape.get("data", 1)
         self.transport = Transport(mesh) if transport is None else transport
-        self.tp = tp.TPContext(mesh, self.transport, plan) if plan is not None else None
-        self.split = tp.split_paths(plan)
+        tp_on = plan is not None and mesh.shape.get(tp.AXIS, 1) > 1  # FSDP's plan on (data, 1) names model too
+        self.tp = tp.TPContext(mesh, self.transport, plan) if tp_on else None
+        self.fsdp = fsdp.FSDPContext(mesh, self.transport, plan) if plan is not None else None
+        self.split = tp.split_paths(plan) if tp_on else set()
+        self.scattered = tp.split_paths(plan, fsdp.AXIS) if self.DP > 1 else set()
 
     def __call__(self, params: Params, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         local, split = shard_batch(batch, self.mesh)
@@ -116,22 +134,34 @@ class DataParallelLoss:
         leaves = list(flat.values())
         for t in leaves:
             t.requires_grad_(True)
-        with tp.use(self.tp), batch_mean.use(self.transport if split else None):
+        with tp.use(self.tp), fsdp.use(self.fsdp), batch_mean.use(self.transport if split else None):
             _, metrics = self.model_loss(params, local)
             term = metrics["ce"] * (n / torch.clamp(total_n, min=1.0))
             if metrics.get("aux") is not None:
                 term = term + metrics["aux"] / self.DP
             grads = dict(zip(flat.keys(), gradients(term, leaves)))
-        for g in grads.values():
-            self.transport.all_reduce(g, "data")
+        for p, g in grads.items():
+            if p not in self.scattered:  # a data-split leaf's block was reduce-scattered in the backward
+                self.transport.all_reduce(g, "data")
         return self.transport.all_reduce(term.detach().float(), "data"), grads
 
     def grad_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The global norm of the summed gradient: every rank holds all of it,
-        or under tensor parallelism the squares of its blocks of the split
-        leaves are summed over ``model`` and those of the whole leaves added once."""
-        if not self.split:
+        or under tensor parallelism and FSDP the squares of its blocks of a
+        split leaf are summed over each axis that splits it (``model``,
+        ``data`` or both) and those of the whole leaves added once."""
+        if not self.split and not self.scattered:
             return global_norm(grads)
-        squares = [sum(g.float().square().sum() for p, g in grads.items() if (p in self.split) == s)
-                   for s in (True, False)]
-        return torch.sqrt(self.transport.all_reduce(squares[0], "model") + squares[1])
+
+        def squares(model: bool, data: bool):  # a tensor, or 0 where no leaf is split so
+            return sum(g.float().square().sum() for p, g in grads.items()
+                       if (p in self.split) == model and (p in self.scattered) == data)
+
+        if not self.scattered:
+            return torch.sqrt(self.transport.all_reduce(squares(True, False), "model") + squares(False, False))
+        device = next(iter(grads.values())).device
+        by_data = self.transport.all_reduce(torch.stack([torch.as_tensor(squares(m, True), dtype=torch.float32,
+                                                                         device=device) for m in (True, False)]),
+                                            "data")
+        return torch.sqrt(self.transport.all_reduce(by_data[0] + squares(True, False), "model")
+                          + by_data[1] + squares(False, False))

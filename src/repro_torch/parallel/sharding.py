@@ -11,8 +11,10 @@ Pure functions over shapes and a mesh's axis sizes (anything with a
 dim (None, an axis name or a tuple of names), or a tree of them.  The dry-run's
 shapes read this plan, and ``shard_params`` applies it: each rank keeps its
 block of every leaf (``NamedSharding(mesh, spec).shard_shape`` of the
-reference), and ``unshard`` puts the ``model`` ranks' blocks back together,
-for the tensor-parallel plain step (``parallel/tensor_parallel.py``).
+reference), over ``model`` for tensor parallelism
+(``parallel/tensor_parallel.py``) and, with fsdp, over ``data`` as well
+(``parallel/fsdp.py``); ``unshard`` puts the ranks' blocks back together, one
+axis a call.
 
 Not ported: the reference's ``constrain``, ``constraints_disabled`` and
 ``_ambient_mesh``.  They only steer XLA's partitioner, which the port does not
@@ -130,7 +132,10 @@ def param_spec(path: Tuple[str, ...], shape: Tuple[int, ...], stacked: bool) -> 
     return param_spec_candidates(path, shape, stacked)[0]
 
 
-def _add_fsdp_axis(spec: P, shape: Tuple[int, ...], mesh, min_bytes: int = 2**22) -> P:
+FSDP_MIN_BYTES = 2**22  # _add_fsdp_axis's default: a leaf of 4 MiB or more in f32
+
+
+def _add_fsdp_axis(spec: P, shape: Tuple[int, ...], mesh, min_bytes: int = FSDP_MIN_BYTES) -> P:
     """ZeRO/FSDP-style 2D sharding: also shard a large, still-unsharded dim of
     big matrices over the ``data`` axis (weights are all-gathered on use;
     params + Adam state memory drops by the data-axis size)."""
@@ -163,27 +168,31 @@ def _shape(leaf) -> Tuple[int, ...]:
     return tuple(leaf)
 
 
-def _leaf_plan(names: Tuple[str, ...], shape: Tuple[int, ...], mesh, stacked: bool, fsdp: bool) -> P:
+def _leaf_plan(names: Tuple[str, ...], shape: Tuple[int, ...], mesh, stacked: bool, fsdp: bool,
+               min_bytes: int) -> P:
     for spec in param_spec_candidates(names or ("",), shape, stacked):
         fitted = _fit_spec(shape, spec, mesh)
         if fitted is not None:
             if fsdp:
-                fitted2 = _fit_spec(shape, _add_fsdp_axis(fitted, shape, mesh), mesh)
+                fitted2 = _fit_spec(shape, _add_fsdp_axis(fitted, shape, mesh, min_bytes), mesh)
                 if fitted2 is not None:
                     return fitted2
             return fitted
     return P()
 
 
-def make_param_shardings(params_shape: Any, mesh, stacked_prefixes=("layers", "groups"), *, fsdp: bool = False):
+def make_param_shardings(params_shape: Any, mesh, stacked_prefixes=("layers", "groups"), *, fsdp: bool = False,
+                         min_bytes: int = FSDP_MIN_BYTES):
     """The plan of a params(-shape) tree: the same nested dicts, a ``P`` at
-    each leaf (the reference returns ``NamedSharding``s of these specs)."""
+    each leaf (the reference returns ``NamedSharding``s of these specs).
+    ``min_bytes`` is ``_add_fsdp_axis``'s threshold under ``fsdp``: the
+    reference's 4 MiB, lowered only by tests that split small leaves."""
 
     def walk(tree, names):
         if isinstance(tree, dict):
             return {k: walk(v, names + (str(k),)) for k, v in tree.items()}
         stacked = any(n in stacked_prefixes for n in names)
-        return _leaf_plan(names, _shape(tree), mesh, stacked, fsdp)
+        return _leaf_plan(names, _shape(tree), mesh, stacked, fsdp, min_bytes)
 
     return walk(params_shape, ())
 
@@ -224,17 +233,17 @@ def shard_params(params: Any, mesh, plan: Any = None) -> Any:
 
 
 def unshard(shards, plan: Any, axis: str = "model") -> Any:
-    """The inverse of ``shard_params`` over ``axis``: the leaves the plan
+    """The inverse of ``shard_params`` over ``axis``: each leaf the plan
     splits over ``axis`` concatenated from ``shards`` (the trees of the ranks
-    along ``axis`` in order, at one place on every other axis), every other
-    leaf from ``shards[0]``.  Raises on a leaf split over another axis too."""
+    along ``axis`` in order, at one place on every other axis) on that dim,
+    every other leaf from ``shards[0]``.  A leaf split over two axes (fsdp's
+    ``data`` block of a ``model`` shard) is put back together one axis a call:
+    over ``data`` at each ``model`` index, then over ``model``."""
     specs = flatten(plan)
     flats = [flatten(s) for s in shards]
     out = {}
     for p, t in flats[0].items():
-        dims = [d for d, e in enumerate(specs[p]) if e is not None]
-        if any(specs[p][d] != axis for d in dims):
-            raise ValueError(f"{p}: {specs[p]} splits over more than {axis!r}")
+        dims = [d for d, e in enumerate(specs[p]) if e == axis]
         out[p] = torch.cat([f[p] for f in flats], dims[0]) if dims else t
     return unflatten(out)
 

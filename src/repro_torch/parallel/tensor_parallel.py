@@ -76,24 +76,39 @@ def replicated_note(cfg, mesh) -> str:
     return "" if mesh.shape.get(AXIS, 1) == 1 or tp_family(cfg) else " tp=replicated (ROADMAP 7b-v)"
 
 
-def model_plan(cfg, mesh) -> Optional[Dict]:
+def model_plan(cfg, mesh, *, fsdp: bool = False, min_bytes: Optional[int] = None) -> Optional[Dict]:
     """The placement plan of ``cfg``'s parameters on ``mesh`` (a nested dict of
-    ``P``s, fsdp off) where the plain step and the pipeline's stages split them
-    over ``model``: a ``tp_family`` config on a ``model`` axis of more than 1.
-    None otherwise.  Raises where the plan splits a stacked axis (a hybrid
-    whose Mamba2 layers a group, M, the ``model`` axis divides), which the
-    port does not run."""
+    ``P``s) where the plain step and the pipeline's stages split them: fsdp
+    off, a ``tp_family`` config on a ``model`` axis of more than 1, None
+    otherwise; with ``fsdp`` (the plain step's FSDP over ``data``,
+    ``parallel/fsdp.py``), the plan with ``data`` added on any mesh
+    (``make_param_shardings(fsdp=True, min_bytes=)``, the reference's 4 MiB
+    threshold unless given).  Raises where the plan splits a stacked axis
+    over ``model`` (a hybrid whose Mamba2 layers a group, M, the ``model``
+    axis divides: ROADMAP 7b-vi) or over ``data`` (a stacked leaf whose only
+    dim ``data`` divides: 7f-iii), and with ``fsdp`` where the pure Mamba2
+    stack meets a ``model`` axis of more than 1 (7b-v).  No config of the
+    repo reaches any of them at the reference's threshold."""
     from repro_torch.convert import expected_shapes, flatten, unflatten
-    from repro_torch.parallel.sharding import make_param_shardings
+    from repro_torch.parallel.sharding import FSDP_MIN_BYTES, make_param_shardings
 
-    if mesh.shape.get(AXIS, 1) == 1 or not tp_family(cfg):
-        return None
-    plan = make_param_shardings(unflatten(expected_shapes(cfg)), mesh)
-    stacked = sorted(p for p, spec in flatten(plan).items() if is_split(tuple(spec)[:lead_axes(p)]))
-    if stacked:
+    split_model = mesh.shape.get(AXIS, 1) > 1
+    if fsdp and split_model and not tp_family(cfg):
         raise NotImplementedError(
-            f"{cfg.name}: the plan splits {stacked} on a stacked axis over the mesh {dict(mesh.shape)}: the port "
-            "splits no layer or group axis (ROADMAP Queue 1, 7b-vi)")
+            f"{cfg.name}: FSDP over the mesh {dict(mesh.shape)} would split the pure Mamba2 stack over model too, "
+            "which the port keeps whole (ROADMAP Queue 1, 7b-v)")
+    if not fsdp and (not split_model or not tp_family(cfg)):
+        return None
+    plan = make_param_shardings(unflatten(expected_shapes(cfg)), mesh, fsdp=fsdp,
+                                min_bytes=FSDP_MIN_BYTES if min_bytes is None else min_bytes)
+    for axis, item in ((AXIS, "7b-vi"), ("data", "7f-iii")):
+        if mesh.shape.get(axis, 1) == 1:  # an axis of 1 splits nothing, wherever the plan names it
+            continue
+        stacked = sorted(p for p, spec in flatten(plan).items() if is_split(tuple(spec)[:lead_axes(p)], axis))
+        if stacked:
+            raise NotImplementedError(
+                f"{cfg.name}: the plan splits {stacked} on a stacked axis over {axis} on the mesh "
+                f"{dict(mesh.shape)}: the port splits no layer or group axis (ROADMAP Queue 1, {item})")
     return plan
 
 

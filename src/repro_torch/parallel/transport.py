@@ -1,10 +1,11 @@
 """A counted transport over a mesh's axes, on ``torch.distributed``'s ``gloo``.
 
 Point-to-point send and receive to a neighbour on an axis (the pipeline's
-``pod`` boundary), all-reduce (sum) and all-gather over an axis group.  Every
-call adds the bytes this rank hands to it to ``bytes[axis][op]``: a send its
-tensor, an all-reduce its buffer, an all-gather its own part (what a ring
-moves on the wire is a multiple of these, the same for every call of an op).
+``pod`` boundary), all-reduce (sum), all-gather and reduce-scatter (sum) over
+an axis group.  Every call adds the bytes this rank hands to it to
+``bytes[axis][op]``: a send its tensor, an all-reduce and a reduce-scatter
+their whole buffer, an all-gather its own part (what a ring moves on the wire
+is a multiple of these, the same for every call of an op).
 ``pod`` is the WAN link between DCs; ``data`` and ``model`` are links inside a
 DC.  ``seconds[axis][op]`` adds each call's wall time, the staging through
 host memory included, and ``seconds[axis]["recv"]`` the receives' (their
@@ -32,7 +33,7 @@ from typing import Dict, List, Sequence
 import torch
 import torch.distributed as dist
 
-OPS = ("send", "all_reduce", "all_gather")
+OPS = ("send", "all_reduce", "all_gather", "reduce_scatter")
 
 
 class Transport:
@@ -129,6 +130,21 @@ class Transport:
         self._count(axis, "all_gather", host, t0)
         return out
 
+    def reduce_scatter(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        """The sum of ``t`` over ``axis``'s group, this rank's block of it
+        along ``dim`` (the axis's ranks' blocks in order); ``t`` itself on an
+        axis of size 1."""
+        g = self._group(axis)
+        if g is None:
+            return t
+        t0 = time.perf_counter()
+        host = self._stage(t, "reduce_scatter")
+        parts = [p.contiguous() for p in host.chunk(self.mesh.shape[axis], dim)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, op=dist.ReduceOp.SUM, group=g)
+        self._count(axis, "reduce_scatter", host, t0)
+        return out.to(t.device)
+
 
 class MetaTransport(Transport):
     """The transport's counts without its wire: every call on ``meta`` tensors
@@ -158,6 +174,15 @@ class MetaTransport(Transport):
         self._count(axis, "all_gather", t, time.perf_counter())
         shape = list(t.shape)
         shape[dim] *= n
+        return torch.empty(shape, dtype=t.dtype, device=t.device)
+
+    def reduce_scatter(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        n = self.mesh.shape[axis]
+        if n == 1:
+            return t
+        self._count(axis, "reduce_scatter", t, time.perf_counter())
+        shape = list(t.shape)
+        shape[dim] //= n
         return torch.empty(shape, dtype=t.dtype, device=t.device)
 
 

@@ -111,8 +111,8 @@ def _step_counts(cfg, shape, rank, boundary, batch):
 
 
 def _tp_counts(pod_send, model_reduce, model_gather):
-    return {"pod": {"send": pod_send, "all_reduce": 824_197_128, "all_gather": 0},
-            "model": {"send": 0, "all_reduce": model_reduce, "all_gather": model_gather}}
+    return {"pod": {"send": pod_send, "all_reduce": 824_197_128, "all_gather": 0, "reduce_scatter": 0},
+            "model": {"send": 0, "all_reduce": model_reduce, "all_gather": model_gather, "reduce_scatter": 0}}
 
 
 # the card's transport counters a rank a step (PERF.md section 5): GPT-A at full width with 4 layers, 8 x 512;
@@ -122,8 +122,10 @@ def _tp_counts(pod_send, model_reduce, model_gather):
                            _tp_counts(33_554_432, 369_131_528, 16_384)]),
     ((2, 1, 2), "striped", [_tp_counts(16_777_216, 335_544_328, 33_554_432),
                             _tp_counts(16_777_216, 369_131_528, 16_793_600)]),
-    ((2, 2, 1), "direct", 2 * [{"pod": {"send": 16_777_216, "all_reduce": 1_648_377_864, "all_gather": 0},
-                                "data": {"send": 0, "all_reduce": 3_259_056_132, "all_gather": 0}}]),
+    ((2, 2, 1), "direct", 2 * [{"pod": {"send": 16_777_216, "all_reduce": 1_648_377_864, "all_gather": 0,
+                                        "reduce_scatter": 0},
+                                "data": {"send": 0, "all_reduce": 3_259_056_132, "all_gather": 0,
+                                         "reduce_scatter": 0}}]),
 ])
 def test_meta_pipeline_bytes_equal_the_card_s_counters_gpt_a(shape, boundary, wants):
     cfg = dataclasses.replace(get_config("gpt_a"), num_layers=4, dtype=torch.bfloat16)
@@ -135,7 +137,7 @@ def test_meta_pipeline_bytes_equal_the_card_s_counters_gpt_a(shape, boundary, wa
 def test_meta_pipeline_bytes_equal_the_card_s_counters_zamba2():
     cfg = dataclasses.replace(get_config("zamba2_2p7b"), dtype=torch.bfloat16)
     got = _step_counts(cfg, (2, 1, 1), 0, "striped", 4)
-    assert got["pod"] == {"send": 10_485_760, "all_reduce": 1_074_821_128, "all_gather": 0}
+    assert got["pod"] == {"send": 10_485_760, "all_reduce": 1_074_821_128, "all_gather": 0, "reduce_scatter": 0}
 
 
 def test_meta_transport_raises_where_the_real_one_does():
@@ -191,36 +193,62 @@ def test_run_one_completes_full_size_combinations(full_results, combo):
 def test_single_train_and_encoder_decode_are_skipped_with_reasons():
     """Single x train is no longer skipped (slice 7d): one rank of (16, 16)
     runs the plain data-parallel step on its 16 rows of the batch.  Since
-    7b-iii RWKV-6's rank is tensor-parallel too: it holds its shards' f32
+    7b-iii RWKV-6's rank is tensor-parallel too; without fsdp (``--no-fsdp``:
+    the program before 7f, no longer the default) it holds its shards' f32
     state (the plan's bytes without fsdp, not the whole model's), all-reduces
     their gradients and the loss's count and value over ``data``, and
     something over ``model``.  The encoder's decodes stay skipped."""
     cfg = shp.config_for("rwkv6_7b", "train_4k")
-    r = dryrun.run_one("rwkv6_7b", "train_4k", "single")
+    r = dryrun.run_one("rwkv6_7b", "train_4k", "single", fsdp=False)
     n = sum(math.prod(s) for s in expected_shapes(cfg).values())
     assert r["status"] == "ok" and r["program"] == "data_parallel+tensor_parallel" and r["rows_per_rank"] == 16
     assert r["param_bytes"] == dryrun.plan_bytes(cfg, dryrun.Mesh((16, 16), ("data", "model")), fsdp=False)
     assert 12 * n / 16 < r["memory"]["argument_bytes"] < 12 * n / 8  # f32 parameters and two moments, in shards
-    assert r["collectives"]["by_axis"]["data"] == {"send": 0, "all_reduce": r["param_bytes"] + 8, "all_gather": 0}
+    assert r["collectives"]["by_axis"]["data"] == {"send": 0, "all_reduce": r["param_bytes"] + 8, "all_gather": 0,
+                                                   "reduce_scatter": 0}
     assert r["collectives"]["by_axis"]["model"]["all_reduce"] > 0 and r["collectives"]["dcn"] == 0
+    # the figures this row had before 7f made FSDP the default, to the byte
+    assert r["memory"]["peak_bytes"] == 34_418_854_912 and r["cost"]["bytes accessed"] == 6_030_857_750_022
     r = dryrun.run_one("hubert_xlarge", "decode_32k", "multi")
     assert r["status"] == "skipped" and "encoder-only" in r["reason"]
 
 
 def test_single_train_of_the_dense_family_is_the_tensor_parallel_rank():
     """Since slice 7b-i the dense family's single x train rank is the
-    tensor-parallel step: its f32 parameters are exactly the plan's bytes
-    without fsdp, and it all-reduces 4 B of its shards' gradients a parameter
-    and 8 over ``data``, and something over ``model``."""
+    tensor-parallel step; without fsdp (``--no-fsdp``, the program before 7f) its
+    f32 parameters are exactly the plan's bytes without fsdp, and it
+    all-reduces 4 B of its shards' gradients a parameter and 8 over
+    ``data``, and something over ``model``."""
     cfg = shp.config_for("gpt_a", "train_4k")
-    r = dryrun.run_one("gpt_a", "train_4k", "single")
+    r = dryrun.run_one("gpt_a", "train_4k", "single", fsdp=False)
     mesh = dryrun.Mesh((16, 16), ("data", "model"))
     assert r["status"] == "ok" and r["program"] == "data_parallel+tensor_parallel" and r["rows_per_rank"] == 16
     assert r["param_bytes"] == dryrun.plan_bytes(cfg, mesh, fsdp=False)
-    assert r["collectives"]["by_axis"]["data"] == {"send": 0, "all_reduce": r["param_bytes"] + 8, "all_gather": 0}
+    assert r["collectives"]["by_axis"]["data"] == {"send": 0, "all_reduce": r["param_bytes"] + 8, "all_gather": 0,
+                                                   "reduce_scatter": 0}
     assert r["collectives"]["by_axis"]["model"]["all_reduce"] > 0 and r["collectives"]["dcn"] == 0
     n = sum(math.prod(s) for s in expected_shapes(cfg).values())
     assert r["memory"]["argument_bytes"] < 12 * n / 8  # the whole f32 parameters and moments no longer
+
+
+@pytest.mark.parametrize("arch", ["gpt_a", "rwkv6_7b"])
+def test_single_train_is_the_fsdp_step_by_default(arch):
+    """Since 7f the default single x train rank is the reference's dry-run's
+    program, FSDP over ``data``: its f32 parameters are exactly the plan's
+    bytes with fsdp, and it all-gathers and reduce-scatters over ``data`` and
+    all-reduces there only the leaves the plan leaves whole (with the count,
+    the loss and the norm's sums), far fewer bytes than its parameters."""
+    cfg = shp.config_for(arch, "train_4k")
+    r = dryrun.run_one(arch, "train_4k", "single")
+    mesh = dryrun.Mesh((16, 16), ("data", "model"))
+    assert r["status"] == "ok" and r["program"] == "data_parallel+tensor_parallel+fsdp" and r["fsdp"]
+    assert r["param_bytes"] == dryrun.plan_bytes(cfg, mesh, fsdp=True) < dryrun.plan_bytes(cfg, mesh, fsdp=False)
+    data = r["collectives"]["by_axis"]["data"]
+    assert data["send"] == 0 and data["all_gather"] > 0 and data["reduce_scatter"] > 0
+    assert 16 < data["all_reduce"] < r["param_bytes"]
+    assert r["collectives"]["ici"] == sum(dryrun.wire_bytes(ops) for ops in r["collectives"]["by_axis"].values())
+    assert r["collectives"]["by_op"]["reduce-scatter"] == data["reduce_scatter"] + r["collectives"]["by_axis"][
+        "model"]["reduce_scatter"]
 
 
 def test_roofline_functions_equal_the_reference_s_on_the_same_files(full_results, tmp_path, monkeypatch):

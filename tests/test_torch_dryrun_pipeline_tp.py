@@ -74,6 +74,6 @@ def test_meta_pipeline_tp_bytes_equal_a_count_from_the_code(stage, boundary):
     reduce = 4 * 2 * 5 * ACT + (4 * (ACT + 2 * 2 * 512 * 4) if stage else 0) + 8
     gather = 4 * (ACT // 2 if stage == 0 else 2 * 512 * 4) + (4 * ACT // 2 if striped else 0)
     assert transport.counts() == {
-        "pod": {"send": 4 * ACT // (2 if striped else 1), "all_reduce": REST + 8, "all_gather": 0},
-        "data": {"send": 0, "all_reduce": 0, "all_gather": 0},
-        "model": {"send": 0, "all_reduce": reduce, "all_gather": gather}}
+        "pod": {"send": 4 * ACT // (2 if striped else 1), "all_reduce": REST + 8, "all_gather": 0, "reduce_scatter": 0},
+        "data": {"send": 0, "all_reduce": 0, "all_gather": 0, "reduce_scatter": 0},
+        "model": {"send": 0, "all_reduce": reduce, "all_gather": gather, "reduce_scatter": 0}}

@@ -97,5 +97,6 @@ def test_meta_tp_moe_bytes_equal_a_count_from_the_code():
     reduce = 2 * (forward + recomputed + backward) + act + 4 * 2 * 4 * 512
     gather = 2 * (2 * out_buf + 2 * 4 * 512 * (1024 + 1408)) + act // 2 + 4 * 4 * 512
     assert loss_fn.transport.counts() == {
-        "data": {"send": 0, "all_reduce": 4 * 795_879_424 + 8 + 2 * 2 * 2 * 64 * 4, "all_gather": 0},
-        "model": {"send": 0, "all_reduce": reduce, "all_gather": gather}}
+        "data": {"send": 0, "all_reduce": 4 * 795_879_424 + 8 + 2 * 2 * 2 * 64 * 4, "all_gather": 0,
+                 "reduce_scatter": 0},
+        "model": {"send": 0, "all_reduce": reduce, "all_gather": gather, "reduce_scatter": 0}}

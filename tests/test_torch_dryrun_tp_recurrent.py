@@ -122,8 +122,8 @@ def test_meta_tp_rwkv_bytes_equal_a_count_from_the_code():
     act = 2 * tok * 4096
     reduce = 2 * (2 * 2 * act + 5 * act + 2 * tok * LORA) + act + 4 * 2 * tok
     gather = 2 * (2 * act // 2) + act // 2 + 4 * tok
-    assert counts == {"data": {"send": 0, "all_reduce": 0, "all_gather": 0},
-                      "model": {"send": 0, "all_reduce": reduce, "all_gather": gather}}
+    assert counts == {"data": {"send": 0, "all_reduce": 0, "all_gather": 0, "reduce_scatter": 0},
+                      "model": {"send": 0, "all_reduce": reduce, "all_gather": gather, "reduce_scatter": 0}}
 
 
 def test_meta_tp_hybrid_bytes_equal_a_count_from_the_code():
@@ -144,5 +144,5 @@ def test_meta_tp_hybrid_bytes_equal_a_count_from_the_code():
     act, inner = 2 * tok * 2560, 2 * tok * 5120
     reduce = 2 * (5 * (2 * 3 + 1) * inner + (2 * 2 + 2) * act) + act + 4 * 2 * tok
     gather = 2 * 5 * act // 2 + act // 2 + 4 * tok
-    assert counts == {"data": {"send": 0, "all_reduce": 0, "all_gather": 0},
-                      "model": {"send": 0, "all_reduce": reduce, "all_gather": gather}}
+    assert counts == {"data": {"send": 0, "all_reduce": 0, "all_gather": 0, "reduce_scatter": 0},
+                      "model": {"send": 0, "all_reduce": reduce, "all_gather": gather, "reduce_scatter": 0}}

@@ -80,8 +80,8 @@ def bytes_owed(cfg, shape, shard_elems: int) -> dict:
     reduce = G * group_reduce + act + 4 * 2 * tok + 4
     gather = G * M * act // TP + act // TP + 4 * tok
     data = 4 * shard_elems + 8 if DP > 1 else 0
-    return {"data": {"send": 0, "all_reduce": data, "all_gather": 0},
-            "model": {"send": 0, "all_reduce": reduce, "all_gather": gather}}
+    return {"data": {"send": 0, "all_reduce": data, "all_gather": 0, "reduce_scatter": 0},
+            "model": {"send": 0, "all_reduce": reduce, "all_gather": gather, "reduce_scatter": 0}}
 
 
 @pytest.fixture(scope="module", params=CASES, ids=IDS)

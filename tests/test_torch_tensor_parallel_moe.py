@@ -89,8 +89,8 @@ def bytes_owed(cfg, shape, shard_elems: int) -> dict:
     gather = cfg.num_layers * ((4 * rows * E // TP * C * d if ep else 0) + 4 * tok * (d + sf) // TP)
     gather += act // TP + 4 * tok
     data = 4 * shard_elems + 8 + cfg.num_layers * 2 * E * 4 if DP > 1 else 0
-    return {"data": {"send": 0, "all_reduce": data, "all_gather": 0},
-            "model": {"send": 0, "all_reduce": reduce, "all_gather": gather}}
+    return {"data": {"send": 0, "all_reduce": data, "all_gather": 0, "reduce_scatter": 0},
+            "model": {"send": 0, "all_reduce": reduce, "all_gather": gather, "reduce_scatter": 0}}
 
 
 @pytest.fixture(scope="module", params=CASES, ids=IDS)

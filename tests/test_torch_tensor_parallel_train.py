@@ -65,7 +65,7 @@ def model_bytes_owed(cfg, rows: int) -> dict:
     clip's norm reduces one f32."""
     act = 4 * rows * SEQ * cfg.d_model
     return {"send": 0, "all_reduce": 4 * cfg.num_layers * act + act + 4 * 2 * rows * SEQ + 4,
-            "all_gather": act // SHAPE[1] + 4 * rows * SEQ}
+            "all_gather": act // SHAPE[1] + 4 * rows * SEQ, "reduce_scatter": 0}
 
 
 def _state(r) -> dict:

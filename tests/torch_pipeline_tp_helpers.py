@@ -121,10 +121,11 @@ def bytes_owed(cfg, shape, stage: int, boundary: str, block_elems: dict, row=den
     gather += act // TP if boundary == "striped" else 0
     reduce = per * row_reduce + (act + 4 * 2 * tok if last else 0)
     sends = N_MICRO * act // (TP if boundary == "striped" else 1)
-    out = {"pod": {"send": sends, "all_reduce": 4 * block_elems["rest"] + 8, "all_gather": 0},
-           "model": {"send": 0, "all_reduce": N_MICRO * reduce + 8, "all_gather": N_MICRO * gather}}
+    out = {"pod": {"send": sends, "all_reduce": 4 * block_elems["rest"] + 8, "all_gather": 0, "reduce_scatter": 0},
+           "model": {"send": 0, "all_reduce": N_MICRO * reduce + 8, "all_gather": N_MICRO * gather,
+                     "reduce_scatter": 0}}
     out["data"] = {"send": 0, "all_reduce": 4 * (block_elems["layers"] + block_elems["rest"]) + 4 if DP > 1 else 0,
-                   "all_gather": 0}
+                   "all_gather": 0, "reduce_scatter": 0}
     return out
 
 
