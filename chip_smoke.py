@@ -42,8 +42,12 @@ size 80 in the shared block).  Between the training and the MoE phases it
 trains through the cross-pod pipeline (``repro_torch.parallel.pipeline``),
 ranks as ``gloo`` processes that share the card: GPT-A at full width with 2
 of its 24 layers on meshes (pod, data, model) of (2, 2, 1) and (2, 1, 2), and
-Zamba2-2.7B at full width and depth on (2, 1, 1), each held against gradient
-accumulation over the same chunks; on (2, 1, 2) GPT-A is tensor-parallel over
+Zamba2-2.7B at full width with 3 of its 9 groups on (2, 1, 1), each held
+against gradient accumulation over the same chunks; on (2, 2, 1) the same
+ranks then run GPT-A FSDP over ``data`` inside the stages (the reference's
+fsdp plan: each stage's blocks gathered once a step, their gradients
+reduce-scattered once), held bit for bit against the call without FSDP and
+against its trained state; on (2, 1, 2) GPT-A is tensor-parallel over
 ``model`` inside the stages, held against the replicated call on the same
 mesh, which is held against accumulation; the GPT-A (2, 1, 2) run saves its
 whole state at the end (rank 0 gathers the stages' blocks), and the file, cut
@@ -67,7 +71,7 @@ each held against each rank's replicated call; and runs the five examples of
 ranks), each's launches counted.  For each path it checks by
 the kernels' launch counters that it really went through the kernels, and
 compares the kernel path's logits, or loss and gradients, with the plain
-path's.  Twelve of its steps are also held against the port's dry-run
+path's.  Thirteen of its steps are also held against the port's dry-run
 (``repro_torch.launch.dryrun``), predicted on ``meta`` from the config alone
 in a background process: argument bytes, launches and transport bytes
 exactly, the peak within max(3 %, 256 MiB); phase ``dryrun`` adds three
@@ -138,6 +142,7 @@ from repro_torch.parallel.data_parallel import DataParallelLoss  # noqa: E402
 from repro_torch.parallel.pipeline import (  # noqa: E402
     PipelineLoss,
     make_pipeline_loss,
+    padded_num_layers,
     stack_length,
     stage_layer_range,
     stage_params,
@@ -2509,9 +2514,9 @@ def dryrun_steps() -> dict:
         step = make_train_step(model.loss, optimizer_config(lr, TRAIN_STEPS))
         return (lambda: step(*args)), args, None
 
-    def pipelined(cfg, shape, boundary, batch):  # tensor-parallel inside the stages where model_plan has a plan
+    def pipelined(cfg, shape, boundary, batch, fsdp=False):  # TP inside the stages where model_plan has a plan
         mesh = Mesh(shape, PIPE_AXES, 0)
-        plan = model_plan(cfg, mesh)
+        plan = model_plan(cfg, mesh, fsdp=fsdp)
         params = stage_params(dryrun.meta_params(build_model(cfg)), cfg, mesh)
         args = (params if plan is None else shard_params(params, mesh, plan), dryrun.train_batch(cfg, batch, TRAIN_SEQ))
         loss_fn = PipelineLoss(cfg, mesh, PIPE_N_MICRO, boundary, transport=MetaTransport(mesh), plan=plan)
@@ -2523,9 +2528,10 @@ def dryrun_steps() -> dict:
     for boundary in ("direct", "striped"):
         steps[f"pipe_gpt_a_2x1x2_{boundary}"] = functools.partial(
             pipelined, train_config(PIPE_LAYERS, torch.bfloat16), (2, 1, 2), boundary, PIPE_BATCH)
-    steps["pipe_zamba_2x1x1_striped"] = functools.partial(
-        pipelined, dataclasses.replace(get_config("zamba2_2p7b"), dtype=torch.bfloat16), (2, 1, 1), "striped",
-        HYBRID_PIPE_BATCH)
+    steps["pipe_gpt_a_" + PIPE_FSDP_CHECK] = functools.partial(
+        pipelined, train_config(PIPE_LAYERS, torch.bfloat16), PIPE_FSDP_MESH, "direct", PIPE_BATCH, fsdp=True)
+    steps["pipe_zamba_2x1x1_striped"] = functools.partial(pipelined, hybrid_pipe_config(), (2, 1, 1), "striped",
+                                                          HYBRID_PIPE_BATCH)
 
     def tensor_parallel(cfg, shape, batch, fsdp=False):
         mesh = Mesh(*shape, 0)
@@ -2738,8 +2744,8 @@ def phase_dryrun(started: list) -> None:
                        "device_over_bound": x["roofline"]["device_over_bound"], "failures": x["failures"]}
                       for x in DRYRUN_LINES],
           "run_one": combos, "note": "run_one's seconds are the host's; its roofline is computed, not measured"})
-    if len(DRYRUN_LINES) != 12:
-        raise AssertionError(f"dry-run: {len(DRYRUN_LINES)} comparisons made, 12 owed")
+    if len(DRYRUN_LINES) != 13:
+        raise AssertionError(f"dry-run: {len(DRYRUN_LINES)} comparisons made, 13 owed")
     check_dryrun_lines(DRYRUN_LINES)
 
 
@@ -2752,12 +2758,13 @@ def phase_dryrun(started: list) -> None:
 # (206,045,184 each), 613,429,248 parameters, 9.81 GB of f32 parameters,
 # gradients and two moments (2 layers a rank, 13.0 GB, peaked at 18.87 GB on
 # NVIDIA H100 80GB HBM3 before the depth was cut to 2 to pay for phase
-# train_fsdp's time).  Zamba2-2.7B at full depth on two ranks: nine groups
-# padded to ten, the last stage running one zero group that its zero gate
-# switches off.  Before its stage, each rank makes the whole model from the
-# seed and its accumulated reference, then keeps its stage of both (GPT-A:
+# train_fsdp's time).  Zamba2-2.7B with 3 of its 9 groups on two ranks (full
+# depth until phase train_pipeline_fsdp's time was taken from it): three
+# groups padded to four, the last stage running one zero group that its zero
+# gate switches off.  Before its stage, each rank makes the whole model from
+# the seed and its accumulated reference, then keeps its stage of both (GPT-A:
 # 3.26 GB of parameters and two gradient buffers as large for a moment, four
-# ranks at once; Zamba2: 8.2 GB and two as large, two ranks).  On (2, 1, 2)
+# ranks at once; Zamba2 at full depth was 8.2 GB and two as large, two ranks).  On (2, 1, 2)
 # GPT-A is tensor-parallel over model inside the stages (slice 7b-iv): after
 # the replicated calls on its whole stage (the control, one a boundary) a rank
 # holds its shards of its stage, 306,720,768 parameters (4.91 GB of f32 state).
@@ -2773,7 +2780,10 @@ PIPE_REDUCED = {"num_layers": "24 -> 2", "why": "four ranks share the card, each
 # --pipeline on a model axis > 1)
 PIPE_MESHES = (((2, 2, 1), ("direct",), "direct"), ((2, 1, 2), ("direct", "striped"), "striped"))
 PIPE_STEPS, PIPE_BATCH, PIPE_N_MICRO = 2, 8, 4
-HYBRID_PIPE_STEPS, HYBRID_PIPE_BATCH = 2, 4
+HYBRID_PIPE_STEPS, HYBRID_PIPE_BATCH, HYBRID_PIPE_LAYERS = 2, 4, 18
+HYBRID_PIPE_REDUCED = {"num_layers": "54 -> 18 (3 of 9 groups, padded to 4: the last stage's second group is zero)",
+                       "why": "cut from full depth to pay for phase train_pipeline_fsdp's time within the script's "
+                              "budget; the padded, switched-off group still runs"}
 PIPE_AXES = ("pod", "data", "model")
 PIPE_DEADLINE_S = 600  # a whole spawned run; a rank that waits on another more than TIMEOUT fails
 # The pipelined step computes gradient accumulation over the same row chunks
@@ -2791,6 +2801,14 @@ PIPE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "local", "ch
 # unpadded state, 12 B x 814,764,032 parameters = 9.78 GB, into PIPE_DIR
 # (removed with it)
 PIPE_CKPT_MESH = (2, 1, 2)
+# FSDP over data inside the stages (slice 7f-ii), on the (2, 2, 1) ranks after
+# that mesh's runs: the reference's plan with fsdp on, at 4 MiB, splits the
+# layer's six matrices, embed (on its rows) and lm_head (on d) over data; the
+# norms stay whole.  A rank holds 306,720,768 of its stage's 613,429,248
+# parameters (4.91 GB of f32 state, 9.81 without), gathers them once a step
+# and reduce-scatters their gradients once
+PIPE_FSDP_MESH = (2, 2, 1)
+PIPE_FSDP_CHECK = "fsdp_2x2x1_direct"  # the dry-run's prediction of rank 0's held call (under "pipe_gpt_a_")
 
 
 def pipeline_owed(norms: int, attns: int, last: bool, n_micro: int, remat: bool = True) -> dict:
@@ -2816,6 +2834,22 @@ def stage_state_bytes(cfg, num_stages: int) -> list:
         n = sum(math.prod(v) // L * rows if p.split("/", 1)[0] == key else math.prod(v) for p, v in shapes.items())
         out.append(16 * n)
     return out
+
+
+def on_data(tree: dict, fplan, mesh) -> dict:
+    """A flat tree of this rank's (its stage, or its ``model`` shards) cut to
+    its ``data`` blocks under ``fplan``, the plan with fsdp on, on the host."""
+    specs = flatten(fplan)
+    return {p: local_block(t.detach(), P(*(e if e == "data" else None for e in specs[p])), mesh).cpu()
+            for p, t in tree.items()}
+
+
+def state_on_data(res: dict, fplan, mesh) -> dict:
+    """``launch.train.train``'s final parameters and moments (``res``) cut to
+    this rank's ``data`` blocks (``on_data``): flat ``params``, ``mu``, ``nu``."""
+    opt = res["opt_state"]
+    return {part: on_data(flatten(tree), fplan, mesh) for part, tree in
+            (("params", res["params"]), ("mu", opt.mu), ("nu", opt.nu))}
 
 
 def join_as_rank(rank: int, world: int, store: str) -> None:
@@ -2862,7 +2896,7 @@ def against_accumulation(grads: dict, ref: dict, ref_loss: float, loss: float) -
 
 
 def pipeline_rank(rank: int, world: int, cfg, meshes, steps: int, batch: int, seq: int, lr: float,
-                  predicted: dict, ckpt_mesh, store: str) -> None:
+                  predicted: dict, ckpt_mesh, fsdp_mesh, store: str) -> None:
     """One rank of the pipelined runs on the card, for each (mesh shape,
     boundaries, trained boundary) of ``meshes`` in turn: joins the mesh, makes
     the whole model from the seed and its reference, ``make_train_step``'s
@@ -2882,8 +2916,10 @@ def pipeline_rank(rank: int, world: int, cfg, meshes, steps: int, batch: int, se
     ``launch.train.train`` with the trained boundary from the same seed,
     counting the kernels' launches from zero; on the mesh ``ckpt_mesh`` the run
     saves its state at the end under PIPE_DIR (slice 7c) and
-    ``pipeline_checkpoint`` hashes it.  Writes its results as JSON beside
-    ``store``."""
+    ``pipeline_checkpoint`` hashes it; on the mesh ``fsdp_mesh`` the rank then
+    runs FSDP over ``data`` inside the stages (``pipe_fsdp_run``, slice
+    7f-ii), held against that mesh's first call and trained state cut to its
+    ``data`` blocks.  Writes its results as JSON beside ``store``."""
     began = time.time()
     join_as_rank(rank, world, store)
     t0 = time.perf_counter()
@@ -2914,6 +2950,7 @@ def pipeline_rank(rank: int, world: int, cfg, meshes, steps: int, batch: int, se
             ref_loss = float(ref_loss)
             ref = {p: (g[lo:hi].clone() if p.split("/", 1)[0] == key else g) for p, g in ref.items()}
             params, first = stage_params(whole, cfg, mesh), None
+            out["state_bytes"] = 16 * sum(t.numel() for t in flatten(params).values())
             del whole
             release()
             out["reference_seconds"] = time.perf_counter() - t0
@@ -2952,6 +2989,10 @@ def pipeline_rank(rank: int, world: int, cfg, meshes, steps: int, batch: int, se
                     line["bit_equal_to_" + runs[0]] = bool(
                         torch.equal(loss, first[0]) and all(torch.equal(g, first[1][p]) for p, g in grads.items()))
                 del grads
+            fsdp = tuple(shape) == tuple(fsdp_mesh or ())
+            if fsdp:  # the control of the FSDP call: the first call, cut to this rank's data blocks, on the host
+                fplan = model_plan(cfg, mesh, fsdp=True)
+                control = {"loss": first[0].detach().cpu(), "grads": on_data(first[1], fplan, mesh)}
             del params, first, ref
             release()
             t0 = time.perf_counter()
@@ -2972,14 +3013,51 @@ def pipeline_rank(rank: int, world: int, cfg, meshes, steps: int, batch: int, se
                                      "seconds": time.perf_counter() - t0}
             if ckpt_dir:
                 out["checkpoint"] = pipeline_checkpoint(res, cfg, mesh)
+            if fsdp:
+                trained_state = state_on_data(res, fplan, mesh)
             del res
             release()
+            if fsdp:
+                out["fsdp"] = pipe_fsdp_run(mesh, cfg, fplan, b0, predicted, control, trained_state, steps=steps,
+                                            batch=batch, seq=seq, lr=lr, boundary=trained)
+                del control, trained_state
+                release()
             out["left"] = time.time()
             results.append(out)
         with open(f"{store}.rank{rank}.json", "w") as f:
             json.dump(results, f)
     finally:
         dist.destroy_process_group()
+
+
+def pipe_fsdp_run(mesh, cfg, fplan, b0, predicted: dict, control: dict, trained_state: dict, *, steps: int,
+                  batch: int, seq: int, lr: float, boundary: str) -> dict:
+    """FSDP over ``data`` inside the stages on a rank of PIPE_FSDP_MESH (slice
+    7f-ii): the whole model made from the seed again, cut to the rank's stage
+    and by ``fplan`` (the plan with fsdp on) to its ``data`` blocks; one
+    pipelined call on the first batch ``b0`` (rank 0's held against its
+    dry-run), its loss and gradient blocks against ``control``, the mesh's
+    call without FSDP cut to the same blocks (``against_blocks``); then
+    ``steps`` steps over the FSDP ``PipelineLoss`` and the final blocks and
+    moments against ``trained_state``, the mesh's launcher-trained run cut to
+    the same blocks (``train_held``)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    whole = build_model(cfg).init(gen)
+    params = shard_params(stage_params(whole, cfg, mesh), mesh, fplan)
+    del whole
+    release()
+    line, loss, grads = pipe_call(cfg, mesh, boundary, params, b0, fplan, PIPE_FSDP_CHECK, predicted)
+    line.update(control_loss=float(control["loss"]), **against_blocks(loss, grads, control["loss"], control["grads"]))
+    out = {"parity": line, "split_over_data": sorted(split_paths(fplan, "data"))}
+    del loss, grads
+    release()
+    n = sum(t.numel() for t in flatten(params).values())
+    out["params"], out["state_bytes"] = n, 16 * n  # f32 parameters, gradients and two moments
+    loss_fn = make_pipeline_loss(cfg, mesh, n_micro=PIPE_N_MICRO, boundary=boundary, plan=fplan)
+    out["train"], out["state"] = train_held(loss_fn, params, cfg, steps=steps, batch=batch, seq=seq, lr=lr,
+                                            want=trained_state)
+    return out
 
 
 def spawn_ranks(fn, world: int, *args) -> list:
@@ -3010,7 +3088,7 @@ def spawn_ranks(fn, world: int, *args) -> list:
 
 
 def run_pipeline(phase: str, cfg, meshes, *, steps: int, batch: int, seq: int, lr: float, owed, extra: dict,
-                 predicted: dict, ckpt_mesh=None) -> dict:
+                 predicted: dict, ckpt_mesh=None, fsdp_mesh=None) -> dict:
     """The ranks of ``pipeline_rank`` on the card over ``meshes`` ((mesh
     shape, boundaries, trained boundary), all of one size) in one spawn;
     raises unless every rank's parity holds: within PIPE_TOL of accumulation,
@@ -3025,14 +3103,15 @@ def run_pipeline(phase: str, cfg, meshes, *, steps: int, batch: int, seq: int, l
     is the last); and on ``ckpt_mesh`` the saved file, cut into stages (and
     blocks), has every rank's own state bit for bit and the leaves that no
     rank splits are bit-equal where they are copies (``hold_checkpoint``).
-    Emits one line a mesh; returns the counters summed over the ranks, by path."""
+    Emits one line a mesh, and on ``fsdp_mesh`` phase ``train_pipeline_fsdp``'s
+    (``hold_pipe_fsdp``); returns the counters summed over the ranks, by path."""
     world = math.prod(meshes[0][0])
     if any(math.prod(shape) != world for shape, _, _ in meshes):
         raise ValueError(f"meshes of different sizes: {meshes}")
     held = {"allocated": torch.cuda.memory_allocated(), "reserved": torch.cuda.memory_reserved(),
             "card_free": torch.cuda.mem_get_info()[0]}
     t0, spawned = time.perf_counter(), time.time()
-    ranks = spawn_ranks(pipeline_rank, world, cfg, meshes, steps, batch, seq, lr, predicted, ckpt_mesh)
+    ranks = spawn_ranks(pipeline_rank, world, cfg, meshes, steps, batch, seq, lr, predicted, ckpt_mesh, fsdp_mesh)
     wall = time.perf_counter() - t0
     counts = {}
     for i, (shape, runs, trained) in enumerate(meshes):
@@ -3100,10 +3179,77 @@ def run_pipeline(phase: str, cfg, meshes, *, steps: int, batch: int, seq: int, l
                     failures.append((boundary, "tensor-parallel grads", worst, gaps[worst], len(gaps)))
         if tuple(shape) == ckpt_mesh:
             line["checkpoint"] = hold_checkpoint(mine, steps, failures, split)
+        fsdp_runs = {r["rank"]: r.pop("fsdp") for r in mine if "fsdp" in r}
         emit(line)
         if failures:
             raise AssertionError(f"{phase} {shape}: {failures}")
+        if fsdp_runs:
+            counts[f"train_pipeline_fsdp {cfg.name} {'x'.join(map(str, shape))} {trained}"] = hold_pipe_fsdp(
+                cfg, shape, trained, mine, fsdp_runs, owed, steps=steps, batch=batch, seq=seq, lr=lr)
     return counts
+
+
+def hold_pipe_fsdp(cfg, shape, boundary: str, ranks: list, fsdp_runs: dict, owed, *, steps: int, batch: int,
+                   seq: int, lr: float) -> dict:
+    """Phase ``train_pipeline_fsdp``: the FSDP runs of ``pipeline_rank``'s
+    ranks on ``shape`` (``pipe_fsdp_run``, ``fsdp_runs`` by rank; ``ranks``
+    their results without FSDP on the same mesh).  Raises unless each rank's
+    loss and every gradient block are bit-equal to its call without FSDP,
+    rank 0's call was held against its dry-run and met it, a step's ``data``
+    gathers are each data-split block once and its reduce-scatters DP times
+    that, the trained run's first loss is the call's and its losses finite,
+    the counters show exactly ``owed(last)`` a step, and its final blocks
+    and moments are within PIPE_TOL["grad"] of the launcher-trained run's
+    (bit-equal where the clip's norm rounds alike).  Prints each rank's
+    bytes and seconds a step by axis and op, step ms, f32 state and peak,
+    beside the run's without FSDP; returns the counters summed over the
+    ranks."""
+    failures, total = [], {}
+    for r in ranks:
+        f = fsdp_runs[r["rank"]]
+        p, t = f["parity"], f["train"]
+        want = {k: steps * v for k, v in owed(r["coords"]["pod"] == shape[0] - 1).items()}
+        if not (p["finite"] and p["loss_bit_equal"] and p["grads_bit_equal"]):
+            failures.append((r["rank"], "not bit-equal to the call without FSDP",
+                             {k: v for k, v in p.items() if k not in ("bytes", "transport_seconds", "dryrun")}))
+        if p["dryrun"]:
+            DRYRUN_LINES.append(p["dryrun"])
+            failures += [(r["rank"], "dryrun", p["dryrun"]["failures"])] if p["dryrun"]["failures"] else []
+        elif r["rank"] == 0:
+            failures.append((0, "dryrun", "the held call was not checked"))
+        t["bytes_per_step"] = per_step(t.pop("bytes"))
+        t["transport_seconds_per_step"] = per_step(t.pop("transport_seconds"))
+        once = p["bytes"]["data"]
+        if not (once["all_gather"] > 0 and once["reduce_scatter"] == shape[1] * once["all_gather"]
+                and all(b["data"]["all_gather"] == once["all_gather"]
+                        and b["data"]["reduce_scatter"] == once["reduce_scatter"] for b in t["bytes_per_step"])):
+            failures.append((r["rank"], "data gathers not once a step", once, t["bytes_per_step"]))
+        if not all(np.isfinite(t["losses"])) or t["losses"][0] != p["loss"]:
+            failures.append((r["rank"], "losses", t["losses"], p["loss"]))
+        if t["counters"] != want:
+            failures.append((r["rank"], "counters", t["counters"], want))
+        for k, v in t["counters"].items():
+            total[k] = total.get(k, 0) + v
+        if f["state"]["max_diff_over_max"] > PIPE_TOL["grad"]:
+            failures.append((r["rank"], "state against the run without FSDP", f["state"]))
+        plain = r["train"][boundary]
+        f["without_fsdp"] = {"step_ms": plain["step_ms"], "peak_memory_bytes": plain["peak_memory_bytes"],
+                             "state_bytes": r["state_bytes"], "bytes_per_step": plain["bytes_per_step"],
+                             "transport_seconds_per_step": plain["transport_seconds_per_step"]}
+    emit({"phase": "train_pipeline_fsdp", "model": cfg.name, "reduced": PIPE_REDUCED,
+          "mesh": dict(zip(PIPE_AXES, shape)), "boundary": boundary, "layers": cfg.num_layers, "batch": batch,
+          "seq": seq, "n_micro": PIPE_N_MICRO, "steps": steps, "lr": lr,
+          "plan": "model_plan(cfg, mesh, fsdp=True): the reference's make_param_shardings(fsdp=True), 4 MiB",
+          "split_over_data": fsdp_runs[0]["split_over_data"],
+          "reference": "the mesh's first call and launcher-trained run without FSDP (phase train_pipeline) on the same "
+                       "ranks, cut to each rank's data blocks", "state_tol": PIPE_TOL["grad"],
+          "state_held": "bit-equal" if all(f["state"]["bit_equal"] == f["state"]["leaves"] for f in fsdp_runs.values())
+          else f"within {PIPE_TOL['grad']} (the clip's norm summed in another order)",
+          "counters_per_step": {"first": owed(False), "last": owed(True)}, "note": "the ranks share one card",
+          "ranks": [{"rank": r["rank"], "coords": r["coords"], **fsdp_runs[r["rank"]]} for r in ranks]})
+    if failures:
+        raise AssertionError(f"train_pipeline_fsdp: {failures}")
+    return total
 
 
 def pipe_predictions(started, prefix: str) -> dict:
@@ -3117,7 +3263,10 @@ def phase_train_pipeline(started) -> dict:
     forward and backward, on (2, 1, 2) tensor-parallel over ``model`` inside
     the stages (K2 at 16 of 32 heads; slice 7b-iv), held against the
     replicated call on the same mesh.  The (2, 1, 2) run saves its state at
-    the end (slice 7c), held against every rank's own."""
+    the end (slice 7c), held against every rank's own.  On (2, 2, 1) the same
+    ranks then run FSDP over ``data`` inside the stages (phase
+    ``train_pipeline_fsdp``, slice 7f-ii): K1, K2 and their backward at the
+    same shapes."""
     cfg = train_config(PIPE_LAYERS, torch.bfloat16)
     per = PIPE_LAYERS // 2
 
@@ -3126,22 +3275,30 @@ def phase_train_pipeline(started) -> dict:
 
     return run_pipeline("train_pipeline", cfg, PIPE_MESHES, steps=PIPE_STEPS, batch=PIPE_BATCH, seq=TRAIN_SEQ,
                         lr=TRAIN_LR, owed=owed, extra={"reduced": PIPE_REDUCED},
-                        predicted=pipe_predictions(started, "pipe_gpt_a_"), ckpt_mesh=PIPE_CKPT_MESH)
+                        predicted=pipe_predictions(started, "pipe_gpt_a_"), ckpt_mesh=PIPE_CKPT_MESH,
+                        fsdp_mesh=PIPE_FSDP_MESH)
+
+
+def hybrid_pipe_config():
+    return train_config(HYBRID_PIPE_LAYERS, torch.bfloat16, "zamba2_2p7b")
 
 
 def phase_train_pipeline_hybrid(started) -> dict:
-    """Zamba2-2.7B at full width and depth on (2, 1, 1): nine groups padded
-    to ten, five a stage, the padded one switched off by its zero gate and run
-    all the same (K1 at 2560 and 5120, K2 at head size 80)."""
-    cfg = dataclasses.replace(get_config("zamba2_2p7b"), dtype=torch.bfloat16)
+    """Zamba2-2.7B at full width with HYBRID_PIPE_LAYERS layers on (2, 1, 1):
+    three groups padded to four, two a stage, the padded one switched off by
+    its zero gate and run all the same (K1 at 2560 and 5120, K2 at head size
+    80)."""
+    cfg = hybrid_pipe_config()
     m = cfg.attn_period - 1
+    per = padded_num_layers(stack_length(cfg), 2) // 2
 
     def owed(last):
-        return pipeline_owed(5 * (2 * m + 2), 5, last, PIPE_N_MICRO)
+        return pipeline_owed(per * (2 * m + 2), per, last, PIPE_N_MICRO)
 
     return run_pipeline("train_pipeline_hybrid", cfg, (((2, 1, 1), ("striped",), "striped"),),
                         steps=HYBRID_PIPE_STEPS, batch=HYBRID_PIPE_BATCH, seq=HYBRID_TRAIN_SEQ, lr=HYBRID_TRAIN_LR,
-                        owed=owed, extra={"padded_groups": 1}, predicted=pipe_predictions(started, "pipe_zamba_"))
+                        owed=owed, extra={"reduced": HYBRID_PIPE_REDUCED, "padded_groups": 1},
+                        predicted=pipe_predictions(started, "pipe_zamba_"))
 
 
 def leaf_digests(tree) -> dict:
@@ -3408,10 +3565,6 @@ def tp_rank(rank: int, world: int, cfg, predicted, ref_path: str, store: str) ->
         model, plan = build_model(cfg), model_plan(cfg, mesh)
         specs = flatten(plan)
         fplan = model_plan(cfg, mesh, fsdp=True)
-        cut = {p: P(*(e if e == "data" else None for e in spec)) for p, spec in flatten(fplan).items()}
-
-        def on_data(tree: dict) -> dict:  # a tensor-parallel tree cut to this rank's data blocks, on the host
-            return {p: local_block(t.detach(), cut[p], mesh).cpu() for p, t in tree.items()}
 
         b0 = next(make_batches(cfg, DataConfig(seed=SEED, batch_size=TP_BATCH, seq_len=TRAIN_SEQ)))
         b0 = {k: torch.from_numpy(v).to("cuda") for k, v in b0.items()}
@@ -3445,7 +3598,7 @@ def tp_rank(rank: int, world: int, cfg, predicted, ref_path: str, store: str) ->
                           "finite": all(bool(torch.isfinite(g).all()) for g in grads.values()),
                           "call_seconds": call_s, "bytes": loss_fn.transport.counts(),
                           "transport_seconds": loss_fn.transport.times(), "dryrun": held}}
-        tp_call = {"loss": loss.detach().cpu(), "grads": on_data(grads),
+        tp_call = {"loss": loss.detach().cpu(), "grads": on_data(grads, fplan, mesh),
                    "model_bytes": loss_fn.transport.counts()["model"]}
         del params, grads, loss_fn, ref, r
         release()
@@ -3461,8 +3614,7 @@ def tp_rank(rank: int, world: int, cfg, predicted, ref_path: str, store: str) ->
                         "peak_memory_bytes": torch.cuda.max_memory_allocated(), "seconds": time.perf_counter() - t0}
         out["digests"] = leaf_digests({"params": res["params"], "opt": res["opt_state"]})
         out["train"]["state_bytes"] = 16 * sum(t.numel() for t in flatten(res["params"]).values())
-        tp_final = {"params": on_data(flatten(res["params"])), "mu": on_data(flatten(res["opt_state"].mu)),
-                    "nu": on_data(flatten(res["opt_state"].nu))}
+        tp_final = state_on_data(res, fplan, mesh)
         del res
         release()
         out["fsdp"] = fsdp_run(rank, mesh, cfg, fplan, b0, predicted[FSDP_CHECK], tp_call, tp_final)
@@ -3478,11 +3630,10 @@ def fsdp_run(rank: int, mesh, cfg, fplan, b0, predicted: dict, tp_call: dict, tp
     rank its ``data`` block of its ``model`` shard of 8 of the 11 leaves);
     one ``DataParallelLoss`` call on the first batch ``b0`` (rank 0's held
     against its dry-run), its loss and gradient blocks against the
-    tensor-parallel call's cut to the same blocks (``tp_call``: bit for bit,
-    and each leaf's gap in norm); then TP_STEPS steps of ``make_train_step``
-    over that loss on the batches ``launch.train.train`` takes, at its
-    schedule, counting the kernels' launches from zero, and the final blocks
-    and moments against the tensor-parallel run's (``tp_final``)."""
+    tensor-parallel call's cut to the same blocks (``tp_call``:
+    ``against_blocks``); then TP_STEPS steps over that loss and the final
+    blocks and moments against the tensor-parallel run's (``tp_final``:
+    ``train_held``)."""
     model = build_model(cfg)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -3502,33 +3653,49 @@ def fsdp_run(rank: int, mesh, cfg, fplan, b0, predicted: dict, tp_call: dict, tp
         loss, grads = loss_fn(params, b0)
     torch.cuda.synchronize()
     call_s = time.perf_counter() - t0
-    gaps, equal = {}, []
-    for p, g in grads.items():
-        want = tp_call["grads"][p].to("cuda")
-        gaps[p] = float((g.float() - want.float()).norm()) / max(float(want.float().norm()), 1e-30)
-        equal.append(bool(torch.equal(g, want)))
-    worst = max(gaps, key=gaps.get)
-    out = {"parity": {"loss": float(loss), "tp_loss": float(tp_call["loss"]),
-                      "loss_bit_equal": bool(torch.equal(loss.cpu(), tp_call["loss"])),
-                      "grads_bit_equal": all(equal), "leaves_bit_equal": sum(equal), "leaves": len(equal),
-                      "grad_rel_diff_worst": gaps[worst], "worst_leaf": worst,
-                      "finite": all(bool(torch.isfinite(g).all()) for g in grads.values()), "call_seconds": call_s,
-                      "bytes": loss_fn.transport.counts(), "transport_seconds": loss_fn.transport.times(),
-                      "model_bytes_as_tp": loss_fn.transport.counts()["model"] == tp_call["model_bytes"],
-                      "dryrun": held},
-           "split_over_data": sorted(split_paths(fplan, "data"))}
+    parity = {"loss": float(loss), "tp_loss": float(tp_call["loss"]),
+              **against_blocks(loss, grads, tp_call["loss"], tp_call["grads"]),
+              "finite": all(bool(torch.isfinite(g).all()) for g in grads.values()), "call_seconds": call_s,
+              "bytes": loss_fn.transport.counts(), "transport_seconds": loss_fn.transport.times(),
+              "model_bytes_as_tp": loss_fn.transport.counts()["model"] == tp_call["model_bytes"], "dryrun": held}
+    out = {"parity": parity, "split_over_data": sorted(split_paths(fplan, "data"))}
     del grads, loss_fn
     release()
     n = sum(t.numel() for t in flatten(params).values())
     out["params"], out["state_bytes"] = n, 16 * n  # f32 parameters, gradients and two moments
-    loss_fn = DataParallelLoss(model.loss, mesh, plan=fplan)
-    step = make_train_step(loss_fn, optimizer_config(TRAIN_LR, TP_STEPS))
+    out["train"], out["state"] = train_held(DataParallelLoss(model.loss, mesh, plan=fplan), params, cfg,
+                                            steps=TP_STEPS, batch=TP_BATCH, seq=TRAIN_SEQ, lr=TRAIN_LR, want=tp_final)
+    return out
+
+
+def against_blocks(loss, grads: dict, want_loss, want_grads: dict) -> dict:
+    """A call's loss and gradient blocks against another's cut to the same
+    blocks (``want_*``, on the host): bit for bit, and each leaf's relative
+    gap in norm."""
+    gaps, equal = {}, []
+    for p, g in grads.items():
+        want = want_grads[p].to("cuda")
+        gaps[p] = float((g.float() - want.float()).norm()) / max(float(want.float().norm()), 1e-30)
+        equal.append(bool(torch.equal(g, want)))
+    worst = max(gaps, key=gaps.get)
+    return {"loss_bit_equal": bool(torch.equal(loss.detach().cpu(), want_loss)), "grads_bit_equal": all(equal),
+            "leaves_bit_equal": sum(equal), "leaves": len(equal), "grad_rel_diff_worst": gaps[worst],
+            "worst_leaf": worst}
+
+
+def train_held(loss_fn, params, cfg, *, steps: int, batch: int, seq: int, lr: float, want: dict) -> tuple:
+    """``steps`` steps of ``make_train_step`` over ``loss_fn`` (a
+    ``DataParallelLoss`` or ``PipelineLoss`` of this rank) from ``params``, on
+    the batches ``launch.train.train`` takes, at its schedule, the kernels'
+    launches counted from zero: (the run's figures, its final blocks and
+    moments against ``want``'s, flat trees on the host, each leaf bit-equal or
+    its max |diff| over max |want|)."""
+    step = make_train_step(loss_fn, optimizer_config(lr, steps))
     opt = init_opt_state(params)
-    batches = make_batches(cfg, DataConfig(seed=SEED, batch_size=TP_BATCH, seq_len=TRAIN_SEQ), num_steps=TP_STEPS)
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
     hist = []
-    for b in batches:
+    for b in make_batches(cfg, DataConfig(seed=SEED, batch_size=batch, seq_len=seq), num_steps=steps):
         b = {k: torch.from_numpy(v).to("cuda") for k, v in b.items()}
         t0 = time.perf_counter()
         params, opt, m = step(params, opt, b)
@@ -3536,22 +3703,21 @@ def fsdp_run(rank: int, mesh, cfg, fplan, b0, predicted: dict, tp_call: dict, tp
         hist.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                      "ms": (time.perf_counter() - t0) * 1e3, "bytes": loss_fn.transport.counts(),
                      "seconds": loss_fn.transport.times()})
-    out["train"] = {"counters": read_counters(), "losses": [h["loss"] for h in hist],
-                    "grad_norms": [h["grad_norm"] for h in hist], "step_ms": [h["ms"] for h in hist],
-                    "bytes": [h["bytes"] for h in hist], "transport_seconds": [h["seconds"] for h in hist],
-                    "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    train_line = {"counters": read_counters(), "losses": [h["loss"] for h in hist],
+                  "grad_norms": [h["grad_norm"] for h in hist], "step_ms": [h["ms"] for h in hist],
+                  "bytes": [h["bytes"] for h in hist], "transport_seconds": [h["seconds"] for h in hist],
+                  "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     final = {"params": {p: t.detach() for p, t in flatten(params).items()}, "mu": flatten(opt.mu),
              "nu": flatten(opt.nu)}
     state = {}
     for part, tree in final.items():
         for p, t in tree.items():
-            want = tp_final[part][p].to("cuda")
-            state[f"{part}/{p}"] = [bool(torch.equal(t, want)),
-                                    float((t.float() - want.float()).abs().max()) / max(float(want.abs().max()), 1e-30)]
+            w = want[part][p].to("cuda")
+            state[f"{part}/{p}"] = [bool(torch.equal(t, w)),
+                                    float((t.float() - w.float()).abs().max()) / max(float(w.abs().max()), 1e-30)]
     worst = max(state, key=lambda k: state[k][1])
-    out["state"] = {"bit_equal": sum(v[0] for v in state.values()), "leaves": len(state), "worst": worst,
-                    "max_diff_over_max": state[worst][1]}
-    return out
+    return train_line, {"bit_equal": sum(v[0] for v in state.values()), "leaves": len(state), "worst": worst,
+                        "max_diff_over_max": state[worst][1]}
 
 
 def per_step(cumulative: list) -> list:

@@ -16,10 +16,16 @@ The programs (``ARCHS[:10]`` x ``SHAPES`` x single (16, 16) / multi (2, 16, 16))
     ``pod`` coordinate (stage 0 and stage 1), through a ``MetaTransport``.
     For the transformers, dense and MoE, RWKV-6 and the hybrid, the stages
     are tensor-parallel over ``model``, as the launcher runs them
-    (``"tensor_parallel": true``): the rank's f32 state is its shards of its
-    stage under the placement plan, fsdp off (``"fsdp": false``: FSDP inside
-    the stages is ROADMAP 7f-ii).  Each figure is the larger of the two
-    stages'; each stage's figures are under ``stages``.
+    (``"tensor_parallel": true``).  By default the stages are FSDP over
+    ``data`` as well, as the reference's dry-run places its train shapes
+    (``"program": "pipeline+fsdp"``, ``"fsdp": true``): the rank's f32 state
+    is its blocks of its stage under the placement plan with fsdp on, each
+    data-split leaf is gathered over ``data`` once a step, before the first
+    microbatch, and its gradient reduce-scattered once after the last
+    (``parallel/pipeline.py``).  ``--no-fsdp`` runs the stages without it
+    (``"program": "pipeline"``: the shards under the plan with fsdp off).
+    Each figure is the larger of the two stages'; each stage's figures are
+    under ``stages``.
   * single x train: the port's plain data-parallel step (``DataParallelLoss``
     and the AdamW update) on one rank of the (16, 16) mesh: its ``data``
     share of the global batch through a ``MetaTransport``.  For the
@@ -70,8 +76,8 @@ reduce-scatter and an all-gather once, and sends as ``collective-permute``;
 f32 parameters a device would hold under the placement plan
 (``make_param_shardings``: fsdp by default for train shapes, ``--no-fsdp``,
 ``--relayout``'s head-aligned (256 / tp, tp) mesh).  ``--no-fsdp`` also
-turns FSDP off in the single x train program; ``--relayout`` changes only
-that number.
+turns FSDP off in both train programs; ``--relayout`` changes only that
+number.
 
 The roofline's seconds are at one H100 SXM's published peaks at 700 W
 (``kernels/cost.py``: 989e12 FLOP/s bf16, 3.35e12 B/s HBM); a collective is
@@ -306,14 +312,16 @@ def train_batch(cfg, batch: int, seq: int) -> Dict[str, torch.Tensor]:
     return {"tokens": meta((batch, seq), torch.int32)}
 
 
-def train_program(cfg, mesh: Mesh, batch: Dict[str, torch.Tensor], *, boundary: str = "striped"
-                  ) -> Tuple[Callable[[], Any], Any, MetaTransport]:
+def train_program(cfg, mesh: Mesh, batch: Dict[str, torch.Tensor], *, boundary: str = "striped",
+                  fsdp: bool = False) -> Tuple[Callable[[], Any], Any, MetaTransport]:
     """(step, its arguments, the transport) of ``mesh.rank``'s pipelined train
     step on ``meta``: its stage of the whole model's f32 parameters
     (``stage_params``), cut to its shards where ``tensor_parallel.model_plan``
-    gives a plan (the launcher's rule), zero moments, and ``make_train_step``
-    over a ``PipelineLoss`` with a ``MetaTransport``, on the global ``batch``."""
-    plan = model_plan(cfg, mesh)
+    gives a plan (the launcher's rule; with ``fsdp`` the plan with fsdp on,
+    the reference's dry-run's, and the stages FSDP over ``data``), zero
+    moments, and ``make_train_step`` over a ``PipelineLoss`` with a
+    ``MetaTransport``, on the global ``batch``."""
+    plan = model_plan(cfg, mesh, fsdp=fsdp)
     params = stage_params(meta_params(build_model(cfg)), cfg, mesh)
     if plan is not None:
         params = shard_params(params, mesh, plan)
@@ -504,13 +512,13 @@ def run_one(arch: str, shape: str, mesh_name: str, boundary: str = "striped",
         figs = {}
         for stage in range(mesh.shape["pod"]):
             rank_mesh = Mesh(mesh_shape, names, mesh.rank_at(pod=stage))
-            fn, args, transport = train_program(cfg, rank_mesh, batch, boundary=boundary)
+            fn, args, transport = train_program(cfg, rank_mesh, batch, boundary=boundary, fsdp=fsdp)
             counted = count(fn, args)
             figs[str(stage)] = _figures(counted, collectives(transport.counts(), rank_mesh))
             del fn, args
         top = _larger(figs)
-        result.update(program="pipeline", tensor_parallel=model_plan(cfg, mesh) is not None, n_micro=N_MICRO,
-                      fsdp=False, ranks_busy=ranks, stages=figs)  # FSDP inside the stages: ROADMAP 7f-ii
+        result.update(program="pipeline" + ("+fsdp" if fsdp else ""), tensor_parallel=model_plan(cfg, mesh) is not None,
+                      n_micro=N_MICRO, fsdp=fsdp, ranks_busy=ranks, stages=figs)
     else:
         rows = -(-s["global_batch"] // ranks)
         fn, args = serve_program(cfg, kind, rows, s["seq_len"])
@@ -728,8 +736,8 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None, choices=["single", "multi", None])
     ap.add_argument("--boundary", default="striped", choices=["striped", "direct"])
     ap.add_argument("--no-fsdp", action="store_true",
-                    help="paper-faithful model-axis-only param sharding: plan_bytes_per_device, and the single x "
-                         "train step without FSDP")
+                    help="paper-faithful model-axis-only param sharding: plan_bytes_per_device, and both train "
+                         "programs without FSDP")
     ap.add_argument("--relayout", action="store_true",
                     help="head-aligned single-pod mesh re-layout (plan_bytes_per_device only)")
     ap.add_argument("--wan-preset", default=None, choices=["azure", "skewed", "star", "chain"],

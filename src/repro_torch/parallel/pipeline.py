@@ -51,13 +51,36 @@ Without a plan (the pure Mamba2 stack, ROADMAP 7b-v) the ``model`` ranks
 compute the same numbers, as the reference's fully manual fall-back does
 ("the model axis carrying replicas").
 
+FSDP over ``data`` inside the stages (a ``plan`` that splits leaves over
+``data`` as well, ``model_plan(cfg, mesh, fsdp=True)``, the reference's
+dry-run's placement of its train shapes, on a ``data`` axis of more than 1):
+each rank holds its ``data`` block of its ``model`` shard of its stage's rows
+of such a leaf, and of ``embed``, ``lm_head`` and the hybrid's
+``shared_attn`` where the plan splits them.  The reference's region is manual
+over ``{pod, data}`` and takes its layers as ``P("pod")`` and ``rest`` as
+``P()``, so over ``data`` it sees each stage whole: GSPMD gathers each
+data-split leaf once a call, where the region is entered, and the gradient
+leaves it as the sum over ``data``, put back on the fsdp spec.  So here: once
+a step, before the first microbatch, each such leaf is all-gathered over
+``data`` outside autograd, and the gathered leaves are what the microbatches
+read and what their gradients accumulate into; after the last microbatch's
+backward each one's gradient is reduce-scattered over ``data`` to this rank's
+block, one call a leaf.  Not a layer's gather inside remat, as on the plain
+step (``parallel/fsdp.py``): here that would gather each layer twice a
+microbatch and reduce-scatter once a microbatch.  The models' own gathers
+(``fsdp.gather_layer``, ``gather_leaf``) stay the identity, as no ``fsdp``
+context is entered.  A ``model`` axis of 1, which the fsdp plan names too,
+splits nothing over ``model``.
+
 Loss and gradients: the loss is the sum over this rank's microbatches of
 ``final_loss`` (last stage only) plus the layers' aux, summed over ``pod``
 and ``data`` and divided by n_micro * DP.  Layer gradients are summed over
 ``data``; the gradients of ``rest`` over ``data`` and ``pod`` (the transpose
 of the replicated input).  Under a plan each is this rank's block; a leaf the
 plan leaves whole (the norm scales) has its whole gradient on every ``model``
-rank, the same bits on each.  Gradients are f32, as the f32 parameters.
+rank, the same bits on each; under FSDP a data-split leaf's block is its
+part of the reduce-scatter, the same sums as the all-reduce's.  Gradients are
+f32, as the f32 parameters.
 
 Non-divisible layer counts (deepseek-v2-lite: 27, zamba2: 9 groups) are
 padded with exact-identity zero layers (residual blocks with zero weights add
@@ -85,6 +108,7 @@ from repro_torch.models.transformer import (
     build_pipeline_parts,
 )
 from repro_torch.optim.optimizer import OptState
+from repro_torch.parallel import fsdp
 from repro_torch.parallel import tensor_parallel as tp
 from repro_torch.parallel.sharding import unshard
 from repro_torch.parallel.transport import Transport
@@ -176,11 +200,18 @@ def gather_train_state(params: Params, opt_state, cfg: ModelConfig, mesh,
     to point, CPU tensors, nothing through the card); it puts the blocks of
     each stage together (``unshard``) and the stages in layer order
     (``assemble_params``).  Every other leaf, its moments and ``.step`` are
-    rank 0's.  No rank's rows or block are ever written as a whole leaf.  The
+    rank 0's.  No rank's rows or block are ever written as a whole leaf: a
+    state that FSDP splits over ``data`` (on a ``data`` axis of more than 1)
+    is refused before any collective.  The
     leaves that are not gathered are replicated: before the gather every
     rank's sums of their bit patterns are held equal over the world
     (all-reduced as a minimum and a maximum), and a rank that differs raises
     on every rank."""
+    if mesh.shape.get(fsdp.AXIS, 1) > 1 and fsdp.data_dims(plan):
+        raise NotImplementedError(
+            f"{cfg.name}: a state that FSDP splits over data on the mesh {dict(mesh.shape)}: gather_train_state "
+            "collects at data 0 only, and checkpoints of an FSDP state are not ported (ROADMAP Queue 1, 7f, "
+            "\"Not done\")")
     trees = {"params": params, "mu": opt_state.mu, "nu": opt_state.nu}
     staged, split = _pieces(cfg, mesh, plan)
     replicated = [opt_state.step] + [t for tree in trees.values() for p, t in flatten(tree).items()
@@ -265,7 +296,9 @@ class PipelineLoss:
     what this rank has sent.  ``transport`` is a ``Transport`` over ``mesh``
     by default; the dry-run gives a ``MetaTransport``.  ``plan`` (the whole
     model's, ``tensor_parallel.model_plan``) turns tensor parallelism over
-    ``model`` on inside the stages: ``params`` are then this rank's shards of
+    ``model`` on inside the stages where it splits leaves over a ``model``
+    axis of more than 1, and FSDP over ``data`` where it splits leaves over a
+    ``data`` axis of more than 1: ``params`` are then this rank's shards of
     its stage (``shard_params`` of ``stage_params``)."""
 
     def __init__(self, cfg: ModelConfig, mesh, n_micro: int = 4, boundary: str = "striped",
@@ -281,8 +314,10 @@ class PipelineLoss:
         if boundary == "striped" and cfg.d_model % self.TP:
             raise ValueError(f"striped boundary: d_model {cfg.d_model} is not split by the model axis {self.TP}")
         self.transport = Transport(mesh) if transport is None else transport
-        self.tp = tp.TPContext(mesh, self.transport, plan) if plan is not None else None
-        self.split = tp.split_paths(plan)
+        tp_on = plan is not None and self.TP > 1  # the fsdp plan on (pod, data, 1) names model too
+        self.tp = tp.TPContext(mesh, self.transport, plan) if tp_on else None
+        self.split = tp.split_paths(plan) if tp_on else set()
+        self.gathered = fsdp.data_dims(plan) if self.DP > 1 else {}  # path -> its dim split over data
 
     # ---- the stage boundary ----------------------------------------------
 
@@ -315,6 +350,11 @@ class PipelineLoss:
             return slice(k * rows_per, (k + 1) * rows_per)
 
         flat = flatten(params)
+        if self.gathered:  # once a step, where the reference's region is entered; the gathered leaves take the grads
+            with torch.no_grad():
+                flat = {p: self.transport.all_gather(t, "data", self.gathered[p]) if p in self.gathered else t
+                        for p, t in flat.items()}
+            params = unflatten(flat)
         for t in flat.values():
             t.requires_grad_(True)
             t.grad = None
@@ -378,16 +418,24 @@ class PipelineLoss:
         return total * scale, grads
 
     def _reduce(self, grads: Dict[str, torch.Tensor], key: str) -> None:
-        """Layer gradients summed over ``data``; ``rest``'s over ``data``, then
-        ``pod``.  Each set travels as one flat buffer."""
-        layer_paths = [p for p in grads if p.split("/", 1)[0] == key]
-        rest_paths = [p for p in grads if p.split("/", 1)[0] != key]
+        """Under FSDP each gathered leaf's gradient reduce-scattered over
+        ``data`` to this rank's block, one call a leaf.  Then the layer
+        gradients whole over ``data`` summed over it; ``rest``'s over
+        ``data`` (those whole over it), then all of ``rest``'s over ``pod``.
+        Each set travels as one flat buffer, ``rest``'s whole leaves first."""
+        for p, dim in self.gathered.items():
+            grads[p] = self.transport.reduce_scatter(grads[p], "data", dim)
+        layer_paths = [p for p in grads if p.split("/", 1)[0] == key and p not in self.gathered]
+        rest_paths = sorted((p for p in grads if p.split("/", 1)[0] != key), key=lambda p: p in self.gathered)
         for paths, axes in ((layer_paths, ("data",)), (rest_paths, ("data", "pod"))):
             if not paths or all(self.mesh.shape[a] == 1 for a in axes):
                 continue
             buf = torch.cat([grads[p].reshape(-1) for p in paths])
+            whole = sum(grads[p].numel() for p in paths if p not in self.gathered)
             for axis in axes:
-                self.transport.all_reduce(buf, axis)
+                part = buf[:whole] if axis == "data" and whole < buf.numel() else buf
+                if part.numel():
+                    self.transport.all_reduce(part, axis)
             for p, piece in zip(paths, buf.split([grads[p].numel() for p in paths])):
                 grads[p] = piece.view(grads[p].shape)
 
@@ -396,13 +444,22 @@ class PipelineLoss:
         squares summed over ``pod``, plus ``rest``'s counted once (every rank
         holds the same).  Without a plan the ``model`` ranks are replicas;
         under one the squares of the split leaves' blocks are summed over
-        ``model`` first, and the whole leaves' counted once."""
+        ``model`` first, and the whole leaves' counted once; under FSDP the
+        squares of the data-split blocks are summed over ``data`` before
+        that."""
         key = self.parts.layer_key
         zero = torch.zeros((), dtype=torch.float32, device=next(iter(grads.values())).device)
         sq = {(layer, split): zero for layer in (True, False) for split in (True, False)}
+        data_sq = dict(sq)  # the data-split blocks' squares, by the same key
         for path, g in grads.items():
             at = (path.split("/", 1)[0] == key, path in self.split)
-            sq[at] = sq[at] + g.float().square().sum()
+            if path in self.gathered:
+                data_sq[at] = data_sq[at] + g.float().square().sum()
+            else:
+                sq[at] = sq[at] + g.float().square().sum()
+        if self.gathered:
+            summed = self.transport.all_reduce(torch.stack(list(data_sq.values())), "data")
+            sq = {at: sq[at] + s for at, s in zip(data_sq, summed)}
         if self.split:
             blocks = self.transport.all_reduce(torch.stack([sq[True, True], sq[False, True]]), "model")
             layer_sq, rest_sq = blocks[0] + sq[True, False], blocks[1] + sq[False, False]
@@ -415,6 +472,7 @@ class PipelineLoss:
 def make_pipeline_loss(cfg: ModelConfig, mesh, *, n_micro: int = 4, boundary: str = "striped",
                        plan: Optional[Dict] = None) -> PipelineLoss:
     """Build loss(params, batch) -> (loss, grads) running PP over the mesh's
-    ``pod`` axis, and with ``plan`` TP over ``model`` inside each stage."""
+    ``pod`` axis, and with ``plan`` TP over ``model`` inside each stage (and
+    FSDP over ``data`` where the plan splits leaves over it)."""
     return PipelineLoss(cfg, mesh, n_micro, boundary, plan=plan)
 

@@ -158,7 +158,8 @@ def full_results(tmp_path_factory):
     out = tmp_path_factory.mktemp("dryrun")
     results = {}
     for arch, shape, mesh in FULL:
-        r = dryrun.run_one(arch, shape, mesh)
+        # without FSDP, as before 7f-ii: multi x train's FSDP default is held in test_torch_dryrun_pipeline_fsdp.py
+        r = dryrun.run_one(arch, shape, mesh, fsdp=False)
         results[(arch, shape, mesh)] = r
         (out / f"{arch}_{shape}_{mesh}_striped.json").write_text(json.dumps(r))
     return out, results
