@@ -10,7 +10,9 @@ emulation), so a decode step reads every expert's weights.
 Nothing here syncs with the host: the dropped assignments are written to one
 extra slot an expert that is cut away, and the combine sums each token's K
 contributions in a fixed order (ascending expert id, the reference's slot
-order), with no float atomics.
+order), with no float atomics; the dispatch's backward sums them in the same
+order (``_TokenRows``), so two identical calls give the same bits on the card
+too.
 
 Under tensor parallelism (``parallel/tensor_parallel.py``) the experts are
 split over ``model`` as the reference's ``MOE_RULES`` place them, and the
@@ -120,13 +122,16 @@ def moe_apply(params: Params, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.
     pos_in_e = torch.arange(NK, device=x.device)[None] - starts.gather(1, sorted_e)
     token_idx = order // K  # (B, NK)
     keep = pos_in_e < C
+    # each token's K slots in ascending slot order (= ascending expert id): the dispatch's backward and the
+    # combine sum a token's K parts in this order
+    slot_of = torch.argsort(order, dim=1).reshape(B, T, K).sort(dim=-1).values
 
     split = _expert_split()
     xs = x if split is None else tp.copy_in(x)
     bidx = torch.arange(B, device=x.device)[:, None]
     # rows of a (B, E, C + 1) buffer; a dropped assignment goes to slot C, which is cut away
     dest = (bidx * E + sorted_e) * (C + 1) + torch.where(keep, pos_in_e, C)
-    src = xs.gather(1, token_idx[..., None].expand(B, NK, d))  # (B, NK, d)
+    src = _TokenRows.apply(xs, token_idx, slot_of)  # (B, NK, d)
     buf = xs.new_zeros((B * E * (C + 1), d)).index_copy(0, dest.reshape(-1), src.reshape(-1, d))
     buf = buf.reshape(B, E, C + 1, d)[:, :, :C]
     if split == "experts":  # this rank's experts: its rows of the buffer
@@ -146,8 +151,6 @@ def moe_apply(params: Params, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.
     vals = torch.where(keep[..., None], vals, torch.zeros((), dtype=vals.dtype, device=x.device))
     contrib = (vals * w[..., None]).float()  # (B, NK, d), rounded to x's dtype before the f32 sum
 
-    # each token's K slots in ascending slot order (= ascending expert id), summed in that order
-    slot_of = torch.argsort(order, dim=1).reshape(B, T, K).sort(dim=-1).values
     parts = contrib.gather(1, slot_of.reshape(B, NK)[..., None].expand(B, NK, d)).reshape(B, T, K, d)
     y = parts[:, :, 0]
     for j in range(1, K):
@@ -157,6 +160,28 @@ def moe_apply(params: Params, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.
     if m.num_shared_experts:
         y = y + _shared_expert(params["shared"], x)
     return y, aux
+
+
+class _TokenRows(torch.autograd.Function):
+    """Each sorted slot's token row, ``x.gather(1, token)`` (B, NK, d).  A
+    gather's own backward scatter-adds a token's K gradients, with float
+    atomics on the card, in an order that changes from call to call; this
+    one gathers them from their slots ``slot_of`` (B, T, K) and sums them in
+    that order, as the CPU's scatter-add does, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, token: torch.Tensor, slot_of: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(slot_of)
+        return x.gather(1, token[..., None].expand(*token.shape, x.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (slot_of,) = ctx.saved_tensors
+        B, T, K = slot_of.shape
+        gx = g.gather(1, slot_of[..., 0, None].expand(B, T, g.shape[-1]))
+        for k in range(1, K):
+            gx = gx + g.gather(1, slot_of[..., k, None].expand(B, T, g.shape[-1]))
+        return gx, None, None
 
 
 def _expert_split():
