@@ -69,14 +69,15 @@ it replays.  Two ranks then train GPT-A with 2 layers data-parallel (step 0
 held against accumulation, the replicas bit-equal after), and RWKV-6 7B (2 of
 its 32 layers, by heads: K4 and its backward at 32 of 64 heads a rank) and
 Zamba2-2.7B (6 of its 54 layers, as the reference's plan places it: w_z and
-w_x on d, conv_x on its taps, the shared block at 16 of 32 heads)
-tensor-parallel on (data, model) = (1, 2), each held against each rank's
-replicated call; and it runs the five examples of ``repro_torch.examples``
+w_x on d, conv_x on its taps, the shared block at 16 of 32 heads) and the
+pure Mamba2 stack at Zamba2-2.7B's widths (6 layers, by heads: 40 of 80 a
+rank) tensor-parallel on (data, model) = (1, 2), each held against each
+rank's replicated call; and it runs the five examples of ``repro_torch.examples``
 through their mains (``whatif``, ``bubbletea_serve``, ``quickstart``,
 ``train_100m``, ``geo_train`` on eight ranks), each's launches counted.  For each path it checks by
 the kernels' launch counters that it really went through the kernels, and
 compares the kernel path's logits, or loss and gradients, with the plain
-path's.  Fifteen of its steps are also held against the port's dry-run
+path's.  Sixteen of its steps are also held against the port's dry-run
 (``repro_torch.launch.dryrun``), predicted on ``meta`` from the config alone
 in a background process: argument bytes, launches and transport bytes
 exactly, the peak within max(3 %, 256 MiB); phase ``dryrun`` adds three
@@ -2497,8 +2498,8 @@ DRYRUN_LINES: list = []  # every comparison made in this process, for phase dryr
 # RWKV-6's train steps, rank 0's pipelined calls (GPT-A (2, 1, 2) on both
 # boundaries and FSDP on (2, 2, 1), and on (2, 1, 2) striped RWKV-6,
 # DeepSeek-V2-Lite pinned and Zamba2), its tensor-parallel calls in train_tp,
-# train_fsdp, train_tp_moe (pinned) and train_tp_recurrent (two)
-DRYRUN_CHECKS = 15
+# train_fsdp, train_tp_moe (pinned) and train_tp_recurrent (three)
+DRYRUN_CHECKS = 16
 BACKGROUND: list = []  # the processes this script started and has not yet waited for
 KERNEL_KEYS = tuple(name for name, *_ in KERNELS)
 _PREDICTED: dict = {}
@@ -2563,8 +2564,9 @@ def dryrun_steps() -> dict:
     steps[FSDP_CHECK] = functools.partial(tensor_parallel, train_config(TP_LAYERS, torch.bfloat16), TP_MESH, TP_BATCH,
                                           fsdp=True)
     steps[TP_MOE_CHECK] = functools.partial(tensor_parallel, tp_moe_config(), TP_MESH, TP_MOE_BATCH)
-    for arch, layers, _, check in TP_REC_MODELS:
-        steps[check] = functools.partial(tensor_parallel, tp_rec_config(arch, layers), TP_REC_MESH, TP_REC_BATCH)
+    for arch, layers, _, check, family in TP_REC_MODELS:
+        steps[check] = functools.partial(tensor_parallel, tp_rec_config(arch, layers, family), TP_REC_MESH,
+                                         TP_REC_BATCH)
     return steps
 
 
@@ -4392,47 +4394,78 @@ def hold_tp_moe(cfg, ranks: list, spawn: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase train_tp_recurrent: RWKV-6 and the Zamba2 hybrid split over model (slice 7b-iii)
+# phase train_tp_recurrent: RWKV-6, the Zamba2 hybrid and the pure Mamba2 stack split over model (7b-iii, 7b-v)
 # ---------------------------------------------------------------------------
 
-# Two models at full width on (data, model) = (1, 2), two gloo ranks sharing
+# Three models at full width on (data, model) = (1, 2), two gloo ranks sharing
 # the card, each model in turn: RWKV-6 7B with 2 of its 32 layers, split by
 # heads (K4 and its backward on 32 of the 64 heads a rank; the channel mix on
-# d_ff and d), and Zamba2-2.7B with 6 of its 54 layers (1 group), split as
-# the reference's plan places it: w_z and w_x on d, conv_x on 2 of its 4 taps,
+# d_ff and d); Zamba2-2.7B with 6 of its 54 layers (1 group), split as the
+# reference's plan places it: w_z and w_x on d, conv_x on 2 of its 4 taps,
 # the rest of each Mamba2 layer whole (ROADMAP Queue 3 (p)), the shared block
-# at 16 of 32 heads of 80 (K2 and its backward).  `data` x `model` is held by
-# train_tp and train_tp_moe; two ranks keep this phase short.
+# at 16 of 32 heads of 80 (K2 and its backward); and the pure Mamba2 stack at
+# Zamba2-2.7B's widths (family "ssm", as the reference's _build_ssm builds it)
+# with 6 layers, split by heads: 40 of the 80 heads of 64 a rank, w_z, w_x and
+# conv_x on d_inner, w_out and norm_scale on their rows, the gated norm's
+# statistic summed over model (plain torch: K1 takes whole rows only, so K1
+# runs on the layers' `ln` and the final norm alone).  `data` x `model` is
+# held by train_tp and train_tp_moe; two ranks keep this phase short.
 TP_REC_MESH = ((1, 2), ("data", "model"))
 TP_REC_STEPS, TP_REC_BATCH = 2, 4
-# arch, layers, lr (the single-process phases'), the dry-run's prediction of rank 0's held call
-TP_REC_MODELS = (("rwkv6_7b", 2, RWKV_TRAIN_LR, "tp_rwkv_1x2"), ("zamba2_2p7b", 6, HYBRID_TRAIN_LR, "tp_zamba_1x2"))
-TP_REC_REDUCED = {"num_layers": "32 -> 2 (rwkv6-7b), 54 -> 6 (zamba2-2.7b: 1 of 9 groups)",
+# arch, layers, lr (the single-process phases'), the dry-run's prediction of
+# rank 0's held call, the family where it is not the arch's
+TP_REC_MODELS = (("rwkv6_7b", 2, RWKV_TRAIN_LR, "tp_rwkv_1x2", None),
+                 ("zamba2_2p7b", 6, HYBRID_TRAIN_LR, "tp_zamba_1x2", None),
+                 ("zamba2_2p7b", 6, HYBRID_TRAIN_LR, "tp_pure_1x2", "ssm"))
+TP_REC_REDUCED = {"num_layers": "32 -> 2 (rwkv6-7b), 54 -> 6 (zamba2-2.7b: 1 of 9 groups), 54 -> 6 (the pure Mamba2 "
+                                "stack at zamba2-2.7b's widths)",
                   "why": "two ranks share the card's 80 GB with the phase's time: each makes the whole model "
-                         "(3.90 and 1.87 GB of f32 parameters) from the seed and holds the replicated control's "
+                         "(3.90, 1.87 and 1.61 GB of f32 parameters) from the seed and holds the replicated control's "
                          "whole gradients beside it before it cuts its shards; Zamba2 cut from 12 layers to pay for "
-                         "the pipelined RWKV-6, DeepSeek-V2-Lite and Zamba2 runs (the pipelined Zamba2 runs 18)"}
+                         "the pipelined RWKV-6, DeepSeek-V2-Lite and Zamba2 runs (the pipelined Zamba2 runs 18); the "
+                         "pure stack, which no config of the repo is, to Zamba2's 6, to add about a minute to the "
+                         "script's 1200 s"}
+# The pure stack's f32 call against its f32 control: the split sums d_inner
+# over the ranks (w_out's output, the gated norm's statistic) where the
+# control sums it on one rank, f32 orders only
+TP_PURE_F32_TOL = {"loss_rel": 1e-5, "grad_rel": 1e-3}
 
 
 def tp_rec_owed(cfg) -> dict:
     """The launches a train step owes on a rank: RWKV-6's two norms and one
     WKV-6 recurrence a block; a Zamba2 group's two norms a Mamba2 layer and
-    the shared block's two norms and one attention (``train_owed``)."""
+    the shared block's two norms and one attention; the pure stack's one
+    norm a layer, its ``ln``: its gated norm's row is split over ``model``,
+    which the RMSNorm kernel does not take (``ssm._split_gated_norm``)
+    (``train_owed``)."""
     if cfg.rwkv is not None:
         return train_owed(2 * cfg.num_layers, 0, wkvs=cfg.num_layers)
+    if cfg.family == "ssm":
+        return train_owed(cfg.num_layers, 0)
     G, M = cfg.num_layers // cfg.attn_period, cfg.attn_period - 1
     return train_owed(G * (2 * M + 2), G)
 
 
-def tp_rec_config(arch: str, layers: int):
-    return train_config(layers, torch.bfloat16, arch)
+def tp_rec_config(arch: str, layers: int, family=None):
+    """``arch`` at full width with ``layers`` layers in bf16 activations, as
+    the family ``family`` where given (the pure stack: Zamba2's "ssm"), its
+    name then marked with it."""
+    cfg = train_config(layers, torch.bfloat16, arch)
+    return cfg if family is None else dataclasses.replace(cfg, family=family, name=f"{cfg.name}-{family}")
 
 
 def tp_rec_layout(cfg, params) -> dict:
     """What a rank holds of the split: its heads (RWKV-6's u; the shared
-    block's wq), and the hybrid's rows of w_z and taps of conv_x."""
+    block's wq; the pure stack's columns of w_z over head_dim) and the pure
+    stack's columns of w_x and conv_x and rows of w_out and norm_scale, or
+    the hybrid's rows of w_z and taps of conv_x."""
     if cfg.rwkv is not None:
         return {"heads": params["layers"]["u"].shape[1]}
+    if cfg.family == "ssm":
+        m = params["layers"]["mamba"]
+        return {"heads": m["w_z"].shape[2] // cfg.ssm.head_dim, "w_x_cols": m["w_x"].shape[2],
+                "conv_x_cols": m["conv_x"].shape[2], "w_out_rows": m["w_out"].shape[1],
+                "norm_scale": m["norm_scale"].shape[1], "A_log": m["A_log"].shape[1]}
     m = params["groups"]["mamba"]["mamba"]
     return {"heads": params["shared_attn"]["attn"]["wq"].shape[-1] // cfg.resolved_head_dim,
             "w_z_rows": m["w_z"].shape[2], "w_x_rows": m["w_x"].shape[2], "conv_x_taps": m["conv_x"].shape[2]}
@@ -4466,7 +4499,7 @@ def tp_rec_model(rank: int, mesh, cfg, lr: float, check: str, predicted) -> dict
     ref = {p: local_block(g, specs[p], mesh).clone() for p, g in c_grads.items()}
     del c_grads
     extra = {}
-    if cfg.family == "hybrid":  # the replicated call in f32 activations, the same f32 weights
+    if cfg.ssm is not None:  # Mamba2: the replicated call in f32 activations, the same f32 weights
         model32 = build_model(dataclasses.replace(cfg, dtype=torch.float32))
         f_loss, f_grads = DataParallelLoss(model32.loss, mesh)(whole, b0)
         ref32 = {p: local_block(g, specs[p], mesh).clone() for p, g in f_grads.items()}
@@ -4524,7 +4557,7 @@ def tp_rec_rank(rank: int, world: int, cfgs, predicted) -> list:
     turn, the card's cache emptied between them.  Returns their results."""
     mesh = rank_mesh(*TP_REC_MESH)
     outs = []
-    for cfg, (_, _, lr, check) in zip(cfgs, TP_REC_MODELS):
+    for cfg, (_, _, lr, check, _) in zip(cfgs, TP_REC_MODELS):
         outs.append(tp_rec_model(rank, mesh, cfg, lr, check, predicted[check]))
         release()
     return outs
@@ -4532,11 +4565,12 @@ def tp_rec_rank(rank: int, world: int, cfgs, predicted) -> list:
 
 def tp_rec_job(started) -> Job:
     """Phase train_tp_recurrent as a run of the two ranks' spawn: RWKV-6 7B
-    (2 layers) and Zamba2-2.7B (6 layers) at full width on TP_REC_MESH
-    (``tp_rec_rank``, ``hold_tp_rec``)."""
-    cfgs = [tp_rec_config(arch, layers) for arch, layers, _, _ in TP_REC_MODELS]
+    (2 layers), Zamba2-2.7B (6 layers) and the pure Mamba2 stack at its
+    widths (6 layers) at full width on TP_REC_MESH (``tp_rec_rank``,
+    ``hold_tp_rec``)."""
+    cfgs = [tp_rec_config(arch, layers, family) for arch, layers, _, _, family in TP_REC_MODELS]
     pred = predictions(started)
-    return Job(tp_rec_rank, (cfgs, {check: pred[check] for *_, check in TP_REC_MODELS}),
+    return Job(tp_rec_rank, (cfgs, {m[3]: pred[m[3]] for m in TP_REC_MODELS}),
                functools.partial(hold_tp_rec, cfgs))
 
 
@@ -4547,9 +4581,12 @@ def hold_tp_rec(cfgs, ranks: list, spawn: dict) -> dict:
     tensor-parallel call has its loss and every gradient leaf, put together
     from the ranks, within TP_TOL of the replicated control's on the same
     rank, with 32 of 64 RWKV-6 heads, or 16 of 32 shared-block heads and the
-    hybrid's w_z and w_x on half of d and conv_x on 2 of 4 taps, a rank.  The
-    hybrid's f32 calls (the same f32 weights, f32 activations) are held at
-    TRAIN_PARITY_TOL["f32"]; its bf16 gradients, which part chaotically under
+    hybrid's w_z and w_x on half of d and conv_x on 2 of 4 taps, or the pure
+    stack's 40 of 80 heads (half of d_inner in w_z, w_x, conv_x, w_out and
+    norm_scale, all 80 of A_log), a rank.  The Mamba2 models' f32 calls (the
+    same f32 weights, f32 activations) are held at TRAIN_PARITY_TOL["f32"]
+    (the hybrid) or TP_PURE_F32_TOL (the pure stack); their bf16 gradients,
+    which part chaotically under
     any change of rounding (ROADMAP Queue 3 (w2)), are held where TP_TOL
     misses as ``hold_train_parity`` holds them against a control: each leaf
     of the tensor-parallel bf16 call, measured from the replicated f32 call,
@@ -4557,7 +4594,8 @@ def hold_tp_rec(cfgs, ranks: list, spawn: dict) -> dict:
     HYBRID_GRAD_SLACK, at most HYBRID_GRAD_CAP; (b)
     the trained run's first loss is that call's; (c) the counters show
     exactly ``tp_rec_owed`` a rank a step (K4 and K4 bwd on RWKV-6's path,
-    K2 and K2 bwd on the hybrid's); (d) the leaves the plan leaves whole are
+    K2 and K2 bwd on the hybrid's, K1 and K1 bwd on the pure stack's ``ln``
+    norms alone); (d) the leaves the plan leaves whole are
     bit-equal on both ranks after the steps; rank 0's call is held against
     its dry-run.  Prints each rank's step ms, peak, and bytes and seconds a
     step by axis and op; returns each model's counters summed over the
@@ -4568,9 +4606,15 @@ def hold_tp_rec(cfgs, ranks: list, spawn: dict) -> dict:
         runs = [r[i] for r in ranks]
         owed = tp_rec_owed(cfg)
         want = {k: TP_REC_STEPS * v for k, v in owed.items()}
-        layout = ({"heads": cfg.num_heads // TP} if cfg.rwkv is not None else
-                  {"heads": cfg.num_heads // TP, "w_z_rows": cfg.d_model // TP, "w_x_rows": cfg.d_model // TP,
-                   "conv_x_taps": cfg.ssm.conv_width // TP})
+        if cfg.rwkv is not None:
+            layout = {"heads": cfg.num_heads // TP}
+        elif cfg.family == "ssm":
+            d_in = cfg.d_model * cfg.ssm.expand
+            layout = {"heads": d_in // cfg.ssm.head_dim // TP, "w_x_cols": d_in // TP, "conv_x_cols": d_in // TP,
+                      "w_out_rows": d_in // TP, "norm_scale": d_in // TP, "A_log": d_in // cfg.ssm.head_dim}
+        else:
+            layout = {"heads": cfg.num_heads // TP, "w_z_rows": cfg.d_model // TP, "w_x_rows": cfg.d_model // TP,
+                      "conv_x_taps": cfg.ssm.conv_width // TP}
         split = set(runs[0]["split"])
         total = dict.fromkeys(want, 0)
         for r in runs:
@@ -4596,16 +4640,16 @@ def hold_tp_rec(cfgs, ranks: list, spawn: dict) -> dict:
         gaps = leaf_gaps(runs, "parity", split)
         worst = max(gaps, key=gaps.get)
         limit, held = dict.fromkeys(gaps, TP_TOL["grad_rel"]), {}
-        if "f32" in runs[0]:  # the hybrid: its f32 calls, and its bf16 leaves beside the control's where TP_TOL misses
+        if "f32" in runs[0]:  # Mamba2: its f32 calls, and its bf16 leaves beside the control's where TP_TOL misses
             held["f32"] = leaf_gaps(runs, "f32", split)
             held["control_vs_f32"] = leaf_gaps(runs, "control_vs_f32", split)
             held["bf16_vs_f32"] = leaf_gaps(runs, "bf16_vs_f32", split)
             f32_loss = [abs(r["f32"]["loss"] - r["f32"]["control_loss"]) / abs(r["f32"]["control_loss"]) for r in runs]
             f32_worst = max(held["f32"], key=held["f32"].get)
-            if max(f32_loss) > TRAIN_PARITY_TOL["f32"]["loss_rel"] or \
-                    held["f32"][f32_worst] > TRAIN_PARITY_TOL["f32"]["grad_rel"]:
+            f32_tol = TP_PURE_F32_TOL if cfg.family == "ssm" else TRAIN_PARITY_TOL["f32"]
+            if max(f32_loss) > f32_tol["loss_rel"] or held["f32"][f32_worst] > f32_tol["grad_rel"]:
                 failures.append((cfg.name, "f32", f32_loss, f32_worst, held["f32"][f32_worst]))
-            held["f32_loss_rel_diff"] = f32_loss
+            held["f32_loss_rel_diff"], held["f32_tol"] = f32_loss, f32_tol
         against = gaps
         if held and gaps[worst] > TP_TOL["grad_rel"]:
             against = held["bf16_vs_f32"]

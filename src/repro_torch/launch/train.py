@@ -29,18 +29,17 @@ exactly 512 ranks).  Rank 0 prints the lines.  Without ``--pipeline`` the
 same world runs the plain step data-parallel on the host mesh (data, model)
 (``repro_torch.parallel.data_parallel``: each rank its ``data`` shard of the
 batch, the global masked mean, the gradients summed over ``data``), and on a
-``model`` axis of more than 1 tensor-parallel for the transformers, dense
-and MoE, with GQA, MQA or MLA attention, for RWKV-6 and for the Zamba2
-hybrid (``repro_torch.parallel.tensor_parallel``: each rank holds its shards
-of the parameters and moments by the reference's placement plan,
-``shard_params``; a MoE's experts split on their expert dim, or on their
-features where the expert count does not divide ``model``; RWKV-6 by heads;
-the hybrid's Mamba2 layers where the plan puts them, ``w_z`` and ``w_x`` on
-d); only the pure Mamba2 stack, which no config of the repo is, keeps whole
-replicas on the ``model`` ranks, and rank 0's ``[train]`` line then says so
-(``tp=replicated (ROADMAP 7b-v)``).  Under ``--pipeline`` the same plan
-splits these families over ``model`` inside each stage (each rank its
-stage's rows of its shards).  A checkpoint
+``model`` axis of more than 1 tensor-parallel for every family: the
+transformers, dense and MoE, with GQA, MQA or MLA attention, RWKV-6, the
+pure Mamba2 stack and the Zamba2 hybrid
+(``repro_torch.parallel.tensor_parallel``: each rank holds its shards of the
+parameters and moments by the reference's placement plan, ``shard_params``;
+a MoE's experts split on their expert dim, or on their features where the
+expert count does not divide ``model``; attention, MLA, RWKV-6 and the pure
+stack by heads, all heads on every rank where the plan cuts inside one; the
+hybrid's Mamba2 layers where the plan puts them, ``w_z`` and ``w_x`` on d).
+Under ``--pipeline`` the same plan splits every family over ``model`` inside
+each stage (each rank its stage's rows of its shards).  A checkpoint
 holds the whole, unpadded state in every case and only rank 0 writes it:
 under ``--pipeline`` the stages' rows, under tensor parallelism the split
 leaves' blocks, and under both each stage's blocks, are gathered to rank 0 on
@@ -239,8 +238,8 @@ def main(argv=None):
         mesh = (make_production_mesh if args.production_mesh else make_host_mesh)(multi_pod=args.pipeline)
         where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
         if mesh.rank == 0:
-            print(f"[train] arch={cfg.name} device={where} mesh={mesh.shape} params={cfg.param_count() / 1e6:.1f}M"
-                  f"{tp.replicated_note(cfg, mesh)}", flush=True)
+            print(f"[train] arch={cfg.name} device={where} mesh={mesh.shape} params={cfg.param_count() / 1e6:.1f}M",
+                  flush=True)
         return train(cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr, seed=args.seed,
                      log_every=args.log_every, device=device, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                      mesh=mesh, pipeline=args.pipeline, n_micro=args.n_micro, boundary=args.boundary)

@@ -333,32 +333,42 @@ def mla_apply(
     pads' queries (no valid slot) over all of it; **the cache's tensors are
     updated in place** and returned.
 
-    Under tensor parallelism (``parallel/tensor_parallel.py``) the plan splits
-    ``wq``, ``w_uk`` and ``w_uv`` on their output dim, whose columns are
-    head-major, and ``wo`` on its rows; ``w_dkv`` stays whole.  The rank
-    attends with its H / TP heads: its queries from ``copy_in(x)``, the whole
-    latent, and ``wo``'s output summed over ``model``.  The latent goes
-    through ``copy_in`` after its product, so that its gradient, partial on
-    each rank (its heads'), is summed over ``model`` before ``w_dkv``'s
-    gradient is formed from it: ``w_dkv`` is then whole and the same on every
-    rank.  Where H does not divide ``model`` this raises (the reference's
-    GSPMD re-lays the heads out there; ROADMAP Queue 1)."""
+    Under tensor parallelism (``parallel/tensor_parallel.py``, no cache) the
+    plan splits ``wq``, ``w_uk`` and ``w_uv`` on their output dim, whose
+    columns are head-major, and ``wo`` on its rows, each where ``model``
+    divides that dim; ``w_dkv`` stays whole.  Where all three are split and
+    H divides ``model`` (``_mla_split``'s local route), the rank attends with
+    its H / TP heads: its queries from ``copy_in(x)``, the whole latent, and
+    ``wo``'s output summed over ``model``.  The latent goes through
+    ``copy_in`` after its product, so that its gradient, partial on each rank
+    (its heads'), is summed over ``model`` before ``w_dkv``'s gradient is
+    formed from it: ``w_dkv`` is then whole and the same on every rank.
+    Where the plan cuts inside a head (the columns divide, H does not), the
+    re-layout GSPMD makes there: ``wq``'s output, where split, is gathered
+    after its product from ``copy_in(x)``; ``w_uk`` and ``w_uv``, where
+    split, are gathered themselves (``gather``'s backward takes the rank's
+    block of their gradient); every rank attends with all H heads from the
+    same whole latent, which therefore takes no ``copy_in``; and ``wo``,
+    where split, takes the rank's rows of its input and its output is summed
+    over ``model``."""
     m = cfg.mla
     B, T, _ = x.shape
     dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
     scale = (dn + dr) ** -0.5
-    split = _mla_split(cfg)
-    H = params["wq"].shape[-1] // (dn + dr)  # this rank's heads: all of them with no split
+    split, local = _mla_split(cfg)
+    cut = {n: split[n] == 1 and not local for n in ("wq", "w_uk", "w_uv")}  # gathered: every rank runs all heads
+    H = params["wq"].shape[-1] // (dn + dr) if local else cfg.num_heads  # this rank's heads
 
-    q = dense(params["wq"], tp.copy_in(x) if split else x).reshape(B, T, H, dn + dr)
+    q = dense(params["wq"], tp.copy_in(x) if split["wq"] == 1 else x)
+    q = (tp.gather(q, -1) if cut["wq"] else q).reshape(B, T, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     # absorb W_uk into the query: (B,T,H,dn) x (lora,H,dn) -> (B,T,H,lora)
-    w_uk = params["w_uk"].reshape(m.kv_lora_rank, H, dn)
+    w_uk = (tp.gather(params["w_uk"], -1) if cut["w_uk"] else params["w_uk"]).reshape(m.kv_lora_rank, H, dn)
     q_lat = torch.einsum("bthd,rhd->bthr", q_nope.float(), w_uk.float())
 
     dkv = dense(params["w_dkv"], x)
-    if split:  # every rank's heads read the whole latent: its gradient is summed before w_dkv's
+    if local:  # every rank's heads read the whole latent: its gradient is summed before w_dkv's
         dkv = tp.copy_in(dkv)
     ckv, k_rope = dkv[..., :m.kv_lora_rank], dkv[..., m.kv_lora_rank:]
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
@@ -389,26 +399,28 @@ def mla_apply(
     scores = torch.where(mask[:, None], scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     lat_out = torch.einsum("bhts,bsr->bthr", probs, ckv_all.float())
-    w_uv = params["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    w_uv = (tp.gather(params["w_uv"], -1) if cut["w_uv"] else params["w_uv"]).reshape(m.kv_lora_rank, H, m.v_head_dim)
     out = torch.einsum("bthr,rhv->bthv", lat_out, w_uv.float())
     out = out.reshape(B, T, H * m.v_head_dim).to(x.dtype)
-    y = dense(params["wo"], out)
-    return (tp.reduce_out(y) if split else y), new_cache
+    if split["wo"] == 0:
+        return tp.reduce_out(dense(params["wo"], out if local else tp.slice_(out, -1))), new_cache
+    return dense(params["wo"], tp.gather(out, -1) if local else out), new_cache
 
 
-def _mla_split(cfg: ModelConfig) -> bool:
-    """Whether the current tensor-parallel context splits MLA by heads (the
-    plan's ``wq``, ``w_uk`` and ``w_uv`` on their output dim, ``wo`` on its
-    rows, ``w_dkv`` whole); raises where it splits them otherwise, or where
-    the heads do not divide ``model``."""
-    dims = {n: tp.split_dim(n) for n in ("wq", "w_uk", "w_uv", "wo", "w_dkv")}
-    if all(v is None for v in dims.values()):
-        return False
-    if dims != {"wq": 1, "w_uk": 1, "w_uv": 1, "wo": 0, "w_dkv": None} or not tp.divides(cfg.num_heads):
+def _mla_split(cfg: ModelConfig) -> Tuple[dict, bool]:
+    """(the dim of each of ``wq``, ``w_uk``, ``w_uv`` and ``wo`` that the
+    current tensor-parallel context splits, whether the rank attends with its
+    own heads): the plan splits each of the first three on its output dim
+    and ``wo`` on its rows where ``model`` divides that dim, and ``w_dkv``
+    never; the heads are the rank's own where the first three are split and
+    H divides ``model``.  Raises on any other split."""
+    dims = {n: tp.split_dim(n) for n in ("wq", "w_uk", "w_uv", "wo")}
+    if any(dims[n] not in (1, None) for n in ("wq", "w_uk", "w_uv")) or dims["wo"] not in (0, None) \
+            or tp.split_dim("w_dkv") is not None:
         raise NotImplementedError(
-            f"{cfg.name}: MLA's {cfg.num_heads} heads split as {dims} over the mesh {tp.mesh_shape()}: the port "
-            "splits MLA only where the heads divide the model axis (ROADMAP Queue 1, 7b-ii's gap)")
-    return True
+            f"{cfg.name}: MLA split as {dims} (w_dkv: {tp.split_dim('w_dkv')}) over the mesh {tp.mesh_shape()}: "
+            "the plan splits wq, w_uk and w_uv on their output dim and wo on its rows, and leaves w_dkv whole")
+    return dims, all(dims[n] == 1 for n in ("wq", "w_uk", "w_uv")) and tp.divides(cfg.num_heads)
 
 
 def mla_cache_shape(cfg: ModelConfig, batch: int, max_len: int):

@@ -16,11 +16,14 @@ the state, where given, is updated in place.  The loss differentiates the
 block with no state: then it starts from zeros and writes nothing.
 
 Under tensor parallelism (``parallel/tensor_parallel.py``, the loss only) the
-plan splits the time mix by heads: ``wr``, ``wk``, ``wv``, ``wg`` and
-``w_lora_b`` on their output dim, ``w0`` on d and ``u`` on its heads, ``wo``
-on its rows; and the channel mix's ``ck`` and ``cr`` on their output dim,
-``cv`` on its rows.  The ``mu_*``, ``ln_scale`` and ``w_lora_a`` stay whole.
-A rank runs the WKV-6 recurrence on its H / TP heads.
+plan splits the time mix by heads where ``model`` divides d: ``wr``, ``wk``,
+``wv``, ``wg`` and ``w_lora_b`` on their output dim, ``w0`` on d, ``wo`` on
+its rows, and ``u`` on its heads where ``model`` divides them too; the
+channel mix's ``ck`` on its output dim and ``cv`` on its rows where ``model``
+divides d_ff, ``cr`` on its output dim where it divides d.  The ``mu_*``,
+``ln_scale`` and ``w_lora_a`` stay whole.  A rank runs the WKV-6 recurrence
+on its H / TP heads, or, where the plan cuts inside a head (d divides
+``model``, H does not), on all H heads from the gathered projections.
 """
 from __future__ import annotations
 
@@ -92,17 +95,24 @@ def rwkv6_apply(
     place, which a rematerialised block must not do.  A call under grad that
     differentiates nothing (x and params need no grad) still gets the state.
 
-    Under tensor parallelism each of ``xr``, ``xk``, ``xv``, ``xg`` and the
-    decay LoRA's ``tanh`` (after the whole ``w_lora_a``) enters its split
-    product through ``copy_in``, so that the gradients of the whole ``mu_*``
-    and ``w_lora_a`` are summed over ``model``; ``wo``'s output is summed
-    over ``model``.  In the channel mix ``xk2`` enters ``ck`` and ``cr``
-    through one ``copy_in``, ``cv``'s partial output is summed, and the
-    rank's columns of the receptance are gathered before the product."""
+    Under tensor parallelism (``_rwkv_split``) each of ``xr``, ``xk``,
+    ``xv``, ``xg`` and the decay LoRA's ``tanh`` (after the whole
+    ``w_lora_a``) enters its split product through ``copy_in``, so that the
+    gradients of the whole ``mu_*`` and ``w_lora_a`` are summed over
+    ``model``; ``wo``'s output is summed over ``model``.  On the local route
+    the rank runs its own heads.  On the cut route (H does not divide
+    ``model``) r, k, v and g are gathered after their products and the
+    log-decay, formed from the rank's columns of ``w0`` and of the LoRA's
+    output, is gathered; every rank runs all H heads with the whole ``u``,
+    and ``wo`` takes the rank's rows of its input.  In the channel mix
+    ``xk2`` enters the split ones of ``ck`` and ``cr`` through one
+    ``copy_in`` (a whole one takes ``xk2`` itself), ``cv``'s partial output
+    is summed, and the rank's columns of the receptance are gathered before
+    the product."""
     B, T, d = x.shape
     hd = cfg.rwkv.head_dim
-    split = _rwkv_split(cfg)
-    H = params["u"].shape[-2]  # this rank's heads: all of them with no split
+    route, up, rec = _rwkv_split(cfg)
+    H = params["u"].shape[-2] if route != "cut" else d // hd  # this rank's heads: all of them but on "local"
     dh = H * hd
 
     # ---- time mix ----
@@ -114,19 +124,21 @@ def rwkv6_apply(
     xw = _token_shift(xn, params["mu_w"], prev_t)
     xg = _token_shift(xn, params["mu_g"], prev_t)
 
-    if split:  # each whole input's gradient, partial on each rank (its heads'), is summed before its mu's
+    if route:  # each whole input's gradient, partial on each rank (its columns'), is summed before its mu's
         xr, xk, xv, xg = (tp.copy_in(t) for t in (xr, xk, xv, xg))
 
-    r = dense(params["wr"], xr).reshape(B, T, H, hd)
-    k = dense(params["wk"], xk).reshape(B, T, H, hd)
-    v = dense(params["wv"], xv).reshape(B, T, H, hd)
+    r, k, v = dense(params["wr"], xr), dense(params["wk"], xk), dense(params["wv"], xv)
     g = F.silu(dense(params["wg"], xg))
+    if route == "cut":  # every rank runs all the heads
+        r, k, v, g = (tp.gather(t, -1) for t in (r, k, v, g))
+    r, k, v = (t.reshape(B, T, H, hd) for t in (r, k, v))
 
     lora = torch.tanh(dense(params["w_lora_a"], xw))
-    if split:  # after w_lora_a, as MLA's latent: w_lora_a's gradient is then whole
+    if route:  # after w_lora_a, as MLA's latent: w_lora_a's gradient is then whole
         lora = tp.copy_in(lora)
     w_dd = dense(params["w_lora_b"], lora).float()
-    logw = (-torch.exp(params["w0"] + w_dd)).reshape(B, T, H, hd)  # f32, <= 0
+    logw = -torch.exp(params["w0"] + w_dd)  # f32, <= 0
+    logw = (tp.gather(logw, -1) if route == "cut" else logw).reshape(B, T, H, hd)
 
     loss_path = state is None and kops._differentiated(x, *params.values())
     if state is None and not loss_path:
@@ -138,8 +150,11 @@ def rwkv6_apply(
         state["shift_t"].copy_(xn[:, -1])
 
     y = y.reshape(B, T, dh).to(x.dtype) * g.to(x.dtype)
-    o = dense(params["wo"], y)
-    x = x + (tp.reduce_out(o) if split else o)
+    if route:  # wo split on its rows
+        o = tp.reduce_out(dense(params["wo"], y if route == "local" else tp.slice_(y, -1)))
+    else:
+        o = dense(params["wo"], y)
+    x = x + o
     del o  # not kept alive through the channel mix: a prefill's peak counts it
 
     # ---- channel mix ----
@@ -147,34 +162,40 @@ def rwkv6_apply(
     xk2 = _token_shift(xn2, params["mu_ck"], None if loss_path else state["shift_c"])
     if not loss_path:
         state["shift_c"].copy_(xn2[:, -1])
-    if split:
-        xk2 = tp.copy_in(xk2)
-    h = torch.square(torch.relu(dense(params["ck"], xk2)))
-    kv, rr = dense(params["cv"], h), torch.sigmoid(dense(params["cr"], xk2))
-    if split:
-        kv, rr = tp.reduce_out(kv), tp.gather(rr, -1)
+    xs = tp.copy_in(xk2) if up or rec else xk2
+    h = torch.square(torch.relu(dense(params["ck"], xs if up else xk2)))
+    kv, rr = dense(params["cv"], h), torch.sigmoid(dense(params["cr"], xs if rec else xk2))
+    if up:
+        kv = tp.reduce_out(kv)
+    if rec:
+        rr = tp.gather(rr, -1)
     cm = kv * rr
     del kv, rr  # not kept alive through the residual's sum
     return x + cm, state
 
 
-_SPLIT = {"wr": 1, "wk": 1, "wv": 1, "wg": 1, "wo": 0, "w0": 0, "u": 0, "w_lora_a": None, "w_lora_b": 1,
-          "ck": 1, "cv": 0, "cr": 1}  # the plan's dims where it splits RWKV-6 by heads
+# the plan's dims where it splits the time mix by heads; ``u``'s only where model divides H too
+_TIME = {"wr": 1, "wk": 1, "wv": 1, "wg": 1, "wo": 0, "w0": 0, "w_lora_a": None, "w_lora_b": 1}
 
 
-def _rwkv_split(cfg: ModelConfig) -> bool:
-    """Whether the current tensor-parallel context splits the block by heads,
-    as the plan does (``_SPLIT``); raises where it splits it otherwise, or
-    where the heads do not divide ``model``."""
-    dims = {n: tp.split_dim(n) for n in _SPLIT}
-    if all(v is None for v in dims.values()):
-        return False
-    H = cfg.d_model // cfg.rwkv.head_dim
-    if dims != _SPLIT or not tp.divides(H):
+def _rwkv_split(cfg: ModelConfig) -> Tuple[Optional[str], bool, bool]:
+    """(the time mix's route, whether ``ck`` and ``cv`` are split on d_ff,
+    whether ``cr`` is split on its output dim) in the current tensor-parallel
+    context, as the plan splits them where ``model`` divides the dim: the
+    route None where the time mix is whole, "local" where it is split by
+    heads and ``u`` on its heads (H divides ``model``), "cut" where it is
+    split and ``u`` whole (H does not divide it).  Raises on any other
+    split."""
+    dims = {n: tp.split_dim(n) for n in tuple(_TIME) + ("u", "ck", "cv", "cr")}
+    time = {n: dims[n] for n in _TIME}
+    up, rec = (dims["ck"], dims["cv"]), dims["cr"]
+    if time not in (_TIME, dict.fromkeys(_TIME)) or dims["u"] not in ((0, None) if time["wr"] else (None,)) \
+            or up not in ((1, 0), (None, None)) or rec not in (1, None):
         raise NotImplementedError(
-            f"{cfg.name}: RWKV-6's {H} heads split as {dims} over the mesh {tp.mesh_shape()}: the port splits "
-            "RWKV-6 only where its heads divide the model axis (ROADMAP Queue 1, 7b-iii)")
-    return True
+            f"{cfg.name}: RWKV-6 split as {dims} over the mesh {tp.mesh_shape()}: the plan splits the time mix "
+            "by heads (u where the heads divide model), ck and cv on d_ff and cr on its output dim")
+    route = None if time["wr"] is None else ("local" if dims["u"] == 0 else "cut")
+    return route, up == (1, 0), rec == 1
 
 
 def rwkv6_state_shape(cfg: ModelConfig, batch: int):

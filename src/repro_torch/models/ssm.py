@@ -13,20 +13,27 @@ the within-chunk decays are masked with -inf above the diagonal, and
 ``ltot - lcum`` and ``lcum`` are sums of dt * A <= 0.
 
 The gated RMS norm goes through ``modules.rmsnorm`` (the RMSNorm kernel on the
-card), which is term for term the reference's inline expression.
+card), which is term for term the reference's inline expression, wherever a
+rank holds whole rows of it.
 
 Parameters are stacked on leading axes (``lead``: (L,) in the SSM stack, (G, M)
 in the hybrid's groups) with the reference's keys; a state, where given, is
 updated in place.
 
 Under tensor parallelism (``parallel/tensor_parallel.py``, the loss only) the
-block runs as the reference's plan places the hybrid's (G, M)-stacked leaves,
-each rule one dim to the left of its docstring's head split (ROADMAP Queue 3
-(p)): ``w_z`` and ``w_x`` split on d, their contracting dim, and ``conv_x`` on
-its taps where ``model`` divides them; ``w_bc``, ``w_dt``, ``conv_bc``, the
-SSD's leaves, the gated norm and ``w_out`` stay whole, and so does the SSD's
-work, on every rank.  The pure stack's head split (the plan's rules where they
-land) is not run (ROADMAP Queue 1, 7b-v).
+block runs as the reference's plan places its leaves (``_mamba_split``):
+  * the pure stack's (L,)-stacked leaves by heads, as the reference's
+    docstring lays them out: ``w_z``, ``w_x`` and ``conv_x`` on d_inner,
+    ``w_out`` on its rows and ``norm_scale`` on its features; ``w_bc``,
+    ``w_dt``, ``conv_bc``, ``A_log``, ``D`` and ``dt_bias`` whole.  Where
+    ``model`` divides the heads a rank runs the SSD on its own heads, and
+    the gated norm's statistic, whose row is split across the ranks, is
+    summed over ``model``; where it divides d_inner but not the heads, z and
+    the convolved x are gathered and every rank runs all the heads;
+  * the hybrid's (G, M)-stacked leaves one dim to the left of that head
+    split (ROADMAP Queue 3 (p)): ``w_z`` and ``w_x`` on d, their contracting
+    dim, and ``conv_x`` on its taps where ``model`` divides them; the rest of
+    the layer and the SSD's work stay whole, on every rank.
 """
 from __future__ import annotations
 
@@ -139,6 +146,17 @@ def _ssd_chunked(x, B, C, dt, A, chunk: int, h0: Optional[torch.Tensor] = None):
     return (y_intra + y_inter).reshape(b, T, H, Pd), h
 
 
+def _split_gated_norm(scale: torch.Tensor, yz: torch.Tensor, width: int, eps: float = 1e-6) -> torch.Tensor:
+    """The gated RMS norm of a row split over ``model``: yz (..., width /
+    TP) is this rank's part and ``scale`` its features.  The statistic, the
+    f32 sum of squares over the whole row, is all-reduced forward and its
+    gradient all-reduced backward (``reduce_out(copy_in(.))``): every rank's
+    features read it.  Plain torch: the RMSNorm kernel takes whole rows."""
+    yf = yz.float()
+    ss = tp.reduce_out(tp.copy_in(yf.square().sum(-1, keepdim=True)))
+    return (yf * torch.rsqrt(ss / width + eps) * scale).to(yz.dtype)
+
+
 def mamba2_apply(
     params: Params, cfg: ModelConfig, x: torch.Tensor, state: Optional[Params] = None,
 ) -> Tuple[torch.Tensor, Params]:
@@ -150,7 +168,21 @@ def mamba2_apply(
     zeros to a multiple of ``chunk`` (dt = 0 there leaves the state as it is)
     and y cut back to T; one token with a state takes the recurrence.
 
-    Under tensor parallelism (no state) ``w_z`` and ``w_x`` take the rank's
+    Under tensor parallelism (no state), by heads (the pure stack): ``w_z``
+    and ``w_x`` take ``copy_in(x)`` and give the rank's columns of d_inner,
+    which the depthwise ``conv_x`` convolves with no transport; ``w_bc``,
+    ``w_dt`` and ``conv_bc`` compute whole.  Where the rank runs its own
+    heads, B and C enter the SSD through ``copy_in`` after ``conv_bc``, so
+    that the heads' partial gradients reach both whole leaves summed; dt
+    (after ``dt_bias``), A and D are cut to the rank's heads with ``slice_``,
+    whose backward gathers their gradients whole; the gated norm sums its
+    statistic over ``model`` (``_split_gated_norm``) and ``w_out``'s
+    partial output is summed.  Where the heads do not divide ``model``, z
+    and the convolved x are gathered, every rank runs all heads with B, C,
+    dt, A and D as they are, the gated norm takes the gathered
+    ``norm_scale`` (the RMSNorm kernel, whole rows), and ``w_out`` takes the
+    rank's rows of its input and its output is summed.
+    The hybrid's split (``w_z`` and ``w_x`` on d): they take the rank's
     columns of x (one ``slice_`` for both) and their partial outputs are
     summed over ``model``; where ``conv_x`` is split on its taps the rank
     convolves ``copy_in(xs)`` with its taps at their global offsets and the
@@ -158,19 +190,21 @@ def mamba2_apply(
     s = cfg.ssm
     B_, T, d = x.shape
     d_in = d * s.expand
-    nheads = d_in // s.head_dim
-    rows, taps = _mamba_split(cfg)
+    route, taps = _mamba_split(cfg)
+    by_heads = route in ("heads", "cut")
 
-    if rows:  # the plan splits w_z and w_x on d, their contracting dim
+    if route == "rows":  # the plan splits w_z and w_x on d, their contracting dim
         xr = tp.slice_(x, -1)
         z, xs = tp.reduce_out(dense(params["w_z"], xr)), tp.reduce_out(dense(params["w_x"], xr))
     else:
-        z = dense(params["w_z"], x)
-        xs = dense(params["w_x"], x)
+        xc = tp.copy_in(x) if by_heads else x
+        z = dense(params["w_z"], xc)
+        xs = dense(params["w_x"], xc)
     bc = dense(params["w_bc"], x)
     dt = dense(params["w_dt"], x)
     dt = F.softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])  # (H,)
+    D = params["D"]
 
     cx = state["conv_x"] if state is not None else None
     cb = state["conv_bc"] if state is not None else None
@@ -181,8 +215,13 @@ def mamba2_apply(
     else:
         xs, new_cx = _causal_conv(xs, params["conv_x"], cx)
     bc, new_cb = _causal_conv(bc, params["conv_bc"], cb)
+    if route == "heads":  # the rank's heads read the whole B, C, dt, A and D
+        bc = tp.copy_in(bc)
+        dt, A, D = tp.slice_(dt, -1), tp.slice_(A, 0), tp.slice_(D, 0)
+    elif route == "cut":  # every rank runs all the heads
+        z, xs = tp.gather(z, -1), tp.gather(xs, -1)
     Bmat, Cmat = bc.chunk(2, dim=-1)
-    xh = xs.reshape(B_, T, nheads, s.head_dim)
+    xh = xs.reshape(B_, T, -1, s.head_dim)
 
     if T > 1 or state is None:
         h0 = state["ssm"] if state is not None else None
@@ -201,35 +240,47 @@ def mamba2_apply(
         h_new = h_prev * a[:, :, None, None] + upd
         y = torch.einsum("bhpn,bn->bhp", h_new, Cmat[:, 0].float())[:, None]
 
-    y = y + params["D"][None, None, :, None] * xh.float()
-    y = y.reshape(B_, T, d_in).to(x.dtype)
+    y = y + D[None, None, :, None] * xh.float()
+    y = y.reshape(B_, T, -1).to(x.dtype)
     # the gated RMS norm (Mamba2's): an RMSNorm of y * silu(z), eps 1e-6
-    yz = rmsnorm(params["norm_scale"], y * F.silu(z))
+    if route == "heads":
+        yz = _split_gated_norm(params["norm_scale"], y * F.silu(z), d_in)
+    else:
+        yz = rmsnorm(tp.gather(params["norm_scale"], 0) if route == "cut" else params["norm_scale"], y * F.silu(z))
     if state is None:
         state = {"ssm": h_new, "conv_x": new_cx, "conv_bc": new_cb}
     else:
         state["ssm"].copy_(h_new)
         state["conv_x"].copy_(new_cx)
         state["conv_bc"].copy_(new_cb)
+    if by_heads:  # w_out split on its rows
+        return tp.reduce_out(dense(params["w_out"], yz if route == "heads" else tp.slice_(yz, -1))), state
     return dense(params["w_out"], yz), state
 
 
-_WHOLE = ("w_bc", "w_dt", "conv_bc", "A_log", "D", "dt_bias", "w_out", "norm_scale")
+_KEYS = ("w_z", "w_x", "conv_x", "w_bc", "w_dt", "conv_bc", "A_log", "D", "dt_bias", "w_out", "norm_scale")
+# the plan's dims where it splits the pure stack by heads (its (L,) leaves), the rest whole
+_HEADS = {**dict.fromkeys(_KEYS), "w_z": 1, "w_x": 1, "conv_x": 1, "w_out": 0, "norm_scale": 0}
 
 
-def _mamba_split(cfg: ModelConfig) -> Tuple[bool, bool]:
-    """(whether the current tensor-parallel context splits ``w_z`` and
-    ``w_x`` on d, whether it splits ``conv_x`` on its taps): the plan's
-    placement of the hybrid's Mamba2 leaves, or neither.  Raises on any other
-    split, such as the pure stack's by heads (ROADMAP Queue 1, 7b-v)."""
-    dims = {n: tp.split_dim(n) for n in ("w_z", "w_x", "conv_x") + _WHOLE}
+def _mamba_split(cfg: ModelConfig) -> Tuple[Optional[str], bool]:
+    """(the route of the current tensor-parallel context, whether it splits
+    ``conv_x`` on its taps): None, nothing split; "heads", the pure stack's
+    head split (``_HEADS``) where ``model`` divides the heads; "cut", that
+    split where it divides d_inner and not the heads; "rows", the plan's
+    placement of the hybrid's (G, M) leaves, ``w_z`` and ``w_x`` on d and
+    ``conv_x`` on its taps or whole.  Raises on any other split."""
+    dims = {n: tp.split_dim(n) for n in _KEYS}
     if all(v is None for v in dims.values()):
-        return False, False
-    if dims != {"w_z": 0, "w_x": 0, "conv_x": dims["conv_x"], **dict.fromkeys(_WHOLE)} or dims["conv_x"] not in (0, None):
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba2 split as {dims} over the mesh {tp.mesh_shape()}: the port splits only the hybrid's "
-            "w_z and w_x on d and conv_x on its taps, as the plan places them (ROADMAP Queue 1, 7b-v)")
-    return True, dims["conv_x"] == 0
+        return None, False
+    if dims == _HEADS:
+        return ("heads" if tp.divides(cfg.d_model * cfg.ssm.expand // cfg.ssm.head_dim) else "cut"), False
+    if dims == {**dict.fromkeys(_KEYS), "w_z": 0, "w_x": 0, "conv_x": dims["conv_x"]} and dims["conv_x"] in (0, None):
+        return "rows", dims["conv_x"] == 0
+    raise NotImplementedError(
+        f"{cfg.name}: Mamba2 split as {dims} over the mesh {tp.mesh_shape()}: the port splits the pure stack by "
+        "heads (w_z, w_x, conv_x on d_inner, w_out and norm_scale on their rows) and the hybrid's w_z and w_x on d "
+        "with conv_x on its taps, as the plan places them")
 
 
 def mamba2_state_shape(cfg: ModelConfig, batch: int):

@@ -34,23 +34,22 @@ holds the same bits and applies the same clip and AdamW update
 replicas stay bit-equal.
 
 Tensor parallelism over ``model`` (``parallel/tensor_parallel.py``): given
-the placement ``plan`` of the whole model (``tensor_parallel.model_plan``: the
-transformers, dense or MoE, with GQA, MQA or MLA attention, RWKV-6 and the
-Zamba2 hybrid, on a ``model`` axis of more than 1), ``params`` are this rank's
+the placement ``plan`` of the whole model (``tensor_parallel.model_plan``:
+every family, on a ``model`` axis of more than 1), ``params`` are this rank's
 shards (``shard_params``) and the loss runs inside the ``model`` context, so
 that each product computes on the rank's shard as the plan places it (a MoE's
 experts on their expert dim, or on their features where the expert count does
-not divide ``model``; RWKV-6 by heads; the hybrid's Mamba2 ``w_z`` and ``w_x``
-on d and ``conv_x`` on its taps).  Each gradient is then this rank's block,
-summed over ``data`` only; a leaf the plan leaves whole (the norm scales,
-MLA's latent down-projection, the router, RWKV-6's ``mu_*`` and
-``w_lora_a``, the rest of the hybrid's Mamba2 layer) has its whole gradient
-on every ``model`` rank, the same bits on each.  ``grad_norm`` sums the
-squares of the split leaves over ``model`` and adds those of the whole leaves
-once: the clip sees the whole model's norm.  The pure Mamba2 stack (ROADMAP
-7b-v) has no plan: its ``model`` ranks are replicas that compute the same
-numbers, on this step and under ``--pipeline`` alike (where the other
-families split over ``model`` inside each stage, ``parallel/pipeline.py``).
+not divide ``model``; attention, MLA, RWKV-6 and the pure Mamba2 stack by
+heads, or on all heads where the plan cuts inside one; the hybrid's Mamba2
+``w_z`` and ``w_x`` on d and ``conv_x`` on its taps).  Each gradient is then
+this rank's block, summed over ``data`` only; a leaf the plan leaves whole
+(the norm scales, MLA's latent down-projection, the router, RWKV-6's
+``mu_*`` and ``w_lora_a``, the pure stack's ``w_bc``, ``w_dt``, ``conv_bc``
+and per-head leaves, the rest of the hybrid's Mamba2 layer) has its whole
+gradient on every ``model`` rank, the same bits on each.  ``grad_norm`` sums
+the squares of the split leaves over ``model`` and adds those of the whole
+leaves once: the clip sees the whole model's norm.  Without a plan the
+``model`` ranks are replicas that compute the same numbers.
 
 FSDP over ``data`` (``parallel/fsdp.py``): given the plan with fsdp on
 (``model_plan(cfg, mesh, fsdp=True)``, the reference's dry-run's placement of

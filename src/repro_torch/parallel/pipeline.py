@@ -29,9 +29,8 @@ Boundary modes, the paper's two transports:
   (``Transport.bytes``).
 
 Tensor parallelism over ``model`` inside each stage (``plan``, the whole
-model's placement plan, ``tensor_parallel.model_plan``: the transformers,
-dense or MoE, RWKV-6 and the Zamba2 hybrid, on a ``model`` axis of more than
-1), as the reference's partial-auto
+model's placement plan, ``tensor_parallel.model_plan``: every family, on a
+``model`` axis of more than 1), as the reference's partial-auto
 region has GSPMD place the parameters of its ``--pipeline`` launcher
 (``make_param_shardings``, fsdp off): each rank holds its stage's rows of its
 ``model`` block of every stacked leaf and its block of ``embed`` and
@@ -47,9 +46,9 @@ A routed expert's leaf is 4-D, (layers, E, d, f), and split on its expert dim
 first and ``shard_params`` the block of those; the hybrid's ``groups`` leaves
 likewise, the Mamba2 ones (G, M, ...) cut on G and then on the dim the plan
 splits, and its ``shared_attn`` block, outside the stack, by the plan alone.
-Without a plan (the pure Mamba2 stack, ROADMAP 7b-v) the ``model`` ranks
-compute the same numbers, as the reference's fully manual fall-back does
-("the model axis carrying replicas").
+Without a plan the ``model`` ranks compute the same numbers, as the
+reference's fully manual fall-back does ("the model axis carrying
+replicas").
 
 FSDP over ``data`` inside the stages (a ``plan`` that splits leaves over
 ``data`` as well, ``model_plan(cfg, mesh, fsdp=True)``, the reference's

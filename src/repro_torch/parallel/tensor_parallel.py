@@ -28,26 +28,30 @@ they computed before.
 The model modules import this one, so it imports none of the port's modules at
 its top.
 
-Which configs split (``tp_family``), on the plain step and under
-``--pipeline`` alike: the transformers (GQA, MQA or MLA attention, a dense or
-a MoE FFN), RWKV-6 and the Zamba2 hybrid.  The MoE leaves split as
+Every config the port builds splits (``tp_family``), on the plain step and
+under ``--pipeline`` alike: the transformers (GQA, MQA or MLA attention, a
+dense or a MoE FFN), RWKV-6, the pure Mamba2 stack and the Zamba2 hybrid; no
+family keeps whole replicas on its ``model`` ranks.  The MoE leaves split as
 ``MOE_RULES`` place them: the routed experts on their expert dim (expert
 parallelism), or on their feature dim where the expert count does not divide
 ``model``, and the shared expert's stacked leaves on the first dim of each
 matrix.  ``split_dims`` therefore keys a leaf under ``moe`` by its path from
 ``moe`` (``moe/w_gate``, ``moe/shared/w_gate``) and every other leaf by its
-name.  RWKV-6 splits by heads (its time mix's projections, ``w0``, ``u`` and
-``w_lora_b``) and its channel mix on d_ff and d.  The hybrid splits as the
-plan places it, which is not by heads: the plan adds one leading ``None`` to
-a stacked leaf's rule, and the hybrid's Mamba2 leaves carry two stacked axes
-(G, M), so each rule lands one dim to the left (ROADMAP Queue 3 (p), mirrored
-here): ``w_z`` and ``w_x`` split on d, their contracting dim, ``conv_x`` on
-its taps where ``model`` divides them, and the rest of the layer stays whole.
-``split_dims`` strips the stacked axes a leaf really has (``lead_axes``), and
-``model_plan`` raises where the plan splits one of them (a hybrid whose M
-``model`` divides: ROADMAP Queue 1, 7b-vi; no config of the repo).  The pure
-Mamba2 stack keeps whole replicas on every ``model`` rank (``replicated_note``;
-ROADMAP Queue 1, 7b-v).
+name.  Attention, MLA, RWKV-6's time mix and the pure stack's Mamba2 layers
+split by heads where the heads divide ``model``; where the plan cuts columns
+inside a head (the columns divide, the heads do not: the reference's
+``_fit_spec`` drops an axis only where it does not divide the dim), the
+split outputs are gathered and every rank runs all the heads, the re-layout
+GSPMD makes there.  RWKV-6's channel mix splits on d_ff and d.  The hybrid
+splits as the plan places it, which is not by heads: the plan adds one
+leading ``None`` to a stacked leaf's rule, and the hybrid's Mamba2 leaves
+carry two stacked axes (G, M), so each rule lands one dim to the left
+(ROADMAP Queue 3 (p), mirrored here): ``w_z`` and ``w_x`` split on d, their
+contracting dim, ``conv_x`` on its taps where ``model`` divides them, and the
+rest of the layer stays whole.  ``split_dims`` strips the stacked axes a leaf
+really has (``lead_axes``), and ``model_plan`` raises where the plan splits
+one of them (a hybrid whose M ``model`` divides: ROADMAP Queue 1, 7b-vi; no
+config of the repo).
 """
 from __future__ import annotations
 
@@ -62,18 +66,11 @@ STACKED = ("layers", "groups")
 
 def tp_family(cfg) -> bool:
     """Whether ``cfg`` splits over ``model``: a transformer (GQA, MQA or MLA
-    attention, a dense or a MoE FFN), RWKV-6 or the Zamba2 hybrid; not the
-    pure Mamba2 stack (ROADMAP 7b-v)."""
-    if cfg.rwkv is not None or cfg.family == "hybrid":
-        return True
-    return cfg.family in ("dense", "vlm", "audio", "moe") and cfg.ssm is None
-
-
-def replicated_note(cfg, mesh) -> str:
-    """The launcher's note on a mesh whose ``model`` ranks hold whole
-    replicas of ``cfg`` (a ``model`` axis of more than 1, a config outside
-    ``tp_family``); empty otherwise."""
-    return "" if mesh.shape.get(AXIS, 1) == 1 or tp_family(cfg) else " tp=replicated (ROADMAP 7b-v)"
+    attention, a dense or a MoE FFN), RWKV-6, the pure Mamba2 stack or the
+    Zamba2 hybrid, which is every config the port builds."""
+    if cfg.rwkv is not None or cfg.ssm is not None:
+        return cfg.family in ("ssm", "hybrid")
+    return cfg.family in ("dense", "vlm", "audio", "moe")
 
 
 def model_plan(cfg, mesh, *, fsdp: bool = False, min_bytes: Optional[int] = None) -> Optional[Dict]:
@@ -86,18 +83,12 @@ def model_plan(cfg, mesh, *, fsdp: bool = False, min_bytes: Optional[int] = None
     threshold unless given).  Raises where the plan splits a stacked axis
     over ``model`` (a hybrid whose Mamba2 layers a group, M, the ``model``
     axis divides: ROADMAP 7b-vi) or over ``data`` (a stacked leaf whose only
-    dim ``data`` divides: 7f-iii), and with ``fsdp`` where the pure Mamba2
-    stack meets a ``model`` axis of more than 1 (7b-v).  No config of the
-    repo reaches any of them at the reference's threshold."""
+    dim ``data`` divides: 7f-iii).  No config of the repo reaches either at
+    the reference's threshold."""
     from repro_torch.convert import expected_shapes, flatten, unflatten
     from repro_torch.parallel.sharding import FSDP_MIN_BYTES, make_param_shardings
 
-    split_model = mesh.shape.get(AXIS, 1) > 1
-    if fsdp and split_model and not tp_family(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: FSDP over the mesh {dict(mesh.shape)} would split the pure Mamba2 stack over model too, "
-            "which the port keeps whole (ROADMAP Queue 1, 7b-v)")
-    if not fsdp and (not split_model or not tp_family(cfg)):
+    if not fsdp and (mesh.shape.get(AXIS, 1) == 1 or not tp_family(cfg)):
         return None
     plan = make_param_shardings(unflatten(expected_shapes(cfg)), mesh, fsdp=fsdp,
                                 min_bytes=FSDP_MIN_BYTES if min_bytes is None else min_bytes)

@@ -1,5 +1,6 @@
-"""The placement plan and the dry-run's train programs for RWKV-6 and the
-Zamba2 hybrid under tensor parallelism (ROADMAP 7b-iii).
+"""The placement plan and the dry-run's train programs for RWKV-6, the Zamba2
+hybrid (ROADMAP 7b-iii) and the pure Mamba2 stack (7b-v) under tensor
+parallelism.
 
 Every shard ``shard_params`` keeps of RWKV-6 7B and Zamba2-2.7B at full size
 equals the reference's ``NamedSharding(mesh, spec).shard_shape`` on an
@@ -9,8 +10,11 @@ left of the rules' head split (ROADMAP Queue 3 (p)): ``w_z`` and ``w_x`` on
 d, ``conv_x`` on its 4 taps at 2 and whole at 16.  A rank of each program
 (multi x train: a rank of each stage of (2, 16, 16), of its stage's rows;
 single x train: a rank of (16, 16)) holds, in f32, exactly the bytes of those
-shards.  And the card's two ``train_tp_recurrent`` calls on ``meta``: the
-bytes they put on each axis, counted from the code."""
+shards.  The pure Mamba2 stack at Zamba2-2.7B's widths (``family="ssm"``, the
+same ``replace`` in both packages) likewise, by heads: ``w_z``, ``w_x`` and
+``conv_x`` on d_inner, ``w_out`` and ``norm_scale`` on their rows.  And the
+card's three ``train_tp_recurrent`` calls on ``meta``: the bytes they put on
+each axis, counted from the code."""
 import dataclasses
 import math
 
@@ -40,8 +44,9 @@ RECURRENT = ["rwkv6_7b", "zamba2_2p7b"]
 AXES = ("data", "model")
 
 
-def _reference(arch: str, shape, names):
-    ref_shapes = jax.eval_shape(ref_build_model(ref_configs.get_config(arch)).init, jax.random.PRNGKey(0))
+def _reference(arch: str, shape, names, **replace):
+    ref_cfg = dataclasses.replace(ref_configs.get_config(arch), **replace)
+    ref_shapes = jax.eval_shape(ref_build_model(ref_cfg).init, jax.random.PRNGKey(0))
     amesh = AbstractMesh(shape, names)
     return ref_shapes, amesh, _jax_flat(ref_sharding.make_param_shardings(ref_shapes, amesh))
 
@@ -69,6 +74,26 @@ def test_every_shard_is_the_reference_s_shard_shape(arch, shape):
         assert shards["layers/u"].shape[1:] == (64 // shape[1], 64)
 
 
+@pytest.mark.parametrize("shape", [(16, 16), (2, 2)], ids=lambda s: "x".join(map(str, s)))
+def test_every_shard_of_the_pure_stack_is_the_reference_s_shard_shape(shape):
+    """The pure stack's (L, ...) Mamba2 leaves split by heads: 80 heads of 64,
+    5 a rank at 16 and 40 at 2; the leaves its heads share whole."""
+    cfg = dataclasses.replace(configs.get_config("zamba2_2p7b"), family="ssm")
+    assert tp_family(cfg)
+    ref_shapes, amesh, specs = _reference("zamba2_2p7b", shape, AXES, family="ssm")
+    ref_flat = _jax_flat(ref_shapes)
+    plan = model_plan(cfg, Mesh(shape, AXES))
+    shards = flatten(shard_params(dryrun.meta_params(build_model(cfg)), Mesh(shape, AXES, math.prod(shape) - 1), plan))
+    assert set(shards) == set(ref_flat)
+    for p, t in shards.items():
+        want = NamedSharding(amesh, specs[p].spec).shard_shape(ref_flat[p].shape)
+        assert tuple(t.shape) == tuple(want), (p, tuple(t.shape), want)
+    L, d, TP = cfg.num_layers, cfg.d_model, shape[1]
+    assert shards["layers/mamba/w_z"].shape == (L, d, 2 * d // TP) and shards["layers/mamba/A_log"].shape == (L, 80)
+    assert shards["layers/mamba/w_out"].shape == (L, 2 * d // TP, d) and shards["layers/mamba/norm_scale"].shape == (
+        L, 2 * d // TP)
+
+
 @pytest.mark.parametrize("multi", [True, False], ids=["multi", "single"])
 @pytest.mark.parametrize("arch", RECURRENT)
 def test_a_recurrent_train_rank_holds_the_reference_s_shards(arch, multi):
@@ -92,12 +117,12 @@ def test_a_recurrent_train_rank_holds_the_reference_s_shards(arch, multi):
         assert dryrun.argument_bytes(params) == want, (arch, stage)
 
 
-def _meta_call(arch: str, layers: int):
-    """One ``DataParallelLoss`` call of ``arch`` at full width with ``layers``
-    layers, bf16 activations, remat "full", on rank 0 of (data, model) =
-    (1, 2), 4 x 512 tokens, on ``meta``: (cfg, the rank's parameters, the
-    transport's counts)."""
-    cfg = dataclasses.replace(configs.get_config(arch), num_layers=layers, dtype=torch.bfloat16)
+def _meta_call(arch: str, layers: int, **replace):
+    """One ``DataParallelLoss`` call of ``arch`` (with ``replace``'s fields)
+    at full width with ``layers`` layers, bf16 activations, remat "full", on
+    rank 0 of (data, model) = (1, 2), 4 x 512 tokens, on ``meta``: (cfg, the
+    rank's parameters, the transport's counts)."""
+    cfg = dataclasses.replace(configs.get_config(arch), num_layers=layers, dtype=torch.bfloat16, **replace)
     assert cfg.remat == "full"
     mesh = Mesh((1, 2), AXES, 0)
     model, plan = build_model(cfg), model_plan(cfg, mesh)
@@ -144,5 +169,26 @@ def test_meta_tp_hybrid_bytes_equal_a_count_from_the_code():
     act, inner = 2 * tok * 2560, 2 * tok * 5120
     reduce = 2 * (5 * (2 * 3 + 1) * inner + (2 * 2 + 2) * act) + act + 4 * 2 * tok
     gather = 2 * 5 * act // 2 + act // 2 + 4 * tok
+    assert counts == {"data": {"send": 0, "all_reduce": 0, "all_gather": 0, "reduce_scatter": 0},
+                      "model": {"send": 0, "all_reduce": reduce, "all_gather": gather, "reduce_scatter": 0}}
+
+
+def test_meta_tp_pure_stack_bytes_equal_a_count_from_the_code():
+    """The pure Mamba2 stack at Zamba2-2.7B's widths, 6 layers (the card's
+    run): ``act`` = (4, 512, 2560) bf16, 40 of the 80 heads a rank.  A
+    layer: forward, the gated norm's f32 sum of squares (4, 512, 1) reduced,
+    twice (the recomputation repeats it and stops at ``w_out``'s product,
+    before its sum), and ``w_out``'s output once; backward, the gradients of
+    ``copy_in(x)`` (act), of B and C (4, 512, 128) bf16 and of the sum of
+    squares summed, and ``slice_`` gathers those of dt (4, 512, 40) f32, A
+    and D (40 f32 each).  Then the embedding, the head and the cross entropy
+    as RWKV-6's."""
+    cfg, params, counts = _meta_call("zamba2_2p7b", 6, family="ssm")
+    m = params["layers"]["mamba"]
+    assert m["w_z"].shape == (6, 2560, 2560) and m["w_out"].shape == (6, 2560, 2560) and m["D"].shape == (6, 80)
+    tok = 4 * 512
+    act = 2 * tok * 2560
+    reduce = 6 * (2 * 4 * tok + act + act + 2 * tok * 128 + 4 * tok) + act + 4 * 2 * tok
+    gather = 6 * (4 * tok * 40 + 2 * 4 * 40) + act // 2 + 4 * tok
     assert counts == {"data": {"send": 0, "all_reduce": 0, "all_gather": 0, "reduce_scatter": 0},
                       "model": {"send": 0, "all_reduce": reduce, "all_gather": gather, "reduce_scatter": 0}}

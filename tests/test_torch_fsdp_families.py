@@ -1,14 +1,16 @@
 """FSDP over ``data`` on the plain step (ROADMAP 7f) for every family that
 step runs, on one (data, model) = (2, 2) world of ``gloo`` ranks on the CPU:
 the dense decoder, the MoE with MLA (deepseek_v2_lite) and with GQA
-(qwen2_moe), RWKV-6, the Zamba2 hybrid and the HuBERT encoder, each smoke
-config in f32 from the port's seed-0 parameters.
+(qwen2_moe), RWKV-6, the Zamba2 hybrid, the HuBERT encoder and the pure
+Mamba2 stack (zamba2 smoke with ``family="ssm"``, split by heads over
+``model``), each smoke config in f32 from the port's seed-0 parameters.
 
 Each rank holds its ``data`` block of its ``model`` shard of every leaf the
 plan with fsdp on splits, at a threshold of 0 (every leaf with a dim that
 ``data`` divides, where the reference's 4 MiB would split none of a smoke
-config's), RWKV-6's at one byte over its ``w0``, whose only dim left for
-``data`` is its layer axis (the refusal of ``test_torch_fsdp.py``).  Against
+config's), RWKV-6's at one byte over its ``w0`` and the pure stack's over its
+``norm_scale``, whose only dim left for ``data`` is their layer axis (the
+refusal of ``test_torch_fsdp.py``).  Against
 ``jax.value_and_grad`` of the reference's ``model.loss`` on the whole batch:
 the loss within 1e-5 and each gradient leaf, put back together over ``data``
 and ``model``, within 1e-4 in norm, and the clip's norm within 1e-4; the
@@ -28,18 +30,26 @@ from torch_tp_helpers import close_in_norm, reference_value_and_grad
 LOSS_TOL, GRAD_TOL = 1e-5, 1e-4
 BATCH, SEQ = 4, 16
 SHAPE = (2, 2)
-ARCHS = ["gpt_a", "deepseek_v2_lite_16b", "qwen2_moe_a2p7b", "rwkv6_7b", "zamba2_2p7b", "hubert_xlarge"]
+ARCHS = ["gpt_a", "deepseek_v2_lite_16b", "qwen2_moe_a2p7b", "rwkv6_7b", "zamba2_2p7b", "hubert_xlarge",
+         "mamba2_pure"]
+SMOKES = {"mamba2_pure": ("zamba2_2p7b", {"family": "ssm"})}  # a case that is not an arch: (its arch, its replace)
 
 
 def _min_bytes(arch: str, params) -> int:
-    return 4 * params["layers"]["w0"].numel() + 1 if arch == "rwkv6_7b" else 0
+    """One byte over the leaf whose only dim left for ``data`` is its layer
+    axis: RWKV-6's ``w0``, the pure stack's ``norm_scale``; 0 otherwise."""
+    if arch == "rwkv6_7b":
+        return 4 * params["layers"]["w0"].numel() + 1
+    if arch == "mamba2_pure":
+        return 4 * params["layers"]["mamba"]["norm_scale"].numel() + 1
+    return 0
 
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     cases, refs = [], {}
     for arch in ARCHS:
-        cfg, ref_cfg, params, ref_params, batch = smoke_case(arch, {}, BATCH, SEQ)
+        cfg, ref_cfg, params, ref_params, batch = smoke_case(*SMOKES.get(arch, (arch, {})), BATCH, SEQ)
         min_bytes = _min_bytes(arch, params)
         refs[arch] = (cfg, params, batch, min_bytes, reference_value_and_grad(ref_cfg, ref_params, batch))
         del ref_params

@@ -3,7 +3,8 @@ pure Mamba2 stack (zamba2 smoke with family "ssm"), in f32 from the port's
 seed-0 parameters on a (pod, data, model) = (2, 2, 1) mesh of ``gloo`` CPU
 ranks, each holding its ``data`` block of its stage under the plan with
 fsdp on (``torch_pipeline_fsdp_helpers``); on a ``model`` axis of more than 1
-the plan with fsdp on refuses the stack (ROADMAP 7b-v).  The lower threshold
+the plan with fsdp on splits the stack by heads as well (ROADMAP 7b-v,
+``test_torch_fsdp_families.py``).  The lower threshold
 is one byte over ``norm_scale``'s 4 x (L, d_inner): at 0 the plan would put
 ``data`` on its layer axis, its ``model`` entry taking the other dim, which
 ``model_plan`` refuses (ROADMAP 7f-iii); every other leaf with a dim that

@@ -1,10 +1,10 @@
 """The launcher's ``--pipeline`` under torchrun on the (2, 2, 2) host mesh of
 eight ``gloo`` CPU ranks: the MoE family (ROADMAP 7b-ii), RWKV-6 and the
 Zamba2 hybrid (7b-iii) split over ``model`` inside the stages, so their
-``[train]`` lines carry no note and each run ends with its step line.  Only
-the pure Mamba2 stack keeps its ``model`` replicas; no arch of the launcher
-is one, so its note is held where a smoke reaches it
-(``test_torch_tensor_parallel_hybrid.py``)."""
+``[train]`` lines carry no note and each run ends with its step line.  No
+family keeps ``model`` replicas: the pure Mamba2 stack, which no arch of the
+launcher is, splits by heads too (7b-v), and the launcher's note is gone
+(``test_torch_tensor_parallel_hybrid.py``, ``test_torch_pipeline_tp_mamba.py``)."""
 import os
 import subprocess
 import sys

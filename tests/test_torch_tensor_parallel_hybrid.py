@@ -14,7 +14,7 @@ rest of the layer; the shared block splits as the dense family's.  Cases:
 1e-5, gradients 1e-4 relative in norm a leaf, and the global norm; the
 transport's bytes as the code owes them (``bytes_owed``).  Beside them, on
 no ranks: ``split_dims`` of the (G, M) leaves, the raise where the plan puts
-``model`` on M, and the pure Mamba2 stack's replicated note."""
+``model`` on M, and the pure Mamba2 stack's plan, by heads."""
 import dataclasses
 
 import numpy as np
@@ -196,13 +196,30 @@ def test_the_plan_on_an_even_number_of_mamba_layers_a_group_raises():
 
 
 def test_the_pure_mamba2_stack_keeps_replicas_and_says_so():
-    """The pure stack (``family="ssm"``, one stacked axis) stays out of
-    ``tp_family``: no plan, and the launcher's note names its ROADMAP item;
-    RWKV-6 and the hybrid carry no note."""
+    """The pure stack (``family="ssm"``, one stacked axis) kept whole
+    replicas on its ``model`` ranks and the launcher said so; it is now in
+    ``tp_family`` with RWKV-6 and the hybrid, and splits by heads: on (2, 2)
+    its plan puts ``w_z``, ``w_x`` and ``conv_x`` on d_inner and ``w_out``
+    and ``norm_scale`` on their rows, each rank 4 of the smoke's 8 heads,
+    and leaves the rest of the layer whole.  No family keeps replicas, so
+    the launcher's note is gone (``test_torch_tensor_parallel_mamba.py``
+    runs the split against the reference)."""
+    from repro_torch.models.transformer import build_model
+    from repro_torch.parallel.sharding import shard_params
+
     pure = dataclasses.replace(configs.get_smoke_config(ARCH), family="ssm")
     mesh = Mesh((2, 2), AXES)
-    assert not tp.tp_family(pure) and tp.model_plan(pure, mesh) is None
-    assert tp.replicated_note(pure, mesh) == " tp=replicated (ROADMAP 7b-v)"
-    assert tp.replicated_note(pure, Mesh((4, 1), AXES)) == ""
+    plan = tp.model_plan(pure, mesh)
+    assert tp.tp_family(pure) and plan is not None and not hasattr(tp, "replicated_note")
+    dims = tp.split_dims(plan)
+    assert (dims["w_z"], dims["w_x"], dims["conv_x"], dims["w_out"], dims["norm_scale"]) == (1, 1, 1, 0, 0)
+    assert all(dims[n] is None for n in WHOLE[:-3] + ("ln",))
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    d_in = pure.d_model * pure.ssm.expand
+    m = shard_params(build_model(pure).init(gen), Mesh((2, 2), AXES, 1), plan)["layers"]["mamba"]
+    assert tuple(m["w_z"].shape[1:]) == (pure.d_model, d_in // 2) and tuple(m["w_out"].shape[1:]) == (d_in // 2,
+                                                                                                        pure.d_model)
+    assert tuple(m["A_log"].shape[1:]) == (d_in // pure.ssm.head_dim,)
     for arch in (ARCH, "rwkv6_7b"):
-        assert tp.tp_family(configs.get_config(arch)) and tp.replicated_note(configs.get_config(arch), mesh) == ""
+        assert tp.tp_family(configs.get_config(arch)) and tp.model_plan(configs.get_config(arch), mesh) is not None

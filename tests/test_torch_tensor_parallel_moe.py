@@ -167,18 +167,36 @@ def test_no_context_and_one_rank_change_nothing(arch):
 
 def test_mla_raises_where_its_heads_do_not_divide_model():
     """deepseek smoke's 4 heads on a ``model`` axis of 16: the plan splits
-    ``wq``, ``w_uk`` and ``w_uv`` inside a head, which the port does not
-    re-lay out (ROADMAP Queue 1); it raises before any collective."""
-    from repro_torch.models.attention import mla_apply
+    ``wq``'s 192, ``w_uk``'s and ``w_uv``'s 128 columns and ``wo``'s 128
+    rows, inside a head.  Once refused, the cut route now runs it: each
+    rank holds its 12 columns of ``wq`` (a quarter of a head), 8 of ``w_uk``
+    and ``w_uv``, 8 rows of ``wo`` and the whole ``w_dkv``; rank 0's layer on
+    ``meta`` over a ``MetaTransport`` gathers ``wq``'s output, ``w_uk`` and
+    ``w_uv``, attends with all 4 heads, and sums ``wo``'s output.  The
+    spawned runs against the reference are
+    ``test_torch_tensor_parallel_cut_heads.py``'s."""
+    from repro_torch.models.attention import _mla_split, mla_apply
     from repro_torch.parallel.sharding import shard_params
+    from repro_torch.parallel.transport import MetaTransport
 
     cfg, _, params = moe_case("deepseek_v2_lite_16b")
-    mesh = Mesh((1, 16), AXES, 0)
-    plan = tp.model_plan(cfg, mesh)
-    assert tp.split_dims(plan)["wq"] == 1 and cfg.num_heads % 16
-    layer = {k: v[0] for k, v in shard_params(params, mesh, plan)["layers"]["attn"].items()}
-    x = torch.zeros(1, SEQ, cfg.d_model)
-    pos = torch.arange(SEQ)[None]
-    with tp.use(tp.TPContext(mesh, None, plan)), pytest.raises(NotImplementedError, match=r"deepseek-v2-lite-smoke.*"
-                                                                                        r"'model': 16.*ROADMAP"):
-        mla_apply(layer, cfg, x, pos)
+    m = cfg.mla
+    TP = 16
+    plan = tp.model_plan(cfg, Mesh((1, TP), AXES))
+    assert tp.split_dims(plan)["wq"] == 1 and cfg.num_heads % TP
+    want = {"wq": (cfg.d_model, 192 // TP), "w_dkv": (cfg.d_model, m.kv_lora_rank + m.qk_rope_head_dim),
+            "w_uk": (m.kv_lora_rank, 128 // TP), "w_uv": (m.kv_lora_rank, 128 // TP), "wo": (128 // TP, cfg.d_model)}
+    for rank in range(TP):
+        attn = shard_params(params, Mesh((1, TP), AXES, rank), plan)["layers"]["attn"]
+        assert {k: tuple(v.shape[1:]) for k, v in attn.items()} == want
+    mesh = Mesh((1, TP), AXES, 0)
+    layer = {k: v[0].to("meta") for k, v in shard_params(params, mesh, plan)["layers"]["attn"].items()}
+    transport = MetaTransport(mesh)
+    with tp.use(tp.TPContext(mesh, transport, plan)):
+        assert _mla_split(cfg) == ({"wq": 1, "w_uk": 1, "w_uv": 1, "wo": 0}, False)
+        out, _ = mla_apply(layer, cfg, torch.zeros(1, SEQ, cfg.d_model, device="meta"),
+                           torch.arange(SEQ, device="meta")[None])
+    assert tuple(out.shape) == (1, SEQ, cfg.d_model)
+    assert transport.counts()["model"] == {"send": 0, "all_reduce": 4 * SEQ * cfg.d_model,
+                                           "all_gather": 4 * (SEQ * 192 + 2 * m.kv_lora_rank * 128) // TP,
+                                           "reduce_scatter": 0}

@@ -160,17 +160,27 @@ def test_no_context_and_one_rank_change_nothing():
 
 def test_rwkv_raises_where_its_heads_do_not_divide_model():
     """rwkv6 smoke's 2 heads on a ``model`` axis of 4: the plan splits the
-    projections' 128 columns but leaves ``u`` (2, 64) whole, a split the port
-    does not run; it raises before any collective, naming the config, the
-    mesh and the ROADMAP item."""
-    from repro_torch.models.rwkv import rwkv6_apply
+    projections' 128 columns (32 a rank, half a head) but leaves ``u`` (2,
+    64) whole.  Once refused, the cut route now runs it: rank 0's block on
+    ``meta`` over a ``MetaTransport`` gathers r, k, v, g, the log-decay and
+    the receptance (its 32 columns each), runs all 2 heads and gives the
+    whole (1, SEQ, d) output; the spawned runs against the reference are
+    ``test_torch_tensor_parallel_cut_heads.py``'s."""
+    from repro_torch.models.rwkv import _rwkv_split, rwkv6_apply
     from repro_torch.parallel.sharding import shard_params
+    from repro_torch.parallel.transport import MetaTransport
 
     cfg, _, params = rwkv_case()
     mesh = Mesh((1, 4), AXES, 0)
     plan = tp.model_plan(cfg, mesh)
     assert tp.split_dims(plan)["wr"] == 1 and tp.split_dims(plan)["u"] is None
-    layer = {k: v[0] for k, v in shard_params(params, mesh, plan)["layers"].items()}
-    with tp.use(tp.TPContext(mesh, None, plan)), pytest.raises(NotImplementedError, match=r"rwkv6-smoke.*"
-                                                                                        r"'model': 4.*ROADMAP"):
-        rwkv6_apply(layer, cfg, torch.zeros(1, SEQ, cfg.d_model))
+    layer = {k: v[0].to("meta") for k, v in shard_params(params, mesh, plan)["layers"].items()}
+    assert tuple(layer["wr"].shape) == (128, 32) and tuple(layer["u"].shape) == (2, 64)
+    transport = MetaTransport(mesh)
+    with tp.use(tp.TPContext(mesh, transport, plan)):
+        assert _rwkv_split(cfg) == ("cut", True, True)
+        out, _ = rwkv6_apply(layer, cfg, torch.zeros(1, SEQ, cfg.d_model, device="meta"))
+    assert tuple(out.shape) == (1, SEQ, cfg.d_model)
+    act = 4 * SEQ * cfg.d_model
+    assert transport.counts()["model"] == {"send": 0, "all_reduce": 2 * act, "all_gather": 6 * act // 4,
+                                           "reduce_scatter": 0}

@@ -145,8 +145,8 @@ def test_tp_training_is_the_reference_s_jitted_step_and_checkpoints_whole(tmp_pa
 
 def test_torchrun_says_which_family_keeps_model_replicas():
     """The MoE family (7b-ii), RWKV-6 and the hybrid (7b-iii) split over
-    ``model``: their lines carry no note (``tensor_parallel.replicated_note``
-    gives one for the pure Mamba2 stack alone)."""
+    ``model``: their lines carry no note (no family keeps replicas, the pure
+    Mamba2 stack included, 7b-v)."""
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"), "OMP_NUM_THREADS": "1"}
     for arch, key, note in (("qwen2-moe-a2.7b", "qwen2_moe_a2p7b", ""), ("rwkv6-7b", "rwkv6_7b", ""),
                             ("zamba2-2.7b", "zamba2_2p7b", "")):

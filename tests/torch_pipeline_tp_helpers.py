@@ -17,15 +17,16 @@ REF_TOL = 2e-5  # the pipelined f32 tests' bound against the reference (test_tor
 N_MICRO, BATCH, SEQ = 4, 8, 32
 
 
-def run(tmp_path_factory, arch: str, shape, train_steps: int = 0, experts=None) -> dict:
+def run(tmp_path_factory, arch: str, shape, train_steps: int = 0, experts=None, **replace) -> dict:
     """``pipeline_case`` of ``arch`` (with ``experts`` routed experts where
-    given) on ``shape``, tensor-parallel, both boundaries, with the plan of
-    the mesh."""
+    given, and ``replace``'s fields) on ``shape``, tensor-parallel, both
+    boundaries, with the plan of the mesh."""
     from repro_torch.launch.mesh import Mesh
     from repro_torch.parallel.tensor_parallel import model_plan
 
     case = pipeline_case(tmp_path_factory.mktemp(f"tp_{arch}"), arch, shape, ("direct", "striped"), n_micro=N_MICRO,
-                         batch=BATCH, seq=SEQ, train_steps=train_steps, tensor_parallel=True, experts=experts)
+                         batch=BATCH, seq=SEQ, train_steps=train_steps, tensor_parallel=True, experts=experts,
+                         **replace)
     case["plan"] = model_plan(case["cfg"], Mesh(shape, AXES))
     case["shape"] = tuple(shape)
     assert case["plan"] is not None
