@@ -44,7 +44,7 @@ in two spawns (one of four ranks, one of two), each rank running its spawn's
 runs in turn, each run with its own deadline.  It trains through the
 cross-pod pipeline (``repro_torch.parallel.pipeline``) GPT-A at full width
 with 2 of its 24 layers on meshes (pod, data, model) of (2, 2, 1) and (2, 1,
-2), and on (2, 1, 2) RWKV-6 7B (2 of 32 layers), DeepSeek-V2-Lite (2 of 27)
+2) (one trained step a run), and on (2, 1, 2) RWKV-6 7B (2 of 32 layers), DeepSeek-V2-Lite (2 of 27)
 and Zamba2-2.7B (3 of its 9 groups), each held against gradient accumulation
 over the same chunks; on (2, 2, 1) the same ranks then run GPT-A FSDP over
 ``data`` inside the stages (the reference's fsdp plan: each stage's blocks
@@ -72,12 +72,17 @@ Zamba2-2.7B (6 of its 54 layers, as the reference's plan places it: w_z and
 w_x on d, conv_x on its taps, the shared block at 16 of 32 heads) and the
 pure Mamba2 stack at Zamba2-2.7B's widths (6 layers, by heads: 40 of 80 a
 rank) tensor-parallel on (data, model) = (1, 2), each held against each
-rank's replicated call; and it runs the five examples of ``repro_torch.examples``
+rank's replicated call; and RWKV-6 7B (2 of 32 layers) under FSDP over
+``data`` on (2, 1) at the plan's threshold of ``w0``'s own bytes (``w0``
+split on its layer axis, 12 other leaves on their own dims), held against
+each rank's replicated call, its state gathered whole to rank 0
+(``gather_train_state``), held against the replicated run's and cut back
+into every rank's live blocks bit for bit; and it runs the five examples of ``repro_torch.examples``
 through their mains (``whatif``, ``bubbletea_serve``, ``quickstart``,
 ``train_100m``, ``geo_train`` on eight ranks), each's launches counted.  For each path it checks by
 the kernels' launch counters that it really went through the kernels, and
 compares the kernel path's logits, or loss and gradients, with the plain
-path's.  Sixteen of its steps are also held against the port's dry-run
+path's.  Seventeen of its steps are also held against the port's dry-run
 (``repro_torch.launch.dryrun``), predicted on ``meta`` from the config alone
 in a background process: argument bytes, launches and transport bytes
 exactly, the peak within max(3 %, 256 MiB); phase ``dryrun`` adds three
@@ -140,6 +145,7 @@ from repro_torch.models.transformer import build_model, build_pipeline_parts  # 
 from repro_torch.optim.optimizer import (  # noqa: E402
     OptState,
     accumulated_value_and_grad,
+    adamw_update,
     gradients,
     init_opt_state,
     make_train_step,
@@ -147,6 +153,7 @@ from repro_torch.optim.optimizer import (  # noqa: E402
 from repro_torch.parallel.data_parallel import DataParallelLoss  # noqa: E402
 from repro_torch.parallel.pipeline import (  # noqa: E402
     PipelineLoss,
+    gather_train_state,
     make_pipeline_loss,
     padded_num_layers,
     stack_length,
@@ -2498,8 +2505,9 @@ DRYRUN_LINES: list = []  # every comparison made in this process, for phase dryr
 # RWKV-6's train steps, rank 0's pipelined calls (GPT-A (2, 1, 2) on both
 # boundaries and FSDP on (2, 2, 1), and on (2, 1, 2) striped RWKV-6,
 # DeepSeek-V2-Lite pinned and Zamba2), its tensor-parallel calls in train_tp,
-# train_fsdp, train_tp_moe (pinned) and train_tp_recurrent (three)
-DRYRUN_CHECKS = 16
+# train_fsdp, train_tp_moe (pinned) and train_tp_recurrent (three), and its
+# FSDP call in train_fsdp_rwkv
+DRYRUN_CHECKS = 17
 BACKGROUND: list = []  # the processes this script started and has not yet waited for
 KERNEL_KEYS = tuple(name for name, *_ in KERNELS)
 _PREDICTED: dict = {}
@@ -2553,9 +2561,9 @@ def dryrun_steps() -> dict:
                                ("pipe_deepseek_", moe_pipe_config(), PIPE_BATCH)):
         steps[f"{prefix}2x1x2_striped"] = functools.partial(pipelined, cfg, PIPE_TP_MESH, "striped", batch)
 
-    def tensor_parallel(cfg, shape, batch, fsdp=False):
+    def tensor_parallel(cfg, shape, batch, fsdp=False, min_bytes=None):
         mesh = Mesh(*shape, 0)
-        model, plan = build_model(cfg), model_plan(cfg, mesh, fsdp=fsdp)
+        model, plan = build_model(cfg), model_plan(cfg, mesh, fsdp=fsdp, min_bytes=min_bytes)
         args = (shard_params(dryrun.meta_params(model), mesh, plan), dryrun.train_batch(cfg, batch, TRAIN_SEQ))
         loss_fn = DataParallelLoss(model.loss, mesh, transport=MetaTransport(mesh), plan=plan)
         return (lambda: loss_fn(*args)), args, loss_fn.transport
@@ -2567,6 +2575,8 @@ def dryrun_steps() -> dict:
     for arch, layers, _, check, family in TP_REC_MODELS:
         steps[check] = functools.partial(tensor_parallel, tp_rec_config(arch, layers, family), TP_REC_MESH,
                                          TP_REC_BATCH)
+    steps[FSDP_RWKV_CHECK] = functools.partial(tensor_parallel, fsdp_rwkv_config(), FSDP_RWKV_MESH, FSDP_RWKV_BATCH,
+                                               fsdp=True, min_bytes=FSDP_RWKV_MIN_BYTES)
     return steps
 
 
@@ -3020,10 +3030,13 @@ def rank_mesh(shape, axes=None):
 # holds its shards of its stage (GPT-A: 306,720,768 parameters, 4.91 GB of f32
 # state).
 PIPE_LAYERS = 2
+# the trained runs of both spawns take one step (two until phase
+# train_fsdp_rwkv's time was taken from them)
+STEPS_CUT = {"steps": "2 -> 1", "steps_why": "cut to pay for phase train_fsdp_rwkv's time within the script's budget"}
 PIPE_REDUCED = {"num_layers": "24 -> 2", "why": "four ranks share the card, each holding its stage's layers and a "
                 "copy of embed and lm_head (9.81 GB of f32 state a rank at 2 layers, 13.0 at 4); cut from 4 to 2 "
-                "layers to pay for phase train_fsdp's time within the script's budget"}
-PIPE_STEPS, PIPE_BATCH, PIPE_N_MICRO = 2, 8, 4
+                "layers to pay for phase train_fsdp's time within the script's budget", **STEPS_CUT}
+PIPE_STEPS, PIPE_BATCH, PIPE_N_MICRO = 1, 8, 4
 # Zamba2-2.7B with 3 of its 9 groups (full depth until phase
 # train_pipeline_fsdp's time was taken from it): three groups padded to four,
 # the last stage running one zero group that its zero gate switches off; on
@@ -3033,7 +3046,7 @@ PIPE_STEPS, PIPE_BATCH, PIPE_N_MICRO = 2, 8, 4
 HYBRID_PIPE_BATCH, HYBRID_PIPE_LAYERS = 4, 18
 HYBRID_PIPE_REDUCED = {"num_layers": "54 -> 18 (3 of 9 groups, padded to 4: the last stage's second group is zero)",
                        "why": "cut from full depth to pay for phase train_pipeline_fsdp's time within the script's "
-                              "budget; the padded, switched-off group still runs"}
+                              "budget; the padded, switched-off group still runs", **STEPS_CUT}
 # RWKV-6 7B and DeepSeek-V2-Lite with 2 layers (one a stage) on (2, 1, 2):
 # RWKV-6 by heads (K4 and K4 bwd on 32 of the 64 heads of a microbatch of 2 x
 # 512), DeepSeek-V2-Lite's 64 experts split over model (32 a rank) and MLA by
@@ -3041,10 +3054,10 @@ HYBRID_PIPE_REDUCED = {"num_layers": "54 -> 18 (3 of 9 groups, padded to 4: the 
 PIPE_RWKV_LAYERS, PIPE_MOE_LAYERS = 2, 2
 PIPE_RWKV_REDUCED = {"num_layers": "32 -> 2", "why": "four ranks share the card's 80 GB: each makes the whole model "
                      "(4.36 GB of f32 parameters at 2 layers) and its accumulated reference (the parameters, the "
-                     "sums and one chunk's gradients: 13.1 GB) before it keeps its stage"}
+                     "sums and one chunk's gradients: 13.1 GB) before it keeps its stage", **STEPS_CUT}
 PIPE_MOE_REDUCED = {"num_layers": "27 -> 2", "why": "four ranks share the card's 80 GB: each makes the whole model "
                     "(6.36 GB of f32 parameters at 2 layers) and its accumulated reference (19.1 GB), two ranks at "
-                    "a time, before it keeps its stage"}
+                    "a time, before it keeps its stage", **STEPS_CUT}
 PIPE_AXES = ("pod", "data", "model")
 # The pipelined step computes gradient accumulation over the same row chunks
 # (chunk m * DP + d is microbatch m's data shard d) through the same layer
@@ -3619,9 +3632,10 @@ def phase_ranks_of_four(started) -> dict:
 
 
 def phase_ranks_of_two(started) -> dict:
-    """One spawn of two ranks (``run_jobs``): phase train_dp, then phase
-    train_tp_recurrent; returns their counters by path."""
-    return run_jobs(2, [dp_job(), tp_rec_job(started)])
+    """One spawn of two ranks (``run_jobs``): phase train_dp, phase
+    train_tp_recurrent, then phase train_fsdp_rwkv; returns their counters by
+    path."""
+    return run_jobs(2, [dp_job(), tp_rec_job(started), fsdp_rwkv_job(started)])
 
 
 # the functions of main that spawn ranks, in its order (experiments/torch_spawn_timeline.py runs them alone)
@@ -3742,10 +3756,11 @@ def hold_checkpoint(ranks: list, file: dict, steps: int, failures: list, split=(
 # GPT-A at full width with 2 of its 24 layers on a (data, model) = (2, 1) mesh:
 # two gloo ranks that share the card, each the whole model's f32 state
 DP_MESH = ((2, 1), ("data", "model"))
-DP_LAYERS, DP_STEPS, DP_BATCH = 2, 2, 8
+DP_LAYERS, DP_STEPS, DP_BATCH = 2, 1, 8
 DP_REDUCED = {"num_layers": "24 -> 2", "why": "two ranks share the card, each holding the whole model's f32 "
               "parameters, gradients and moments: 13.0 GB a rank at 2 layers, 83.9 GB at 24; cut from 4 layers "
-              "to pay for the pipelined RWKV-6, DeepSeek-V2-Lite and Zamba2 runs within the script's budget"}
+              "to pay for the pipelined RWKV-6, DeepSeek-V2-Lite and Zamba2 runs within the script's budget",
+              **STEPS_CUT}
 
 
 def dp_rank(rank: int, world: int, cfg) -> dict:
@@ -3852,11 +3867,11 @@ def hold_dp(cfg, ranks: list, spawn: dict) -> dict:
 # reference's placement plan (every matrix halved: 407,392,256 of the
 # 814,764,032 parameters, 6.52 GB of f32 parameters, gradients and moments)
 TP_MESH = ((2, 2), ("data", "model"))
-TP_LAYERS, TP_STEPS, TP_BATCH = 2, 2, 8
+TP_LAYERS, TP_STEPS, TP_BATCH = 2, 1, 8
 TP_REDUCED = {"num_layers": "24 -> 2", "why": "four ranks share the card's 80 GB: each makes the whole model "
               "(3.26 GB of f32 parameters at 2 layers) and the one-process step on it before it cuts its shards "
               "and trains them; cut from 4 layers to pay for the pipelined RWKV-6, DeepSeek-V2-Lite and Zamba2 "
-              "runs within the script's budget"}
+              "runs within the script's budget", **STEPS_CUT}
 TP_TOL = TRAIN_PARITY_TOL["bf16"]  # the port's bf16 kernel path against the plain one, loss and a leaf in norm
 TP_CHECK = "tp_gpt_a_2x2"  # the dry-run's prediction of rank 0's held call
 # FSDP over data on the same ranks (slice 7f): the reference's plan with fsdp
@@ -4214,10 +4229,10 @@ def hold_fsdp(cfg, ranks: list, fsdp_runs: dict, owed: dict) -> dict:
 # the vocabulary: 795,879,424 of the 1,589,127,168 parameters a rank, 12.73 GB
 # of f32 parameters, gradients and moments.  MLA attends in plain f32, as the
 # reference's, so K1 is the only kernel on the path.
-TP_MOE_ARCH, TP_MOE_LAYERS, TP_MOE_STEPS, TP_MOE_BATCH = "deepseek_v2_lite_16b", 2, 2, 8
+TP_MOE_ARCH, TP_MOE_LAYERS, TP_MOE_STEPS, TP_MOE_BATCH = "deepseek_v2_lite_16b", 2, 1, 8
 TP_MOE_REDUCED = {"num_layers": "27 -> 2", "why": "four ranks share the card's 80 GB: each makes the whole model "
                   "(6.36 GB of f32 parameters at 2 layers) from the seed and holds the replicated control's whole "
-                  "gradients beside it before it cuts its shards"}
+                  "gradients beside it before it cuts its shards", **STEPS_CUT}
 TP_MOE_CHECK = "tp_moe_deepseek_2x2"  # the dry-run's prediction of rank 0's pinned tensor-parallel call
 
 
@@ -4411,7 +4426,7 @@ def hold_tp_moe(cfg, ranks: list, spawn: dict) -> dict:
 # runs on the layers' `ln` and the final norm alone).  `data` x `model` is
 # held by train_tp and train_tp_moe; two ranks keep this phase short.
 TP_REC_MESH = ((1, 2), ("data", "model"))
-TP_REC_STEPS, TP_REC_BATCH = 2, 4
+TP_REC_STEPS, TP_REC_BATCH = 1, 4
 # arch, layers, lr (the single-process phases'), the dry-run's prediction of
 # rank 0's held call, the family where it is not the arch's
 TP_REC_MODELS = (("rwkv6_7b", 2, RWKV_TRAIN_LR, "tp_rwkv_1x2", None),
@@ -4424,7 +4439,7 @@ TP_REC_REDUCED = {"num_layers": "32 -> 2 (rwkv6-7b), 54 -> 6 (zamba2-2.7b: 1 of 
                          "whole gradients beside it before it cuts its shards; Zamba2 cut from 12 layers to pay for "
                          "the pipelined RWKV-6, DeepSeek-V2-Lite and Zamba2 runs (the pipelined Zamba2 runs 18); the "
                          "pure stack, which no config of the repo is, to Zamba2's 6, to add about a minute to the "
-                         "script's 1200 s"}
+                         "script's 1200 s", **STEPS_CUT}
 # The pure stack's f32 call against its f32 control: the split sums d_inner
 # over the ranks (w_out's output, the gated norm's statistic) where the
 # control sums it on one rank, f32 orders only
@@ -4677,6 +4692,226 @@ def hold_tp_rec(cfgs, ranks: list, spawn: dict) -> dict:
     if failures:
         raise AssertionError(f"train_tp_recurrent: {failures}")
     return totals
+
+
+# ---------------------------------------------------------------------------
+# phase train_fsdp_rwkv: FSDP for RWKV-6, data on a stacked axis (slice 7f-iii)
+# and the FSDP state gathered whole (Queue 1 (d))
+# ---------------------------------------------------------------------------
+
+# RWKV-6 7B at full width with 2 of its 32 layers on (data, model) = (2, 1):
+# two gloo ranks that share the card, under the plan with fsdp on at a
+# threshold of w0's own f32 bytes (2 x 4096 x 4 = 32,768), so that the plan
+# puts data on w0's layer axis (its one feature dim takes model's rule, an
+# axis of 1 here) and on 12 other leaves' own dims: 973,619,200 of the
+# 974,204,928 parameters split, a rank's f32 parameters and two moments
+# 5,848,743,936 B against the replica's 11,690,459,136 B.  K1, K4 and K4's
+# backward run at RWKV-6's 64 heads a rank (data splits no head), on (2, 512,
+# 64, 64) a call.
+FSDP_RWKV_MESH = ((2, 1), ("data", "model"))
+FSDP_RWKV_LAYERS, FSDP_RWKV_BATCH = 2, 4
+FSDP_RWKV_MIN_BYTES = 4 * 2 * 4096  # w0 (2, 4096) in f32: the lowest threshold that splits it on its layer axis
+FSDP_RWKV_CHECK = "fsdp_rwkv_2x1"  # the dry-run's prediction of rank 0's held FSDP call
+FSDP_RWKV_REDUCED = {"num_layers": "32 -> 2", "why": "two ranks share the card's 80 GB: each makes the whole model "
+                     "(3.90 GB of f32 parameters at 2 layers, 120.5 GB of train state at 32) for its replicated run, "
+                     "and rank 0 keeps that run's state beside its FSDP run to hold the gathered state against it"}
+
+
+def fsdp_rwkv_config():
+    return train_config(FSDP_RWKV_LAYERS, torch.bfloat16, "rwkv6_7b")
+
+
+def fsdp_rwkv_rank(rank: int, world: int, cfg, predicted) -> dict:
+    """One rank of phase train_fsdp_rwkv: joins FSDP_RWKV_MESH; the
+    replicated run (the whole model from the seed, one ``DataParallelLoss``
+    call with no plan on the first batch and its AdamW update, as
+    ``make_train_step`` takes them), its ``data`` blocks of the gradient kept
+    on the host and, on rank 0, its whole state kept on the card; then the
+    FSDP run (the model made again and cut by the plan with fsdp on at
+    FSDP_RWKV_MIN_BYTES): one call (rank 0's held against its dry-run), its
+    launches, its loss and gradient blocks against the replicated call's
+    (``against_blocks``), and its update; then ``gather_train_state`` on
+    every rank (the whole state on rank 0's host), held on rank 0 against the
+    replicated run's state, and re-sharded by the plan for each rank
+    (``shard_params``) against every rank's live blocks and moments: rank 0's
+    own on the card, the others' by their SHA-256 (``leaf_digests``).  Each run's peak is its own (above what the
+    rank held before it)."""
+    mesh = rank_mesh(*FSDP_RWKV_MESH)
+    model = build_model(cfg)
+    fplan = model_plan(cfg, mesh, fsdp=True, min_bytes=FSDP_RWKV_MIN_BYTES)
+    opt_cfg = optimizer_config(RWKV_TRAIN_LR, 1)
+    b0 = next(make_batches(cfg, DataConfig(seed=SEED, batch_size=FSDP_RWKV_BATCH, seq_len=TRAIN_SEQ)))
+    b0 = {k: torch.from_numpy(v).to("cuda") for k, v in b0.items()}
+
+    def made():
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        return model.init(gen)
+
+    def run_peak(held: int) -> int:
+        return torch.cuda.max_memory_allocated() - held
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    whole = made()
+    rep_fn = DataParallelLoss(model.loss, mesh)
+    r_loss, r_grads = rep_fn(whole, b0)
+    ref = on_data(r_grads, fplan, mesh)
+    whole, r_opt, _ = adamw_update(opt_cfg, r_grads, whole, init_opt_state(whole), norm=rep_fn.grad_norm)
+    torch.cuda.synchronize()
+    replicated = {"loss": float(r_loss), "seconds": time.perf_counter() - t0, "peak_memory_bytes": run_peak(0),
+                  "bytes": rep_fn.transport.counts(), "transport_seconds": rep_fn.transport.times(),
+                  "state_bytes": 12 * sum(t.numel() for t in flatten(whole).values())}
+    r_loss = r_loss.detach().cpu()
+    kept = ({"params": {p: t.detach() for p, t in flatten(whole).items()}, "mu": flatten(r_opt.mu),
+             "nu": flatten(r_opt.nu)} if rank == 0 else None)
+    del whole, r_grads, r_opt, rep_fn
+    release()
+
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    blocks = shard_params(made(), mesh, fplan)
+    release()
+    loss_fn = DataParallelLoss(model.loss, mesh, plan=fplan)
+    line = None
+    reset_counters()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if rank == 0:
+        line, (loss, grads) = hold_dryrun(f"{cfg.name} FSDP call, rank 0 of 2x1, data on w0's layer axis",
+                                          FSDP_RWKV_CHECK, predicted, lambda: loss_fn(blocks, b0), (blocks, b0),
+                                          backward=True, transport=loss_fn.transport, owed=tp_rec_owed(cfg))
+    else:
+        loss, grads = loss_fn(blocks, b0)
+    torch.cuda.synchronize()
+    call_s, counters = time.perf_counter() - t1, read_counters()
+    parity = {"loss": float(loss), "replicated_loss": float(r_loss), **against_blocks(loss, grads, r_loss, ref),
+              "finite": bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads.values()),
+              "call_seconds": call_s, "bytes": loss_fn.transport.counts(),
+              "transport_seconds": loss_fn.transport.times(), "dryrun": line}
+    del ref
+    blocks, opt, metrics = adamw_update(opt_cfg, grads, blocks, init_opt_state(blocks), norm=loss_fn.grad_norm)
+    del grads
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in flatten(blocks).values())
+    run = {"seconds": time.perf_counter() - t0, "peak_memory_bytes": run_peak(held), "counters": counters,
+           "grad_norm": float(metrics["grad_norm"]), "params": n, "state_bytes": 12 * n,
+           "split_over_data": sorted(split_paths(fplan, "data")),
+           "w0_block": list(blocks["layers"]["w0"].shape)}
+
+    t0 = time.perf_counter()
+    state = gather_train_state(blocks, opt, cfg, mesh, plan=fplan)
+    gather = {"seconds": time.perf_counter() - t0,
+              "sent_bytes": 0 if rank == 0 else sum(t.numel() * t.element_size() for tree in (blocks, opt.mu, opt.nu)
+                                                    for p, t in flatten(tree).items() if p in run["split_over_data"])}
+    t0 = time.perf_counter()
+    live = leaf_digests({"params": blocks, "opt": opt}) if rank else None  # rank 0 holds its own cut on the card
+    gather["live_digest_s"] = time.perf_counter() - t0
+    if rank == 0:
+        t0 = time.perf_counter()
+        gaps, equal = {}, 0
+        for part, tree in (("params", state["params"]), ("mu", state["opt"].mu), ("nu", state["opt"].nu)):
+            got = flatten(tree)
+            if got.keys() != kept[part].keys():
+                raise AssertionError(f"train_fsdp_rwkv: the gathered {part} has {sorted(got)[:4]}...")
+            for p, t in got.items():
+                w = kept[part][p]
+                t = t.to("cuda")
+                equal += bool(torch.equal(t, w))
+                gaps[f"{part}/{p}"] = float((t - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        worst = max(gaps, key=gaps.get)
+        gather.update(against_replicated={"bit_equal": equal, "leaves": len(gaps), "worst": worst,
+                                          "max_diff_over_max": gaps[worst]},
+                      whole_bytes=sum(t.numel() * t.element_size() for tree in (state["params"], state["opt"].mu,
+                                                                                 state["opt"].nu)
+                                      for t in flatten(tree).values()),
+                      compare_s=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        gather["resharded"] = []  # the other ranks' cuts by their SHA-256; rank 0's own against its blocks here
+        mine = dict(_walk({"params": blocks, "opt": opt}))
+        for r in range(world):
+            m = Mesh(*FSDP_RWKV_MESH, r)
+            cut = {"params": shard_params(state["params"], m, fplan),
+                   "opt": OptState(state["opt"].step, shard_params(state["opt"].mu, m, fplan),
+                                   shard_params(state["opt"].nu, m, fplan))}
+            if r == 0:
+                got = dict(_walk(cut))
+                gather["own_resharded_equal"] = got.keys() == mine.keys() and all(
+                    torch.equal(t.to("cuda"), mine[k]) for k, t in got.items())
+            else:
+                gather["resharded"].append(leaf_digests(cut))
+            del cut
+        gather["reshard_s"] = time.perf_counter() - t0
+    del state, kept, blocks, opt, loss_fn
+    release()
+    return {"rank": rank, "coords": mesh.coords, "replicated": replicated, "parity": parity, "fsdp": run,
+            "gather": gather, "live": live}
+
+
+def fsdp_rwkv_job(started) -> Job:
+    """Phase train_fsdp_rwkv as a run of the two ranks' spawn: RWKV-6 7B at
+    full width with FSDP_RWKV_LAYERS layers on FSDP_RWKV_MESH
+    (``fsdp_rwkv_rank``, ``hold_fsdp_rwkv``)."""
+    cfg = fsdp_rwkv_config()
+    return Job(fsdp_rwkv_rank, (cfg, predictions(started)[FSDP_RWKV_CHECK]), functools.partial(hold_fsdp_rwkv, cfg))
+
+
+def hold_fsdp_rwkv(cfg, ranks: list, spawn: dict) -> dict:
+    """Phase train_fsdp_rwkv's line for ``fsdp_rwkv_rank``'s ranks: raises
+    unless each rank's FSDP call has its loss and every gradient block
+    within TP_TOL of the replicated call's (bit-equal is the prediction) and
+    finite, its launches exactly ``tp_rec_owed`` (K1, K1 bwd, K4, K4 bwd: one
+    step), ``w0`` split on its layer axis (one of the two rows a rank), its
+    peak below the replicated run's; rank 0's call is its dry-run's; the
+    state gathered on rank 0 is within PIPE_TOL["grad"] of the replicated
+    run's, every leaf, and cut by the plan again it is each rank's live
+    blocks and moments bit for bit.  Prints each rank's parameters, f32
+    state, peak, seconds and bytes by axis and op beside the replicated
+    run's, and the gather's bytes and seconds; returns the counters summed
+    over the ranks."""
+    owed = tp_rec_owed(cfg)
+    failures, total = [], dict.fromkeys(owed, 0)
+    resharded = ranks[0]["gather"].get("resharded") or []
+    for r in ranks:
+        p, f = r["parity"], r["fsdp"]
+        p["loss_rel_diff"] = abs(p["loss"] - p["replicated_loss"]) / abs(p["replicated_loss"])
+        if not (p["finite"] and p["loss_rel_diff"] <= TP_TOL["loss_rel"] and p["grad_rel_diff_worst"] <= TP_TOL["grad_rel"]):
+            failures.append((r["rank"], "against the replicated call", p))
+        if p["dryrun"]:
+            DRYRUN_LINES.append(p["dryrun"])
+            failures += [(r["rank"], "dryrun", p["dryrun"]["failures"])] if p["dryrun"]["failures"] else []
+        elif r["rank"] == 0:
+            failures.append((0, "dryrun", "the held call was not checked"))
+        if f["counters"] != owed:
+            failures.append((r["rank"], "counters", f["counters"], owed))
+        for k, v in f["counters"].items():
+            total[k] += v
+        if f["w0_block"] != [1, cfg.d_model] or "layers/w0" not in f["split_over_data"]:
+            failures.append((r["rank"], "w0 not split on its layer axis", f["w0_block"]))
+        f["peak_vs_replicated"] = {"fsdp": f["peak_memory_bytes"], "replicated": r["replicated"]["peak_memory_bytes"]}
+        if not f["peak_memory_bytes"] < r["replicated"]["peak_memory_bytes"]:
+            failures.append((r["rank"], "peak not below the replicated run's", f["peak_vs_replicated"]))
+        live = r.pop("live")
+        if not (ranks[0]["gather"].get("own_resharded_equal") if r["rank"] == 0
+                else len(resharded) >= r["rank"] and resharded[r["rank"] - 1] == live):
+            failures.append((r["rank"], "the gathered state re-sharded is not the rank's live blocks"))
+        r["leaves_hashed"] = len(live) if live else 0
+    g = ranks[0]["gather"]
+    if "against_replicated" not in g or g["against_replicated"]["max_diff_over_max"] > PIPE_TOL["grad"]:
+        failures.append((0, "gathered state against the replicated run's", g.get("against_replicated")))
+    g["resharded_equal_live"] = not any(f[1].startswith("the gathered state") for f in failures)
+    g.pop("resharded", None)
+    emit({"phase": "train_fsdp_rwkv", "model": cfg.name, "reduced": FSDP_RWKV_REDUCED,
+          "mesh": dict(zip(FSDP_RWKV_MESH[1], FSDP_RWKV_MESH[0])), "layers": cfg.num_layers,
+          "batch": FSDP_RWKV_BATCH, "seq": TRAIN_SEQ, "lr": RWKV_TRAIN_LR,
+          "plan": f"model_plan(cfg, mesh, fsdp=True, min_bytes={FSDP_RWKV_MIN_BYTES}): data on w0's layer axis",
+          "reference": "each rank's replicated DataParallelLoss call (no plan) and its AdamW update, the same mesh "
+                       "and batch", "tol": TP_TOL, "state_tol": PIPE_TOL["grad"], "counters_per_step": owed,
+          "spawn": spawn, "note": "the ranks share one card", "ranks": ranks})
+    if failures:
+        raise AssertionError(f"train_fsdp_rwkv: {failures}")
+    return {f"train_fsdp_rwkv {cfg.name} 2x1": total}
 
 
 # ---------------------------------------------------------------------------

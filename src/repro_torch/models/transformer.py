@@ -18,7 +18,11 @@ a Python loop here, and its ``jax.checkpoint`` of the scanned body
 (``cfg.remat``) a ``torch.utils.checkpoint`` of each block (of each group in the
 hybrid).  Under FSDP (``repro_torch/parallel/fsdp.py``) each block gathers its
 leaves over ``data`` inside the function that remat wraps, so a checkpointed
-block keeps only its blocks and gathers again when it is recomputed.  A cache
+block keeps only its blocks and gathers again when it is recomputed; a leaf
+split over ``data`` on the stack's own axis is gathered once, before the
+stack is taken apart (``_layers``).  Under tensor parallelism a hybrid group
+gathers the Mamba2 leaves the plan splits on M over ``model``
+(``tensor_parallel.gather_stacked``), inside its remat.  A cache
 is a flat dict of tensors: the hybrid's nested tree reads
 ``mamba/ssm``, ``mamba/conv_x``, ``mamba/conv_bc``, ``attn/k``, ``attn/v`` and
 ``attn/pos``, with the reference's shapes leaf for leaf.
@@ -109,6 +113,13 @@ def _unstack(tree: Any, n: int) -> list:
     return list(tree.unbind(0))
 
 
+def _layers(params: Params, key: str, n: int) -> list:
+    """The ``n`` layers (or groups) of the stack ``params[key]``, each leaf
+    that FSDP splits over ``data`` on the stack's axis gathered whole first
+    (``fsdp.gather_stack``: once a step, outside remat)."""
+    return _unstack(fsdp.gather_stack(params[key], key), n)
+
+
 def _block_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int, dtype) -> Params:
     """``n_layers`` transformer blocks, layer-stacked: the norm scales in f32,
     the attention and the FFN (or the MoE) in ``dtype``."""
@@ -161,7 +172,7 @@ def _hybrid_group(gp: Params, shared: Params, cfg: ModelConfig, x, positions, ca
     Returns (x, aux) as ``_block_apply``."""
     M = cfg.attn_period - 1
     mcaches = [None] * M if cache is None else _unstack(cache[0], M)
-    for lp, lc in zip(_unstack(gp["mamba"], M), mcaches):
+    for lp, lc in zip(_unstack(tp.gather_stacked(gp["mamba"]), M), mcaches):  # the leaves split on M, whole
         x = _mamba_layer(lp, cfg, x, lc)
     return _block_apply(shared, cfg, x, positions, None if cache is None else cache[1], gate=gp["gate"])[::2]
 
@@ -352,7 +363,7 @@ class Model:
             block = _remat(block, cfg.remat)
         caches = [None] * L if cache is None else _unstack(cache, L)
         aux = torch.zeros((), device=x.device)
-        for lp, lc in zip(_unstack(params["layers"], L), caches):
+        for lp, lc in zip(_layers(params, "layers", L), caches):
             x, a = block(lp, x, lc)
             if a is not None:
                 aux = aux + a
@@ -465,7 +476,7 @@ class RWKVModel:
         if torch.is_grad_enabled() and cache is None:
             block = _remat(block, self.cfg.remat)
         caches = [None] * L if cache is None else _unstack(cache, L)
-        for lp, lc in zip(_unstack(params["layers"], L), caches):
+        for lp, lc in zip(_layers(params, "layers", L), caches):
             x = block(lp, x, lc)
         return rmsnorm(params["final_norm"], x), cache
 
@@ -544,7 +555,7 @@ class SSMModel:
         if torch.is_grad_enabled() and cache is None:
             layer = _remat(layer, self.cfg.remat)
         caches = [None] * L if cache is None else _unstack(cache, L)
-        for lp, lc in zip(_unstack(params["layers"], L), caches):
+        for lp, lc in zip(_layers(params, "layers", L), caches):
             x = layer(lp, x, lc)
         return rmsnorm(params["final_norm"], x), cache
 
@@ -626,7 +637,7 @@ class HybridModel(SSMModel):
             part = {s: {k.split("/", 1)[1]: v for k, v in cache.items() if k.startswith(s + "/")}
                     for s in ("mamba", "attn")}
             caches = list(zip(_unstack(part["mamba"], G), _unstack(part["attn"], G)))
-        for gp, gc in zip(_unstack(params["groups"], G), caches):
+        for gp, gc in zip(_layers(params, "groups", G), caches):
             x = group(gp, x, gc)
         return rmsnorm(params["final_norm"], x), cache
 

@@ -58,7 +58,8 @@ shards of the leaves the plan splits over ``data`` as well, and the loss runs
 inside the ``data`` context too: each layer gathers its blocks over ``data``
 where it runs, inside remat, and their gradients are reduce-scattered over
 ``data`` in the backward, so that the rank ends with its block of the
-gradient summed over ``data``.  Those leaves are not all-reduced again; the
+gradient summed over ``data``; a stacked leaf that the plan splits on its
+layer axis is gathered once, before the layer loop (``fsdp.gather_stack``).  Those leaves are not all-reduced again; the
 leaves the plan leaves whole over ``data`` (the norm scales, and the leaves
 whose rule names no axis: the router, MLA's ``w_dkv``, RWKV-6's ``w_lora_a``,
 the hybrid's ``w_bc`` and ``w_dt``) keep the all-reduce.  ``grad_norm`` sums

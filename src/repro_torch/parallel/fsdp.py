@@ -16,7 +16,16 @@ all-reduces only the leaves the plan leaves whole over ``data``).
 The models gather a layer's leaves (``gather_layer``) inside the function
 that their remat wraps, so that a checkpointed block keeps only the blocks
 as its inputs and gathers again when it is recomputed; the embedding and the
-head gather theirs where they are read (``gather_leaf``).  The context is a
+head gather theirs where they are read (``gather_leaf``).  A stacked leaf
+that the plan splits on its layer (or group) axis (7f-iii: RWKV-6's ``w0``
+and the pure Mamba2 stack's ``norm_scale``, whose one feature dim ``model``
+takes) has no block in a layer's view: a rank holds some layers of it whole
+and none of the others.  Such a leaf is gathered whole once a step, before
+the stack is taken apart into layers and outside remat (``gather_stack``,
+the same ``_Gather`` on dim 0), and its gradient, summed over the layers,
+is reduce-scattered back onto the rank's layers once.  These leaves are
+vectors a layer (``w0`` is 32 KiB a layer at RWKV-6 7B's width), so the
+gathered stack costs little to keep through the backward.  The context is a
 module global (``use``), as ``tensor_parallel``'s is, not a thread-local:
 autograd runs a CUDA backward, and with it the recomputation, on a thread of
 its own.  With no context, or a ``data`` axis of 1, everything is the
@@ -94,8 +103,8 @@ def _gather(ctx: FSDPContext, path: str, t: torch.Tensor) -> torch.Tensor:
     if dim is None:
         return t
     dim -= ctx.ndim[path] - t.dim()  # the stacked axes the leaf has lost (_unstack)
-    if dim < 0:
-        raise ValueError(f"{path}: split over {AXIS!r} on a stacked axis, which a layer's view no longer has")
+    if dim < 0:  # split on a stacked axis this view has lost: gather_stack gathered it whole before the loop
+        return t
     return _Gather.apply(t, dim, ctx)
 
 
@@ -118,5 +127,23 @@ def gather_layer(tree, prefix: str):
         if isinstance(t, dict):
             return {k: walk(v, f"{path}/{k}") for k, v in t.items()}
         return _gather(ctx, path, t)
+
+    return walk(tree, prefix)
+
+
+def gather_stack(tree, prefix: str):
+    """A stacked tree (the leaves under ``prefix``, each with its stacked
+    axes) with each leaf that the plan splits over ``data`` on its first
+    stacked axis gathered whole, its gradient reduce-scattered back onto this
+    rank's rows; the same tree without a context.  Called once a step, before
+    the stack is taken apart into layers (``_unstack``), outside remat."""
+    ctx = _active()
+    if ctx is None:
+        return tree
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(v, f"{path}/{k}") for k, v in t.items()}
+        return _Gather.apply(t, 0, ctx) if ctx.dims.get(path) == 0 else t
 
     return walk(tree, prefix)

@@ -69,7 +69,12 @@ step (``parallel/fsdp.py``): here that would gather each layer twice a
 microbatch and reduce-scatter once a microbatch.  The models' own gathers
 (``fsdp.gather_layer``, ``gather_leaf``) stay the identity, as no ``fsdp``
 context is entered.  A ``model`` axis of 1, which the fsdp plan names too,
-splits nothing over ``model``.
+splits nothing over ``model``.  Where the plan puts ``data`` on the stack's
+own axis (7f-iii: a stacked vector whose one feature dim ``model``'s rule
+takes), a stage's rows are split over ``data`` where ``data`` divides them
+and kept whole in the stage otherwise (``stage_plan``; ``shard_params``
+fits each spec to the stage's rows alike), and the once-a-step gather takes
+them with the rest.
 
 Loss and gradients: the loss is the sum over this rank's microbatches of
 ``final_loss`` (last stage only) plus the layers' aux, summed over ``pod``
@@ -109,7 +114,7 @@ from repro_torch.models.transformer import (
 from repro_torch.optim.optimizer import OptState
 from repro_torch.parallel import fsdp
 from repro_torch.parallel import tensor_parallel as tp
-from repro_torch.parallel.sharding import unshard
+from repro_torch.parallel.sharding import P, axis_blocks, unshard
 from repro_torch.parallel.transport import Transport
 
 BOUNDARIES = ("striped", "direct")
@@ -173,6 +178,31 @@ def assemble_params(stages: Sequence[Params], cfg: ModelConfig) -> Params:
     return {k: (whole if k == key else v) for k, v in stages[0].items()}
 
 
+def stage_plan(plan: Optional[Dict], cfg: ModelConfig, mesh, stage: Optional[int] = None) -> Optional[Dict]:
+    """The plan of stage ``stage``'s share (``stage_params``; this rank's
+    stage by default) under the whole model's ``plan``: a stacked leaf that
+    the plan splits over ``data`` on its layer (or group) axis (7f-iii) has
+    its stage's real rows split over ``data`` where ``data`` divides them, and
+    whole in the stage otherwise, as ``_fit_spec`` drops an axis that does
+    not divide a dim (RWKV-6's smoke ``w0``, one row a stage on (2, 2, 2),
+    stays whole); every other leaf's spec is the plan's.  Over ``data`` the
+    numbers are the reference's either way: its region sees each stage whole.
+    None for None."""
+    if plan is None:
+        return None
+    key = build_pipeline_parts(cfg).layer_key
+    L = stack_length(cfg)
+    lo, hi = (min(i, L) for i in stage_layer_range(L, mesh.shape["pod"],
+                                                   mesh.coords["pod"] if stage is None else stage))
+
+    def fit(path: str, spec: P) -> P:
+        if path.split("/", 1)[0] != key or not spec or spec[0] is None:
+            return spec
+        return spec if hi > lo and (hi - lo) % axis_blocks(spec[0], mesh) == 0 else P(None, *spec[1:])
+
+    return unflatten({p: fit(p, spec) for p, spec in flatten(plan).items()})
+
+
 def _bits(t: torch.Tensor) -> torch.Tensor:
     """A tensor's bit patterns summed as int64: equal tensors give equal sums."""
     view = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]
@@ -186,35 +216,33 @@ def _host(t: torch.Tensor) -> torch.Tensor:
 def gather_train_state(params: Params, opt_state, cfg: ModelConfig, mesh,
                        plan: Optional[Dict] = None) -> Optional[Dict[str, Any]]:
     """The whole, unpadded train state ``{"params", "opt"}`` of a pipelined
-    run (a mesh with a ``pod`` axis), of a tensor-parallel one (``plan``, the
-    whole model's placement plan), or of both, on rank 0's host; None on
-    every other rank.  Every rank must call it.
+    run (a mesh with a ``pod`` axis), of a tensor-parallel one, of an FSDP
+    one (``plan``, the whole model's placement plan, with fsdp on or off), or
+    of any of them together, on rank 0's host; None on every other rank.
+    Every rank must call it.
 
-    The ranks of rank 0's ``data`` coordinate hold the pieces: stage s's rows
-    of the stack on the ranks of ``pod`` s, and under ``plan`` block j of each
-    leaf it splits over ``model`` on the ranks of ``model`` j.  Rank 0
-    receives from each of them, in (stage, block) order, the pieces it lacks
-    (``_pieces``: the stack's rows from every stage, the split leaves' blocks
-    from every ``model`` rank, and nothing twice), on the host (``gloo`` point
-    to point, CPU tensors, nothing through the card); it puts the blocks of
-    each stage together (``unshard``) and the stages in layer order
-    (``assemble_params``).  Every other leaf, its moments and ``.step`` are
-    rank 0's.  No rank's rows or block are ever written as a whole leaf: a
-    state that FSDP splits over ``data`` (on a ``data`` axis of more than 1)
-    is refused before any collective.  The
-    leaves that are not gathered are replicated: before the gather every
-    rank's sums of their bit patterns are held equal over the world
-    (all-reduced as a minimum and a maximum), and a rank that differs raises
-    on every rank."""
-    if mesh.shape.get(fsdp.AXIS, 1) > 1 and fsdp.data_dims(plan):
-        raise NotImplementedError(
-            f"{cfg.name}: a state that FSDP splits over data on the mesh {dict(mesh.shape)}: gather_train_state "
-            "collects at data 0 only, and checkpoints of an FSDP state are not ported (ROADMAP Queue 1, 7f, "
-            "\"Not done\")")
+    The ranks hold the pieces: stage s's rows of the stack on the ranks of
+    ``pod`` s (``stage_plan`` gives each stage's plan), block j of each leaf
+    the plan splits over ``model`` on the ranks of ``model`` j, and block i of
+    each leaf it splits over ``data`` on the ranks of ``data`` i.  Rank 0
+    receives from each of them, in (stage, model, data) order, the pieces it
+    lacks (``_pieces``: the stack's rows from every stage, the split leaves'
+    blocks from every ``model`` and every ``data`` rank, and nothing twice),
+    on the host (``gloo`` point to point, CPU tensors, nothing through the
+    card); it puts each stage's blocks together over ``data`` at each
+    ``model`` index, then over ``model`` (``unshard``), and the stages in
+    layer order (``assemble_params``).  Every other leaf, its moments and
+    ``.step`` are rank 0's.  The leaves that are not gathered are replicated:
+    before the gather every rank's sums of their bit patterns are held equal
+    over the world (all-reduced as a minimum and a maximum), and a rank that
+    differs raises on every rank."""
     trees = {"params": params, "mu": opt_state.mu, "nu": opt_state.nu}
-    staged, split = _pieces(cfg, mesh, plan)
+    S, DP, TP = (mesh.shape.get(a, 1) for a in ("pod", "data", "model"))
+    staged, plans = _pieces(cfg, mesh, plan)
+    model_split = [tp.split_paths(q, "model") if TP > 1 else set() for q in plans]  # an axis of 1 splits nothing
+    data_split = [tp.split_paths(q, fsdp.AXIS) if DP > 1 else set() for q in plans]
     replicated = [opt_state.step] + [t for tree in trees.values() for p, t in flatten(tree).items()
-                                     if not staged(p) and p not in split]
+                                     if not staged(p) and p not in model_split[0] and p not in data_split[0]]
     if mesh.size > 1:
         sums = torch.stack([_bits(t).cpu() for t in replicated])
         lo, hi = sums.clone(), sums.clone()
@@ -223,18 +251,16 @@ def gather_train_state(params: Params, opt_state, cfg: ModelConfig, mesh,
         if not torch.equal(lo, hi):
             raise RuntimeError(f"rank {mesh.rank}: the replicated leaves or the step differ across the ranks")
 
-    def needed(p: str, s: int, j: int) -> bool:  # whether rank (pod s, model j) holds a piece of p rank 0 lacks
-        return (s, j) != (0, 0) and (s == 0 or staged(p)) and (j == 0 or p in split)
+    def needed(p: str, s: int, i: int, j: int) -> bool:  # whether rank (pod s, data i, model j) holds a piece rank 0 lacks
+        return ((s, i, j) != (0, 0, 0) and (s == 0 or staged(p)) and (i == 0 or p in data_split[s])
+                and (j == 0 or p in model_split[s]))
 
-    if mesh.coords.get("data", 0):
-        return None
-    S, TP = mesh.shape.get("pod", 1), mesh.shape.get("model", 1)
-    me = (mesh.coords.get("pod", 0), mesh.coords.get("model", 0))
-    if me != (0, 0):
+    me = tuple(mesh.coords.get(a, 0) for a in ("pod", "data", "model"))
+    if me != (0, 0, 0):
         for tree in trees.values():
             for p, t in flatten(tree).items():
                 if needed(p, *me) and t.numel():
-                    dist.send(_host(t), mesh.rank_at(**_at(mesh, 0, 0)))
+                    dist.send(_host(t), mesh.rank_at(**_at(mesh, 0, 0, 0)))
         return None
     L = stack_length(cfg)
     out = {}
@@ -245,34 +271,50 @@ def gather_train_state(params: Params, opt_state, cfg: ModelConfig, mesh,
             lo_s, hi_s = (min(i, L) for i in stage_layer_range(L, S, s))
             blocks = []
             for j in range(TP):
-                if (s, j) == (0, 0):
-                    blocks.append(own)
-                    continue
-                got = {}
-                for p, t in own.items():
-                    if needed(p, s, j):
-                        shape = (hi_s - lo_s,) + tuple(t.shape[1:]) if staged(p) else tuple(t.shape)
-                        got[p] = torch.empty(shape, dtype=t.dtype)
-                        if got[p].numel():
-                            dist.recv(got[p], mesh.rank_at(**_at(mesh, s, j)))
-                blocks.append(got)
-            trees_j = [unflatten(b) for b in blocks]
-            stages.append(trees_j[0] if plan is None else unshard(trees_j, plan))
+                by_data = []
+                for i in range(DP):
+                    if (s, i, j) == (0, 0, 0):
+                        by_data.append(own)
+                        continue
+                    got = {}
+                    for p, t in own.items():
+                        if needed(p, s, i, j):
+                            rows = hi_s - lo_s if staged(p) else None
+                            got[p] = torch.empty(_piece_shape(p, t, plans[s], mesh, rows), dtype=t.dtype)
+                            if got[p].numel():
+                                dist.recv(got[p], mesh.rank_at(**_at(mesh, s, i, j)))
+                    by_data.append(got)
+                trees_i = [unflatten(b) for b in by_data]
+                blocks.append(trees_i[0] if plan is None else unshard(trees_i, plans[s], fsdp.AXIS))
+            stages.append(blocks[0] if plan is None else unshard(blocks, plans[s], "model"))
         out[name] = assemble_params(stages, cfg) if S > 1 else stages[0]
     return {"params": out["params"], "opt": OptState(_host(opt_state.step), out["mu"], out["nu"])}
 
 
+def _piece_shape(path: str, own: torch.Tensor, plan: Optional[Dict], mesh, rows: Optional[int]) -> Tuple[int, ...]:
+    """The shape of another rank's piece of the leaf at ``path``, of which
+    rank 0 holds ``own``: its stage's ``rows`` of the stack (None outside
+    it), split over ``data`` where that stage's ``plan`` splits them, and
+    every other dim as rank 0's block."""
+    if rows is None:
+        return tuple(own.shape)
+    spec = flatten(plan)[path] if plan is not None else ()
+    return (rows // axis_blocks(spec[0] if spec else None, mesh),) + tuple(own.shape[1:])
+
+
 def _pieces(cfg: ModelConfig, mesh, plan: Optional[Dict]):
-    """(whether a leaf is cut into stages, the leaves ``plan`` splits over
-    ``model``) for ``gather_train_state``: on a mesh with a ``pod`` axis the
-    stacked leaves are staged."""
-    key = build_pipeline_parts(cfg).layer_key if "pod" in mesh.shape else None
-    return (lambda p: p.split("/", 1)[0] == key), tp.split_paths(plan)
+    """(whether a leaf is cut into stages, each stage's plan) for
+    ``gather_train_state``: on a mesh with a ``pod`` axis the stacked leaves
+    are staged and each stage has its own plan (``stage_plan``)."""
+    if "pod" not in mesh.shape:
+        return (lambda p: False), [plan]
+    key = build_pipeline_parts(cfg).layer_key
+    return (lambda p: p.split("/", 1)[0] == key), [stage_plan(plan, cfg, mesh, s) for s in range(mesh.shape["pod"])]
 
 
-def _at(mesh, pod: int, model: int) -> Dict[str, int]:
-    """The coordinates of (``pod``, ``model``) at ``data`` 0, for the axes the mesh has."""
-    return {a: c for a, c in (("pod", pod), ("data", 0), ("model", model)) if a in mesh.shape}
+def _at(mesh, pod: int, data: int, model: int) -> Dict[str, int]:
+    """The coordinates of (``pod``, ``data``, ``model``), for the axes the mesh has."""
+    return {a: c for a, c in (("pod", pod), ("data", data), ("model", model)) if a in mesh.shape}
 
 
 def _microbatch(batch: Dict[str, torch.Tensor], rows: slice) -> Dict[str, torch.Tensor]:
@@ -298,7 +340,8 @@ class PipelineLoss:
     ``model`` on inside the stages where it splits leaves over a ``model``
     axis of more than 1, and FSDP over ``data`` where it splits leaves over a
     ``data`` axis of more than 1: ``params`` are then this rank's shards of
-    its stage (``shard_params`` of ``stage_params``)."""
+    its stage (``shard_params`` of ``stage_params``), and the loss reads the
+    stage's plan (``stage_plan``)."""
 
     def __init__(self, cfg: ModelConfig, mesh, n_micro: int = 4, boundary: str = "striped",
                  transport: Optional[Transport] = None, plan: Optional[Dict] = None):
@@ -313,6 +356,7 @@ class PipelineLoss:
         if boundary == "striped" and cfg.d_model % self.TP:
             raise ValueError(f"striped boundary: d_model {cfg.d_model} is not split by the model axis {self.TP}")
         self.transport = Transport(mesh) if transport is None else transport
+        plan = stage_plan(plan, cfg, mesh)  # this rank's stage's
         tp_on = plan is not None and self.TP > 1  # the fsdp plan on (pod, data, 1) names model too
         self.tp = tp.TPContext(mesh, self.transport, plan) if tp_on else None
         self.split = tp.split_paths(plan) if tp_on else set()

@@ -36,6 +36,9 @@ class P(tuple):
     def __new__(cls, *entries):
         return super().__new__(cls, entries)
 
+    def __getnewargs__(self):  # pickled (a plan handed to spawned ranks) as its entries, not as one tuple
+        return tuple(self)
+
     def __repr__(self) -> str:
         return f"P{tuple.__repr__(self)}" if len(self) != 1 else f"P({self[0]!r})"
 
@@ -206,11 +209,20 @@ def _block(entry, mesh) -> Tuple[int, int]:
     return n, i
 
 
+def axis_blocks(entry, mesh) -> int:
+    """The blocks that a dim whose plan entry is ``entry`` is split into (1
+    for None)."""
+    return 1 if entry is None else _block(entry, mesh)[0]
+
+
 def local_block(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
-    """This rank's block of ``t`` under ``spec`` (a view)."""
+    """This rank's block of ``t`` under ``spec`` (a view).  Raises where an
+    axis does not divide its dim."""
     for dim, entry in enumerate(spec):
         if entry is not None:
             n, i = _block(entry, mesh)
+            if t.shape[dim] % n:
+                raise ValueError(f"dim {dim} of {tuple(t.shape)} is not split into {n} blocks ({spec})")
             size = t.shape[dim] // n
             t = t.narrow(dim, i * size, size)
     return t
@@ -220,14 +232,19 @@ def shard_params(params: Any, mesh, plan: Any = None) -> Any:
     """This rank's share of a whole model's parameters under ``plan``
     (``make_param_shardings(params, mesh)`` by default): its block of each
     leaf the plan splits, a copy outside any graph (so that the whole leaf can
-    be freed), and every leaf the plan leaves whole, shared with ``params``."""
+    be freed), and every leaf the plan leaves whole, shared with ``params``.
+    Each spec is fitted to the leaf it is given (``_fit_spec``), so that a
+    pipeline stage's rows (``stage_params``) that an axis of the whole
+    model's plan does not divide stay whole, as the stage's plan has them
+    (``pipeline.stage_plan``)."""
     plan = make_param_shardings(params, mesh) if plan is None else plan
     specs = flatten(plan)
 
     def cut(p: str, t: torch.Tensor) -> torch.Tensor:
-        if all(e is None for e in specs[p]):
+        spec = _fit_spec(tuple(t.shape), specs[p], mesh)
+        if spec is None:
             return t
-        return local_block(t, specs[p], mesh).detach().clone(memory_format=torch.contiguous_format)
+        return local_block(t, spec, mesh).detach().clone(memory_format=torch.contiguous_format)
 
     return unflatten({p: cut(p, t) for p, t in flatten(params).items()})
 

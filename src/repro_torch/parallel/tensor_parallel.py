@@ -49,14 +49,18 @@ carry two stacked axes (G, M), so each rule lands one dim to the left
 (ROADMAP Queue 3 (p), mirrored here): ``w_z`` and ``w_x`` split on d, their
 contracting dim, ``conv_x`` on its taps where ``model`` divides them, and the
 rest of the layer stays whole.  ``split_dims`` strips the stacked axes a leaf
-really has (``lead_axes``), and ``model_plan`` raises where the plan splits
-one of them (a hybrid whose M ``model`` divides: ROADMAP Queue 1, 7b-vi; no
-config of the repo).
+really has (``lead_axes``).  Where ``model`` divides M, the plan puts the
+``model`` entry of ``w_out`` and ``norm_scale`` on M, a stacked axis
+(``stacked_dims``): every rank computes every Mamba2 layer of a group (the
+input of ``w_out`` is whole, ``w_z`` and ``w_x`` being reduced), so each
+group gathers its M slices of those leaves inside its remat
+(``gather_stacked``: ``gather``, whose backward keeps this rank's slice of a
+gradient that is whole on every rank).
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -80,27 +84,16 @@ def model_plan(cfg, mesh, *, fsdp: bool = False, min_bytes: Optional[int] = None
     otherwise; with ``fsdp`` (the plain step's FSDP over ``data``,
     ``parallel/fsdp.py``), the plan with ``data`` added on any mesh
     (``make_param_shardings(fsdp=True, min_bytes=)``, the reference's 4 MiB
-    threshold unless given).  Raises where the plan splits a stacked axis
-    over ``model`` (a hybrid whose Mamba2 layers a group, M, the ``model``
-    axis divides: ROADMAP 7b-vi) or over ``data`` (a stacked leaf whose only
-    dim ``data`` divides: 7f-iii).  No config of the repo reaches either at
-    the reference's threshold."""
-    from repro_torch.convert import expected_shapes, flatten, unflatten
+    threshold unless given).  The plan may split a stacked axis: ``model`` on
+    a hybrid's M (``stacked_dims``), ``data`` on a layer or group axis
+    (``fsdp.gather_stack``)."""
+    from repro_torch.convert import expected_shapes, unflatten
     from repro_torch.parallel.sharding import FSDP_MIN_BYTES, make_param_shardings
 
     if not fsdp and (mesh.shape.get(AXIS, 1) == 1 or not tp_family(cfg)):
         return None
-    plan = make_param_shardings(unflatten(expected_shapes(cfg)), mesh, fsdp=fsdp,
+    return make_param_shardings(unflatten(expected_shapes(cfg)), mesh, fsdp=fsdp,
                                 min_bytes=FSDP_MIN_BYTES if min_bytes is None else min_bytes)
-    for axis, item in ((AXIS, "7b-vi"), ("data", "7f-iii")):
-        if mesh.shape.get(axis, 1) == 1:  # an axis of 1 splits nothing, wherever the plan names it
-            continue
-        stacked = sorted(p for p, spec in flatten(plan).items() if is_split(tuple(spec)[:lead_axes(p)], axis))
-        if stacked:
-            raise NotImplementedError(
-                f"{cfg.name}: the plan splits {stacked} on a stacked axis over {axis} on the mesh "
-                f"{dict(mesh.shape)}: the port splits no layer or group axis (ROADMAP Queue 1, {item})")
-    return plan
 
 
 def is_split(spec, axis: str = AXIS) -> bool:
@@ -136,34 +129,48 @@ def lead_axes(path: str) -> int:
     return 2 if names[top] == "groups" and names[top + 1:top + 2] == ["mamba"] else 1
 
 
+def _dims(plan, axis: str) -> Dict[str, Tuple[bool, Optional[int]]]:
+    """leaf key -> (whether the split is on a stacked axis, its dim: of the
+    per-layer tensor, or among the leaf's stacked axes; None where whole).
+    Raises where two leaves of one key are split on different dims."""
+    from repro_torch.convert import flatten
+
+    dims: Dict[str, Tuple[bool, Optional[int]]] = {}
+    for path, spec in flatten(plan).items():
+        key, lead = leaf_key(path), lead_axes(path)
+        dim = next((i for i, e in enumerate(spec) if is_split((e,), axis)), None)
+        got = (False, None) if dim is None else (dim < lead, dim if dim < lead else dim - lead)
+        if dims.setdefault(key, got) != got:
+            raise ValueError(f"{key}: split as {dims[key]} and as {got} (stacked, dim)")
+    return dims
+
+
 def split_dims(plan, axis: str = AXIS) -> Dict[str, Optional[int]]:
     """leaf key (``leaf_key``) -> the dim of its per-layer tensor (a stacked
     leaf without its stacked axes, ``lead_axes``) that ``plan`` splits over
-    ``axis``, None where it stays whole.  Raises if the plan splits a stacked
-    axis, or two leaves of one key on different dims."""
-    from repro_torch.convert import flatten
+    ``axis``, None where it stays whole, or is split on a stacked axis
+    (``stacked_dims``).  Raises if the plan splits two leaves of one key on
+    different dims."""
+    return {k: (None if stacked else d) for k, (stacked, d) in _dims(plan, axis).items()}
 
-    dims: Dict[str, Optional[int]] = {}
-    for path, spec in flatten(plan).items():
-        key, lead = leaf_key(path), lead_axes(path)
-        if is_split(tuple(spec)[:lead], axis):
-            raise ValueError(f"{path}: {spec} splits a stacked axis")
-        entries = list(spec)[lead:]
-        dim = next((i for i, e in enumerate(entries) if is_split((e,), axis)), None)
-        if dims.setdefault(key, dim) != dim:
-            raise ValueError(f"{key}: split on dim {dims[key]} and on dim {dim}")
-    return dims
+
+def stacked_dims(plan, axis: str = AXIS) -> Dict[str, int]:
+    """leaf key -> which of its stacked axes (0 the first, ``lead_axes``)
+    ``plan`` splits over ``axis``, for the leaves it splits so: the hybrid's
+    ``w_out`` and ``norm_scale`` on M (1) where ``model`` divides M."""
+    return {k: d for k, (stacked, d) in _dims(plan, axis).items() if stacked}
 
 
 class TPContext:
     """This rank's place on the ``model`` axis of ``mesh`` (``size``,
-    ``index``), the transport the operations go over, and ``dims``
-    (``split_dims`` of the plan)."""
+    ``index``), the transport the operations go over, ``dims``
+    (``split_dims`` of the plan) and ``stacked`` (``stacked_dims``)."""
 
     def __init__(self, mesh, transport, plan):
         self.size, self.index, self.mesh_shape = mesh.shape[AXIS], mesh.coords[AXIS], dict(mesh.shape)
         self.transport = transport
         self.dims = split_dims(plan)
+        self.stacked = stacked_dims(plan)
 
 
 _CURRENT: Optional[TPContext] = None
@@ -290,6 +297,25 @@ def part(x: torch.Tensor, dim: int) -> torch.Tensor:
     upstream sums over ``model`` on the way back."""
     ctx = _active()
     return x if ctx is None else _my_part(ctx, x, dim)
+
+
+def gather_stacked(tree):
+    """``tree`` (a group's or a layer's view of a stacked tree, which has lost
+    the first stacked axis; its leaves keyed by name) with each leaf that the
+    plan splits on a stacked axis over ``model`` gathered whole (``gather``);
+    the same tree without a context or where the plan splits none so.  The
+    rules never split a stacked leaf's first axis (``param_spec_candidates``
+    puts ``None`` there), so the split axis is one that the view keeps, one
+    dim to the left."""
+    ctx = _active()
+    if ctx is None or not ctx.stacked:
+        return tree
+
+    def walk(t):
+        return {k: walk(v) if isinstance(v, dict) else (gather(v, ctx.stacked[k] - 1) if k in ctx.stacked else v)
+                for k, v in t.items()}
+
+    return walk(tree)
 
 
 def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

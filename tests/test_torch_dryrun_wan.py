@@ -74,19 +74,34 @@ def reference_outcomes(out_path: str) -> None:
         pickle.dump(out, f)
 
 
+def _env() -> dict:
+    return {**os.environ, "PYTHONPATH": os.pathsep.join([str(HERE.parent / "src"), str(HERE)])}
+
+
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
     path = tmp_path_factory.mktemp("wan") / "reference.pkl"
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(HERE.parent / "src"), str(HERE)])}
+    before = set(sys.modules)
     code = f"import test_torch_dryrun_wan as t; t.reference_outcomes({str(path)!r})"
-    r = subprocess.run([sys.executable, "-c", code], cwd=HERE, env=env, capture_output=True, text=True, timeout=300)
+    r = subprocess.run([sys.executable, "-c", code], cwd=HERE, env=_env(), capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     with open(path, "rb") as f:
-        return pickle.load(f)
+        out = pickle.load(f)
+    out["imported_here"] = sorted(set(sys.modules) - before)  # what running the reference's dry-run added here
+    return out
 
 
 def test_the_reference_s_dry_run_stays_out_of_this_process(ref):
-    assert "repro.launch.dryrun" not in sys.modules
+    """What this file does, whatever ran before it in the worker (another
+    file, ``tests/test_topology.py``, imports the reference's dry-run in
+    process): its fixture's subprocess adds no module to this process, and a
+    fresh interpreter that imports this file and the port's dry-run has not
+    imported the reference's."""
+    assert not [m for m in ref["imported_here"] if m.startswith("repro.")], ref["imported_here"]
+    code = ("import sys, test_torch_dryrun_wan, repro_torch.launch.dryrun; "
+            "assert 'repro.launch.dryrun' not in sys.modules, 'imported'")
+    r = subprocess.run([sys.executable, "-c", code], cwd=HERE, env=_env(), capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
 
 
 @pytest.mark.parametrize("preset", PRESETS)

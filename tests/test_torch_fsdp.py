@@ -14,8 +14,8 @@ whole leaf and its backward this rank's block of the gradient summed over
 f32 on (2, 1) with every leaf it can split: the loss within 1e-5 and each
 gradient leaf within 1e-4 in norm of ``jax.value_and_grad`` of the
 reference's ``model.loss``, and the ``data`` bytes by op exactly what the
-code owes.  The refusal: ``data`` on a stacked axis (7f-iii); the pure Mamba2
-stack with ``model`` > 1, once refused, gets its plan."""
+code owes.  ``data`` on a stacked axis (7f-iii), once refused, is planned;
+the pure Mamba2 stack with ``model`` > 1, once refused, gets its plan."""
 import dataclasses
 import functools
 
@@ -86,24 +86,20 @@ def test_the_blocks_are_the_reference_s_shard_shapes_and_unshard_back(arch, shap
 
 
 def test_the_plan_refuses_data_on_a_stacked_axis_and_the_pure_stack_split_over_model():
-    """rwkv6's smoke ``w0`` (L, d), split on d over ``model``, has only its
-    layer axis left for ``data`` at a threshold of 0: it raises naming the
-    config, the mesh and the ROADMAP item (7f-iii).  The pure Mamba2 stack,
-    which the fsdp plan splits over ``model`` too, was refused while it kept
-    whole replicas over ``model``; it now splits by heads.  At a threshold of
-    0 its ``norm_scale`` (L, d_inner), split on d_inner over ``model``, meets
-    7f-iii as ``w0`` does; one byte over that leaf, the fsdp plan on (2, 2)
-    holds it: ``model`` on d_inner (``w_z``, ``w_x``, ``conv_x``,
-    ``norm_scale``) and on ``w_out``'s rows, ``data`` on another dim of the
-    leaves it divides, the leaves the heads share whole over ``model``.  At
-    the reference's 4 MiB no config reaches the refusal."""
+    """Once a refusal, now the plan that runs (7f-iii): rwkv6's smoke ``w0``
+    (L, d), split on d over ``model``, has only its layer axis left for
+    ``data`` at a threshold of 0, and the plan puts it there (its parity is
+    ``test_torch_fsdp_stacked.py``'s); the pure Mamba2 stack's ``norm_scale``
+    (L, d_inner) likewise.  One byte over that leaf, the fsdp plan on (2, 2)
+    holds it whole over ``data``: ``model`` on d_inner (``w_z``, ``w_x``,
+    ``conv_x``, ``norm_scale``) and on ``w_out``'s rows, ``data`` on another
+    dim of the leaves it divides, the leaves the heads share whole over
+    ``model``.  At the reference's 4 MiB every full config has a plan on
+    (16, 16) and (2, 1), and none splits a layer axis over ``data``."""
     rwkv = configs.get_smoke_config("rwkv6_7b")
-    with pytest.raises(NotImplementedError, match=r"rwkv6-smoke.*layers/w0.*stacked axis over data.*"
-                                                  r"'data': 2, 'model': 2.*7f-iii"):
-        fsdp_plan(rwkv, (2, 2), 0)
+    assert tuple(flatten(fsdp_plan(rwkv, (2, 2), 0))["layers/w0"]) == ("data", "model")
     pure = dataclasses.replace(configs.get_smoke_config("zamba2_2p7b"), family="ssm")
-    with pytest.raises(NotImplementedError, match=r"zamba2-smoke.*layers/mamba/norm_scale.*stacked axis over data"):
-        fsdp_plan(pure, (2, 2), 0)
+    assert tuple(flatten(fsdp_plan(pure, (2, 2), 0))["layers/mamba/norm_scale"]) == ("data", "model")
     d_in = pure.d_model * pure.ssm.expand
     plan = flatten(fsdp_plan(pure, (2, 2), 4 * pure.num_layers * d_in + 1))
     assert tuple(plan["layers/mamba/w_z"]) == (None, "data", "model")
@@ -113,7 +109,10 @@ def test_the_plan_refuses_data_on_a_stacked_axis_and_the_pure_stack_split_over_m
     for arch in configs.ARCHS[:10]:
         cfg = configs.get_config(arch)
         for shape in ((16, 16), (2, 1)):
-            assert tp.model_plan(cfg, Mesh(shape, AXES), fsdp=True) is not None, (arch, shape)
+            full = tp.model_plan(cfg, Mesh(shape, AXES), fsdp=True)
+            assert full is not None, (arch, shape)
+            assert not any(fsdp.data_dims(full).get(p) == 0 for p in flatten(full) if p.split("/")[0] in
+                           ("layers", "groups")), (arch, shape)
 
 
 def test_the_fsdp_plan_on_a_data_only_mesh():

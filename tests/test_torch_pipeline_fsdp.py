@@ -15,14 +15,15 @@ and ``pod``, against ``jax.value_and_grad`` of the reference's microbatch mean
 at 2e-5, and ``grad_norm`` the whole gradient's; bit-equal to the call
 without FSDP on the same mesh; the ``data`` bytes as the code owes them, the
 same at n_micro 2 and 4; two trained steps within 1e-5 of the control's.
-``gather_train_state`` refuses an FSDP state."""
+``gather_train_state`` of the trained FSDP state (threshold 0) is the state
+put together from the ranks' blocks."""
 import pytest
 
+import torch
+
 from repro_torch.launch.mesh import Mesh
-from repro_torch.optim.optimizer import init_opt_state
-from repro_torch.parallel.pipeline import gather_train_state, stage_params
+from repro_torch.parallel.pipeline import stage_params
 from repro_torch.parallel.sharding import FSDP_MIN_BYTES, shard_params
-from repro_torch.parallel.tensor_parallel import model_plan
 from torch_helpers import F32_TOL  # noqa: F401  (importing it sets one torch thread, as the spawned ranks run)
 from torch_pipeline_fsdp_helpers import (AXES, hold_bit_equal, hold_bytes, hold_reference, hold_train, run, smoke,
                                          split_over_data)
@@ -36,7 +37,7 @@ IDS = ["smoke-threshold0", "smoke-4MiB", "wide-4MiB"]
 def world(tmp_path_factory):
     return run(tmp_path_factory, SHAPE, {"gpt_a": (*smoke("gpt_a"), (0, FSDP_MIN_BYTES)),
                                          "gpt_a_wide": (*smoke("gpt_a", {"d_model": 512, "d_ff": 2048}),
-                                                        (FSDP_MIN_BYTES,))}, train_steps=2)
+                                                        (FSDP_MIN_BYTES,))}, train_steps=2, gather=True)
 
 
 @pytest.mark.parametrize("boundary", ["direct", "striped"])
@@ -68,13 +69,28 @@ def test_which_leaves_the_plans_split(world):
                             "layers/attn/wo", "layers/ffn/w_up", "layers/ffn/w_down"])
 
 
-def test_gather_train_state_refuses_an_fsdp_state():
-    """Every rank raises before any collective: ``gather_train_state``
-    collects at ``data`` 0 only and would write one block as the whole leaf."""
-    cfg, _, params = smoke("gpt_a")
-    for rank in range(4):
-        mesh = Mesh(SHAPE, AXES, rank)
-        plan = model_plan(cfg, mesh, fsdp=True, min_bytes=0)
-        blocks = shard_params(stage_params(params, cfg, mesh), mesh, plan)
-        with pytest.raises(NotImplementedError, match="7f"):
-            gather_train_state(blocks, init_opt_state(blocks), cfg, mesh, plan=plan)
+def test_gather_train_state_refuses_an_fsdp_state(world):
+    """Once a refusal, now the gather (Queue 1 (d)): after the two trained
+    steps at a threshold of 0, ``gather_train_state`` on every rank gives
+    rank 0 the whole state, each stage put together over ``data`` and the
+    stages in layer order: bit for bit the ranks' blocks of parameters and
+    both moments put together here, and cut by the plan again every rank's
+    own blocks; the other ranks get None."""
+    from repro_torch.convert import flatten
+    from torch_pipeline_fsdp_helpers import _plans, assembled
+
+    case = world["gpt_a"]
+    fplan = _plans(case, 0)[1]
+    ranks = case["results"]
+    state = ranks[0]["fsdp"][0]["gathered"]
+    assert all(r["fsdp"][0]["gathered"] is None for r in ranks[1:])
+    whole = {"params": flatten(state["params"]), "mu": flatten(state["opt"].mu), "nu": flatten(state["opt"].nu)}
+    for part, tree in whole.items():
+        want = assembled(case, fplan, lambda r: r["fsdp"][0]["train"][part])
+        assert tree.keys() == want.keys() and all(torch.equal(tree[p], want[p]) for p in want), part
+    for r in ranks:
+        mesh = Mesh(SHAPE, AXES, Mesh(SHAPE, AXES).rank_at(**r["coords"]))
+        for part, tree in (("params", state["params"]), ("mu", state["opt"].mu), ("nu", state["opt"].nu)):
+            cut = flatten(shard_params(stage_params(tree, case["cfg"], mesh), mesh, fplan))
+            got = r["fsdp"][0]["train"][part]
+            assert all(torch.equal(cut[p], got[p]) for p in got), (r["coords"], part)

@@ -13,8 +13,8 @@ rest of the layer; the shared block splits as the dense family's.  Cases:
 (data, model) = (1, 2) and (2, 2), and (1, 2) with remat "full".  Loss f32
 1e-5, gradients 1e-4 relative in norm a leaf, and the global norm; the
 transport's bytes as the code owes them (``bytes_owed``).  Beside them, on
-no ranks: ``split_dims`` of the (G, M) leaves, the raise where the plan puts
-``model`` on M, and the pure Mamba2 stack's plan, by heads."""
+no ranks: ``split_dims`` of the (G, M) leaves, the plan where it puts
+``model`` on M (``stacked_dims``), and the pure Mamba2 stack's plan, by heads."""
 import dataclasses
 
 import numpy as np
@@ -178,21 +178,23 @@ def test_split_dims_strip_both_stacked_axes_of_the_mamba_leaves(model, conv_x):
 
 
 def test_the_plan_on_an_even_number_of_mamba_layers_a_group_raises():
-    """attn_period 3 (M = 2 Mamba2 layers a group): the plan puts ``model``
-    on M for ``w_out`` and ``norm_scale``, a stacked axis the port does not
-    split; ``model_plan`` raises naming the config, the mesh and the ROADMAP
-    item, and ``split_dims`` of the plan raises too."""
-    from repro_torch.convert import expected_shapes, unflatten
-    from repro_torch.parallel.sharding import make_param_shardings
-
+    """Once a refusal, now the plan that runs (7b-vi): with attn_period 3 (M
+    = 2 Mamba2 layers a group) the plan puts ``model`` on M for ``w_out`` and
+    ``norm_scale``, a stacked axis; ``model_plan`` gives it, ``split_dims``
+    keys those leaves as whole a layer and ``stacked_dims`` on M, which each
+    group gathers (``tensor_parallel.gather_stacked``; the parity is
+    ``test_torch_tensor_parallel_hybrid_m.py``'s and
+    ``test_torch_pipeline_tp_hybrid_m.py``'s)."""
     cfg = dataclasses.replace(configs.get_smoke_config(ARCH), num_layers=6, attn_period=3)
-    mesh = Mesh((1, 2), AXES)
-    with pytest.raises(NotImplementedError, match=r"zamba2-smoke.*groups/mamba/mamba/norm_scale.*"
-                                                  r"groups/mamba/mamba/w_out.*'model': 2.*7b-vi"):
-        tp.model_plan(cfg, mesh)
-    plan = make_param_shardings(unflatten(expected_shapes(cfg)), mesh)
-    with pytest.raises(ValueError, match="stacked axis"):
-        tp.split_dims(plan)
+    plan = tp.model_plan(cfg, Mesh((1, 2), AXES))
+    from repro_torch.convert import flatten
+
+    specs = flatten(plan)
+    assert tuple(specs["groups/mamba/mamba/w_out"]) == (None, "model", None, None)
+    assert tuple(specs["groups/mamba/mamba/norm_scale"]) == (None, "model", None)
+    dims = tp.split_dims(plan)
+    assert dims["w_out"] is None and dims["norm_scale"] is None and (dims["w_z"], dims["w_x"]) == (0, 0)
+    assert tp.stacked_dims(plan) == {"w_out": 1, "norm_scale": 1}
 
 
 def test_the_pure_mamba2_stack_keeps_replicas_and_says_so():

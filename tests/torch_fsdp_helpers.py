@@ -139,16 +139,20 @@ def data_bytes_owed(cfg, plan, shape, blocks: dict, batch: dict, *, norm: bool =
     ``norm``) puts on ``data`` from a rank, in f32, from the code.  ``blocks``
     is the rank's flat blocks.  A data-split leaf is gathered where it is
     read: a layer's leaves once a layer (a hybrid's shared block once a
-    group), twice under remat "full" (the recomputation gathers again), the
-    embedding where tokens are embedded and the head once; the gradient of
+    group), twice under remat "full" (the recomputation gathers again), a
+    stacked leaf split on its layer (or group) axis once a step
+    (``fsdp.gather_stack``, outside remat), the embedding where tokens are
+    embedded and the head once; the gradient of
     each gather of the forward is reduce-scattered, the whole leaf, DP times
     the block.  All-reduced: every other leaf's gradient, the mask count and
     the loss (4 B each), a MoE layer's two aux means (2, E) (twice under
     remat "full"), and ``grad_norm``'s two sums of squares."""
+    from repro_torch.parallel.fsdp import data_dims
     from repro_torch.parallel.tensor_parallel import split_paths
 
     DP = shape[0]
     scattered = split_paths(plan, "data")
+    once = {p for p, d in data_dims(plan).items() if d == 0 and p.split("/")[0] in ("layers", "groups")}
     again = 2 if cfg.remat == "full" else 1
     groups = cfg.num_layers // cfg.attn_period if cfg.family == "hybrid" else 1
 
@@ -162,8 +166,8 @@ def data_bytes_owed(cfg, plan, shape, blocks: dict, batch: dict, *, norm: bool =
             return int("tokens" in batch) + int(cfg.tie_embeddings)
         return 1
 
-    gathered = sum(4 * blocks[p].numel() * uses(p) * (1 if p.split("/")[0] in ("embed", "lm_head") else again)
-                   for p in scattered)
+    gathered = sum(4 * blocks[p].numel() * uses(p) * (1 if p in once or p.split("/")[0] in ("embed", "lm_head")
+                                                      else again) for p in scattered)
     scatter = sum(4 * DP * blocks[p].numel() * uses(p) for p in scattered)
     reduced = sum(4 * t.numel() for p, t in blocks.items() if p not in scattered) + 4 + 4
     if cfg.moe is not None:

@@ -33,13 +33,14 @@ def _state(params, opt) -> dict:
     return {"params": {k: v.detach() for k, v in _flat(params).items()}, "mu": _flat(opt.mu), "nu": _flat(opt.nu)}
 
 
-def _train(cfg, mesh, plan, params, batches, steps: int) -> dict:
+def _train(cfg, mesh, plan, params, batches, steps: int, gather: bool = False) -> dict:
     """``steps`` steps of ``make_train_step`` over the pipelined loss under
     ``plan``, from copies of ``params`` (the whole leaves are shared with the
-    control's tree, and the step writes in place): losses, norms, the state."""
+    control's tree, and the step writes in place): losses, norms, the state,
+    and with ``gather`` the state through ``gather_train_state``."""
     from repro_torch.convert import tree_map
     from repro_torch.optim.optimizer import OptimizerConfig, init_opt_state, make_train_step
-    from repro_torch.parallel.pipeline import make_pipeline_loss
+    from repro_torch.parallel.pipeline import gather_train_state, make_pipeline_loss
 
     params = tree_map(lambda t: t.detach().clone(), params)
     loss_fn = make_pipeline_loss(cfg, mesh, n_micro=N_MICRO, boundary=BOUNDARIES[-1], plan=plan)
@@ -48,7 +49,10 @@ def _train(cfg, mesh, plan, params, batches, steps: int) -> dict:
     for b in batches[:steps]:
         params, opt, m = step(params, opt, b)
         losses.append(float(m["loss"]))
-    return {"losses": losses, **_state(params, opt), "bytes": loss_fn.transport.counts()}
+    out = {"losses": losses, **_state(params, opt), "bytes": loss_fn.transport.counts()}
+    if gather:
+        out["gathered"] = gather_train_state(params, opt, cfg, mesh, plan=plan)
+    return out
 
 
 def _call(cfg, mesh, plan, params, batch, boundary: str, n_micro: int) -> dict:
@@ -60,12 +64,14 @@ def _call(cfg, mesh, plan, params, batch, boundary: str, n_micro: int) -> dict:
             "bytes": loss_fn.transport.counts()}
 
 
-def fsdp_rank(rank: int, shape, cases, train_steps: int) -> list:
+def fsdp_rank(rank: int, shape, cases, train_steps: int, gather: bool = False) -> list:
     """This rank of (pod, data, model) = ``shape``, for each (cfg, params
     path, batches path, thresholds) of ``cases``: the control's call for each
     boundary, and for each threshold the FSDP calls (each boundary at
     N_MICRO, the first at N_MICRO_2 too), this rank's block shapes, and with
-    ``train_steps`` both trained runs."""
+    ``train_steps`` both trained runs; with ``gather`` also each FSDP run's
+    trained state through ``gather_train_state`` (the whole state on rank 0,
+    None elsewhere)."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.parallel.pipeline import stage_params
     from repro_torch.parallel.sharding import shard_params
@@ -89,7 +95,8 @@ def fsdp_rank(rank: int, shape, cases, train_steps: int) -> list:
                    "calls": {(b, N_MICRO): _call(cfg, mesh, fplan, blocks, batches[0], b, N_MICRO) for b in BOUNDARIES}}
             run["calls"][BOUNDARIES[0], N_MICRO_2] = _call(cfg, mesh, fplan, blocks, batches[0], BOUNDARIES[0], N_MICRO_2)
             if train_steps:
-                run["train"] = _train(cfg, mesh, fplan, blocks, batches, train_steps)
+                run["train"] = _train(cfg, mesh, fplan, blocks, batches, train_steps, gather)
+                run["gathered"] = run["train"].pop("gathered", None)
             res["fsdp"][min_bytes] = run
         out.append(res)
     return out
@@ -115,7 +122,7 @@ def smoke(arch: str, replace=None, experts=None):
     return cfg, ref_cfg, build_model(cfg).init(gen)
 
 
-def run(tmp_path_factory, shape, configs, train_steps: int = 0) -> dict:
+def run(tmp_path_factory, shape, configs, train_steps: int = 0, gather: bool = False) -> dict:
     """One spawned world of ``shape`` for ``configs`` ({name: (cfg, ref_cfg,
     params, thresholds)}), batches of ``make_batches(seed 0)``: by name, the
     config, its parameters and batches, the ranks' results, the thresholds
@@ -136,7 +143,7 @@ def run(tmp_path_factory, shape, configs, train_steps: int = 0) -> dict:
         cases.append((cfg, *save_inputs(sub, params, batches), tuple(thresholds)))
         out[name] = {"cfg": cfg, "params": params, "batches": batches, "thresholds": tuple(thresholds), "ref": ref,
                      "shape": tuple(shape)}
-    results = spawn(fsdp_rank, int(np.prod(shape)), tmp, tuple(shape), cases, train_steps)
+    results = spawn(fsdp_rank, int(np.prod(shape)), tmp, tuple(shape), cases, train_steps, gather)
     for i, name in enumerate(configs):
         out[name]["results"] = [r[i] for r in results]
     return out
@@ -148,6 +155,16 @@ def _plans(case, min_bytes):
 
     mesh = Mesh(case["shape"], AXES)
     return model_plan(case["cfg"], mesh), model_plan(case["cfg"], mesh, fsdp=True, min_bytes=min_bytes)
+
+
+def stage_fplan(case, fplan, stage: int):
+    """Stage ``stage``'s plan under the whole model's ``fplan``
+    (``pipeline.stage_plan``: a stacked leaf split over ``data`` on its layer
+    axis stays whole in a stage whose rows ``data`` does not divide)."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel.pipeline import stage_plan
+
+    return stage_plan(fplan, case["cfg"], Mesh(case["shape"], AXES), stage)
 
 
 def assembled(case, fplan, part) -> dict:
@@ -162,8 +179,9 @@ def assembled(case, fplan, part) -> dict:
     at = {(r["coords"]["pod"], r["coords"]["data"], r["coords"]["model"]): r for r in case["results"]}
     stages = []
     for s in range(S):
-        shards = [unshard([unflatten(part(at[s, d, j])) for d in range(DP)], fplan, "data") for j in range(TP)]
-        stages.append(unshard(shards, fplan, "model"))
+        splan = stage_fplan(case, fplan, s)
+        shards = [unshard([unflatten(part(at[s, d, j])) for d in range(DP)], splan, "data") for j in range(TP)]
+        stages.append(unshard(shards, splan, "model"))
     return _flat(assemble_params(stages, case["cfg"]))
 
 
@@ -189,14 +207,15 @@ def hold_reference(case, min_bytes, boundary: str) -> None:
                                    rtol=1e-6)
 
 
-def data_blocks(tree: dict, fplan, coords: dict, shape) -> dict:
+def data_blocks(case, tree: dict, fplan, coords: dict) -> dict:
     """A control's flat tree (a rank's stage, or its ``model`` shards of it)
-    cut to the rank's ``data`` blocks under ``fplan``."""
+    cut to the rank's ``data`` blocks under its stage's plan of ``fplan``."""
     from repro_torch.launch.mesh import Mesh
     from repro_torch.parallel.sharding import P, local_block
 
+    shape = case["shape"]
     mesh = Mesh(shape, AXES, Mesh(shape, AXES).rank_at(**coords))
-    specs = _flat(fplan)
+    specs = _flat(stage_fplan(case, fplan, coords["pod"]))
     return {p: local_block(t, P(*(e if e == "data" else None for e in specs[p])), mesh) for p, t in tree.items()}
 
 
@@ -209,7 +228,7 @@ def hold_bit_equal(case, min_bytes) -> None:
         for b in BOUNDARIES:
             got, want = r["fsdp"][min_bytes]["calls"][b, N_MICRO], r["control"][b]
             assert torch.equal(got["loss"], want["loss"]), (r["coords"], b)
-            cut = data_blocks(want["grads"], fplan, r["coords"], case["shape"])
+            cut = data_blocks(case, want["grads"], fplan, r["coords"])
             assert got["grads"].keys() == cut.keys()
             for p, g in got["grads"].items():
                 assert torch.equal(g, cut[p]), (r["coords"], b, p)
@@ -223,8 +242,10 @@ def data_bytes_owed(case, min_bytes, r) -> dict:
     whatever ``n_micro``; the leaves whole over ``data`` all-reduced with the
     loss (4 B), and where the plan splits any leaf the norm's four sums of
     squares (16 B)."""
+    from repro_torch.parallel import fsdp
+
     DP = case["shape"][1]
-    split = split_over_data(case, min_bytes)
+    split = fsdp.data_dims(stage_fplan(case, _plans(case, min_bytes)[1], r["coords"]["pod"]))
     blocks = {p: int(np.prod(s)) for p, s in r["fsdp"][min_bytes]["shapes"].items()}
     gathered = 4 * sum(n for p, n in blocks.items() if p in split)
     whole = 4 * sum(n for p, n in blocks.items() if p not in split)
@@ -243,7 +264,8 @@ def hold_bytes(case, min_bytes) -> None:
     for r in case["results"]:
         run = r["fsdp"][min_bytes]
         owed = data_bytes_owed(case, min_bytes, r)
-        assert (owed["all_gather"] > 0) == bool(split_over_data(case, min_bytes))
+        assert (owed["all_gather"] > 0) == (owed["reduce_scatter"] > 0) == any(
+            "data" in spec for spec in _flat(stage_fplan(case, _plans(case, min_bytes)[1], r["coords"]["pod"])).values())
         rest = 4 * sum(int(np.prod(s)) for p, s in run["shapes"].items() if not p.startswith(key))
         for (b, n), call in run["calls"].items():
             control = r["control"][b]["bytes"]
@@ -252,6 +274,19 @@ def hold_bytes(case, min_bytes) -> None:
             if n == N_MICRO:
                 assert call["bytes"]["pod"] == pod and call["bytes"]["model"] == control["model"], (r["coords"], b)
         assert run["calls"][BOUNDARIES[0], N_MICRO]["bytes"]["data"] == run["calls"][BOUNDARIES[0], N_MICRO_2]["bytes"]["data"]
+
+
+def hold_meta(case, min_bytes) -> None:
+    """The dry-run's count of each rank's FSDP call and its ``grad_norm`` on
+    ``meta`` (``MetaTransport``), for each boundary, is the rank's transport
+    bytes on every axis."""
+    from torch_stacked_helpers import meta_counts
+
+    fplan = _plans(case, min_bytes)[1]
+    for rank, r in enumerate(case["results"]):
+        for b in BOUNDARIES:
+            got = meta_counts(case["cfg"], case["shape"], fplan, (BATCH, SEQ), rank, boundary=b)
+            assert got == r["fsdp"][min_bytes]["calls"][b, N_MICRO]["bytes"], (r["coords"], b)
 
 
 def split_over_data(case, min_bytes) -> list:
@@ -271,7 +306,7 @@ def hold_train(case, min_bytes) -> None:
         got, want = r["fsdp"][min_bytes]["train"], r["control_train"]
         np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-6)
         for part in ("params", "mu", "nu"):
-            cut = data_blocks(want[part], fplan, r["coords"], case["shape"])
+            cut = data_blocks(case, want[part], fplan, r["coords"])
             for p, t in got[part].items():
                 assert tuple(t.shape) == r["fsdp"][min_bytes]["shapes"][p]
                 gap = float((t - cut[p]).abs().max()) / max(float(cut[p].abs().max()), 1e-30)
